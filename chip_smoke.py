@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one CUDA card (an H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
+
+1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
+   power limit (fails when no CUDA device is present: nothing falls back
+   to the CPU);
+2. builds the CUDA kernels from ``fastdiff_tpu_torch/csrc`` (``nvcc``) and
+   prints the build time and each kernel's registers / spills;
+3. Kernel A (predictor head GEMM) against its plain PyTorch version at the
+   10 s shapes (M = 864, K = 192, N = 4 * 64 * rows_p);
+4. Kernel B (LVC block) against its plain version at hops 8, 64 and 256
+   with 864 frames (hop 256 with and without the final-conv epilogue), and
+   at 100 frames of hop 8 (a block the JAX kernel cannot tile);
+5. a full-width bf16 denoiser forward at 864 frames, kernel path against
+   plain path, bounded by a relative L2 error;
+6. the N=4 sampler on 10 s of audio (864 frames, 221,184 samples, b = 1),
+   kernel and plain paths timed with CUDA events after warm-up;
+7. the port's HTTP server on 127.0.0.1: three mels of 100, 256 and 864
+   frames, each answered with a WAV of frames * 256 finite samples, each
+   raising every kernel's launch count by exactly 3 blocks x 4 steps.
+
+Any failed check exits non-zero. The line before the last is a JSON
+object with each kernel's launches in phase 7, its largest error against
+its plain version, and its time beside the plain version's; the last line
+is ``{"ok": true, "device": {...}}``.
+"""
+
+import io
+import json
+import os
+import subprocess
+import sys
+import time
+import wave
+
+import numpy as np
+
+AUDIO_SECONDS_PER_SAMPLE = 1.0 / 22050
+FRAMES_10S = 864                 # 864 * 256 = 221,184 samples, ~10.03 s
+HOP_SIZE = 256
+
+
+def fail(msg: str):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def phase(n: int, msg: str):
+    print(f"[phase {n}] {msg}", flush=True)
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean ms per call over ``reps`` calls, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def race(torch, plain, kernel, reps: int):
+    """Warm both, then time plain, kernel, kernel, plain; mean of each."""
+    plain()
+    kernel()
+    torch.cuda.synchronize()
+    p1 = cuda_ms(torch, plain, reps)
+    k1 = cuda_ms(torch, kernel, reps)
+    k2 = cuda_ms(torch, kernel, reps)
+    p2 = cuda_ms(torch, plain, reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def main():
+    import torch
+
+    # --- phase 1: the card -------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA "
+             "card and never falls back to the CPU")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    try:
+        from fastdiff_tpu.config import ModelConfig
+        from fastdiff_tpu_torch.diffusion.sampler import (
+            constants_for_hparams, sample)
+        from fastdiff_tpu_torch.models.fastdiff import FastDiff
+        from fastdiff_tpu_torch.ops import _build, lvc_block_ncl, lvc_head
+        from fastdiff_tpu_torch.serving.server import (VocoderService,
+                                                       start_server)
+    except ImportError as e:
+        fail(f"cannot import the port (run from a checkout of the repo): {e}")
+    if "jax" in sys.modules:
+        fail("the port imported jax")
+    # f32 references: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    phase(1, f"device {kind}; torch {torch.__version__} cuda "
+             f"{torch.version.cuda}")
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+          and smi.stdout.strip() else "nvidia-smi: not available", flush=True)
+
+    # --- phase 2: build ----------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    log = (_build.BUILD_DIR / "build.log")
+    phase(2, f"built {_build.library_path().name} in "
+             f"{time.perf_counter() - t0:.1f} s")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    cfg = ModelConfig()
+    c, layers = cfg.inner_channels, cfg.lvc_layers_each_block
+    rows = 3 * c + 1
+    rows_p = lvc_head.rows_padded(c)
+    report = {}
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    with torch.inference_mode():
+        # --- phase 3: Kernel A ---------------------------------------------
+        m, k, n = FRAMES_10S, 3 * cfg.kpnet_hidden_channels, \
+            layers * 2 * c * rows_p
+        tap = randn(m, k)
+        w_head = randn(k, n, scale=0.05)
+        b_head = randn(n, scale=0.1, dtype=torch.float32)
+        out_k = lvc_head.taug_head_matmul(tap, w_head, b_head)
+        out_p = lvc_head.taug_head_matmul_plain(tap, w_head, b_head)
+        torch.cuda.synchronize()
+        err = max_abs(out_k, out_p)
+        # f32 sums in another order, then one bf16 rounding: at most one
+        # bf16 ulp apart (2^-7 relative) where a rounding flips
+        bound = 2.0 ** -7 * float(out_p.float().abs().max()) + 1e-6
+        ms_k, ms_p = race(torch, lambda: lvc_head.taug_head_matmul_plain(
+            tap, w_head, b_head), lambda: lvc_head.taug_head_matmul(
+            tap, w_head, b_head), 20)
+        phase(3, f"Kernel A taug_head ({m}x{k} @ {k}x{n}): max_abs_err "
+                 f"{err:.3e} (bound {bound:.3e}), kernel {ms_k:.4f} ms, "
+                 f"plain {ms_p:.4f} ms per call")
+        if not err <= bound:
+            fail("Kernel A disagrees with its plain version")
+        report["taug_head"] = dict(max_abs_err=err, ms=3 * ms_k,
+                                   plain_ms=3 * ms_p)
+
+        # --- phase 4: Kernel B ---------------------------------------------
+        wstack_t = randn(layers, c, rows, scale=0.1)
+        final_wb = randn(8, c, scale=0.1)
+        per_forward = {"lvc_block_ncl": [0.0, 0.0, 0.0],
+                       "lvc_block_ncl_final": [0.0, 0.0, 0.0]}
+        cases = [(8, FRAMES_10S, False, True), (64, FRAMES_10S, False, True),
+                 (256, FRAMES_10S, False, False),
+                 (256, FRAMES_10S, True, True), (8, 100, False, False)]
+        for hop, frames, final, on_path in cases:
+            length = frames * hop
+            x = randn(1, c, length)
+            skip = randn(1, c, length)
+            kern = torch.zeros((1, frames, layers, 2 * c, rows_p), dtype=bf16,
+                               device=dev)
+            kern[..., :rows] = randn(1, frames, layers, 2 * c, rows,
+                                     scale=0.05)
+            fwb = final_wb if final else None
+
+            def run_k():
+                return lvc_block_ncl.lvc_block_ncl(x, skip, kern, wstack_t,
+                                                   hop, fwb)
+
+            def run_p():
+                return lvc_block_ncl.lvc_block_ncl_plain(x, skip, kern,
+                                                         wstack_t, hop, fwb)
+
+            got, ref = run_k(), run_p()
+            torch.cuda.synchronize()
+            pairs = [(got[0], ref[0]), (got[1], ref[1])] if final else [
+                (got, ref)]
+            errs = [(max_abs(a, b), rel_l2(a, b)) for a, b in pairs]
+            ms_k, ms_p = race(torch, run_p, run_k, 10)
+            what = "with epilogue" if final else "block only"
+            phase(4, f"Kernel B hop {hop}, {frames} frames ({what}): "
+                     + ", ".join(f"max_abs_err {e:.3e} rel_l2 {r:.3e}"
+                                 for e, r in errs)
+                     + f"; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+            # bf16 carries: a flipped rounding in s or y moves later layers
+            # by a few bf16 ulps (2^-5 relative to the largest value is four
+            # ulps of it); a wrong kernel is off by O(1)
+            if any(not (r <= 1e-2 and e <= 2.0 ** -5 * float(
+                    b.float().abs().max())) for (e, r), (_, b) in zip(
+                    errs, pairs)):
+                fail(f"Kernel B disagrees with its plain version (hop {hop})")
+            if not all(torch.isfinite(a).all() for a, _ in pairs):
+                fail("Kernel B output is not finite")
+            name = "lvc_block_ncl_final" if final else "lvc_block_ncl"
+            acc = per_forward[name]
+            acc[0] = max(acc[0], max(e for e, _ in errs))
+            if on_path:
+                acc[1] += ms_k
+                acc[2] += ms_p
+        for name, (err, ms_k, ms_p) in per_forward.items():
+            report[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p)
+
+        # --- phase 5: full-width denoiser forward --------------------------
+        model = FastDiff(cfg, seed=0, device=dev).eval()
+        length = FRAMES_10S * HOP_SIZE
+        audio = torch.randn((1, length, 1), generator=gen, device=dev)
+        mel = torch.randn((1, FRAMES_10S, cfg.cond_channels), generator=gen,
+                          device=dev)
+        t = torch.full((1, 1), 498.0, device=dev)
+        model.use_kernels = True
+        eps_k = model(audio, mel, t)
+        model.use_kernels = False
+        eps_p = model(audio, mel, t)
+        torch.cuda.synchronize()
+        err = rel_l2(eps_k, eps_p)
+        phase(5, f"denoiser forward (1, {length}, 1) bf16: kernel vs plain "
+                 f"rel_l2 {err:.3e} (bound 5e-2), max_abs_err "
+                 f"{max_abs(eps_k, eps_p):.3e}")
+        if eps_k.shape != (1, length, 1) or not torch.isfinite(eps_k).all():
+            fail("denoiser output has the wrong shape or is not finite")
+        if not err <= 5e-2:
+            fail("denoiser kernel path disagrees with the plain path")
+
+        # --- phase 6: N=4 sampler, 10 s, b=1 --------------------------------
+        const = constants_for_hparams({"N": 4})
+        times = {}
+        wavs = {}
+        for use in (False, True, True, False):
+            model.use_kernels = use
+            g = torch.Generator(device=dev).manual_seed(1)
+
+            def run():
+                return sample(model, mel, const, length, generator=g)
+
+            run()                                  # warm-up
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            reps = 3
+            start.record()
+            for _ in range(reps):
+                wav = run()
+            end.record()
+            torch.cuda.synchronize()
+            times.setdefault(use, []).append(start.elapsed_time(end) / reps)
+            wavs[use] = wav
+        audio_s = length * AUDIO_SECONDS_PER_SAMPLE
+        for use, label in ((True, "kernel"), (False, "plain")):
+            ms = sum(times[use]) / len(times[use])
+            report[f"sampler_{label}_ms"] = ms
+            print(f"  sampler {label}: {ms:.3f} ms per utterance, "
+                  f"{audio_s / (ms / 1e3):.1f} x realtime "
+                  f"(runs {', '.join(f'{v:.3f}' for v in times[use])} ms)",
+                  flush=True)
+        for wav in wavs.values():
+            if wav.shape != (1, length, 1) or not torch.isfinite(wav).all():
+                fail("sampler output has the wrong shape or is not finite")
+        phase(6, f"N=4 sampler, {FRAMES_10S} frames ({audio_s:.2f} s): "
+                 f"kernel {report['sampler_kernel_ms']:.3f} ms, plain "
+                 f"{report['sampler_plain_ms']:.3f} ms; kernel vs plain "
+                 f"waveform rel_l2 {rel_l2(wavs[True], wavs[False]):.3e}")
+        del model, eps_k, eps_p, wavs
+
+    # --- phase 7: HTTP server, main path -----------------------------------
+    service = VocoderService({"N": 4, "seed": 1234}, device=dev)
+    finite = []
+    spec2wav = service.vocoder.spec2wav
+
+    def checked_spec2wav(m):
+        wav = spec2wav(m)
+        finite.append(bool(np.isfinite(wav).all()))
+        return wav
+
+    service.vocoder.spec2wav = checked_spec2wav
+    httpd, thread = start_server(service, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES)
+    try:
+        import http.client
+        service.warmup(frames=16)
+        for counter in counters:
+            for key in counter:
+                counter[key] = 0
+        rng = np.random.default_rng(0)
+        per_step = len(cfg.upsample_ratios) * const.n_steps
+        for frames in (100, 256, FRAMES_10S):
+            before = {**counters[0], **counters[1]}
+            mel_np = (rng.normal(size=(frames, cfg.cond_channels)) - 4.0
+                      ).astype(np.float32)
+            buf = io.BytesIO()
+            np.save(buf, mel_np)
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            t0 = time.perf_counter()
+            conn.request("POST", "/vocode", body=buf.getvalue())
+            resp = conn.getresponse()
+            body = resp.read()
+            conn.close()
+            ms = (time.perf_counter() - t0) * 1e3
+            if resp.status != 200:
+                fail(f"/vocode {frames} frames: HTTP {resp.status} "
+                     f"{body[:200]!r}")
+            with wave.open(io.BytesIO(body)) as w:
+                n_samples = w.getnframes()
+            after = {**counters[0], **counters[1]}
+            rise_a = after["taug_head"] - before["taug_head"]
+            rise_b = (after["lvc_block_ncl"] + after["lvc_block_ncl_final"]
+                      - before["lvc_block_ncl"]
+                      - before["lvc_block_ncl_final"])
+            print(f"  /vocode {frames} frames: HTTP 200, {n_samples} "
+                  f"samples, {ms:.1f} ms wall, launches A +{rise_a} "
+                  f"B +{rise_b}", flush=True)
+            if n_samples != frames * HOP_SIZE:
+                fail(f"WAV has {n_samples} samples, expected "
+                     f"{frames * HOP_SIZE}")
+            if not finite or not finite[-1]:
+                fail("vocoded waveform is not finite")
+            if rise_a != per_step or rise_b != per_step:
+                fail(f"kernel launches rose by A {rise_a}, B {rise_b}; "
+                     f"expected {per_step} each")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = conn.getresponse()
+        health.read()
+        conn.close()
+        if health.status != 200:
+            fail(f"/healthz answered {health.status}")
+        launches = {**counters[0], **counters[1]}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    phase(7, f"server answered 3 requests; launches in the main path: "
+             f"{launches}")
+    if any(v == 0 for v in launches.values()):
+        fail("a kernel of the main path was never launched")
+
+    sources = {
+        "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
+                      "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
+        "lvc_block_ncl": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
+                          "fastdiff_tpu/ops/lvc_block_ncl.py:431"),
+        "lvc_block_ncl_final": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
+                                "fastdiff_tpu/ops/lvc_block_ncl.py:422"),
+    }
+    print("  kernel ms below are per denoiser forward at 864 frames: "
+          "taug_head 3 calls, lvc_block_ncl hops 8 + 64, "
+          "lvc_block_ncl_final hop 256", flush=True)
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches[name],
+                    max_abs_err=report[name]["max_abs_err"],
+                    ms=report[name]["ms"], plain_ms=report[name]["plain_ms"])
+               for name, (src, rep) in sources.items()]
+    print(json.dumps({"kernels": kernels,
+                      "sampler_ms": report["sampler_kernel_ms"],
+                      "sampler_plain_ms": report["sampler_plain_ms"]}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,251 @@
+// Kernel B: the whole 4-layer time-aware LVC block, NCL layout, with an
+// optional epilogue for the model's final k=7 C->1 conv.
+//
+// Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_aug, both of its
+// pallas_call sites (_kernel_body and _kernel_body_final, through
+// _kernel_core and _final_conv_epilogue). Layer i, with d = 3^i:
+//
+//   s     = carry + skip                       (bf16, zero outside [0, L))
+//   y     = leaky0.2(W_i . [a(t-d); a; a(t+d); 1]),  a = leaky0.2(s)
+//           (f32 accumulate, then bf16, zero outside [0, L))
+//   z     = K_{i,f} . [y(t-1); y; y(t+1); 1]   (per frame f = t / hop, f32)
+//   carry = s + bf16(sigmoid(z[:C]) * tanh(z[C:]))
+//
+// and with final_wb the f32 output fin[t] = sum_{tap,c} carry[c, t+tap-3]
+// * final_wb[tap, c] + final_wb[7, 0], over the carry masked to [0, L).
+//
+// What bounds it on an H100: per output sample and layer the dilated conv
+// is 2 * 32 * 96 and the LVC 2 * 64 * 96 FLOPs, so the full-rate block of
+// a 10 s utterance (L = 221,184) is ~16 GFLOP, against ~90 MB of traffic
+// (x, skip, out and the 46 MB kern_taug operand). The math bounds it.
+//
+// Design (simple first): one thread block of 512 threads per tile of 416
+// output samples plus a 48-sample halo on each side, one thread per
+// sample. Blocks share nothing, so each recomputes its own halo: the four
+// layers consume sum(d_i + 1) = 44 samples of it and the epilogue 3 more.
+// Halo samples use the kernels of the frame they lie in, so any hop >= 1
+// and any frame count work. The carry, a and y live in shared memory as
+// bf16 (3 x 32 KB), W_i as f32 (12 KB); the per-frame LVC kernels are read
+// from global memory / L1 / L2 as 16-byte vectors (rows padded to a
+// multiple of 8). All products run on the f32 CUDA cores; moving the two
+// contractions onto the tensor cores is the next step.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int C = 32;                   // inner channels
+constexpr int HALO = 48;
+constexpr int EXT = 512;                // samples per block = threads
+constexpr int TILE = EXT - 2 * HALO;    // 416 output samples per block
+constexpr int ROWS = 3 * C + 1;         // augmented contraction rows
+constexpr int LAYERS = 4;
+constexpr size_t SMEM_BYTES =
+    3 * C * EXT * sizeof(bf16) + (3 * C * C + C + 8 * C) * sizeof(float);
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ float leaky(float v) {
+  return v >= 0.0f ? v : 0.2f * v;
+}
+
+// acc + sum_q k[q] * v[q] over 8 bf16 packed in a 16-byte vector
+__device__ __forceinline__ float dot8(uint4 k, const float* v, float acc) {
+  const uint32_t words[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    __nv_bfloat162 pair;
+    *reinterpret_cast<uint32_t*>(&pair) = words[q];
+    const float2 f = __bfloat1622float2(pair);
+    acc = fmaf(f.x, v[2 * q], acc);
+    acc = fmaf(f.y, v[2 * q + 1], acc);
+  }
+  return acc;
+}
+
+template <bool FINAL>
+__global__ void __launch_bounds__(EXT, 2)
+lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
+                 const bf16* __restrict__ kern,
+                 const bf16* __restrict__ wstack,
+                 const bf16* __restrict__ final_wb, bf16* __restrict__ out,
+                 float* __restrict__ fin, int L, int F, int hop, int rows_p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* carry = reinterpret_cast<bf16*>(smem_raw);   // [C][EXT]
+  bf16* act = carry + C * EXT;                        // [C][EXT]
+  bf16* ybuf = act + C * EXT;                         // [C][EXT]
+  float* wt = reinterpret_cast<float*>(ybuf + C * EXT);  // [3C][C]
+  float* wb = wt + 3 * C * C;                         // [C]
+  float* wf = wb + C;                                 // [8][C]
+
+  const int e = threadIdx.x;
+  const int b = blockIdx.y;
+  const long g = (long)blockIdx.x * TILE - HALO + e;  // global sample
+  const bool valid = g >= 0 && g < L;
+  const bf16* xb = x + (size_t)b * C * L;
+  const bf16* sb = skip + (size_t)b * C * L;
+  const bf16 zero = __float2bfloat16(0.0f);
+
+  for (int c = 0; c < C; ++c)
+    carry[c * EXT + e] = valid ? xb[(size_t)c * L + g] : zero;
+  if (FINAL)
+    for (int idx = e; idx < 8 * C; idx += EXT) wf[idx] = to_f(final_wb[idx]);
+
+  long f = g < 0 ? 0 : g / hop;
+  if (f > F - 1) f = F - 1;
+  const bf16* kern_f = kern + (((size_t)b * F + f) * LAYERS) * 2 * C * rows_p;
+
+  int d = 1;
+  for (int i = 0; i < LAYERS; ++i, d *= 3) {
+    __syncthreads();
+    // stage W_i transposed (wt[r][o]) and its bias column
+    const bf16* w = wstack + (size_t)i * C * ROWS;
+    for (int idx = e; idx < C * ROWS; idx += EXT) {
+      const int o = idx / ROWS;
+      const int r = idx % ROWS;
+      const float v = to_f(w[idx]);
+      if (r < 3 * C)
+        wt[r * C + o] = v;
+      else
+        wb[o] = v;
+    }
+    // s = carry + skip (masked), a = leaky(s)
+    for (int c = 0; c < C; ++c) {
+      float s = 0.0f;
+      if (valid) s = round_bf(to_f(carry[c * EXT + e]) + to_f(sb[(size_t)c * L + g]));
+      carry[c * EXT + e] = __float2bfloat16(s);
+      act[c * EXT + e] = __float2bfloat16(leaky(s));
+    }
+    __syncthreads();
+
+    // y = leaky(W_i . [a(t-d); a; a(t+d)] + bias), masked
+    {
+      float acc[C];
+#pragma unroll
+      for (int o = 0; o < C; ++o) acc[o] = wb[o];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int src = e + (k - 1) * d;
+        const bool in = src >= 0 && src < EXT;
+        for (int c = 0; c < C; ++c) {
+          const float v = in ? to_f(act[c * EXT + src]) : 0.0f;
+          const float4* wr = reinterpret_cast<const float4*>(wt + (k * C + c) * C);
+#pragma unroll
+          for (int o4 = 0; o4 < C / 4; ++o4) {
+            const float4 w4 = wr[o4];
+            acc[4 * o4 + 0] = fmaf(w4.x, v, acc[4 * o4 + 0]);
+            acc[4 * o4 + 1] = fmaf(w4.y, v, acc[4 * o4 + 1]);
+            acc[4 * o4 + 2] = fmaf(w4.z, v, acc[4 * o4 + 2]);
+            acc[4 * o4 + 3] = fmaf(w4.w, v, acc[4 * o4 + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < C; ++o)
+        ybuf[o * EXT + e] = valid ? __float2bfloat16(leaky(acc[o])) : zero;
+    }
+    __syncthreads();
+
+    // z = K_{i,f} . [y(t-1); y; y(t+1); 1]; carry = s + bf16(gate)
+    const bf16* ki = kern_f + (size_t)i * 2 * C * rows_p;
+    for (int oc = 0; oc < C; oc += 8) {
+      float zs[8], zt[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        zs[j] = to_f(ki[(size_t)(oc + j) * rows_p + 3 * C]);
+        zt[j] = to_f(ki[(size_t)(C + oc + j) * rows_p + 3 * C]);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int src = e + k - 1;
+        const bool in = src >= 0 && src < EXT;
+        for (int c8 = 0; c8 < C; c8 += 8) {
+          float v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            v[q] = in ? to_f(ybuf[(c8 + q) * EXT + src]) : 0.0f;
+          const int r = k * C + c8;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const uint4 ks = __ldg(reinterpret_cast<const uint4*>(
+                ki + (size_t)(oc + j) * rows_p + r));
+            const uint4 kt = __ldg(reinterpret_cast<const uint4*>(
+                ki + (size_t)(C + oc + j) * rows_p + r));
+            zs[j] = dot8(ks, v, zs[j]);
+            zt[j] = dot8(kt, v, zt[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float gate = tanhf(zt[j]) / (1.0f + expf(-zs[j]));
+        const float s = to_f(carry[(oc + j) * EXT + e]);
+        carry[(oc + j) * EXT + e] = __float2bfloat16(s + round_bf(gate));
+      }
+    }
+  }
+  __syncthreads();
+
+  if (e < HALO || e >= HALO + TILE || !valid) return;
+  bf16* ob = out + (size_t)b * C * L;
+  for (int c = 0; c < C; ++c) ob[(size_t)c * L + g] = carry[c * EXT + e];
+  if (FINAL) {
+    float acc = wf[7 * C];
+#pragma unroll
+    for (int tap = 0; tap < 7; ++tap) {
+      const long gs = g + tap - 3;
+      if (gs < 0 || gs >= L) continue;
+      const int src = e + tap - 3;
+      for (int c = 0; c < C; ++c)
+        acc = fmaf(to_f(carry[c * EXT + src]), wf[tap * C + c], acc);
+    }
+    fin[(size_t)b * L + g] = acc;
+  }
+}
+
+template <bool FINAL>
+int launch(const void* x, const void* skip, const void* kern,
+           const void* wstack, const void* final_wb, void* out, void* fin,
+           int B, int L, int F, int hop, int rows_p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      lvc_block_kernel<FINAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + TILE - 1) / TILE, B);
+  lvc_block_kernel<FINAL><<<grid, EXT, SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
+      static_cast<const bf16*>(kern), static_cast<const bf16*>(wstack),
+      static_cast<const bf16*>(final_wb), static_cast<bf16*>(out),
+      static_cast<float*>(fin), L, F, hop, rows_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, skip (B, C, L) bf16; kern (B, F, layers, 2C, rows_p) bf16;
+// wstack_t (layers, C, 3C+1) bf16; final_wb (8, C) bf16 or NULL;
+// out (B, C, L) bf16; fin (B, 1, L) f32 or NULL. Only C = 32, layers = 4 and
+// rows_p % 8 == 0 are built (the Python wrapper checks). Launches on
+// `stream`; returns cudaGetLastError() (or the attribute call's error).
+extern "C" int lvc_block_ncl_launch(const void* x, const void* skip,
+                                    const void* kern, const void* wstack_t,
+                                    const void* final_wb, void* out,
+                                    void* fin, int B, int channels, int L,
+                                    int F, int hop, int rows_p, int layers,
+                                    void* stream) {
+  if (channels != C || layers != LAYERS || rows_p % 8 != 0 ||
+      rows_p < ROWS || hop < 1 || (long)F * hop != L)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (final_wb != nullptr)
+    return launch<true>(x, skip, kern, wstack_t, final_wb, out, fin, B, L, F,
+                        hop, rows_p, s);
+  return launch<false>(x, skip, kern, wstack_t, nullptr, out, nullptr, B, L,
+                       F, hop, rows_p, s);
+}

@@ -1,0 +1,153 @@
+// Kernel A: the LVC kernel-predictor head GEMM, emitted in the LVC block's
+// operand layout.
+//
+// Replaces fastdiff_tpu/ops/lvc_block_pallas.py:taug_head_matmul_5d (body
+// _head_mm5d_body). It computes
+//
+//   out[m, n] = bf16( sum_k tap[m, k] * w_head[k, n] + b_head[n] )
+//
+// with tap (M, K) bf16, w_head (K, N) bf16, b_head (N,) f32, accumulation in
+// f32. N = layers * 2C * rows_p, so out read as (B, F, layers, 2C, rows_p) is
+// the kern_taug operand of Kernel B (lvc_block_ncl.cu) with no copy.
+//
+// What bounds it on an H100: at 10 s of audio (M = 864 frames, K = 192,
+// N = 4 * 64 * 104 = 26,624) one call is 8.8 GFLOP against ~56 MB of
+// traffic (46 MB of output written, 10 MB of weights read). At the card's
+// published 989 TFLOP/s bf16 and 3.35 TB/s that is 9 us of math against
+// 17 us of memory: the output write bounds it.
+//
+// Design: one thread block of 8 warps per 64 x 128 output tile. The K = 192
+// contraction runs in steps of 32 through shared memory, on the tensor cores
+// through the WMMA bf16 16x16x16 fragments (f32 accumulators); every output
+// element is written exactly once, as bf16 pairs, after the f32 bias add.
+// The 10 MB weight matrix is re-read once per 64-row stripe and stays in
+// the 50 MB L2. TMA loads and wgmma are left for a later version.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int BM = 64;
+constexpr int BN = 128;
+constexpr int BK = 32;
+constexpr int A_LD = BK + 8;    // padded shared-memory strides (elements)
+constexpr int B_LD = BN + 8;
+constexpr int C_LD = BN + 4;
+constexpr int THREADS = 256;    // 8 warps: 2 (rows) x 4 (cols), 32x32 each
+
+__global__ void __launch_bounds__(THREADS)
+taug_head_kernel(const bf16* __restrict__ tap, const bf16* __restrict__ w,
+                 const float* __restrict__ bias, bf16* __restrict__ out,
+                 int M, int N, int K) {
+  __shared__ __align__(128) bf16 a_s[BM * A_LD];
+  __shared__ __align__(128) bf16 b_s[BK * B_LD];
+  __shared__ __align__(128) float c_s[BM * C_LD];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    {  // A tile: 64 rows x 4 vectors of 8 bf16
+      const int row = tid / 4;
+      const int kv = (tid % 4) * 8;
+      const int m = m0 + row;
+      const int k = k0 + kv;
+      uint4 v = zero;
+      if (m < M && k < K)
+        v = *reinterpret_cast<const uint4*>(tap + (size_t)m * K + k);
+      *reinterpret_cast<uint4*>(a_s + row * A_LD + kv) = v;
+    }
+#pragma unroll
+    for (int rep = 0; rep < 2; ++rep) {  // B tile: 32 rows x 16 vectors
+      const int idx = tid + rep * THREADS;
+      const int row = idx / 16;
+      const int nv = (idx % 16) * 8;
+      const int k = k0 + row;
+      const int n = n0 + nv;
+      uint4 v = zero;
+      if (k < K && n < N)
+        v = *reinterpret_cast<const uint4*>(w + (size_t)k * N + n);
+      *reinterpret_cast<uint4*>(b_s + row * B_LD + nv) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], a_s + (wm * 32 + i * 16) * A_LD + kk,
+                               A_LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], b_s + kk * B_LD + wn * 32 + j * 16,
+                               B_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(
+          c_s + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16, acc[i][j],
+          C_LD, wmma::mem_row_major);
+  __syncthreads();
+
+  // epilogue: f32 bias add, round to bf16, store pairs (N is even)
+  for (int idx = tid; idx < BM * BN / 2; idx += THREADS) {
+    const int row = idx / (BN / 2);
+    const int col = (idx % (BN / 2)) * 2;
+    const int m = m0 + row;
+    const int n = n0 + col;
+    if (m < M && n < N) {
+      const float v0 = c_s[row * C_LD + col] + bias[n];
+      const float v1 = c_s[row * C_LD + col + 1] + bias[n + 1];
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+}  // namespace
+
+// tap (M, K) bf16, w_head (K, N) bf16, b_head (N,) f32 -> out (M, N) bf16.
+// K and N must be multiples of 8 and every pointer 16-byte aligned (the
+// Python wrapper checks both). Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int taug_head_launch(const void* tap, const void* w_head,
+                                const void* b_head, void* out, int M, int N,
+                                int K, void* stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  taug_head_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(tap), static_cast<const bf16*>(w_head),
+      static_cast<const float*>(b_head), static_cast<bf16*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* fastdiff_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

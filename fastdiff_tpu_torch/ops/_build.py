@@ -1,0 +1,100 @@
+"""Build ``csrc/*.cu`` with ``nvcc`` into one shared library, load it with ctypes.
+
+The library has a plain C interface (no PyTorch headers), so a cold build
+takes seconds. It goes to ``build/kernels/`` at the repository root, named by
+a hash of the sources, and is built on first use: a run from a clean
+checkout builds it once, and an edited source never loads a stale binary.
+``nvcc``'s resource report (``-Xptxas -v``: registers, shared memory, spills
+per kernel) is kept beside it as ``build.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types. Each returns cudaGetLastError().
+SIGNATURES = {
+    # tap, w_head, b_head, out, M, N, K, stream
+    "taug_head_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, skip, kern, wstack_t, final_wb (or NULL), out, fin (or NULL),
+    # B, C, L, F, hop, rows_p, layers, stream
+    "lvc_block_ncl_launch": [_P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libfastdiff_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels if this source set has no library yet."""
+    target = library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, target)
+    return target
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.fastdiff_cuda_error_string.argtypes = [_I]
+    lib.fastdiff_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (launch refused,
+    bad configuration, or an earlier asynchronous fault)."""
+    if code != 0:
+        msg = library().fastdiff_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")

@@ -1,0 +1,116 @@
+"""The LVC kernel-predictor head: Kernel A and its operands.
+
+Counterpart of ``fastdiff_tpu/ops/lvc_block_pallas.py:taug_head_matmul_5d``
+and of the operand packing in ``fastdiff_tpu/models/fastdiff.py:
+_taug_head_operands``. The predictor's ``kernel_conv`` and ``bias_conv``
+heads (k=3 convs over the trunk) are merged into one matrix product
+
+    kern[m, n] = bf16( sum_k tap[m, k] * w_head[k, n] + b_head[n] )
+
+whose output, read as (B, F, layers, 2C, rows_p), is the LVC block's
+``kern_taug`` operand: row r < 3C of a (2C, rows_p) slab holds tap r // C,
+input channel r % C; row 3C is the bias; rows above are zero padding.
+``rows_p`` rounds 3C + 1 up to a multiple of 8 so that every row starts on
+a 16-byte boundary for the kernels' vector loads (104 at C = 32; the TPU
+package pads to its 128-lane tile instead).
+
+On a CUDA tensor ``taug_head_matmul`` launches the hand-written kernel
+(``csrc/taug_head.cu``); on a CPU tensor it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from fastdiff_tpu_torch.ops import _build
+
+# launches of the CUDA kernel since the last reset (plain runs not counted)
+LAUNCHES = {"taug_head": 0}
+
+
+def rows_padded(c: int, k: int = 3) -> int:
+    """Rows of one (2C, rows_p) kernel slab: K*C + 1 rounded up to 8."""
+    return -(-(k * c + 1) // 8) * 8
+
+
+def pack_head(kernel_w: torch.Tensor, kernel_b: torch.Tensor,
+              bias_w: torch.Tensor, bias_b: torch.Tensor, *, layers: int,
+              c: int, k: int = 3, dtype=torch.bfloat16) -> tuple:
+    """Merge the predictor heads into (w_head, b_head).
+
+    kernel_w (layers*K*C*2C, hid, ksz), its output channels in (layers, K,
+    C, 2C) order; bias_w (layers*2C, hid, ksz). Returns w_head (ksz*hid,
+    layers*2C*rows_p) in ``dtype`` with contraction index tap*hid + h, and
+    b_head (layers*2C*rows_p,) float32."""
+    cout = 2 * c
+    rows = k * c
+    rows_p = rows_padded(c, k)
+    _, hid, ksz = kernel_w.shape
+    kw = kernel_w.reshape(layers, rows, cout, hid, ksz).permute(4, 3, 0, 2, 1)
+    bw = bias_w.reshape(layers, 1, cout, hid, ksz).permute(4, 3, 0, 2, 1)
+    w = F.pad(torch.cat([kw, bw], dim=-1), (0, rows_p - rows - 1))
+    kb = kernel_b.reshape(layers, rows, cout).permute(0, 2, 1)
+    bb = bias_b.reshape(layers, cout, 1)
+    b = F.pad(torch.cat([kb, bb], dim=-1), (0, rows_p - rows - 1))
+    w_head = w.reshape(ksz * hid, layers * cout * rows_p).to(dtype)
+    return w_head.contiguous(), b.reshape(-1).float().contiguous()
+
+
+def head_taps(trunk: torch.Tensor, ksz: int = 3) -> torch.Tensor:
+    """Trunk output (B, hid, F) -> zero-padded k-tap rows (B*F, ksz*hid)."""
+    b, hid, frames = trunk.shape
+    pad = (ksz - 1) // 2
+    cp = F.pad(trunk, (pad, pad))
+    taps = torch.stack([cp[:, :, t:t + frames] for t in range(ksz)], dim=1)
+    return taps.permute(0, 3, 1, 2).reshape(b * frames, ksz * hid).contiguous()
+
+
+def taug_head_matmul_plain(tap: torch.Tensor, w_head: torch.Tensor,
+                           b_head: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Kernel A: f32 accumulate, f32 bias, round to tap.dtype."""
+    return (tap.float() @ w_head.float() + b_head.float()).to(tap.dtype)
+
+
+def taug_head_matmul(tap: torch.Tensor, w_head: torch.Tensor,
+                     b_head: torch.Tensor) -> torch.Tensor:
+    """Kernel A: tap (M, K) @ w_head (K, N) + b_head (N,) -> (M, N).
+
+    CPU tensors run ``taug_head_matmul_plain``. CUDA tensors launch
+    ``csrc/taug_head.cu`` (bf16 tap and weights, f32 bias) or raise."""
+    if tap.device.type == "cpu":
+        return taug_head_matmul_plain(tap, w_head, b_head)
+    if tap.device.type != "cuda":
+        raise ValueError(f"taug_head_matmul: unsupported device {tap.device}")
+    m, k = tap.shape
+    k2, n = w_head.shape
+    for name, t in (("w_head", w_head), ("b_head", b_head)):
+        if t.device != tap.device:
+            raise ValueError(f"taug_head_matmul: {name} on {t.device}, "
+                             f"tap on {tap.device}")
+    if tap.dtype != torch.bfloat16 or w_head.dtype != torch.bfloat16:
+        raise ValueError("taug_head_matmul: tap and w_head must be bf16, got "
+                         f"{tap.dtype}, {w_head.dtype}")
+    if b_head.dtype != torch.float32 or b_head.shape != (n,):
+        raise ValueError(f"taug_head_matmul: b_head must be f32 ({n},), got "
+                         f"{b_head.dtype} {tuple(b_head.shape)}")
+    if k2 != k or k % 8 or n % 8:
+        raise ValueError(f"taug_head_matmul: shapes {tuple(tap.shape)} @ "
+                         f"{tuple(w_head.shape)} (K and N must be multiples "
+                         "of 8)")
+    for name, t in (("tap", tap), ("w_head", w_head), ("b_head", b_head)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"taug_head_matmul: {name} must be contiguous "
+                             "and 16-byte aligned")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=tap.device)
+    if m == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(tap.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.taug_head_launch(tap.data_ptr(), w_head.data_ptr(),
+                                    b_head.data_ptr(), out.data_ptr(),
+                                    m, n, k, stream)
+    _build.check(code, "taug_head_launch")
+    LAUNCHES["taug_head"] += 1
+    return out

@@ -1,0 +1,78 @@
+"""NCL conv, transposed conv, dense and activations (``fastdiff_tpu/ops/nn.py``).
+
+Weights are in PyTorch's layouts: ``Conv1d`` (O, I, K), ``ConvTranspose1d``
+(I, O, K), ``Linear`` (O, I). Weight norm is fused once when the weights are
+loaded (``models/bridge.py``), so no op here resolves a (g, v) pair.
+
+Cast points follow the JAX ops: under a ``compute_dtype`` the input and the
+weight are rounded to it, the products accumulate in float32, the bias is
+added in float32, and the result is rounded back to ``compute_dtype``. The
+convolutions run on float32 copies of the rounded operands, which gives
+exactly that (a bf16 value is exact in float32, and in TF32 too).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _cast(x, w, compute_dtype):
+    if compute_dtype is None:
+        return x, w, torch.float32
+    return x.to(compute_dtype), w.to(compute_dtype), compute_dtype
+
+
+def conv1d_ncl(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
+               dilation: int = 1, compute_dtype=None) -> torch.Tensor:
+    """'Same'-padded stride-1 conv: x (B, I, L), w (O, I, K) -> (B, O, L)."""
+    x, w, out_dtype = _cast(x, w, compute_dtype)
+    pad = dilation * ((w.shape[-1] - 1) // 2)
+    y = F.conv1d(x.float(), w.float(), b.float(), padding=pad,
+                 dilation=dilation)
+    return y.to(out_dtype)
+
+
+def conv_transpose1d_ncl(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                         *, stride: int, torch_padding: int,
+                         output_padding: int = 0,
+                         compute_dtype=None) -> torch.Tensor:
+    """Transposed conv: x (B, I, L), w (I, O, K) -> (B, O, L') with
+    L' = (L - 1) * stride - 2 * torch_padding + K + output_padding."""
+    x, w, out_dtype = _cast(x, w, compute_dtype)
+    y = F.conv_transpose1d(x.float(), w.float(), b.float(), stride=stride,
+                           padding=torch_padding,
+                           output_padding=output_padding)
+    return y.to(out_dtype)
+
+
+def dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+          compute_dtype=None) -> torch.Tensor:
+    """x (..., I) @ w (O, I).T + b -> float32 (the JAX ``dense`` keeps the
+    float32 accumulator and never casts back)."""
+    x, w, _ = _cast(x, w, compute_dtype)
+    return F.linear(x.float(), w.float()) + b.float()
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def nearest_downsample_ncl(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest-neighbour ``interpolate(size=L // factor)`` == strided slice."""
+    return x[..., ::factor]
+
+
+def diffusion_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embedding of fractional steps: t (B, 1) -> (B, dim) f32."""
+    half = dim // 2
+    freqs = torch.exp(math.log(10000.0) / (half - 1) * -torch.arange(
+        half, dtype=torch.float32, device=t.device))
+    args = t.float() * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)

@@ -1,0 +1,76 @@
+"""FastDiff as a vocoder: mel -> waveform through the N-step sampler
+(``fastdiff_tpu/vocoders/fastdiff_vocoder.py``).
+
+Built from a plain hparams dict and an explicit ``device``. ``vocoder_ckpt``
+names a ``FastDiff`` state_dict saved with ``torch.save`` (a JAX tree converts
+with ``models/bridge.py:params_from_jax``); without one the model runs with
+seeded random weights, as the JAX vocoder does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from fastdiff_tpu.config import ModelConfig
+from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
+from fastdiff_tpu_torch.models.fastdiff import FastDiff
+
+# ModelConfig fields that select JAX/TPU routes and mean nothing here
+_JAX_ONLY_FIELDS = ("use_pallas_block", "use_pallas_down", "conv_impl")
+
+
+def model_config_from_hparams(hp: dict) -> ModelConfig:
+    """ModelConfig from hparams, reading only the architecture fields."""
+    kwargs = {}
+    for field in dataclasses.fields(ModelConfig):
+        if field.name in hp and field.name not in _JAX_ONLY_FIELDS:
+            kwargs[field.name] = hp[field.name]
+    if "upsample_ratios" in kwargs:
+        kwargs["upsample_ratios"] = tuple(int(r) for r in
+                                          kwargs["upsample_ratios"])
+    return ModelConfig(**kwargs)
+
+
+class FastDiffVocoder:
+    def __init__(self, hparams: dict | None = None, device="cpu"):
+        hp = dict(hparams or {})
+        self.hparams = hp
+        self.device = torch.device(device)
+        self.model_cfg = model_config_from_hparams(hp)
+        self.hop = self.model_cfg.total_hop
+        self.constants = constants_for_hparams(hp)
+        ckpt = hp.get("vocoder_ckpt", "")
+        if ckpt:
+            model = FastDiff(self.model_cfg, seed=None)
+            model.load_state_dict(torch.load(ckpt, map_location="cpu",
+                                             weights_only=True))
+        else:
+            print("| WARNING: no vocoder_ckpt given; FastDiff vocoder runs "
+                  "with random weights.")
+            model = FastDiff(self.model_cfg, seed=0)
+        self.model = model.to(self.device).eval()
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(hp.get("seed", 1234)))
+
+    @torch.inference_mode()
+    def spec2wav(self, mel: np.ndarray) -> np.ndarray:
+        """mel (T, n_mels) -> waveform (T * hop,) float32."""
+        mel_t = torch.as_tensor(np.asarray(mel, np.float32),
+                                device=self.device)[None]
+        wav = sample(self.model, mel_t, self.constants,
+                     mel_t.shape[1] * self.hop, generator=self.generator)
+        return wav[0, :, 0].cpu().numpy()
+
+
+VOCODERS = {"fastdiff": FastDiffVocoder}
+
+
+def get_vocoder_cls(hparams: dict):
+    name = str(hparams.get("vocoder", "fastdiff")).lower()
+    if name not in VOCODERS:
+        raise ValueError(f"unknown vocoder {name!r}; the port has "
+                         f"{sorted(VOCODERS)}")
+    return VOCODERS[name]
