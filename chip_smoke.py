@@ -21,19 +21,39 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    kernel and plain paths timed with CUDA events after warm-up;
 7. the port's HTTP server on 127.0.0.1: three mels of 100, 256 and 864
    frames, each answered with a WAV of frames * 256 finite samples, each
-   raising every kernel's launch count by exactly 3 blocks x 4 steps.
+   raising every kernel's launch count by exactly 3 blocks x 4 steps;
+8. Kernel B-SR (the training block, which also writes s, y and z) against
+   its plain version at the training recipe's shapes (b = 20, 100 frames,
+   hops 8, 64 and 256), with phase 4's bounds;
+9. gradients on the card at the hop-256 recipe shape, bf16: the
+   saved-residual block (``LVCBlockSR``), the recompute block
+   (``LVCBlockRecompute``) and the trainable head (``TaugHead``) against
+   autograd through their plain versions (relative L2 <= 5e-2 each);
+10. one full-width train step (loss, backward, clip, AdamW) on a fixed
+    batch of 20 x 25,600 samples through ``FastDiffTask.train_step``, the
+    ``ncl_sr``, ``ncl_vjp`` and ``plain`` routes raced in turns with CUDA
+    events: ms per step, peak memory, loss and gradient norm, and the
+    kernel routes' gradients against the plain route's;
+11. ``Trainer(task, work_dir).fit()`` on a synthetic binarized dataset (24
+    train and 4 valid items of 120-200 frames, written to a temporary
+    directory): 6 updates at the recipe's batch with validation and a
+    checkpoint every 3, then a second ``fit`` to 8 that resumes from step
+    6; every train step launches Kernel A and Kernel B-SR exactly 3 times.
 
 Any failed check exits non-zero. The line before the last is a JSON
-object with each kernel's launches in phase 7, its largest error against
-its plain version, and its time beside the plain version's; the last line
-is ``{"ok": true, "device": {...}}``.
+object with each kernel's launches (phase 7 for the inference kernels,
+phase 11 for Kernel B-SR), its largest error against its plain version,
+and its time beside the plain version's; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import wave
 
@@ -42,6 +62,12 @@ import numpy as np
 AUDIO_SECONDS_PER_SAMPLE = 1.0 / 22050
 FRAMES_10S = 864                 # 864 * 256 = 221,184 samples, ~10.03 s
 HOP_SIZE = 256
+# the training recipe: batch 20 x 25,600 samples (100 mel frames)
+TRAIN_BATCH, TRAIN_FRAMES = 20, 100
+# model FLOPs of one train step at the recipe (3 x forward), from
+# 2.369e5 FLOP per sample per forward
+STEP_FLOP = 3 * 2.369e5 * TRAIN_FRAMES * HOP_SIZE * TRAIN_BATCH
+H100_BF16_PEAK = 989e12
 
 
 def fail(msg: str):
@@ -86,6 +112,281 @@ def race(torch, plain, kernel, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def check_pairs(pairs, what: str):
+    """Phase 4's bounds on (kernel, plain) pairs: rel L2 <= 1e-2 and max
+    abs <= 4 bf16 ulps of the largest plain value; returns the errors."""
+    errs = [(max_abs(a, b), rel_l2(a, b)) for a, b in pairs]
+    for (e, r), (a, b) in zip(errs, pairs):
+        if not (r <= 1e-2 and e <= 2.0 ** -5 * float(b.float().abs().max())):
+            fail(f"{what} disagrees with its plain version")
+        if not bool(a.isfinite().all()):
+            fail(f"{what} output is not finite")
+    return errs
+
+
+def grad_errors(torch, fn, plain, args, gout):
+    """Relative L2 of fn's input gradients against autograd through plain,
+    for the same output gradient."""
+    def grads(f):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        return torch.autograd.grad(f(*leaves), leaves, gout)
+    return [rel_l2(a, b) for a, b in zip(grads(fn), grads(plain))]
+
+
+def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
+                    dev):
+    """Kernel B-SR against its plain version at the recipe's shapes."""
+    wstack_t = randn(layers, c, rows, scale=0.1)
+    worst, ms_k, ms_p = 0.0, 0.0, 0.0
+    for hop in (8, 64, 256):
+        length = TRAIN_FRAMES * hop
+        x = randn(TRAIN_BATCH, c, length)
+        skip = randn(TRAIN_BATCH, c, length)
+        kern = torch.zeros((TRAIN_BATCH, TRAIN_FRAMES, layers, 2 * c, rows_p),
+                           dtype=torch.bfloat16, device=dev)
+        kern[..., :rows] = randn(TRAIN_BATCH, TRAIN_FRAMES, layers, 2 * c,
+                                 rows, scale=0.05)
+
+        def run_k():
+            return lvc_block_ncl.lvc_block_ncl_sr(x, skip, kern, wstack_t, hop)
+
+        def run_p():
+            return lvc_block_ncl.lvc_block_ncl_sr_plain(x, skip, kern,
+                                                        wstack_t, hop)
+
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        errs = check_pairs(list(zip(got, ref)), f"Kernel B-SR (hop {hop})")
+        k, p = race(torch, run_p, run_k, 5)
+        phase(8, f"Kernel B-SR hop {hop}, b {TRAIN_BATCH} x {TRAIN_FRAMES} "
+                 "frames: " + ", ".join(
+                     f"{n} max_abs_err {e:.3e} rel_l2 {r:.3e}" for n, (e, r)
+                     in zip(("out", "s", "y", "z"), errs))
+                 + f"; kernel {k:.4f} ms, plain {p:.4f} ms")
+        worst = max([worst] + [e for e, _ in errs])
+        ms_k += k
+        ms_p += p
+    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p)
+
+
+def phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
+                     rows_p, dev):
+    """The trainable block and head against autograd through their plain
+    versions at the hop-256 recipe shape, bf16."""
+    wstack_t = randn(layers, c, rows, scale=0.1)
+    hop = 256
+    length = TRAIN_FRAMES * hop
+    x = randn(TRAIN_BATCH, c, length)
+    skip = randn(TRAIN_BATCH, c, length)
+    kern = torch.zeros((TRAIN_BATCH, TRAIN_FRAMES, layers, 2 * c, rows_p),
+                       dtype=torch.bfloat16, device=dev)
+    kern[..., :rows] = randn(TRAIN_BATCH, TRAIN_FRAMES, layers, 2 * c, rows,
+                             scale=0.05)
+    gout = randn(TRAIN_BATCH, c, length)
+    plain = (lambda *a: lvc_block_ncl.lvc_block_ncl_plain(*a, hop))
+    checks = {
+        "LVCBlockSR": grad_errors(
+            torch, lambda *a: lvc_block_ncl.LVCBlockSR.apply(*a, hop), plain,
+            (x, skip, kern, wstack_t), gout),
+        "LVCBlockRecompute": grad_errors(
+            torch, lambda *a: lvc_block_ncl.LVCBlockRecompute.apply(*a, hop),
+            plain, (x, skip, kern, wstack_t), gout),
+    }
+    m, k, n = TRAIN_BATCH * TRAIN_FRAMES, 192, layers * 2 * c * rows_p
+    checks["TaugHead"] = grad_errors(
+        torch, lvc_head.TaugHead.apply, lvc_head.taug_head_matmul_plain,
+        (randn(m, k), randn(k, n, scale=0.05),
+         randn(n, scale=0.1, dtype=torch.float32)), randn(m, n))
+    torch.cuda.synchronize()
+    for name, errs in checks.items():
+        phase(9, f"{name} input gradients vs autograd through the plain "
+                 f"version (bf16, hop-256 recipe shape): rel_l2 "
+                 + ", ".join(f"{e:.3e}" for e in errs) + " (bound 5e-2)")
+        if not all(e <= 5e-2 for e in errs):
+            fail(f"{name} gradients disagree with the plain version")
+
+
+def phase10_train_step(torch, FastDiffTask, smi_line, dev):
+    """One full-width train step per route, raced in turns."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    length = TRAIN_FRAMES * HOP_SIZE
+    batch = {"wavs": torch.randn((TRAIN_BATCH, length, 1), generator=gen,
+                                 device=dev).mul_(0.3).cpu().numpy(),
+             "mels": torch.randn((TRAIN_BATCH, TRAIN_FRAMES, 80),
+                                 generator=gen, device=dev).sub_(4.0)
+             .cpu().numpy()}
+    ts = torch.randint(0, 1000, (TRAIN_BATCH, 1, 1), generator=gen,
+                       device=dev)
+    z = torch.randn((TRAIN_BATCH, length, 1), generator=gen, device=dev)
+    routes = ("ncl_sr", "ncl_vjp", "plain")
+    tasks = {r: FastDiffTask({"use_pallas_block": r if r != "plain"
+                              else False}, device=dev) for r in routes}
+    states = {r: tasks[r].build_state(seed=0) for r in routes}
+    # gradients of the identical initial weights, same draws
+    grads = {}
+    for r in routes:
+        model = states[r].model
+        names, params = zip(*model.named_parameters())
+        loss = tasks[r].loss(model, batch, ts=ts, z=z)
+        grads[r] = dict(zip(names, torch.autograd.grad(loss, params)))
+    ref = grads["plain"]
+    ref_norm = torch.sqrt(sum(g.float().square().sum() for g in ref.values()))
+    grad_rel = {}
+    for r in ("ncl_sr", "ncl_vjp"):
+        diff = torch.sqrt(sum((grads[r][k].float() - g.float()).square().sum()
+                              for k, g in ref.items()))
+        worst = max(((rel_l2(grads[r][k], g), k) for k, g in ref.items()
+                     if float(g.float().norm()) > 0), key=lambda t: t[0])
+        grad_rel[r] = (float(diff / ref_norm), worst)
+    del grads
+
+    def step(r):
+        return tasks[r].train_step(states[r], batch, ts=ts, z=z)
+
+    metrics, peak, times = {}, {}, {r: [] for r in routes}
+    for r in routes:                               # warm-up, peak memory
+        step(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        metrics[r] = {k: float(v) for k, v in step(r).items()}
+        torch.cuda.synchronize()
+        peak[r] = torch.cuda.max_memory_allocated(dev)
+    for r in routes + routes[::-1]:
+        times[r].append(cuda_ms(torch, lambda: step(r), 3))
+    report = {}
+    for r in routes:
+        ms = sum(times[r]) / len(times[r])
+        share = STEP_FLOP / (ms / 1e3) / H100_BF16_PEAK
+        m = metrics[r]
+        line = (f"route {r}: {ms:.2f} ms per step (runs "
+                + ", ".join(f"{t:.2f}" for t in times[r])
+                + f"), {STEP_FLOP / (ms / 1e3) / 1e12:.1f} TFLOP/s = "
+                f"{100 * share:.2f} % of the bf16 peak, peak memory "
+                f"{peak[r] / 2 ** 30:.2f} GiB, loss {m['loss']:.5f}, "
+                f"grad_norm {m['grad_norm']:.4f}")
+        if r in grad_rel:
+            rel, (w, k) = grad_rel[r]
+            line += (f", gradients vs plain rel_l2 {rel:.3e} (bound 5e-2; "
+                     f"worst tensor {k} {w:.3e})")
+        phase(10, line + f" [{smi_line}]")
+        if not all(np.isfinite(v) for v in m.values()) or m["nonfinite"]:
+            fail(f"train step on route {r}: loss or gradient norm not finite")
+        if r in grad_rel and not grad_rel[r][0] <= 5e-2:
+            fail(f"route {r}: gradients disagree with the plain route")
+        report[r] = dict(ms=ms, peak_bytes=peak[r], bf16_peak_share=share)
+    return report
+
+
+def write_synthetic_dataset(binary_dir: str, seed: int = 0) -> None:
+    """24 train and 4 valid items of 120-200 random frames, binarized the
+    way ``fastdiff_tpu/data`` reads them."""
+    from fastdiff_tpu.data.indexed_dataset import IndexedDatasetBuilder
+    rng = np.random.default_rng(seed)
+    for prefix, n_items in (("train", 24), ("valid", 4)):
+        builder = IndexedDatasetBuilder(os.path.join(binary_dir, prefix))
+        lengths = []
+        for i in range(n_items):
+            frames = int(rng.integers(120, 201))
+            builder.add_item({
+                "item_name": f"{prefix}{i}", "len": frames,
+                "mel": (rng.normal(size=(frames, 80)) - 4.0).astype(
+                    np.float32),
+                "wav": (0.3 * rng.normal(size=frames * HOP_SIZE)).astype(
+                    np.float32)})
+            lengths.append(frames)
+        builder.finalize()
+        np.save(os.path.join(binary_dir, f"{prefix}_lengths.npy"), lengths)
+
+
+def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
+    """Trainer.fit through the normal entry point, then a resumed fit."""
+    root = tempfile.mkdtemp(prefix="fastdiff_fit_")
+    try:
+        binary = os.path.join(root, "binary")
+        os.makedirs(binary)
+        write_synthetic_dataset(binary)
+        hp = {"binary_data_dir": binary, "hop_size": HOP_SIZE,
+              "max_samples": TRAIN_FRAMES * HOP_SIZE,
+              "max_sentences": TRAIN_BATCH,
+              "use_pallas_block": "auto", "max_updates": 6,
+              "val_check_interval": 3, "tb_log_interval": 1,
+              "num_ckpt_keep": 1}
+        work = os.path.join(root, "work")
+        steps = []
+
+        def counted_task(hparams):
+            """A task whose train steps record their metrics and the launches
+            of Kernel A and Kernel B-SR they made."""
+            task = FastDiffTask(hparams, device=dev)
+            if task.route != "ncl_sr":
+                fail(f"use_pallas_block auto resolved to {task.route} on "
+                     f"{dev}")
+            train_step = task.train_step
+
+            def counted(state, batch, generator=None, **kw):
+                before = (counters[0]["taug_head"],
+                          counters[1]["lvc_block_ncl_sr"])
+                out = train_step(state, batch, generator, **kw)
+                steps.append(dict(
+                    {k: float(v) for k, v in out.items()},
+                    a=counters[0]["taug_head"] - before[0],
+                    sr=counters[1]["lvc_block_ncl_sr"] - before[1]))
+                return out
+            task.train_step = counted
+            return task
+
+        task = counted_task(hp)
+        state = task.build_state()
+        before = {k: p.detach().clone()
+                  for k, p in state.model.named_parameters()}
+        for counter in counters:
+            for key in counter:
+                counter[key] = 0
+        t0 = time.perf_counter()
+        result = Trainer(task, work).fit(state)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {**counters[0], **counters[1]}
+        changed = sum(not torch.equal(before[k], p) for k, p in
+                      result["state"].model.named_parameters())
+        files = sorted(os.listdir(work))
+        phase(11, f"fit: {result['step']} steps in {fit_s:.1f} s, losses "
+                  + ", ".join(f"{s['loss']:.4f}" for s in steps)
+                  + "; grad norms "
+                  + ", ".join(f"{s['grad_norm']:.3f}" for s in steps)
+                  + f"; val {result['val']}; {changed} parameter tensors "
+                  f"changed; files {files}; launches per step A "
+                  f"{[s['a'] for s in steps]} B-SR {[s['sr'] for s in steps]}")
+        if result["step"] != 6 or len(steps) != 6:
+            fail(f"fit ran {len(steps)} steps to step {result['step']}")
+        if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                   for s in steps) or not np.isfinite(result["val"]["loss"]):
+            fail("fit: a loss or gradient norm is not finite")
+        if changed == 0:
+            fail("fit: no parameter changed")
+        if any(s["a"] != 3 or s["sr"] != 3 for s in steps):
+            fail("fit: a train step did not launch Kernel A and Kernel B-SR "
+                 "exactly 3 times")
+        if not {"model_ckpt_steps_6.ckpt", "model_ckpt_best.pt"} <= set(
+                files) or "model_ckpt_steps_3.ckpt" in files or any(
+                f.endswith(".part") for f in files):
+            fail(f"fit: checkpoints on disk are {files}")
+
+        # resume: a second run to 8 starts from the step-6 checkpoint
+        n_before = len(steps)
+        result2 = Trainer(counted_task(dict(hp, max_updates=8)), work).fit()
+        files2 = sorted(os.listdir(work))
+        phase(11, f"resumed fit: {len(steps) - n_before} more steps to step "
+                  f"{result2['step']}; files {files2}")
+        if result2["step"] != 8 or len(steps) - n_before != 2:
+            fail("the second fit did not resume from step 6")
+        if "model_ckpt_steps_8.ckpt" not in files2:
+            fail(f"resumed fit: checkpoints on disk are {files2}")
+        return launches, fit_s
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -103,6 +404,8 @@ def main():
         from fastdiff_tpu_torch.ops import _build, lvc_block_ncl, lvc_head
         from fastdiff_tpu_torch.serving.server import (VocoderService,
                                                        start_server)
+        from fastdiff_tpu_torch.training.task import FastDiffTask
+        from fastdiff_tpu_torch.training.trainer import Trainer
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout of the repo): {e}")
     if "jax" in sys.modules:
@@ -117,8 +420,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     phase(1, f"device {kind}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-          and smi.stdout.strip() else "nvidia-smi: not available", flush=True)
+    smi_line = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+                and smi.stdout.strip() else "nvidia-smi: not available")
+    print(smi_line, flush=True)
 
     # --- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -297,6 +601,7 @@ def main():
     httpd, thread = start_server(service, "127.0.0.1", 0)
     port = httpd.server_address[1]
     counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES)
+    serving = ("taug_head", "lvc_block_ncl", "lvc_block_ncl_final")
     try:
         import http.client
         service.warmup(frames=16)
@@ -346,7 +651,8 @@ def main():
         conn.close()
         if health.status != 200:
             fail(f"/healthz answered {health.status}")
-        launches = {**counters[0], **counters[1]}
+        launches = {k: v for k, v in {**counters[0], **counters[1]}.items()
+                    if k in serving}
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -356,6 +662,18 @@ def main():
     if any(v == 0 for v in launches.values()):
         fail("a kernel of the main path was never launched")
 
+    # --- phases 8-11: the training slice -----------------------------------
+    report["lvc_block_ncl_sr"] = phase8_sr_block(
+        torch, lvc_block_ncl, randn, c, layers, rows, rows_p, dev)
+    phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
+                     rows_p, dev)
+    train_report = phase10_train_step(torch, FastDiffTask, smi_line, dev)
+    train_launches, fit_s = phase11_fit(torch, FastDiffTask, Trainer,
+                                        counters, dev)
+    if any(train_launches[k] == 0 for k in ("taug_head", "lvc_block_ncl_sr")):
+        fail("a kernel of the training path was never launched")
+    launches["lvc_block_ncl_sr"] = train_launches["lvc_block_ncl_sr"]
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -363,10 +681,14 @@ def main():
                           "fastdiff_tpu/ops/lvc_block_ncl.py:431"),
         "lvc_block_ncl_final": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
                                 "fastdiff_tpu/ops/lvc_block_ncl.py:422"),
+        "lvc_block_ncl_sr": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
+                             "fastdiff_tpu/ops/lvc_block_ncl.py:468"),
     }
     print("  kernel ms below are per denoiser forward at 864 frames: "
           "taug_head 3 calls, lvc_block_ncl hops 8 + 64, "
-          "lvc_block_ncl_final hop 256", flush=True)
+          "lvc_block_ncl_final hop 256; lvc_block_ncl_sr per train-step "
+          "forward at the recipe (hops 8 + 64 + 256, b 20 x 100 frames), "
+          "its launches from phase 11", flush=True)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
                     max_abs_err=report[name]["max_abs_err"],
@@ -374,7 +696,8 @@ def main():
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels,
                       "sampler_ms": report["sampler_kernel_ms"],
-                      "sampler_plain_ms": report["sampler_plain_ms"]}),
+                      "sampler_plain_ms": report["sampler_plain_ms"],
+                      "train_step": train_report, "fit_s": fit_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,12 @@
 // Kernel B: the whole 4-layer time-aware LVC block, NCL layout, with an
-// optional epilogue for the model's final k=7 C->1 conv.
+// optional epilogue for the model's final k=7 C->1 conv, and Kernel B-SR,
+// the same block writing the per-layer residuals that the training backward
+// reads.
 //
 // Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_aug, both of its
 // pallas_call sites (_kernel_body and _kernel_body_final, through
-// _kernel_core and _final_conv_epilogue). Layer i, with d = 3^i:
+// _kernel_core and _final_conv_epilogue), and lvc_block_ncl_aug_sr
+// (_kernel_body_sr). Layer i, with d = 3^i:
 //
 //   s     = carry + skip                       (bf16, zero outside [0, L))
 //   y     = leaky0.2(W_i . [a(t-d); a; a(t+d); 1]),  a = leaky0.2(s)
@@ -29,6 +32,15 @@
 // from global memory / L1 / L2 as 16-byte vectors (rows padded to a
 // multiple of 8). All products run on the f32 CUDA cores; moving the two
 // contractions onto the tensor cores is the next step.
+//
+// Kernel B-SR (template flag SAVE) adds a store epilogue to each layer: the
+// center samples of a tile write s (after the skip-add, masked, before the
+// leaky), y (the bf16 input of the LVC) and z (the pre-gate LVC output,
+// summed in f32 and stored rounded to bf16), the values the block already
+// holds. Per hop-256 block call of the training recipe (B = 20, L = 25,600)
+// that is 0.52 GB of extra writes (s and y 131 MB each, z 262 MB), about
+// 0.16 ms at 3.35 TB/s against the block's f32 math: the stores, not the
+// algorithm, are what the SAVE variant adds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,13 +81,15 @@ __device__ __forceinline__ float dot8(uint4 k, const float* v, float acc) {
   return acc;
 }
 
-template <bool FINAL>
+template <bool FINAL, bool SAVE>
 __global__ void __launch_bounds__(EXT, 2)
 lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
                  const bf16* __restrict__ kern,
                  const bf16* __restrict__ wstack,
                  const bf16* __restrict__ final_wb, bf16* __restrict__ out,
-                 float* __restrict__ fin, int L, int F, int hop, int rows_p) {
+                 float* __restrict__ fin, bf16* __restrict__ s_all,
+                 bf16* __restrict__ y_all, bf16* __restrict__ z_all, int L,
+                 int F, int hop, int rows_p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* carry = reinterpret_cast<bf16*>(smem_raw);   // [C][EXT]
   bf16* act = carry + C * EXT;                        // [C][EXT]
@@ -88,6 +102,8 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
   const int b = blockIdx.y;
   const long g = (long)blockIdx.x * TILE - HALO + e;  // global sample
   const bool valid = g >= 0 && g < L;
+  // SAVE: this thread's sample is one the tile outputs
+  const bool save = SAVE && valid && e >= HALO && e < HALO + TILE;
   const bf16* xb = x + (size_t)b * C * L;
   const bf16* sb = skip + (size_t)b * C * L;
   const bf16 zero = __float2bfloat16(0.0f);
@@ -116,11 +132,16 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
         wb[o] = v;
     }
     // s = carry + skip (masked), a = leaky(s)
+    // residual rows of layer i: s/y at (b, i, c, g), z at (b, i, c2, g)
+    bf16* si = s_all + ((size_t)b * LAYERS + i) * C * L + g;
+    bf16* yi = y_all + ((size_t)b * LAYERS + i) * C * L + g;
+    bf16* zi = z_all + ((size_t)b * LAYERS + i) * 2 * C * L + g;
     for (int c = 0; c < C; ++c) {
       float s = 0.0f;
       if (valid) s = round_bf(to_f(carry[c * EXT + e]) + to_f(sb[(size_t)c * L + g]));
       carry[c * EXT + e] = __float2bfloat16(s);
       act[c * EXT + e] = __float2bfloat16(leaky(s));
+      if (save) si[(size_t)c * L] = __float2bfloat16(s);
     }
     __syncthreads();
 
@@ -147,8 +168,11 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
         }
       }
 #pragma unroll
-      for (int o = 0; o < C; ++o)
-        ybuf[o * EXT + e] = valid ? __float2bfloat16(leaky(acc[o])) : zero;
+      for (int o = 0; o < C; ++o) {
+        const bf16 y = valid ? __float2bfloat16(leaky(acc[o])) : zero;
+        ybuf[o * EXT + e] = y;
+        if (save) yi[(size_t)o * L] = y;
+      }
     }
     __syncthreads();
 
@@ -184,6 +208,10 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (save) {
+          zi[(size_t)(oc + j) * L] = __float2bfloat16(zs[j]);
+          zi[(size_t)(C + oc + j) * L] = __float2bfloat16(zt[j]);
+        }
         const float gate = tanhf(zt[j]) / (1.0f + expf(-zs[j]));
         const float s = to_f(carry[(oc + j) * EXT + e]);
         carry[(oc + j) * EXT + e] = __float2bfloat16(s + round_bf(gate));
@@ -209,21 +237,29 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
   }
 }
 
-template <bool FINAL>
+template <bool FINAL, bool SAVE>
 int launch(const void* x, const void* skip, const void* kern,
            const void* wstack, const void* final_wb, void* out, void* fin,
-           int B, int L, int F, int hop, int rows_p, cudaStream_t stream) {
+           void* s_all, void* y_all, void* z_all, int B, int L, int F,
+           int hop, int rows_p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      lvc_block_kernel<FINAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      lvc_block_kernel<FINAL, SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + TILE - 1) / TILE, B);
-  lvc_block_kernel<FINAL><<<grid, EXT, SMEM_BYTES, stream>>>(
+  lvc_block_kernel<FINAL, SAVE><<<grid, EXT, SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
       static_cast<const bf16*>(kern), static_cast<const bf16*>(wstack),
       static_cast<const bf16*>(final_wb), static_cast<bf16*>(out),
-      static_cast<float*>(fin), L, F, hop, rows_p);
+      static_cast<float*>(fin), static_cast<bf16*>(s_all),
+      static_cast<bf16*>(y_all), static_cast<bf16*>(z_all), L, F, hop,
+      rows_p);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int channels, int L, int F, int hop, int rows_p, int layers) {
+  return channels != C || layers != LAYERS || rows_p % 8 != 0 ||
+         rows_p < ROWS || hop < 1 || (long)F * hop != L;
 }
 
 }  // namespace
@@ -239,13 +275,30 @@ extern "C" int lvc_block_ncl_launch(const void* x, const void* skip,
                                     void* fin, int B, int channels, int L,
                                     int F, int hop, int rows_p, int layers,
                                     void* stream) {
-  if (channels != C || layers != LAYERS || rows_p % 8 != 0 ||
-      rows_p < ROWS || hop < 1 || (long)F * hop != L)
+  if (bad_shape(channels, L, F, hop, rows_p, layers))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (final_wb != nullptr)
-    return launch<true>(x, skip, kern, wstack_t, final_wb, out, fin, B, L, F,
-                        hop, rows_p, s);
-  return launch<false>(x, skip, kern, wstack_t, nullptr, out, nullptr, B, L,
-                       F, hop, rows_p, s);
+    return launch<true, false>(x, skip, kern, wstack_t, final_wb, out, fin,
+                               nullptr, nullptr, nullptr, B, L, F, hop,
+                               rows_p, s);
+  return launch<false, false>(x, skip, kern, wstack_t, nullptr, out, nullptr,
+                              nullptr, nullptr, nullptr, B, L, F, hop, rows_p,
+                              s);
+}
+
+// Kernel B-SR: Kernel B that also writes s_all, y_all (B, layers, C, L) and
+// z_all (B, layers, 2C, L), all bf16, for the center samples of every tile
+// (so every sample once). Same operands and checks as lvc_block_ncl_launch.
+extern "C" int lvc_block_ncl_sr_launch(const void* x, const void* skip,
+                                       const void* kern, const void* wstack_t,
+                                       void* out, void* s_all, void* y_all,
+                                       void* z_all, int B, int channels,
+                                       int L, int F, int hop, int rows_p,
+                                       int layers, void* stream) {
+  if (bad_shape(channels, L, F, hop, rows_p, layers))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false, true>(x, skip, kern, wstack_t, nullptr, out, nullptr,
+                             s_all, y_all, z_all, B, L, F, hop, rows_p,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -1,21 +1,31 @@
-"""JAX parameter tree -> ``FastDiff`` state_dict (``fastdiff_tpu`` weights in
+"""JAX parameter tree <-> ``FastDiff`` state_dict (``fastdiff_tpu`` weights in
 the port).
 
 Takes the tree of ``fastdiff_tpu.models.fastdiff.init_fastdiff`` (or a
-loaded checkpoint of it) with numpy leaves, and returns the port's
-``state_dict``:
+loaded checkpoint of it) with numpy leaves. Layouts:
 
-- weight norm is fused with the JAX formulas (``fuse_weight_norm``,
-  ``ops/nn.py:conv_weight``): a conv's norm runs over (K, I) for each output
-  channel, a transposed conv's over (K, O) for each input channel, both with
-  ``+ 1e-12`` under the square root. An already fused tree (``'w'``
-  leaves) is taken as it is;
 - conv (K, I, O) -> (O, I, K);
 - transposed conv: JAX stores the kernel flipped as (K, I, O); PyTorch's
   (I, O, K) is ``w[::-1].transpose(1, 2, 0)`` (the inverse of
   ``fastdiff_tpu/utils/ckpt_import.py:_conv_transpose_from_torch``);
 - dense (I, O) -> (O, I);
 - ``kernel_conv`` keeps its (layers, K, Cin, Cout) output-channel order.
+
+Three directions:
+
+- ``params_from_jax``: the inference model's state_dict. Weight norm is
+  fused with the JAX formulas (``ops/nn.py:conv_weight``): a conv's norm
+  runs over (K, I) for each output channel, a transposed conv's over (K, O)
+  for each input channel, both with ``+ 1e-12`` under the square root. An
+  already fused tree (``'w'`` leaves) is taken as it is;
+- ``trainable_params_from_jax``: the trainable model's state_dict
+  (``FastDiff(cfg, train_route=...)``), weight norm kept: ``v`` in the
+  layouts above, ``g`` as it is (one entry per output channel of a conv,
+  per input channel of a transposed conv);
+- ``params_to_jax``: a trainable state_dict (or anything keyed like it,
+  such as its gradients) back to the JAX tree, numpy leaves in JAX's
+  layouts. It inverts ``trainable_params_from_jax`` exactly: every step is
+  a transpose or a flip.
 """
 
 from __future__ import annotations
@@ -26,58 +36,130 @@ import torch
 from fastdiff_tpu.config import ModelConfig
 
 
+def _entries(cfg: ModelConfig) -> list:
+    """(state_dict prefix, JAX tree path, kind) of every layer; kind is
+    'conv', 'conv_t' or 'dense'."""
+    out = [("first_audio_conv", ("first_audio_conv",), "conv"),
+           ("final_conv", ("final_conv",), "conv"),
+           ("fc_t1", ("fc_t1",), "dense"),
+           ("fc_t2", ("fc_t2",), "dense")]
+    for n in range(len(cfg.upsample_ratios)):
+        down = ("downsample", n)
+        out.append((f"downsample.{n}.residual_dense",
+                    down + ("residual_dense",), "conv"))
+        out += [(f"downsample.{n}.convs.{i}", down + ("convs", i), "conv")
+                for i in range(3)]
+        pre, blk = f"lvc_blocks.{n}", ("lvc_blocks", n)
+        out.append((f"{pre}.upsample", blk + ("upsample",), "conv_t"))
+        out.append((f"{pre}.fc_t", blk + ("fc_t",), "dense"))
+        out += [(f"{pre}.convs.{i}", blk + ("convs", i), "conv")
+                for i in range(cfg.lvc_layers_each_block)]
+        kpre, kp = f"{pre}.kernel_predictor", blk + ("kernel_predictor",)
+        out.append((f"{kpre}.input_conv", kp + ("input_conv",), "conv"))
+        out += [(f"{kpre}.residual_convs.{i}", kp + ("residual_convs", i),
+                 "conv") for i in range(6)]
+        out.append((f"{kpre}.kernel_conv", kp + ("kernel_conv",), "conv"))
+        out.append((f"{kpre}.bias_conv", kp + ("bias_conv",), "conv"))
+    return out
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _set(tree, path, value) -> None:
+    """Set ``tree[path]``, making dicts and lists (for int keys) on the way."""
+    for key, nxt in zip(path, path[1:] + (None,)):
+        if isinstance(tree, list):
+            tree.extend([None] * (key + 1 - len(tree)))
+        if nxt is None:
+            tree[key] = value
+            return
+        if isinstance(tree, dict):
+            tree = tree.setdefault(key, [] if isinstance(nxt, int) else {})
+            continue
+        if tree[key] is None:
+            tree[key] = [] if isinstance(nxt, int) else {}
+        tree = tree[key]
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
 def _fused(p: dict, transpose: bool) -> np.ndarray:
     if "w" in p:
-        return np.asarray(p["w"], np.float32)
-    v = np.asarray(p["v"], np.float32)
-    g = np.asarray(p["g"], np.float32)
+        return _f32(p["w"])
+    v = _f32(p["v"])
+    g = _f32(p["g"])
     axes = (0, 2) if transpose else (0, 1)
     norm = np.sqrt(np.sum(v ** 2, axis=axes, keepdims=True) + 1e-12)
     scale = g[None, :, None] if transpose else g[None, None, :]
     return (scale * v / norm).astype(np.float32)
 
 
-def _conv(p: dict) -> tuple:
-    return _fused(p, False).transpose(2, 1, 0), p["b"]
+def _to_torch(w: np.ndarray, kind: str) -> np.ndarray:
+    """A JAX kernel in the PyTorch layout of ``kind``."""
+    if kind == "conv":
+        return w.transpose(2, 1, 0)
+    if kind == "conv_t":
+        return w[::-1].transpose(1, 2, 0)
+    return w.T
 
 
-def _conv_transpose(p: dict) -> tuple:
-    return _fused(p, True)[::-1].transpose(1, 2, 0), p["b"]
+def _from_torch(w: np.ndarray, kind: str) -> np.ndarray:
+    """Inverse of ``_to_torch``."""
+    if kind == "conv":
+        return w.transpose(2, 1, 0)
+    if kind == "conv_t":
+        return w.transpose(2, 0, 1)[::-1]
+    return w.T
 
 
-def _dense(p: dict) -> tuple:
-    return np.asarray(p["w"], np.float32).T, p["b"]
+def _tensor(a) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a, np.float32))
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     """JAX FastDiff tree (numpy leaves) -> ``FastDiff(cfg)`` state_dict."""
-    pairs = {
-        "first_audio_conv": _conv(tree["first_audio_conv"]),
-        "final_conv": _conv(tree["final_conv"]),
-        "fc_t1": _dense(tree["fc_t1"]),
-        "fc_t2": _dense(tree["fc_t2"]),
-    }
-    for n in range(len(cfg.upsample_ratios)):
-        down = tree["downsample"][n]
-        pairs[f"downsample.{n}.residual_dense"] = _conv(down["residual_dense"])
-        for i, conv in enumerate(down["convs"]):
-            pairs[f"downsample.{n}.convs.{i}"] = _conv(conv)
-        blk = tree["lvc_blocks"][n]
-        pre = f"lvc_blocks.{n}"
-        pairs[f"{pre}.upsample"] = _conv_transpose(blk["upsample"])
-        pairs[f"{pre}.fc_t"] = _dense(blk["fc_t"])
-        for i, conv in enumerate(blk["convs"]):
-            pairs[f"{pre}.convs.{i}"] = _conv(conv)
-        kp = blk["kernel_predictor"]
-        kpre = f"{pre}.kernel_predictor"
-        pairs[f"{kpre}.input_conv"] = _conv(kp["input_conv"])
-        for i, conv in enumerate(kp["residual_convs"]):
-            pairs[f"{kpre}.residual_convs.{i}"] = _conv(conv)
-        pairs[f"{kpre}.kernel_conv"] = _conv(kp["kernel_conv"])
-        pairs[f"{kpre}.bias_conv"] = _conv(kp["bias_conv"])
     state = {}
-    for name, (w, b) in pairs.items():
-        state[f"{name}.weight"] = torch.tensor(
-            np.ascontiguousarray(w, np.float32))
-        state[f"{name}.bias"] = torch.tensor(np.asarray(b, np.float32))
+    for name, path, kind in _entries(cfg):
+        p = _get(tree, path)
+        w = _f32(p["w"]) if kind == "dense" else _fused(p, kind == "conv_t")
+        state[f"{name}.weight"] = _tensor(_to_torch(w, kind))
+        state[f"{name}.bias"] = _tensor(p["b"])
     return state
+
+
+def trainable_params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
+    """JAX FastDiff tree with (v, g) leaves -> the state_dict of
+    ``FastDiff(cfg, train_route=...)``, weight norm kept."""
+    state = {}
+    for name, path, kind in _entries(cfg):
+        p = _get(tree, path)
+        if "v" in p:
+            state[f"{name}.v"] = _tensor(_to_torch(_f32(p["v"]), kind))
+            state[f"{name}.g"] = _tensor(p["g"])
+        else:
+            state[f"{name}.weight"] = _tensor(_to_torch(_f32(p["w"]), kind))
+        state[f"{name}.bias"] = _tensor(p["b"])
+    return state
+
+
+def params_to_jax(state: dict, cfg: ModelConfig) -> dict:
+    """A trainable state_dict (or tensors keyed like one) -> the JAX tree,
+    numpy float32 leaves in JAX's layouts."""
+    tree: dict = {}
+    for name, path, kind in _entries(cfg):
+        def get(key):
+            return state[f"{name}.{key}"].detach().cpu().float().numpy()
+        if f"{name}.v" in state:
+            p = {"v": np.ascontiguousarray(_from_torch(get("v"), kind)),
+                 "g": get("g")}
+        else:
+            p = {"w": np.ascontiguousarray(_from_torch(get("weight"), kind))}
+        p["b"] = get("bias")
+        _set(tree, path, p)
+    return tree

@@ -1,4 +1,5 @@
-"""FastDiff denoiser, NCL inference forward (``fastdiff_tpu/models/fastdiff.py``).
+"""FastDiff denoiser, NCL forward for inference and for training
+(``fastdiff_tpu/models/fastdiff.py``).
 
     input conv (k=7, 1->C)
       -> 3 DBlocks (nearest downsample x4, x8, x8), skips saved
@@ -17,6 +18,21 @@ weights are set: they are constant during inference.
 ``use_kernels`` picks the LVC head and block implementation: True calls the
 kernel wrappers (CUDA kernels on the card, their plain versions on CPU
 tensors); False calls the plain versions everywhere.
+
+``FastDiff(cfg, train_route=...)`` is the trainable model, the counterpart
+of ``_fastdiff_apply_ncl(train_sr=True)`` and of the routes
+``resolve_train_route`` picks. Every conv and transposed conv carries
+weight norm as parameters ``v``, ``g`` and ``bias`` (``ops/nn.py:
+conv_weight``; the dense layers have none); the head and block operands
+are packed from them inside the graph on every call; the final conv runs
+on its own, not as Kernel B's epilogue; and the LVC blocks run through the
+route's autograd Function:
+
+- ``ncl_sr``: Kernel A (``TaugHead``) and Kernel B-SR with the
+  saved-residual backward (``LVCBlockSR``);
+- ``ncl_vjp``: Kernel A and Kernel B with a recompute backward
+  (``LVCBlockRecompute``);
+- ``plain``: autograd through the plain head and block.
 """
 
 from __future__ import annotations
@@ -30,7 +46,55 @@ from fastdiff_tpu_torch.ops import lvc_head
 from fastdiff_tpu_torch.ops import nn as fnn
 
 
-def _conv_apply(conv: nn.Conv1d, x, dtype, dilation: int = 1):
+TRAIN_ROUTES = ("ncl_sr", "ncl_vjp", "plain")
+
+
+def resolve_train_route(hp: dict, device) -> str:
+    """The LVC block route of training from ``use_pallas_block``, the
+    counterpart of ``fastdiff_tpu/config.py:resolve_train_block``:
+    "ncl_sr" and "ncl_vjp" as given; "auto" or "" -> "ncl_sr" on a CUDA
+    device and "plain" on the CPU; false (and any other value) -> "plain";
+    true, the NWC block kernel, raises."""
+    raw = hp.get("use_pallas_block", "auto")
+    low = raw.strip().lower() if isinstance(raw, str) else raw
+    if raw is True or low in ("1", "true", "yes", "on"):
+        raise NotImplementedError(
+            "use_pallas_block: true selects the NWC block kernel, which is not "
+            "ported (ROADMAP.md queue 2, K6); use ncl_sr, ncl_vjp or false")
+    if low in ("ncl_sr", "ncl_vjp"):
+        return low
+    if low in ("auto", ""):
+        return "ncl_sr" if torch.device(device).type == "cuda" else "plain"
+    return "plain"
+
+
+class WNConv(nn.Module):
+    """A conv's parameters under weight norm: ``v`` in PyTorch's layout
+    ((O, I, K), or (I, O, K) for a transposed conv), ``g`` (v.shape[0],)
+    and ``bias`` (O,). ``weight`` resolves g * v / ||v|| on every access."""
+
+    def __init__(self, cin: int, cout: int, k: int, transpose: bool = False):
+        super().__init__()
+        shape = (cin, cout, k) if transpose else (cout, cin, k)
+        self.transpose = transpose
+        self.v = nn.Parameter(torch.empty(shape))
+        self.g = nn.Parameter(torch.empty(shape[0]))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    @property
+    def weight(self) -> torch.Tensor:
+        fn = fnn.conv_transpose_weight if self.transpose else fnn.conv_weight
+        return fn(self.v, self.g)
+
+
+def _layers(weight_norm: bool):
+    """(conv, transposed conv) constructors with PyTorch's signatures."""
+    if not weight_norm:
+        return nn.Conv1d, nn.ConvTranspose1d
+    return WNConv, lambda cin, cout, k: WNConv(cin, cout, k, transpose=True)
+
+
+def _conv_apply(conv: nn.Module, x, dtype, dilation: int = 1):
     return fnn.conv1d_ncl(conv.weight, conv.bias, x, dilation=dilation,
                           compute_dtype=dtype)
 
@@ -40,10 +104,10 @@ class DBlock(nn.Module):
     (``_dblock_apply_ncl``; the 1x1 conv runs after the downsample, which is
     exact since it is pointwise in time)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, conv=nn.Conv1d):
         super().__init__()
-        self.residual_dense = nn.Conv1d(c, c, 1)
-        self.convs = nn.ModuleList([nn.Conv1d(c, c, 3) for _ in range(3)])
+        self.residual_dense = conv(c, c, 1)
+        self.convs = nn.ModuleList([conv(c, c, 3) for _ in range(3)])
 
     def forward(self, x, factor: int, dtype):
         x = fnn.nearest_downsample_ncl(x, factor)
@@ -56,17 +120,17 @@ class DBlock(nn.Module):
 class KernelPredictor(nn.Module):
     """Conv trunk over the conditioning mel + the merged LVC kernel head."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, conv=nn.Conv1d):
         super().__init__()
         c, hid, ksz = (cfg.inner_channels, cfg.kpnet_hidden_channels,
                        cfg.kpnet_conv_size)
         layers, k = cfg.lvc_layers_each_block, cfg.lvc_kernel_size
-        self.input_conv = nn.Conv1d(cfg.cond_channels, hid, 5)
+        self.input_conv = conv(cfg.cond_channels, hid, 5)
         self.residual_convs = nn.ModuleList(
-            [nn.Conv1d(hid, hid, ksz) for _ in range(6)])
+            [conv(hid, hid, ksz) for _ in range(6)])
         # output channels in (layers, K, Cin, Cout) order
-        self.kernel_conv = nn.Conv1d(hid, layers * k * c * 2 * c, ksz)
-        self.bias_conv = nn.Conv1d(hid, layers * 2 * c, ksz)
+        self.kernel_conv = conv(hid, layers * k * c * 2 * c, ksz)
+        self.bias_conv = conv(hid, layers * 2 * c, ksz)
 
     def trunk(self, cond, dtype):
         """``_kp_trunk``: cond (B, cond_ch, F) -> (B, hid, F)."""
@@ -80,57 +144,84 @@ class KernelPredictor(nn.Module):
 class LVCBlock(nn.Module):
     """Time-aware LVC block (``_lvc_block_apply_ncl``)."""
 
-    def __init__(self, cfg: ModelConfig, ratio: int, hop: int):
+    def __init__(self, cfg: ModelConfig, ratio: int, hop: int,
+                 conv=nn.Conv1d, conv_t=nn.ConvTranspose1d):
         super().__init__()
         c = cfg.inner_channels
         self.ratio, self.hop = ratio, hop
         self.layers = cfg.lvc_layers_each_block
-        self.upsample = nn.ConvTranspose1d(c, c, 2 * ratio)
+        self.upsample = conv_t(c, c, 2 * ratio)
         self.fc_t = nn.Linear(cfg.diffusion_step_embed_dim_out,
                               cfg.cond_channels)
-        self.kernel_predictor = KernelPredictor(cfg)
+        self.kernel_predictor = KernelPredictor(cfg, conv)
         self.convs = nn.ModuleList(
-            [nn.Conv1d(c, c, cfg.lvc_kernel_size)
-             for _ in range(self.layers)])
+            [conv(c, c, cfg.lvc_kernel_size) for _ in range(self.layers)])
 
-    @torch.no_grad()
-    def pack(self, dtype):
+    def operands(self, dtype) -> tuple:
+        """(w_head, b_head, wstack_t) packed from the current weights."""
         kp = self.kernel_predictor
-        c = self.convs[0].weight.shape[0]
+        c = self.convs[0].bias.shape[0]
         w_head, b_head = lvc_head.pack_head(
             kp.kernel_conv.weight, kp.kernel_conv.bias, kp.bias_conv.weight,
             kp.bias_conv.bias, layers=self.layers, c=c, dtype=dtype)
         wstack_t = block_ops.stack_conv_weights(
             [cv.weight for cv in self.convs], [cv.bias for cv in self.convs],
             dtype=dtype)
-        self.register_buffer("w_head", w_head, persistent=False)
-        self.register_buffer("b_head", b_head, persistent=False)
-        self.register_buffer("wstack_t", wstack_t, persistent=False)
+        return w_head, b_head, wstack_t
 
-    def forward(self, x, skip, mel, emb, dtype, use_kernels: bool,
-                final_wb=None):
+    @torch.no_grad()
+    def pack(self, dtype):
+        for name, t in zip(("w_head", "b_head", "wstack_t"),
+                           self.operands(dtype)):
+            self.register_buffer(name, t, persistent=False)
+
+    def _taps(self, mel, emb, dtype):
+        """Predictor trunk taps (B*F, ksz*hid) in ``dtype``."""
         noise = fnn.dense(self.fc_t.weight, self.fc_t.bias, emb,
                           compute_dtype=dtype)                 # (B, cond) f32
         cond = mel + noise[:, :, None].to(mel.dtype)
         trunk = self.kernel_predictor.trunk(cond, dtype)       # (B, hid, F)
-        b, _, frames = trunk.shape
-        tap = lvc_head.head_taps(trunk.to(dtype))
-        head = (lvc_head.taug_head_matmul if use_kernels
-                else lvc_head.taug_head_matmul_plain)
-        c = self.convs[0].weight.shape[0]
-        kern = head(tap, self.w_head, self.b_head).reshape(
-            b, frames, self.layers, 2 * c, -1)
+        return lvc_head.head_taps(trunk.to(dtype))
 
+    def _upsample(self, x, dtype):
         x = fnn.leaky_relu(x, 0.2)
         r = self.ratio
         x = fnn.conv_transpose1d_ncl(
             self.upsample.weight, self.upsample.bias, x, stride=r,
             torch_padding=r // 2 + r % 2, output_padding=r % 2,
             compute_dtype=dtype)
+        return x.to(dtype).contiguous()
+
+    def forward(self, x, skip, mel, emb, dtype, use_kernels: bool,
+                final_wb=None):
+        b, _, frames = mel.shape
+        tap = self._taps(mel, emb, dtype)
+        head = (lvc_head.taug_head_matmul if use_kernels
+                else lvc_head.taug_head_matmul_plain)
+        c = self.convs[0].weight.shape[0]
+        kern = head(tap, self.w_head, self.b_head).reshape(
+            b, frames, self.layers, 2 * c, -1)
         block = (block_ops.lvc_block_ncl if use_kernels
                  else block_ops.lvc_block_ncl_plain)
-        return block(x.to(dtype).contiguous(), skip.to(dtype).contiguous(),
+        return block(self._upsample(x, dtype), skip.to(dtype).contiguous(),
                      kern, self.wstack_t, self.hop, final_wb)
+
+    def forward_train(self, x, skip, mel, emb, dtype, route: str):
+        """The trainable block: operands packed in the graph, the head and
+        block of ``route`` (see the module docstring)."""
+        b, _, frames = mel.shape
+        w_head, b_head, wstack_t = self.operands(dtype)
+        head = (lvc_head.taug_head_matmul_plain if route == "plain"
+                else lvc_head.TaugHead.apply)
+        kern = head(self._taps(mel, emb, dtype), w_head, b_head).reshape(
+            b, frames, self.layers, 2 * self.convs[0].bias.shape[0], -1)
+        args = (self._upsample(x, dtype), skip.to(dtype).contiguous(), kern,
+                wstack_t, self.hop)
+        if route == "ncl_sr":
+            return block_ops.LVCBlockSR.apply(*args)
+        if route == "ncl_vjp":
+            return block_ops.LVCBlockRecompute.apply(*args)
+        return block_ops.lvc_block_ncl_plain(*args)
 
 
 class FastDiff(nn.Module):
@@ -138,27 +229,34 @@ class FastDiff(nn.Module):
     t (B, 1)) -> (B, T, 1)`` float32, T == T' * prod(upsample_ratios)."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), *,
-                 seed: int | None = 0, device=None):
+                 seed: int | None = 0, device=None,
+                 train_route: str | None = None):
         super().__init__()
         if cfg.audio_channels != 1:
             raise ValueError("the NCL forward needs audio_channels == 1")
+        if train_route is not None and train_route not in TRAIN_ROUTES:
+            raise ValueError(f"train_route {train_route!r} is not one of "
+                             f"{TRAIN_ROUTES}")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
         self.use_kernels = True
+        self.train_route = train_route
+        conv, conv_t = _layers(train_route is not None
+                               and cfg.use_weight_norm)
         c = cfg.inner_channels
-        self.first_audio_conv = nn.Conv1d(cfg.audio_channels, c, 7)
-        self.final_conv = nn.Conv1d(c, cfg.audio_channels, 7)
+        self.first_audio_conv = conv(cfg.audio_channels, c, 7)
+        self.final_conv = conv(c, cfg.audio_channels, 7)
         self.fc_t1 = nn.Linear(cfg.diffusion_step_embed_dim_in,
                                cfg.diffusion_step_embed_dim_mid)
         self.fc_t2 = nn.Linear(cfg.diffusion_step_embed_dim_mid,
                                cfg.diffusion_step_embed_dim_out)
         self.lvc_blocks = nn.ModuleList(
-            [LVCBlock(cfg, r, hop) for r, hop in
+            [LVCBlock(cfg, r, hop, conv, conv_t) for r, hop in
              zip(cfg.upsample_ratios, cfg.cond_hop_lengths)])
         # downsample[n] shrinks by the reversed ratio order
         self.downsample = nn.ModuleList(
-            [DBlock(c) for _ in cfg.upsample_ratios])
+            [DBlock(c, conv) for _ in cfg.upsample_ratios])
         if seed is not None:
             self.init_weights(torch.Generator().manual_seed(seed))
         self.pack()
@@ -172,6 +270,13 @@ class FastDiff(nn.Module):
         O*K for a transposed conv). Weight norm starts at g = ||v||, so the
         fused weight equals v."""
         for module in self.modules():
+            if isinstance(module, WNConv):
+                # fan_in is v[0].numel() for both layouts: I*K and O*K
+                bound = module.v[0].numel() ** -0.5
+                module.v.uniform_(-bound, bound, generator=generator)
+                module.bias.uniform_(-bound, bound, generator=generator)
+                module.g.copy_(module.v.flatten(1).norm(dim=1))
+                continue
             if isinstance(module, nn.ConvTranspose1d):
                 fan_in = module.weight.shape[1] * module.weight.shape[2]
             elif isinstance(module, (nn.Conv1d, nn.Linear)):
@@ -185,7 +290,10 @@ class FastDiff(nn.Module):
 
     @torch.no_grad()
     def pack(self):
-        """Pack the kernels' constant operands from the current weights."""
+        """Pack the kernels' constant operands from the current weights
+        (inference only: the trainable model packs on every call)."""
+        if self.train_route is not None:
+            return
         for block in self.lvc_blocks:
             block.pack(self.dtype)
         self.register_buffer(
@@ -199,8 +307,9 @@ class FastDiff(nn.Module):
         self.pack()
         return result
 
-    def forward(self, audio: torch.Tensor, mel: torch.Tensor,
-                t: torch.Tensor) -> torch.Tensor:
+    def _down_path(self, audio, mel, t):
+        """Step embedding, audio conv and DBlocks -> (emb, x, skips in LVC
+        block order, mel (B, n_mels, F) in the compute dtype)."""
         cfg, dtype = self.cfg, self.dtype
         emb = fnn.diffusion_step_embedding(t, cfg.diffusion_step_embed_dim_in)
         emb = fnn.swish(fnn.dense(self.fc_t1.weight, self.fc_t1.bias, emb))
@@ -213,15 +322,32 @@ class FastDiff(nn.Module):
         for dblock, factor in zip(self.downsample, cfg.upsample_ratios[::-1]):
             skips.append(x)
             x = dblock(x, factor, dtype)
+        return emb, x, skips[::-1], mel.to(dtype).transpose(1, 2)
 
-        mel_ncl = mel.to(dtype).transpose(1, 2)
+    def forward(self, audio: torch.Tensor, mel: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+        if self.train_route is not None:
+            return self._forward_train(audio, mel, t)
+        dtype = self.dtype
+        b, length, _ = audio.shape
+        emb, x, skips, mel_ncl = self._down_path(audio, mel, t)
         n_blocks = len(self.lvc_blocks)
-        for n, block in enumerate(self.lvc_blocks):
+        for n, (block, skip) in enumerate(zip(self.lvc_blocks, skips)):
             last = n == n_blocks - 1
-            x = block(x, skips[n_blocks - 1 - n], mel_ncl, emb, dtype,
-                      self.use_kernels, self.final_wb if last else None)
+            x = block(x, skip, mel_ncl, emb, dtype, self.use_kernels,
+                      self.final_wb if last else None)
         _, fin = x
         return fin.reshape(b, length, 1)
+
+    def _forward_train(self, audio, mel, t):
+        dtype = self.dtype
+        b, length, _ = audio.shape
+        emb, x, skips, mel_ncl = self._down_path(audio, mel, t)
+        for block, skip in zip(self.lvc_blocks, skips):
+            x = block.forward_train(x, skip, mel_ncl, emb, dtype,
+                                    self.train_route)
+        out = _conv_apply(self.final_conv, x, dtype)
+        return out.float().reshape(b, length, 1)
 
 
 def num_params(model: nn.Module) -> int:

@@ -34,6 +34,10 @@ SIGNATURES = {
     # B, C, L, F, hop, rows_p, layers, stream
     "lvc_block_ncl_launch": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, skip, kern, wstack_t, out, s_all, y_all, z_all,
+    # B, C, L, F, hop, rows_p, layers, stream
+    "lvc_block_ncl_sr_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

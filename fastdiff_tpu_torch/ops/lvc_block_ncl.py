@@ -1,7 +1,10 @@
-"""The whole 4-layer LVC block, NCL: Kernel B and its operands.
+"""The whole 4-layer LVC block, NCL: Kernel B, Kernel B-SR, their operands
+and the two trainable forms of the block.
 
 Counterpart of ``fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_aug`` (with
-and without its ``final_wb`` epilogue). Layer i of the block, d = 3^i:
+and without its ``final_wb`` epilogue), ``lvc_block_ncl_aug_sr`` and the
+custom VJPs of ``lvc_block_ncl`` and ``lvc_block_ncl_taug_sr``. Layer i of
+the block, d = 3^i:
 
     s     = carry + skip
     y     = leaky0.2(W_i . [a(t-d); a; a(t+d); 1]),   a = leaky0.2(s)
@@ -18,6 +21,18 @@ The JAX kernel only fuses blocks whose hop and frame count fit its tiling
 block of every request runs through it. On a CUDA tensor
 ``lvc_block_ncl`` launches ``csrc/lvc_block_ncl.cu``; on a CPU tensor it
 runs the plain version, which keeps the kernel's cast points.
+
+Training (``models/fastdiff.py`` routes):
+
+- ``ncl_sr``: ``LVCBlockSR``. The forward is Kernel B-SR
+  (``lvc_block_ncl_sr``), which also writes s, y and z of every layer; the
+  backward is ``lvc_block_sr_backward``, plain PyTorch over those saved
+  values, with no recompute of the forward.
+- ``ncl_vjp``: ``LVCBlockRecompute``. The forward is Kernel B; the backward
+  recomputes the plain block under autograd and differentiates it.
+
+The JAX package has no Pallas backward either: both backwards are the same
+plain math as its ``_sr_backward`` and ``_nat_bwd``.
 """
 
 from __future__ import annotations
@@ -26,11 +41,13 @@ import torch
 import torch.nn.functional as F
 
 from fastdiff_tpu_torch.ops import _build
-from fastdiff_tpu_torch.ops.lvc import lvc_gated_residual
+from fastdiff_tpu_torch.ops.lvc import (location_variable_convolution,
+                                        lvc_gated_residual)
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
 # launches of the CUDA kernel since the last reset (plain runs not counted)
-LAUNCHES = {"lvc_block_ncl": 0, "lvc_block_ncl_final": 0}
+LAUNCHES = {"lvc_block_ncl": 0, "lvc_block_ncl_final": 0,
+            "lvc_block_ncl_sr": 0}
 
 # what csrc/lvc_block_ncl.cu is built for
 KERNEL_CHANNELS = 32
@@ -56,27 +73,39 @@ def final_conv_wb(w: torch.Tensor, b: torch.Tensor,
                      dim=0).to(dtype).contiguous()
 
 
+def _conv_stage(carry, skip, wstack_t, i: int):
+    """Layer i up to the LVC: s = carry + skip, y = leaky(dilated conv of
+    leaky(s)) summed in float32 and rounded to carry.dtype."""
+    c = carry.shape[1]
+    rows, d = 3 * c, 3 ** i
+    s = carry + skip
+    w = wstack_t[i, :, :rows].reshape(c, 3, c).permute(0, 2, 1)
+    y = F.conv1d(leaky_relu(s).float(), w.float(),
+                 wstack_t[i, :, rows].float(), padding=d, dilation=d)
+    return s, leaky_relu(y).to(carry.dtype)
+
+
+def _lvc_operands(kern_taug, i: int, c: int):
+    """Layer i's per-frame LVC kernels (B, F, 3, C, 2C) and biases
+    (B, F, 2C) out of kern_taug (B, F, layers, 2C, rows_p)."""
+    b, frames, _, c2, _ = kern_taug.shape
+    k_i = kern_taug[:, :, i]                                 # (B, F, 2C, R)
+    kernel = k_i[..., :3 * c].reshape(b, frames, c2, 3, c).permute(
+        0, 1, 3, 4, 2)
+    return kernel, k_i[..., 3 * c]
+
+
 def lvc_block_ncl_plain(x: torch.Tensor, skip: torch.Tensor,
                         kern_taug: torch.Tensor, wstack_t: torch.Tensor,
                         hop: int, final_wb: torch.Tensor | None = None):
     """Plain PyTorch Kernel B, with the kernel's cast points: sums in
     float32, s / y / the gate rounded to x.dtype where the kernel rounds."""
-    b, c, length = x.shape
-    _, frames, layers, c2, _ = kern_taug.shape
-    rows = 3 * c
+    c = x.shape[1]
     carry = x
-    for i in range(layers):
-        d = 3 ** i
-        s = carry + skip
-        a = leaky_relu(s)
-        w = wstack_t[i, :, :rows].reshape(c, 3, c).permute(0, 2, 1)
-        y = F.conv1d(a.float(), w.float(), wstack_t[i, :, rows].float(),
-                     padding=d, dilation=d)
-        y = leaky_relu(y).to(x.dtype)
-        k_i = kern_taug[:, :, i]                             # (B, F, 2C, R)
-        kernel = k_i[..., :rows].reshape(b, frames, c2, 3, c).permute(
-            0, 1, 3, 4, 2)                                   # (B, F, 3, C, 2C)
-        carry = lvc_gated_residual(s, y, kernel, k_i[..., rows], hop)
+    for i in range(kern_taug.shape[2]):
+        s, y = _conv_stage(carry, skip, wstack_t, i)
+        kernel, bias = _lvc_operands(kern_taug, i, c)
+        carry = lvc_gated_residual(s, y, kernel, bias, hop)
     if final_wb is None:
         return carry
     fin = F.conv1d(carry.float(), final_wb[:7].float().t()[None],
@@ -84,7 +113,29 @@ def lvc_block_ncl_plain(x: torch.Tensor, skip: torch.Tensor,
     return carry, fin
 
 
-def _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, final_wb):
+def lvc_block_ncl_sr_plain(x: torch.Tensor, skip: torch.Tensor,
+                           kern_taug: torch.Tensor, wstack_t: torch.Tensor,
+                           hop: int) -> tuple:
+    """Plain PyTorch Kernel B-SR: ``lvc_block_ncl_plain``'s math and cast
+    points, returning (out, s_all, y_all, z_all) with s_all, y_all (B,
+    layers, C, L) and z_all (B, layers, 2C, L) in x.dtype (z summed in
+    float32, then rounded)."""
+    c = x.shape[1]
+    carry = x
+    saved = ([], [], [])
+    for i in range(kern_taug.shape[2]):
+        s, y = _conv_stage(carry, skip, wstack_t, i)
+        kernel, bias = _lvc_operands(kern_taug, i, c)
+        z = location_variable_convolution(y, kernel, bias, hop)
+        carry = s + (torch.sigmoid(z[:, :c]) * torch.tanh(z[:, c:])).to(
+            x.dtype)
+        for kept, v in zip(saved, (s, y, z.to(x.dtype))):
+            kept.append(v)
+    return (carry, *(torch.stack(kept, dim=1) for kept in saved))
+
+
+def _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, final_wb,
+                         fn: str = "lvc_block_ncl"):
     b, c, length = x.shape
     if kern_taug.dim() != 5:
         raise ValueError(f"kern_taug must be 5-D, got {tuple(kern_taug.shape)}")
@@ -95,16 +146,14 @@ def _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, final_wb):
         named.append(("final_wb", final_wb))
     for name, t in named:
         if t.device != x.device:
-            raise ValueError(f"lvc_block_ncl: {name} on {t.device}, "
-                             f"x on {x.device}")
+            raise ValueError(f"{fn}: {name} on {t.device}, x on {x.device}")
         if t.dtype != torch.bfloat16:
-            raise ValueError(f"lvc_block_ncl: {name} must be bf16, "
-                             f"got {t.dtype}")
+            raise ValueError(f"{fn}: {name} must be bf16, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"lvc_block_ncl: {name} must be contiguous and "
-                             "16-byte aligned")
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte "
+                             "aligned")
     if c != KERNEL_CHANNELS or layers != KERNEL_LAYERS:
-        raise ValueError(f"lvc_block_ncl: the kernel is built for C="
+        raise ValueError(f"{fn}: the kernel is built for C="
                          f"{KERNEL_CHANNELS}, {KERNEL_LAYERS} layers; got "
                          f"C={c}, {layers} layers")
     if (skip.shape != x.shape or kern_taug.shape[0] != b or c2 != 2 * c
@@ -113,7 +162,7 @@ def _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, final_wb):
             or wstack_t.shape != (layers, c, 3 * c + 1)
             or (final_wb is not None and final_wb.shape != (8, c))):
         raise ValueError(
-            f"lvc_block_ncl: bad shapes x {tuple(x.shape)}, skip "
+            f"{fn}: bad shapes x {tuple(x.shape)}, skip "
             f"{tuple(skip.shape)}, kern_taug {tuple(kern_taug.shape)}, "
             f"wstack_t {tuple(wstack_t.shape)}, hop {hop}")
 
@@ -155,3 +204,154 @@ def lvc_block_ncl(x: torch.Tensor, skip: torch.Tensor,
         return out
     LAUNCHES["lvc_block_ncl_final"] += 1
     return out, fin
+
+
+def lvc_block_ncl_sr(x: torch.Tensor, skip: torch.Tensor,
+                     kern_taug: torch.Tensor, wstack_t: torch.Tensor,
+                     hop: int) -> tuple:
+    """Kernel B-SR: Kernel B's operands -> (out (B, C, L), s_all, y_all
+    (B, layers, C, L), z_all (B, layers, 2C, L)), the residuals that
+    ``lvc_block_sr_backward`` reads.
+
+    CPU tensors run ``lvc_block_ncl_sr_plain``. CUDA tensors (all bf16,
+    C = 32, 4 layers) launch ``csrc/lvc_block_ncl.cu``'s SAVE variant or
+    raise."""
+    if x.device.type == "cpu":
+        return lvc_block_ncl_sr_plain(x, skip, kern_taug, wstack_t, hop)
+    if x.device.type != "cuda":
+        raise ValueError(f"lvc_block_ncl_sr: unsupported device {x.device}")
+    _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, None,
+                         "lvc_block_ncl_sr")
+    b, c, length = x.shape
+    _, frames, layers, _, rows_p = kern_taug.shape
+    out = torch.empty_like(x)
+    s_all = x.new_empty((b, layers, c, length))
+    y_all = x.new_empty((b, layers, c, length))
+    z_all = x.new_empty((b, layers, 2 * c, length))
+    if b == 0 or length == 0:
+        return out, s_all, y_all, z_all
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lvc_block_ncl_sr_launch(
+            x.data_ptr(), skip.data_ptr(), kern_taug.data_ptr(),
+            wstack_t.data_ptr(), out.data_ptr(), s_all.data_ptr(),
+            y_all.data_ptr(), z_all.data_ptr(), b, c, length, frames, hop,
+            rows_p, layers, stream)
+    _build.check(code, "lvc_block_ncl_sr_launch")
+    LAUNCHES["lvc_block_ncl_sr"] += 1
+    return out, s_all, y_all, z_all
+
+
+def _shift(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Time shift with zero fill: out[..., l] = a[..., l - k]."""
+    length = a.shape[-1]
+    if k == 0:
+        return a
+    if abs(k) >= length:
+        return torch.zeros_like(a)
+    if k > 0:
+        return F.pad(a[..., :length - k], (k, 0))
+    return F.pad(a[..., -k:], (0, -k))
+
+
+def _leaky_grad(v: torch.Tensor) -> torch.Tensor:
+    """leaky0.2' read from a saved value's sign (leaky keeps the sign)."""
+    return torch.where(v > 0, 1.0, 0.2)
+
+
+def lvc_block_sr_backward(kern_taug, wstack_t, s_all, y_all, z_all,
+                          g: torch.Tensor, hop: int) -> tuple:
+    """Backward of the block from Kernel B-SR's residuals, op for op the
+    JAX ``_sr_backward``: g = dL/d out (B, C, L) -> (dx, dskip, dkern_taug,
+    dwstack_t). Per layer, last first:
+
+        dz     = g * d(sigmoid(z[:C]) * tanh(z[C:]))          rounded to s's dtype
+        dK_f   = dz_f @ tap_y_f^T,  dtap_y = K_f^T @ dz_f     per frame f
+        dy     = taps of dtap_y folded back * leaky'(y)       rounded
+        dW_i   = dy @ tap_a^T,      da = taps of W_i^T @ dy folded back
+        ds     = g + da * leaky'(s);  dskip += ds;  g = ds
+
+    Products of rounded operands are summed in float32; dkern is padded
+    with zeros to kern_taug's rows_p."""
+    b, layers, c, length = s_all.shape
+    rows = 3 * c + 1
+    frames = length // hop
+    cdtype = s_all.dtype
+    ones = torch.ones((b, 1, length), dtype=cdtype, device=s_all.device)
+    g = g.float()
+    dskip = torch.zeros_like(g)
+    dks, dws = [], []
+    for i in reversed(range(layers)):
+        d = 3 ** i
+        s_i, y_i = s_all[:, i], y_all[:, i]
+        z_i = z_all[:, i].float()
+        sg = torch.sigmoid(z_i[:, :c])
+        th = torch.tanh(z_i[:, c:])
+        dz = torch.cat([g * th * sg * (1.0 - sg), g * sg * (1.0 - th * th)],
+                       dim=1).to(cdtype)                       # (B, 2C, L)
+        # LVC backward: the per-frame products, transposed
+        dz_r = dz.float().reshape(b, 2 * c, frames, hop)
+        tap_y = torch.cat([_shift(y_i, 1), y_i, _shift(y_i, -1), ones], dim=1)
+        tap_y_r = tap_y.float().reshape(b, rows, frames, hop)
+        dks.append(torch.einsum("bcfh,brfh->bfcr", dz_r, tap_y_r))
+        k_i = kern_taug[:, :, i, :, :rows].float()             # (B, F, 2C, R)
+        dtap = torch.einsum("bfcr,bcfh->brfh", k_i, dz_r).reshape(
+            b, rows, length)
+        dy = (_shift(dtap[:, :c], -1) + dtap[:, c:2 * c]
+              + _shift(dtap[:, 2 * c:3 * c], 1))
+        dy_raw = (dy * _leaky_grad(y_i)).to(cdtype).float()
+        # dilated-conv backward
+        a_i = leaky_relu(s_i)
+        tap_a = torch.cat([_shift(a_i, d), a_i, _shift(a_i, -d), ones], dim=1)
+        dtap_a = torch.einsum("cr,bcl->brl", wstack_t[i].float(), dy_raw)
+        dws.append(torch.einsum("bcl,brl->cr", dy_raw, tap_a.float()))
+        da = (_shift(dtap_a[:, :c], -d) + dtap_a[:, c:2 * c]
+              + _shift(dtap_a[:, 2 * c:3 * c], d))
+        ds = g + da * _leaky_grad(s_i)
+        dskip = dskip + ds
+        g = ds
+    dkern = F.pad(torch.stack(dks[::-1], dim=2),
+                  (0, kern_taug.shape[-1] - rows))
+    dwstack = torch.stack(dws[::-1], dim=0)
+    return (g.to(cdtype), dskip.to(cdtype), dkern.to(kern_taug.dtype),
+            dwstack.to(wstack_t.dtype))
+
+
+class LVCBlockSR(torch.autograd.Function):
+    """The ``ncl_sr`` block: Kernel B-SR forward (``lvc_block_ncl_sr``),
+    saved-residual backward (``lvc_block_sr_backward``), no recompute.
+    ``apply(x, skip, kern_taug, wstack_t, hop) -> out``."""
+
+    @staticmethod
+    def forward(ctx, x, skip, kern_taug, wstack_t, hop):
+        out, s_all, y_all, z_all = lvc_block_ncl_sr(x, skip, kern_taug,
+                                                    wstack_t, hop)
+        ctx.save_for_backward(kern_taug, wstack_t, s_all, y_all, z_all)
+        ctx.hop = hop
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = lvc_block_sr_backward(*ctx.saved_tensors, g, ctx.hop)
+        return (*grads, None)
+
+
+class LVCBlockRecompute(torch.autograd.Function):
+    """The ``ncl_vjp`` block: Kernel B forward (``lvc_block_ncl``); the
+    backward recomputes ``lvc_block_ncl_plain`` under autograd and
+    differentiates it, as JAX's ``_nat_bwd`` does through its unfused
+    reference. ``apply(x, skip, kern_taug, wstack_t, hop) -> out``."""
+
+    @staticmethod
+    def forward(ctx, x, skip, kern_taug, wstack_t, hop):
+        ctx.save_for_backward(x, skip, kern_taug, wstack_t)
+        ctx.hop = hop
+        return lvc_block_ncl(x, skip, kern_taug, wstack_t, hop)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = lvc_block_ncl_plain(*inputs, ctx.hop)
+        return (*torch.autograd.grad(out, inputs, g), None)

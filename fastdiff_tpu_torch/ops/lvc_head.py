@@ -16,6 +16,9 @@ package pads to its 128-lane tile instead).
 
 On a CUDA tensor ``taug_head_matmul`` launches the hand-written kernel
 (``csrc/taug_head.cu``); on a CPU tensor it runs the plain version.
+``TaugHead`` is the trainable form: Kernel A forward, and the plain matmul
+VJP of the JAX ``_taug5d_bwd`` as its backward. ``pack_head`` and
+``head_taps`` are differentiable.
 """
 
 from __future__ import annotations
@@ -114,3 +117,26 @@ def taug_head_matmul(tap: torch.Tensor, w_head: torch.Tensor,
     _build.check(code, "taug_head_launch")
     LAUNCHES["taug_head"] += 1
     return out
+
+
+class TaugHead(torch.autograd.Function):
+    """Trainable Kernel A: ``apply(tap, w_head, b_head)`` runs
+    ``taug_head_matmul``; the backward is JAX's ``_taug5d_bwd``:
+    dtap = g @ w_head^T rounded to tap's dtype, dw = tap^T @ g rounded to
+    w_head's dtype, db = sum of g in float32 (products of the rounded
+    operands, summed in float32)."""
+
+    @staticmethod
+    def forward(ctx, tap, w_head, b_head):
+        ctx.save_for_backward(tap, w_head)
+        ctx.b_dtype = b_head.dtype
+        return taug_head_matmul(tap, w_head, b_head)
+
+    @staticmethod
+    def backward(ctx, g):
+        tap, w_head = ctx.saved_tensors
+        gf = g.reshape(g.shape[0], -1)
+        dtap = (gf.float() @ w_head.to(gf.dtype).float().t()).to(tap.dtype)
+        dw = (tap.float().t() @ gf.to(tap.dtype).float()).to(w_head.dtype)
+        db = gf.float().sum(dim=0).to(ctx.b_dtype)
+        return dtap, dw, db

@@ -1,8 +1,10 @@
 """NCL conv, transposed conv, dense and activations (``fastdiff_tpu/ops/nn.py``).
 
 Weights are in PyTorch's layouts: ``Conv1d`` (O, I, K), ``ConvTranspose1d``
-(I, O, K), ``Linear`` (O, I). Weight norm is fused once when the weights are
-loaded (``models/bridge.py``), so no op here resolves a (g, v) pair.
+(I, O, K), ``Linear`` (O, I). Inference takes weights with weight norm
+already fused (``models/bridge.py``); training resolves each (v, g) pair on
+every call with ``conv_weight`` / ``conv_transpose_weight``, the JAX
+formulas, differentiably.
 
 Cast points follow the JAX ops: under a ``compute_dtype`` the input and the
 weight are rounded to it, the products accumulate in float32, the bias is
@@ -23,6 +25,22 @@ def _cast(x, w, compute_dtype):
     if compute_dtype is None:
         return x, w, torch.float32
     return x.to(compute_dtype), w.to(compute_dtype), compute_dtype
+
+
+def conv_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight-normed conv kernel: v (O, I, K), g (O,) -> g * v / ||v|| with
+    the norm over (I, K) for each output channel, ``+ 1e-12`` under the
+    square root (``fastdiff_tpu/ops/nn.py:conv_weight``)."""
+    norm = torch.sqrt(torch.sum(v ** 2, dim=(1, 2), keepdim=True) + 1e-12)
+    return g[:, None, None] * v / norm
+
+
+def conv_transpose_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight-normed transposed-conv kernel: v (I, O, K), g (I,) -> the norm
+    over (O, K) for each input channel (``conv_transpose_weight`` in JAX).
+    In PyTorch's layouts both norms keep dim 0, so the formula is
+    ``conv_weight``'s."""
+    return conv_weight(v, g)
 
 
 def conv1d_ncl(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,

@@ -24,9 +24,23 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.diffusion.sampler\n"
             "import fastdiff_tpu_torch.vocoders.fastdiff_vocoder\n"
             "import fastdiff_tpu_torch.serving.server\n"
+            "import fastdiff_tpu_torch.diffusion.losses\n"
+            "import fastdiff_tpu_torch.training.optim\n"
+            "import fastdiff_tpu_torch.training.checkpoint\n"
+            "import fastdiff_tpu_torch.training.task\n"
+            "import fastdiff_tpu_torch.training.trainer\n"
             "from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import "
             "model_config_from_hparams\n"
             "model_config_from_hparams({'use_pallas_block': 'auto'})\n"
+            "from fastdiff_tpu_torch.models.fastdiff import "
+            "resolve_train_route\n"
+            "assert resolve_train_route({'use_pallas_block': 'auto'}, "
+            "'cpu') == 'plain'\n"
+            "assert resolve_train_route({'use_pallas_block': 'auto'}, "
+            "'cuda') == 'ncl_sr'\n"
+            "from fastdiff_tpu_torch.training.task import FastDiffTask\n"
+            "assert FastDiffTask({'use_pallas_block': 'auto'}).route == "
+            "'plain'\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
             "assert not bad, bad\n"
