@@ -19,9 +19,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    plain path, bounded by a relative L2 error;
 6. the N=4 sampler on 10 s of audio (864 frames, 221,184 samples, b = 1),
    kernel and plain paths timed with CUDA events after warm-up;
-7. the port's HTTP server on 127.0.0.1: three mels of 100, 256 and 864
-   frames, each answered with a WAV of frames * 256 finite samples, each
-   raising every kernel's launch count by exactly 3 blocks x 4 steps;
+7. the port's HTTP server on 127.0.0.1 (the NCL route): three mels of
+   100, 256 and 864 frames, each answered with a WAV of frames * 256
+   finite samples, each raising Kernel A's and Kernel B's launch counts by
+   exactly 3 blocks x 4 steps;
 8. Kernel B-SR (the training block, which also writes s, y and z) against
    its plain version at the training recipe's shapes (b = 20, 100 frames,
    hops 8, 64 and 256), with phase 4's bounds;
@@ -38,12 +39,27 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     train and 4 valid items of 120-200 frames, written to a temporary
     directory): 6 updates at the recipe's batch with validation and a
     checkpoint every 3, then a second ``fit`` to 8 that resumes from step
-    6; every train step launches Kernel A and Kernel B-SR exactly 3 times.
+    6; every train step launches Kernel A and Kernel B-SR exactly 3 times;
+12. K7 (the NWC route's row-major head GEMM) against its plain version at
+    864 x 192 @ 192 x 24,832, within one bf16 ulp of the largest output;
+13. K6 (the NWC LVC block) against its plain version at hops 64 and 256
+    with 864 frames and at b = 2 x 100 frames of hop 64 (a multi-tile edge
+    case), with phase 4's bounds;
+14. K8 (the fused down path) against its plain version at 221,184 samples
+    (b = 1) and at two 2,048-sample halo units (b = 2), each output within
+    4 bf16 ulps of its largest value;
+15. the NWC route (``use_pallas_block: true``, ``use_pallas_down: true``):
+    a full-width bf16 denoiser forward, kernels against plain (relative L2
+    <= 5e-2); the N=4 sampler at 864 frames, kernel and plain paths timed
+    with CUDA events; the HTTP server built from those hparams answering
+    100, 256 and 864 frames, each request raising K6 and K7 by exactly 8,
+    K8 by 4 (256 and 864 frames) or 0 (100 frames: not a multiple of
+    2,048 samples, so the plain down path runs, as in JAX), K1 and K3 by 0.
 
 Any failed check exits non-zero. The line before the last is a JSON
-object with each kernel's launches (phase 7 for the inference kernels,
-phase 11 for Kernel B-SR), its largest error against its plain version,
-and its time beside the plain version's; the last line is
+object with each of the seven kernels' launches (phase 7 for K1-K3, phase
+11 for K4, phase 15 for K6-K8), its largest error against its plain
+version, and its time beside the plain version's; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -131,6 +147,86 @@ def grad_errors(torch, fn, plain, args, gout):
         leaves = [a.detach().clone().requires_grad_() for a in args]
         return torch.autograd.grad(f(*leaves), leaves, gout)
     return [rel_l2(a, b) for a, b in zip(grads(fn), grads(plain))]
+
+
+def serve_and_count(n, service, start_server, counters, expected,
+                    cond_channels):
+    """The port's HTTP server on 127.0.0.1 with ``service``: after a
+    16-frame warm-up, every counter in ``counters`` is set to 0 and one mel
+    per entry of ``expected`` ({frames: {label: (counter keys, rise)}}) is
+    POSTed to /vocode. Each answer must be a WAV of frames * 256 finite
+    samples, and each label's counters must rise by exactly its rise.
+    Returns the counts after the requests."""
+    import http.client
+    finite = []
+    spec2wav = service.vocoder.spec2wav
+
+    def checked_spec2wav(m):
+        wav = spec2wav(m)
+        finite.append(bool(np.isfinite(wav).all()))
+        return wav
+
+    service.vocoder.spec2wav = checked_spec2wav
+    httpd, thread = start_server(service, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+
+    def counts():
+        merged = {}
+        for counter in counters:
+            merged.update(counter)
+        return merged
+
+    try:
+        service.warmup(frames=16)
+        for counter in counters:
+            for key in counter:
+                counter[key] = 0
+        rng = np.random.default_rng(0)
+        for frames, rises in expected.items():
+            before = counts()
+            mel_np = (rng.normal(size=(frames, cond_channels)) - 4.0
+                      ).astype(np.float32)
+            buf = io.BytesIO()
+            np.save(buf, mel_np)
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            t0 = time.perf_counter()
+            conn.request("POST", "/vocode", body=buf.getvalue())
+            resp = conn.getresponse()
+            body = resp.read()
+            conn.close()
+            ms = (time.perf_counter() - t0) * 1e3
+            if resp.status != 200:
+                fail(f"/vocode {frames} frames: HTTP {resp.status} "
+                     f"{body[:200]!r}")
+            with wave.open(io.BytesIO(body)) as w:
+                n_samples = w.getnframes()
+            after = counts()
+            got = {label: sum(after[k] - before[k] for k in keys)
+                   for label, (keys, _) in rises.items()}
+            print(f"  [phase {n}] /vocode {frames} frames: HTTP 200, "
+                  f"{n_samples} samples, {ms:.1f} ms wall, launches "
+                  + " ".join(f"{label} +{v}" for label, v in got.items()),
+                  flush=True)
+            if n_samples != frames * HOP_SIZE:
+                fail(f"WAV has {n_samples} samples, expected "
+                     f"{frames * HOP_SIZE}")
+            if not finite or not finite[-1]:
+                fail("vocoded waveform is not finite")
+            want = {label: rise for label, (_, rise) in rises.items()}
+            if got != want:
+                fail(f"kernel launches rose by {got}; expected {want}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = conn.getresponse()
+        health.read()
+        conn.close()
+        if health.status != 200:
+            fail(f"/healthz answered {health.status}")
+        return counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
 
 
 def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
@@ -387,6 +483,157 @@ def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase12_aug_head(torch, nwc_ops, randn, c, layers, hid):
+    """K7 against its plain version at the 10 s head shape."""
+    m, k, n = FRAMES_10S, 3 * hid, layers * (3 * c + 1) * 2 * c
+    tap = randn(m, k)
+    w_aug = randn(k, n, scale=0.05)
+    b_aug = randn(n, scale=0.1, dtype=torch.float32)
+    out_k = nwc_ops.aug_head_matmul(tap, w_aug, b_aug)
+    out_p = nwc_ops.aug_head_matmul_plain(tap, w_aug, b_aug)
+    torch.cuda.synchronize()
+    err = max_abs(out_k, out_p)
+    # f32 sums in another order, one bf16 rounding: at most one bf16 ulp
+    bound = 2.0 ** -7 * float(out_p.float().abs().max()) + 1e-6
+    ms_k, ms_p = race(torch, lambda: nwc_ops.aug_head_matmul_plain(
+        tap, w_aug, b_aug), lambda: nwc_ops.aug_head_matmul(
+        tap, w_aug, b_aug), 20)
+    phase(12, f"K7 aug_head ({m}x{k} @ {k}x{n}): max_abs_err {err:.3e} "
+              f"(bound {bound:.3e}), kernel {ms_k:.4f} ms, plain "
+              f"{ms_p:.4f} ms per call")
+    if not err <= bound or not bool(out_k.isfinite().all()):
+        fail("K7 disagrees with its plain version")
+    # two fused blocks (hops 64 and 256) per denoiser forward
+    return dict(max_abs_err=err, ms=2 * ms_k, plain_ms=2 * ms_p)
+
+
+def phase13_nwc_block(torch, nwc_ops, randn, c, layers):
+    """K6 against its plain version at the route's hops, 864 frames, and a
+    multi-tile edge case; phase 4's bounds."""
+    rows = 3 * c + 1
+    wstack = randn(layers, rows, c, scale=0.1)
+    worst, ms_k, ms_p = 0.0, 0.0, 0.0
+    for hop, frames, b, on_path in ((64, FRAMES_10S, 1, True),
+                                    (256, FRAMES_10S, 1, True),
+                                    (64, 100, 2, False)):
+        length = frames * hop
+        x = randn(b, length, c)
+        skip = randn(b, length, c)
+        kern_aug = randn(b, frames, layers, rows, 2 * c, scale=0.05)
+
+        def run_k():
+            return nwc_ops.lvc_block_nwc(x, skip, kern_aug, wstack, hop)
+
+        def run_p():
+            return nwc_ops.lvc_block_nwc_plain(x, skip, kern_aug, wstack, hop)
+
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        (e, r), = check_pairs([(got, ref)], f"K6 (hop {hop}, {frames} "
+                                           f"frames, b {b})")
+        k, p = race(torch, run_p, run_k, 10)
+        phase(13, f"K6 lvc_block_nwc hop {hop}, {frames} frames, b {b}: "
+                  f"max_abs_err {e:.3e} rel_l2 {r:.3e}; kernel {k:.4f} ms, "
+                  f"plain {p:.4f} ms")
+        worst = max(worst, e)
+        if on_path:
+            ms_k += k
+            ms_p += p
+    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p)
+
+
+def phase14_downpath(torch, down_ops, model, dev):
+    """K8 against its plain version at 10 s (b = 1) and at two halo units
+    (b = 2), with the model's packed weights; each output within 4 bf16
+    ulps of its largest value."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    factors = tuple(model.cfg.upsample_ratios[::-1])
+    packs = (model.down_first, model.down_res, model.down_conv)
+    worst, ms_k, ms_p = 0.0, 0.0, 0.0
+    for b, length, on_path in ((1, FRAMES_10S * HOP_SIZE, True),
+                               (2, 2 * 2048, False)):
+        audio = torch.randn((b, length, 1), generator=gen, device=dev)
+
+        def run_k():
+            return down_ops.downpath_fused(audio, *packs, factors)
+
+        def run_p():
+            return down_ops.downpath_plain(audio, *packs, factors)
+
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        errs = []
+        for i, (a, r) in enumerate(zip(got, ref)):
+            e = max_abs(a, r)
+            bound = 2.0 ** -5 * float(r.float().abs().max())
+            errs.append(e)
+            if a.shape != r.shape or not e <= bound or not bool(
+                    a.isfinite().all()):
+                fail(f"K8 output {i} disagrees with its plain version "
+                     f"(b {b}, {length} samples): {e:.3e} > {bound:.3e}")
+        k, p = race(torch, run_p, run_k, 10)
+        phase(14, f"K8 downpath b {b} x {length} samples: max_abs_err "
+                  + ", ".join(f"{e:.3e}" for e in errs) + " (skip0, skip1, "
+                  f"skip2, x; bound 4 bf16 ulps of each); kernel {k:.4f} ms, "
+                  f"plain {p:.4f} ms")
+        worst = max([worst] + errs)
+        if on_path:
+            ms_k, ms_p = k, p
+    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p)
+
+
+def phase15_nwc_route(torch, model, sample, const, gen, dev):
+    """The NWC route's full-width forward, kernels against plain, and its
+    N = 4 sampler at 864 frames, kernel and plain paths timed."""
+    cfg = model.cfg
+    length = FRAMES_10S * HOP_SIZE
+    audio = torch.randn((1, length, 1), generator=gen, device=dev)
+    mel = torch.randn((1, FRAMES_10S, cfg.cond_channels), generator=gen,
+                      device=dev)
+    t = torch.full((1, 1), 498.0, device=dev)
+    model.use_kernels = True
+    eps_k = model(audio, mel, t)
+    model.use_kernels = False
+    eps_p = model(audio, mel, t)
+    torch.cuda.synchronize()
+    err = rel_l2(eps_k, eps_p)
+    phase(15, f"NWC denoiser forward (1, {length}, 1) bf16: kernel vs plain "
+              f"rel_l2 {err:.3e} (bound 5e-2), max_abs_err "
+              f"{max_abs(eps_k, eps_p):.3e}")
+    if eps_k.shape != (1, length, 1) or not torch.isfinite(eps_k).all():
+        fail("NWC denoiser output has the wrong shape or is not finite")
+    if not err <= 5e-2:
+        fail("NWC denoiser kernel path disagrees with the plain path")
+    times, wavs = {}, {}
+    for use in (False, True, True, False):
+        model.use_kernels = use
+        g = torch.Generator(device=dev).manual_seed(1)
+
+        def run():
+            return sample(model, mel, const, length, generator=g)
+
+        run()                                      # warm-up
+        times.setdefault(use, []).append(cuda_ms(torch, run, 3))
+        wavs[use] = run()
+    model.use_kernels = True
+    audio_s = length * AUDIO_SECONDS_PER_SAMPLE
+    out = {}
+    for use, label in ((True, "kernel"), (False, "plain")):
+        ms = sum(times[use]) / len(times[use])
+        out[label] = ms
+        print(f"  [phase 15] NWC sampler {label}: {ms:.3f} ms per utterance, "
+              f"{audio_s / (ms / 1e3):.1f} x realtime (runs "
+              f"{', '.join(f'{v:.3f}' for v in times[use])} ms)", flush=True)
+    for wav in wavs.values():
+        if wav.shape != (1, length, 1) or not torch.isfinite(wav).all():
+            fail("NWC sampler output has the wrong shape or is not finite")
+    phase(15, f"NWC N=4 sampler, {FRAMES_10S} frames ({audio_s:.2f} s): "
+              f"kernel {out['kernel']:.3f} ms, plain {out['plain']:.3f} ms; "
+              f"kernel vs plain waveform rel_l2 "
+              f"{rel_l2(wavs[True], wavs[False]):.3e}")
+    return out
+
+
 def main():
     import torch
 
@@ -401,7 +648,9 @@ def main():
         from fastdiff_tpu_torch.diffusion.sampler import (
             constants_for_hparams, sample)
         from fastdiff_tpu_torch.models.fastdiff import FastDiff
-        from fastdiff_tpu_torch.ops import _build, lvc_block_ncl, lvc_head
+        from fastdiff_tpu_torch.ops import (_build, downpath_pallas,
+                                            lvc_block_ncl, lvc_block_pallas,
+                                            lvc_head)
         from fastdiff_tpu_torch.serving.server import (VocoderService,
                                                        start_server)
         from fastdiff_tpu_torch.training.task import FastDiffTask
@@ -588,75 +837,16 @@ def main():
         del model, eps_k, eps_p, wavs
 
     # --- phase 7: HTTP server, main path -----------------------------------
-    service = VocoderService({"N": 4, "seed": 1234}, device=dev)
-    finite = []
-    spec2wav = service.vocoder.spec2wav
-
-    def checked_spec2wav(m):
-        wav = spec2wav(m)
-        finite.append(bool(np.isfinite(wav).all()))
-        return wav
-
-    service.vocoder.spec2wav = checked_spec2wav
-    httpd, thread = start_server(service, "127.0.0.1", 0)
-    port = httpd.server_address[1]
     counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES)
-    serving = ("taug_head", "lvc_block_ncl", "lvc_block_ncl_final")
-    try:
-        import http.client
-        service.warmup(frames=16)
-        for counter in counters:
-            for key in counter:
-                counter[key] = 0
-        rng = np.random.default_rng(0)
-        per_step = len(cfg.upsample_ratios) * const.n_steps
-        for frames in (100, 256, FRAMES_10S):
-            before = {**counters[0], **counters[1]}
-            mel_np = (rng.normal(size=(frames, cfg.cond_channels)) - 4.0
-                      ).astype(np.float32)
-            buf = io.BytesIO()
-            np.save(buf, mel_np)
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-            t0 = time.perf_counter()
-            conn.request("POST", "/vocode", body=buf.getvalue())
-            resp = conn.getresponse()
-            body = resp.read()
-            conn.close()
-            ms = (time.perf_counter() - t0) * 1e3
-            if resp.status != 200:
-                fail(f"/vocode {frames} frames: HTTP {resp.status} "
-                     f"{body[:200]!r}")
-            with wave.open(io.BytesIO(body)) as w:
-                n_samples = w.getnframes()
-            after = {**counters[0], **counters[1]}
-            rise_a = after["taug_head"] - before["taug_head"]
-            rise_b = (after["lvc_block_ncl"] + after["lvc_block_ncl_final"]
-                      - before["lvc_block_ncl"]
-                      - before["lvc_block_ncl_final"])
-            print(f"  /vocode {frames} frames: HTTP 200, {n_samples} "
-                  f"samples, {ms:.1f} ms wall, launches A +{rise_a} "
-                  f"B +{rise_b}", flush=True)
-            if n_samples != frames * HOP_SIZE:
-                fail(f"WAV has {n_samples} samples, expected "
-                     f"{frames * HOP_SIZE}")
-            if not finite or not finite[-1]:
-                fail("vocoded waveform is not finite")
-            if rise_a != per_step or rise_b != per_step:
-                fail(f"kernel launches rose by A {rise_a}, B {rise_b}; "
-                     f"expected {per_step} each")
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        conn.request("GET", "/healthz")
-        health = conn.getresponse()
-        health.read()
-        conn.close()
-        if health.status != 200:
-            fail(f"/healthz answered {health.status}")
-        launches = {k: v for k, v in {**counters[0], **counters[1]}.items()
-                    if k in serving}
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        thread.join(timeout=30)
+    per_step = len(cfg.upsample_ratios) * const.n_steps
+    rises = {"A": (("taug_head",), per_step),
+             "B": (("lvc_block_ncl", "lvc_block_ncl_final"), per_step)}
+    launches = serve_and_count(
+        7, VocoderService({"N": 4, "seed": 1234}, device=dev), start_server,
+        counters, {frames: rises for frames in (100, 256, FRAMES_10S)},
+        cfg.cond_channels)
+    launches = {k: launches[k] for k in
+                ("taug_head", "lvc_block_ncl", "lvc_block_ncl_final")}
     phase(7, f"server answered 3 requests; launches in the main path: "
              f"{launches}")
     if any(v == 0 for v in launches.values()):
@@ -674,6 +864,44 @@ def main():
         fail("a kernel of the training path was never launched")
     launches["lvc_block_ncl_sr"] = train_launches["lvc_block_ncl_sr"]
 
+    # --- phases 12-15: the NWC route ---------------------------------------
+    nwc_model = FastDiff(cfg, seed=0, device=dev, infer_route="nwc",
+                         down_kernel=True).eval()
+    with torch.inference_mode():
+        report["aug_head"] = phase12_aug_head(
+            torch, lvc_block_pallas, randn, c, layers,
+            cfg.kpnet_hidden_channels)
+        report["lvc_block_nwc"] = phase13_nwc_block(
+            torch, lvc_block_pallas, randn, c, layers)
+        report["downpath"] = phase14_downpath(torch, downpath_pallas,
+                                              nwc_model, dev)
+        nwc_sampler = phase15_nwc_route(torch, nwc_model, sample, const, gen,
+                                        dev)
+    del nwc_model
+    steps = const.n_steps
+    # per request: K6 and K7 on the hop-64 and hop-256 blocks of every step;
+    # K8 once a step where the length is a multiple of 2048 (256 and 864
+    # frames, not 100); nothing of the NCL route
+    nwc_launches = serve_and_count(
+        15, VocoderService({"N": 4, "seed": 1234, "use_pallas_block": True,
+                            "use_pallas_down": True}, device=dev),
+        start_server, (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
+                       lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES),
+        {frames: {"K6": (("lvc_block_nwc",), 2 * steps),
+                  "K7": (("aug_head",), 2 * steps),
+                  "K8": (("downpath",), k8),
+                  "K1": (("lvc_block_ncl", "lvc_block_ncl_final"), 0),
+                  "K3": (("taug_head",), 0)}
+         for frames, k8 in ((100, 0), (256, steps), (FRAMES_10S, steps))},
+        cfg.cond_channels)
+    nwc_launches = {k: nwc_launches[k] for k in
+                    ("lvc_block_nwc", "aug_head", "downpath")}
+    phase(15, f"NWC server answered 3 requests; launches in the main path: "
+              f"{nwc_launches}")
+    if any(v == 0 for v in nwc_launches.values()):
+        fail("a kernel of the NWC route was never launched")
+    launches.update(nwc_launches)
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -683,12 +911,21 @@ def main():
                                 "fastdiff_tpu/ops/lvc_block_ncl.py:422"),
         "lvc_block_ncl_sr": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
                              "fastdiff_tpu/ops/lvc_block_ncl.py:468"),
+        "lvc_block_nwc": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
+                          "fastdiff_tpu/ops/lvc_block_pallas.py:238"),
+        "aug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
+                     "fastdiff_tpu/ops/lvc_block_pallas.py:396"),
+        "downpath": ("fastdiff_tpu_torch/csrc/downpath.cu",
+                     "fastdiff_tpu/ops/downpath_pallas.py:230"),
     }
     print("  kernel ms below are per denoiser forward at 864 frames: "
           "taug_head 3 calls, lvc_block_ncl hops 8 + 64, "
-          "lvc_block_ncl_final hop 256; lvc_block_ncl_sr per train-step "
+          "lvc_block_ncl_final hop 256, aug_head 2 calls, lvc_block_nwc "
+          "hops 64 + 256, downpath 1 call; lvc_block_ncl_sr per train-step "
           "forward at the recipe (hops 8 + 64 + 256, b 20 x 100 frames), "
-          "its launches from phase 11", flush=True)
+          "its launches from phase 11; launches of taug_head and "
+          "lvc_block_ncl* from phase 7, of lvc_block_nwc, aug_head and "
+          "downpath from phase 15", flush=True)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
                     max_abs_err=report[name]["max_abs_err"],
@@ -697,6 +934,8 @@ def main():
     print(json.dumps({"kernels": kernels,
                       "sampler_ms": report["sampler_kernel_ms"],
                       "sampler_plain_ms": report["sampler_plain_ms"],
+                      "nwc_sampler_ms": nwc_sampler["kernel"],
+                      "nwc_sampler_plain_ms": nwc_sampler["plain"],
                       "train_step": train_report, "fit_s": fit_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 // Kernel B: the whole 4-layer time-aware LVC block, NCL layout, with an
-// optional epilogue for the model's final k=7 C->1 conv, and Kernel B-SR,
-// the same block writing the per-layer residuals that the training backward
-// reads.
+// optional epilogue for the model's final k=7 C->1 conv; Kernel B-SR, the
+// same block writing the per-layer residuals that the training backward
+// reads; and K6, the same block in the NWC layout (template flag NWC).
 //
 // Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_aug, both of its
 // pallas_call sites (_kernel_body and _kernel_body_final, through
@@ -42,6 +42,24 @@
 // 0.16 ms at 3.35 TB/s against the block's f32 math: the stores, not the
 // algorithm, are what the SAVE variant adds.
 
+// K6 (template flag NWC) replaces fastdiff_tpu/ops/lvc_block_pallas.py:
+// _fused_call (its pallas_call, body _kernel_body), the block of the NWC
+// route. Same formula; the layouts are those of that route:
+//   x, skip, out  (B, L, C): one sample's 32 channels are 64 contiguous
+//                 bytes; they load into and store from the same [C][EXT]
+//                 shared-memory tiles, with no transpose in device memory;
+//   kern_aug      (B, F, layers, 3C+1, 2C): the contraction row outermost,
+//                 unpadded. Each row is 2C bf16 = 128 bytes, so the LVC loop
+//                 runs over rows and reads 16-byte vectors of 8 outputs
+//                 (an axpy per row) where the NCL layout reads 8 rows of one
+//                 output (a dot); nothing is padded or re-laid in HBM (the
+//                 operand is 42.9 MB per block call at 864 frames);
+//   wstack        (layers, 3C+1, C): staged into the same f32 tile as
+//                 wstack_t, read in its own order.
+// Like K1 it recomputes a 48-sample halo per tile, so any hop >= 1 and any
+// frame count work; the route still calls it only where JAX's fusable
+// admits the block (hop >= 64, at least 2 frames).
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +85,25 @@ __device__ __forceinline__ float leaky(float v) {
   return v >= 0.0f ? v : 0.2f * v;
 }
 
+// element (c, g) of a (C, L) NCL or (L, C) NWC activation row of one batch
+template <bool NWC>
+__device__ __forceinline__ size_t act_at(int c, long g, int L) {
+  return NWC ? (size_t)g * C + c : (size_t)c * L + g;
+}
+
+// acc[j] += k[j] * v over 8 bf16 packed in a 16-byte vector
+__device__ __forceinline__ void axpy8(uint4 k, float v, float* acc) {
+  const uint32_t words[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    __nv_bfloat162 pair;
+    *reinterpret_cast<uint32_t*>(&pair) = words[q];
+    const float2 f = __bfloat1622float2(pair);
+    acc[2 * q] = fmaf(f.x, v, acc[2 * q]);
+    acc[2 * q + 1] = fmaf(f.y, v, acc[2 * q + 1]);
+  }
+}
+
 // acc + sum_q k[q] * v[q] over 8 bf16 packed in a 16-byte vector
 __device__ __forceinline__ float dot8(uint4 k, const float* v, float acc) {
   const uint32_t words[4] = {k.x, k.y, k.z, k.w};
@@ -81,7 +118,7 @@ __device__ __forceinline__ float dot8(uint4 k, const float* v, float acc) {
   return acc;
 }
 
-template <bool FINAL, bool SAVE>
+template <bool FINAL, bool SAVE, bool NWC>
 __global__ void __launch_bounds__(EXT, 2)
 lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
                  const bf16* __restrict__ kern,
@@ -104,12 +141,12 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
   const bool valid = g >= 0 && g < L;
   // SAVE: this thread's sample is one the tile outputs
   const bool save = SAVE && valid && e >= HALO && e < HALO + TILE;
-  const bf16* xb = x + (size_t)b * C * L;
+  const bf16* xb = x + (size_t)b * C * L;     // one batch row, either layout
   const bf16* sb = skip + (size_t)b * C * L;
   const bf16 zero = __float2bfloat16(0.0f);
 
   for (int c = 0; c < C; ++c)
-    carry[c * EXT + e] = valid ? xb[(size_t)c * L + g] : zero;
+    carry[c * EXT + e] = valid ? xb[act_at<NWC>(c, g, L)] : zero;
   if (FINAL)
     for (int idx = e; idx < 8 * C; idx += EXT) wf[idx] = to_f(final_wb[idx]);
 
@@ -120,11 +157,12 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
   int d = 1;
   for (int i = 0; i < LAYERS; ++i, d *= 3) {
     __syncthreads();
-    // stage W_i transposed (wt[r][o]) and its bias column
+    // stage W_i as wt[r][o] and its bias: wstack_t (C, 3C+1) rows are
+    // outputs, NWC's wstack (3C+1, C) rows are contraction rows
     const bf16* w = wstack + (size_t)i * C * ROWS;
     for (int idx = e; idx < C * ROWS; idx += EXT) {
-      const int o = idx / ROWS;
-      const int r = idx % ROWS;
+      const int o = NWC ? idx % C : idx / ROWS;
+      const int r = NWC ? idx / C : idx % ROWS;
       const float v = to_f(w[idx]);
       if (r < 3 * C)
         wt[r * C + o] = v;
@@ -138,7 +176,9 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
     bf16* zi = z_all + ((size_t)b * LAYERS + i) * 2 * C * L + g;
     for (int c = 0; c < C; ++c) {
       float s = 0.0f;
-      if (valid) s = round_bf(to_f(carry[c * EXT + e]) + to_f(sb[(size_t)c * L + g]));
+      if (valid)
+        s = round_bf(to_f(carry[c * EXT + e]) +
+                     to_f(sb[act_at<NWC>(c, g, L)]));
       carry[c * EXT + e] = __float2bfloat16(s);
       act[c * EXT + e] = __float2bfloat16(leaky(s));
       if (save) si[(size_t)c * L] = __float2bfloat16(s);
@@ -180,29 +220,48 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
     const bf16* ki = kern_f + (size_t)i * 2 * C * rows_p;
     for (int oc = 0; oc < C; oc += 8) {
       float zs[8], zt[8];
+      if (NWC) {  // ki[r][o]: rows of 2C outputs, 16-byte vectors along o
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        zs[j] = to_f(ki[(size_t)(oc + j) * rows_p + 3 * C]);
-        zt[j] = to_f(ki[(size_t)(C + oc + j) * rows_p + 3 * C]);
-      }
+        for (int j = 0; j < 8; ++j) zs[j] = zt[j] = 0.0f;
+        const bf16* kb = ki + (size_t)3 * C * 2 * C;   // the bias row
+        axpy8(__ldg(reinterpret_cast<const uint4*>(kb + oc)), 1.0f, zs);
+        axpy8(__ldg(reinterpret_cast<const uint4*>(kb + C + oc)), 1.0f, zt);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int src = e + k - 1;
-        const bool in = src >= 0 && src < EXT;
-        for (int c8 = 0; c8 < C; c8 += 8) {
-          float v[8];
+        for (int k = 0; k < 3; ++k) {
+          const int src = e + k - 1;
+          const bool in = src >= 0 && src < EXT;
+          for (int c = 0; c < C; ++c) {
+            const float v = in ? to_f(ybuf[c * EXT + src]) : 0.0f;
+            const bf16* kr = ki + (size_t)(k * C + c) * 2 * C;
+            axpy8(__ldg(reinterpret_cast<const uint4*>(kr + oc)), v, zs);
+            axpy8(__ldg(reinterpret_cast<const uint4*>(kr + C + oc)), v, zt);
+          }
+        }
+      } else {  // ki[o][r]: rows_p-padded rows, 16-byte vectors along r
 #pragma unroll
-          for (int q = 0; q < 8; ++q)
-            v[q] = in ? to_f(ybuf[(c8 + q) * EXT + src]) : 0.0f;
-          const int r = k * C + c8;
+        for (int j = 0; j < 8; ++j) {
+          zs[j] = to_f(ki[(size_t)(oc + j) * rows_p + 3 * C]);
+          zt[j] = to_f(ki[(size_t)(C + oc + j) * rows_p + 3 * C]);
+        }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const uint4 ks = __ldg(reinterpret_cast<const uint4*>(
-                ki + (size_t)(oc + j) * rows_p + r));
-            const uint4 kt = __ldg(reinterpret_cast<const uint4*>(
-                ki + (size_t)(C + oc + j) * rows_p + r));
-            zs[j] = dot8(ks, v, zs[j]);
-            zt[j] = dot8(kt, v, zt[j]);
+        for (int k = 0; k < 3; ++k) {
+          const int src = e + k - 1;
+          const bool in = src >= 0 && src < EXT;
+          for (int c8 = 0; c8 < C; c8 += 8) {
+            float v[8];
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              v[q] = in ? to_f(ybuf[(c8 + q) * EXT + src]) : 0.0f;
+            const int r = k * C + c8;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const uint4 ks = __ldg(reinterpret_cast<const uint4*>(
+                  ki + (size_t)(oc + j) * rows_p + r));
+              const uint4 kt = __ldg(reinterpret_cast<const uint4*>(
+                  ki + (size_t)(C + oc + j) * rows_p + r));
+              zs[j] = dot8(ks, v, zs[j]);
+              zt[j] = dot8(kt, v, zt[j]);
+            }
           }
         }
       }
@@ -222,7 +281,7 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
 
   if (e < HALO || e >= HALO + TILE || !valid) return;
   bf16* ob = out + (size_t)b * C * L;
-  for (int c = 0; c < C; ++c) ob[(size_t)c * L + g] = carry[c * EXT + e];
+  for (int c = 0; c < C; ++c) ob[act_at<NWC>(c, g, L)] = carry[c * EXT + e];
   if (FINAL) {
     float acc = wf[7 * C];
 #pragma unroll
@@ -237,17 +296,17 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
   }
 }
 
-template <bool FINAL, bool SAVE>
+template <bool FINAL, bool SAVE, bool NWC = false>
 int launch(const void* x, const void* skip, const void* kern,
            const void* wstack, const void* final_wb, void* out, void* fin,
            void* s_all, void* y_all, void* z_all, int B, int L, int F,
            int hop, int rows_p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      lvc_block_kernel<FINAL, SAVE>,
+      lvc_block_kernel<FINAL, SAVE, NWC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + TILE - 1) / TILE, B);
-  lvc_block_kernel<FINAL, SAVE><<<grid, EXT, SMEM_BYTES, stream>>>(
+  lvc_block_kernel<FINAL, SAVE, NWC><<<grid, EXT, SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
       static_cast<const bf16*>(kern), static_cast<const bf16*>(wstack),
       static_cast<const bf16*>(final_wb), static_cast<bf16*>(out),
@@ -301,4 +360,23 @@ extern "C" int lvc_block_ncl_sr_launch(const void* x, const void* skip,
   return launch<false, true>(x, skip, kern, wstack_t, nullptr, out, nullptr,
                              s_all, y_all, z_all, B, L, F, hop, rows_p,
                              static_cast<cudaStream_t>(stream));
+}
+
+// K6: the block in the NWC layout. x, skip, out (B, L, C) bf16; kern_aug
+// (B, F, layers, 3C+1, 2C) bf16, rows unpadded (rows == 3C+1); wstack
+// (layers, 3C+1, C) bf16. Only C = 32 and layers = 4 are built (the Python
+// wrapper checks). Launches on `stream`; returns cudaGetLastError() (or the
+// attribute call's error).
+extern "C" int lvc_block_nwc_launch(const void* x, const void* skip,
+                                    const void* kern_aug, const void* wstack,
+                                    void* out, int B, int channels, int L,
+                                    int F, int hop, int rows, int layers,
+                                    void* stream) {
+  if (channels != C || layers != LAYERS || rows != ROWS || hop < 1 ||
+      (long)F * hop != L)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false, false, true>(x, skip, kern_aug, wstack, nullptr, out,
+                                    nullptr, nullptr, nullptr, nullptr, B, L,
+                                    F, hop, rows,
+                                    static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,8 @@
-// Kernel A: the LVC kernel-predictor head GEMM, emitted in the LVC block's
-// operand layout.
+// Kernel A (K3) and K7: the LVC kernel-predictor head GEMM, emitted in the
+// operand layout of the LVC block that reads it. One GEMM, two layouts: the
+// output is row-major (M, N) for both, and the packed weights' column order
+// makes it K1's kern_taug (2C, rows_p)-minor (K3, taug_head_launch) or K6's
+// kern_aug (3C+1, 2C)-minor with no row padding (K7, aug_head_launch).
 //
 // Replaces fastdiff_tpu/ops/lvc_block_pallas.py:taug_head_matmul_5d (body
 // _head_mm5d_body). It computes
@@ -146,6 +149,21 @@ extern "C" int taug_head_launch(const void* tap, const void* w_head,
       static_cast<const bf16*>(tap), static_cast<const bf16*>(w_head),
       static_cast<const float*>(b_head), static_cast<bf16*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7: the same GEMM for the NWC route's head (replaces fastdiff_tpu/ops/
+// lvc_block_pallas.py:aug_head_matmul). tap (M, K) @ w_aug (K, N) + b_aug
+// (N,) -> out (M, N) bf16, row-major with no row padding: N = layers *
+// (3C+1) * 2C, so out read as (B, F, layers, 3C+1, 2C) is K6's kern_aug
+// (24,832 columns at C = 32 against K3's 26,624). K must be a multiple of 8
+// and N of 16; other shapes return cudaErrorInvalidValue (the Python wrapper
+// raises first).
+extern "C" int aug_head_launch(const void* tap, const void* w_aug,
+                               const void* b_aug, void* out, int M, int N,
+                               int K, void* stream) {
+  if (K % 8 != 0 || N % 16 != 0 || M < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return taug_head_launch(tap, w_aug, b_aug, out, M, N, K, stream);
 }
 
 extern "C" const char* fastdiff_cuda_error_string(int code) {

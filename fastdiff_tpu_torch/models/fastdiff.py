@@ -1,4 +1,4 @@
-"""FastDiff denoiser, NCL forward for inference and for training
+"""FastDiff denoiser: NCL and NWC forwards for inference, NCL for training
 (``fastdiff_tpu/models/fastdiff.py``).
 
     input conv (k=7, 1->C)
@@ -8,16 +8,32 @@
          diffusion-step embedding through a kernel predictor
       -> output conv (k=7, C->1), run as the last LVC block's epilogue
 
-Same function as the JAX ``use_pallas_block="ncl"`` route
-(``_fastdiff_apply_ncl``). Parameter names mirror the JAX tree from
-``init_fastdiff``; weights are the weight-norm-fused ones (``bridge.py``
-converts a JAX tree). The operands of the two kernels (merged head weights,
-stacked conv weights, final-conv taps) are packed once, by ``pack``, when
-weights are set: they are constant during inference.
+Two inference routes, picked by ``infer_route`` (``resolve_infer_route``
+reads it from ``use_pallas_block``), with the same parameters and the same
+``state_dict``, so one converted JAX tree loads into either:
 
-``use_kernels`` picks the LVC head and block implementation: True calls the
-kernel wrappers (CUDA kernels on the card, their plain versions on CPU
-tensors); False calls the plain versions everywhere.
+- ``"ncl"``: the JAX ``use_pallas_block="ncl"`` route
+  (``_fastdiff_apply_ncl``), (B, C, L) activations; every LVC block runs
+  Kernel A (K3) and Kernel B (K1), the last with the final conv as K2's
+  epilogue.
+- ``"nwc"``: the JAX ``use_pallas_block=True`` route (``fastdiff_apply``'s
+  NWC branch), (B, L, C) activations. Blocks that JAX's ``fusable`` admits
+  (hops 64 and 256) run K7 (row-major head) and K6 (NWC block); the hop-8
+  block runs the plain NWC loop with separate kernel and bias heads, as in
+  JAX. With ``down_kernel`` (``use_pallas_down``) the first conv and the
+  DBlocks run as K8 where JAX runs its kernel: bf16, three blocks and
+  ``downpath_fusable(L)``; elsewhere they run the plain NWC ops.
+
+Parameter names mirror the JAX tree from ``init_fastdiff``; weights are the
+weight-norm-fused ones (``bridge.py`` converts a JAX tree). The kernels'
+constant operands (merged head weights, stacked conv weights, final-conv
+taps, down-path packs) are packed once, by ``pack``, for the model's route
+when weights are set.
+
+``use_kernels`` picks the implementation of every kernel of the route (the
+LVC heads and blocks, and the down path): True calls the kernel wrappers
+(CUDA kernels on the card, their plain versions on CPU tensors); False
+calls the plain versions everywhere.
 
 ``FastDiff(cfg, train_route=...)`` is the trainable model, the counterpart
 of ``_fastdiff_apply_ncl(train_sr=True)`` and of the routes
@@ -41,12 +57,47 @@ import torch
 from torch import nn
 
 from fastdiff_tpu.config import ModelConfig
+from fastdiff_tpu_torch.ops import downpath_pallas as down_ops
 from fastdiff_tpu_torch.ops import lvc_block_ncl as block_ops
+from fastdiff_tpu_torch.ops import lvc_block_pallas as nwc_ops
 from fastdiff_tpu_torch.ops import lvc_head
 from fastdiff_tpu_torch.ops import nn as fnn
+from fastdiff_tpu_torch.ops.lvc import lvc_gated_residual_nwc
 
 
 TRAIN_ROUTES = ("ncl_sr", "ncl_vjp", "plain")
+INFER_ROUTES = ("ncl", "nwc")
+_TRUE = ("1", "true", "yes", "on")
+
+
+def resolve_infer_route(hp: dict) -> str:
+    """The inference route from ``use_pallas_block``, the jax-free
+    counterpart of ``fastdiff_tpu/config.py:resolve_pallas_block``:
+
+    - true (or "1", "yes", "on") -> "nwc": K6, K7 and, with
+      ``use_pallas_down``, K8, as JAX runs its NWC kernels;
+    - "auto", "", "ncl", "ncl_sr", "ncl_vjp" -> "ncl";
+    - "ncl_fh" -> "ncl": JAX's fused-head kernel (K5) is not ported yet, so
+      the port runs K1 + K3 for it (the vocoder says so when it is built);
+      JAX's own tests hold ``ncl_fh`` equal to ``ncl``;
+    - false (and any other value) -> "ncl". JAX runs its XLA path there;
+      the port has no separate plain route for inference and keeps the NCL
+      route with its kernels, as it always has."""
+    raw = hp.get("use_pallas_block", "auto")
+    if not isinstance(raw, str):
+        return "nwc" if bool(raw) else "ncl"
+    return "nwc" if raw.strip().lower() in _TRUE else "ncl"
+
+
+def resolve_down_kernel(hp: dict) -> bool:
+    """``use_pallas_down`` as ``fastdiff_tpu/config.py:resolve_pallas_down``
+    parses it: "auto" or "" -> False, strings true when "1", "true", "yes"
+    or "on", anything else by its truth value. Only the NWC route reads
+    it, as in JAX."""
+    raw = hp.get("use_pallas_down", "auto")
+    if isinstance(raw, str):
+        return raw.strip().lower() in _TRUE
+    return bool(raw)
 
 
 def resolve_train_route(hp: dict, device) -> str:
@@ -54,13 +105,14 @@ def resolve_train_route(hp: dict, device) -> str:
     counterpart of ``fastdiff_tpu/config.py:resolve_train_block``:
     "ncl_sr" and "ncl_vjp" as given; "auto" or "" -> "ncl_sr" on a CUDA
     device and "plain" on the CPU; false (and any other value) -> "plain";
-    true, the NWC block kernel, raises."""
+    true, the trainable NWC route (not ported), raises."""
     raw = hp.get("use_pallas_block", "auto")
     low = raw.strip().lower() if isinstance(raw, str) else raw
-    if raw is True or low in ("1", "true", "yes", "on"):
+    if raw is True or low in _TRUE:
         raise NotImplementedError(
-            "use_pallas_block: true selects the NWC block kernel, which is not "
-            "ported (ROADMAP.md queue 2, K6); use ncl_sr, ncl_vjp or false")
+            "use_pallas_block: true selects the trainable NWC route "
+            "(nwc_vjp), which is not ported (ROADMAP.md queue 1 item 7d, "
+            "the trainable NWC route); use ncl_sr, ncl_vjp or false")
     if low in ("ncl_sr", "ncl_vjp"):
         return low
     if low in ("auto", ""):
@@ -99,6 +151,11 @@ def _conv_apply(conv: nn.Module, x, dtype, dilation: int = 1):
                           compute_dtype=dtype)
 
 
+def _conv_apply_nwc(conv: nn.Module, x, dtype, dilation: int = 1):
+    return fnn.conv1d_nwc(conv.weight, conv.bias, x, dilation=dilation,
+                          compute_dtype=dtype)
+
+
 class DBlock(nn.Module):
     """Nearest downsample + 3 dilated k=3 convs + 1x1 residual
     (``_dblock_apply_ncl``; the 1x1 conv runs after the downsample, which is
@@ -114,6 +171,14 @@ class DBlock(nn.Module):
         residual = _conv_apply(self.residual_dense, x, dtype)
         for i, conv in enumerate(self.convs):
             x = _conv_apply(conv, fnn.leaky_relu(x, 0.2), dtype, 2 ** i)
+        return x + residual
+
+    def forward_nwc(self, x, factor: int, dtype):
+        """``_dblock_apply`` on NWC activations (B, L, C)."""
+        x = fnn.nearest_downsample_nwc(x, factor)
+        residual = _conv_apply_nwc(self.residual_dense, x, dtype)
+        for i, conv in enumerate(self.convs):
+            x = _conv_apply_nwc(conv, fnn.leaky_relu(x, 0.2), dtype, 2 ** i)
         return x + residual
 
 
@@ -169,19 +234,39 @@ class LVCBlock(nn.Module):
             dtype=dtype)
         return w_head, b_head, wstack_t
 
+    def nwc_operands(self, dtype) -> tuple:
+        """(w_aug, b_aug, wstack) of the NWC route, K7's merged head and
+        K6's conv weights, packed from the current weights."""
+        kp = self.kernel_predictor
+        c = self.convs[0].bias.shape[0]
+        w_aug, b_aug = nwc_ops.pack_aug_head(
+            kp.kernel_conv.weight, kp.kernel_conv.bias, kp.bias_conv.weight,
+            kp.bias_conv.bias, layers=self.layers, c=c, dtype=dtype)
+        wstack = nwc_ops.stack_conv_weights(
+            [cv.weight for cv in self.convs], [cv.bias for cv in self.convs],
+            dtype=dtype)
+        return w_aug, b_aug, wstack
+
     @torch.no_grad()
-    def pack(self, dtype):
-        for name, t in zip(("w_head", "b_head", "wstack_t"),
-                           self.operands(dtype)):
+    def pack(self, dtype, route: str = "ncl"):
+        names, operands = ((("w_head", "b_head", "wstack_t"),
+                            self.operands(dtype)) if route == "ncl" else
+                           (("w_aug", "b_aug", "wstack"),
+                            self.nwc_operands(dtype)))
+        for name, t in zip(names, operands):
             self.register_buffer(name, t, persistent=False)
 
-    def _taps(self, mel, emb, dtype):
-        """Predictor trunk taps (B*F, ksz*hid) in ``dtype``."""
+    def _trunk(self, mel, emb, dtype):
+        """Predictor trunk (B, hid, F) over mel (B, n_mels, F) plus the
+        step embedding's projection."""
         noise = fnn.dense(self.fc_t.weight, self.fc_t.bias, emb,
                           compute_dtype=dtype)                 # (B, cond) f32
         cond = mel + noise[:, :, None].to(mel.dtype)
-        trunk = self.kernel_predictor.trunk(cond, dtype)       # (B, hid, F)
-        return lvc_head.head_taps(trunk.to(dtype))
+        return self.kernel_predictor.trunk(cond, dtype)
+
+    def _taps(self, mel, emb, dtype):
+        """Predictor trunk taps (B*F, ksz*hid) in ``dtype``."""
+        return lvc_head.head_taps(self._trunk(mel, emb, dtype).to(dtype))
 
     def _upsample(self, x, dtype):
         x = fnn.leaky_relu(x, 0.2)
@@ -191,6 +276,56 @@ class LVCBlock(nn.Module):
             torch_padding=r // 2 + r % 2, output_padding=r % 2,
             compute_dtype=dtype)
         return x.to(dtype).contiguous()
+
+    def _upsample_nwc(self, x, dtype):
+        x = fnn.leaky_relu(x, 0.2)
+        r = self.ratio
+        x = fnn.conv_transpose1d_nwc(
+            self.upsample.weight, self.upsample.bias, x, stride=r,
+            torch_padding=r // 2 + r % 2, output_padding=r % 2,
+            compute_dtype=dtype)
+        return x.to(dtype).contiguous()
+
+    def _heads_nwc(self, mel, emb, dtype) -> tuple:
+        """``_kernel_predictor_apply``: the separate kernel and bias heads
+        -> kernels (B, F, layers, K, C, 2C), biases (B, F, layers, 2C), in
+        ``dtype``."""
+        b, _, frames = mel.shape
+        kp = self.kernel_predictor
+        c = self.convs[0].bias.shape[0]
+        trunk = self._trunk(mel, emb, dtype)
+        kw = _conv_apply(kp.kernel_conv, trunk, dtype).transpose(1, 2)
+        kb = _conv_apply(kp.bias_conv, trunk, dtype).transpose(1, 2)
+        return (kw.reshape(b, frames, self.layers, -1, c, 2 * c),
+                kb.reshape(b, frames, self.layers, 2 * c))
+
+    def forward_nwc(self, x, skip, mel, emb, dtype, use_kernels: bool):
+        """``_lvc_block_apply``: x (B, L/ratio, C), skip (B, L, C), mel
+        (B, n_mels, F) -> (B, L, C). Blocks that ``fusable`` admits run K7
+        and K6 (their plain versions without ``use_kernels``); the others
+        the plain NWC loop, as in JAX."""
+        b, _, frames = mel.shape
+        c = self.convs[0].bias.shape[0]
+        skip = skip.to(dtype)
+        if nwc_ops.fusable(self.hop, frames):
+            head = (nwc_ops.aug_head_matmul if use_kernels
+                    else nwc_ops.aug_head_matmul_plain)
+            kern_aug = head(self._taps(mel, emb, dtype), self.w_aug,
+                            self.b_aug).reshape(b, frames, self.layers, -1,
+                                                2 * c)
+            block = (nwc_ops.lvc_block_nwc if use_kernels
+                     else nwc_ops.lvc_block_nwc_plain)
+            return block(self._upsample_nwc(x, dtype), skip.contiguous(),
+                         kern_aug, self.wstack, self.hop)
+        kernels, biases = self._heads_nwc(mel, emb, dtype)
+        x = self._upsample_nwc(x, dtype)
+        for i, conv in enumerate(self.convs):
+            x = x + skip
+            y = _conv_apply_nwc(conv, fnn.leaky_relu(x, 0.2), dtype, 3 ** i)
+            x = lvc_gated_residual_nwc(x, fnn.leaky_relu(y, 0.2),
+                                       kernels[:, :, i], biases[:, :, i].float(),
+                                       self.hop)
+        return x
 
     def forward(self, x, skip, mel, emb, dtype, use_kernels: bool,
                 final_wb=None):
@@ -226,22 +361,33 @@ class LVCBlock(nn.Module):
 
 class FastDiff(nn.Module):
     """Epsilon model: ``forward(audio (B, T, 1), mel (B, T', n_mels),
-    t (B, 1)) -> (B, T, 1)`` float32, T == T' * prod(upsample_ratios)."""
+    t (B, 1)) -> (B, T, 1)`` float32, T == T' * prod(upsample_ratios).
+
+    ``infer_route`` ("ncl" or "nwc") and ``down_kernel`` pick the inference
+    route (module docstring); ``train_route`` makes the trainable model."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), *,
                  seed: int | None = 0, device=None,
-                 train_route: str | None = None):
+                 train_route: str | None = None, infer_route: str = "ncl",
+                 down_kernel: bool = False):
         super().__init__()
         if cfg.audio_channels != 1:
-            raise ValueError("the NCL forward needs audio_channels == 1")
+            raise ValueError("the FastDiff forward needs audio_channels == 1")
         if train_route is not None and train_route not in TRAIN_ROUTES:
             raise ValueError(f"train_route {train_route!r} is not one of "
                              f"{TRAIN_ROUTES}")
+        if infer_route not in INFER_ROUTES:
+            raise ValueError(f"infer_route {infer_route!r} is not one of "
+                             f"{INFER_ROUTES}")
+        if train_route is not None and infer_route != "ncl":
+            raise ValueError("the trainable model runs the NCL routes only")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
         self.use_kernels = True
         self.train_route = train_route
+        self.infer_route = infer_route
+        self.down_kernel = down_kernel
         conv, conv_t = _layers(train_route is not None
                                and cfg.use_weight_norm)
         c = cfg.inner_channels
@@ -295,11 +441,17 @@ class FastDiff(nn.Module):
         if self.train_route is not None:
             return
         for block in self.lvc_blocks:
-            block.pack(self.dtype)
-        self.register_buffer(
-            "final_wb", block_ops.final_conv_wb(
-                self.final_conv.weight, self.final_conv.bias, self.dtype),
-            persistent=False)
+            block.pack(self.dtype, self.infer_route)
+        if self.infer_route == "ncl":
+            self.register_buffer(
+                "final_wb", block_ops.final_conv_wb(
+                    self.final_conv.weight, self.final_conv.bias, self.dtype),
+                persistent=False)
+        elif self.down_kernel:
+            for name, t in zip(("down_first", "down_res", "down_conv"),
+                               down_ops.pack_downpath_weights(
+                                   self.first_audio_conv, self.downsample)):
+                self.register_buffer(name, t, persistent=False)
 
     def load_state_dict(self, state_dict, strict: bool = True, assign=False):
         result = super().load_state_dict(state_dict, strict=strict,
@@ -307,14 +459,18 @@ class FastDiff(nn.Module):
         self.pack()
         return result
 
+    def _embed(self, t):
+        """The diffusion-step embedding MLP: t (B, 1) -> (B, dim_out) f32."""
+        emb = fnn.diffusion_step_embedding(
+            t, self.cfg.diffusion_step_embed_dim_in)
+        emb = fnn.swish(fnn.dense(self.fc_t1.weight, self.fc_t1.bias, emb))
+        return fnn.swish(fnn.dense(self.fc_t2.weight, self.fc_t2.bias, emb))
+
     def _down_path(self, audio, mel, t):
         """Step embedding, audio conv and DBlocks -> (emb, x, skips in LVC
         block order, mel (B, n_mels, F) in the compute dtype)."""
         cfg, dtype = self.cfg, self.dtype
-        emb = fnn.diffusion_step_embedding(t, cfg.diffusion_step_embed_dim_in)
-        emb = fnn.swish(fnn.dense(self.fc_t1.weight, self.fc_t1.bias, emb))
-        emb = fnn.swish(fnn.dense(self.fc_t2.weight, self.fc_t2.bias, emb))
-
+        emb = self._embed(t)
         b, length, _ = audio.shape
         x = _conv_apply(self.first_audio_conv,
                         audio.to(dtype).reshape(b, 1, length), dtype)
@@ -328,6 +484,8 @@ class FastDiff(nn.Module):
                 t: torch.Tensor) -> torch.Tensor:
         if self.train_route is not None:
             return self._forward_train(audio, mel, t)
+        if self.infer_route == "nwc":
+            return self._forward_nwc(audio, mel, t)
         dtype = self.dtype
         b, length, _ = audio.shape
         emb, x, skips, mel_ncl = self._down_path(audio, mel, t)
@@ -338,6 +496,39 @@ class FastDiff(nn.Module):
                       self.final_wb if last else None)
         _, fin = x
         return fin.reshape(b, length, 1)
+
+    def _down_path_nwc(self, audio):
+        """The NWC down path -> (x, skips in LVC block order), (B, L_r, C).
+        K8 (its plain version without ``use_kernels``) where JAX runs its
+        down-path kernel: ``down_kernel``, bf16, three blocks and a
+        ``downpath_fusable`` length; the plain NWC ops elsewhere."""
+        dtype = self.dtype
+        factors = tuple(self.cfg.upsample_ratios[::-1])
+        if (self.down_kernel and len(factors) == 3
+                and dtype == torch.bfloat16
+                and down_ops.downpath_fusable(audio.shape[1], factors)):
+            fn = (down_ops.downpath_fused if self.use_kernels
+                  else down_ops.downpath_plain)
+            *skips, x = fn(audio.float().contiguous(), self.down_first,
+                           self.down_res, self.down_conv, factors)
+            return x, skips[::-1]
+        x = _conv_apply_nwc(self.first_audio_conv, audio.to(dtype), dtype)
+        skips = []
+        for dblock, factor in zip(self.downsample, factors):
+            skips.append(x)
+            x = dblock.forward_nwc(x, factor, dtype)
+        return x, skips[::-1]
+
+    def _forward_nwc(self, audio, mel, t):
+        """``fastdiff_apply``'s NWC branch (``use_pallas_block=True``)."""
+        dtype = self.dtype
+        emb = self._embed(t)
+        x, skips = self._down_path_nwc(audio)
+        mel_ncl = mel.to(dtype).transpose(1, 2)
+        for block, skip in zip(self.lvc_blocks, skips):
+            x = block.forward_nwc(x, skip, mel_ncl, emb, dtype,
+                                  self.use_kernels)
+        return _conv_apply_nwc(self.final_conv, x, dtype).float()
 
     def _forward_train(self, audio, mel, t):
         dtype = self.dtype

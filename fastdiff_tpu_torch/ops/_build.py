@@ -38,6 +38,14 @@ SIGNATURES = {
     # B, C, L, F, hop, rows_p, layers, stream
     "lvc_block_ncl_sr_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
+    # tap, w_aug, b_aug, out, M, N, K, stream
+    "aug_head_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, skip, kern_aug, wstack, out, B, C, L, F, hop, rows, layers, stream
+    "lvc_block_nwc_launch": [_P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _P],
+    # audio, first_aug, res_aug, conv_aug, skip0, skip1, skip2, x,
+    # B, L, C, stream
+    "downpath_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

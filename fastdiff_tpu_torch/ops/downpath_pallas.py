@@ -1,0 +1,191 @@
+"""The fused down path: K8, its plain version and its packed weights.
+
+Counterpart of ``fastdiff_tpu/ops/downpath_pallas.py`` (``use_pallas_down:
+true``). The denoiser's down path is the first k=7 conv and the three
+DBlocks, all NWC:
+
+    af    = bf16(audio)                                  (B, L, 1)
+    x     = bf16(first conv of af, f32 sums + bias)      skip0 (B, L, C)
+    for f in factors (4, 8, 8):
+        x   = x[::f]                                     nearest downsample
+        res = x @ Wr + br                                f32
+        y   = x; three times, d = 1, 2, 4:
+              y = bf16(conv_d(leaky0.2(y)) + b)
+        x   = y + bf16(res)                              bf16 add
+    outputs: skip0, skip1 (B, L/4, C), skip2 (B, L/32, C), x (B, L/256, C)
+
+with zero padding at every stage's sequence edges. The weights are packed
+as JAX packs them (``pack_downpath_weights``): each operand's last row is
+its bias, tap rows k-major.
+
+``downpath_fused`` launches ``csrc/downpath.cu`` on a CUDA tensor (bf16
+outputs, C = 32, factors (4, 8, 8), L a multiple of 256) or raises; on a
+CPU tensor it runs ``downpath_plain``. The route calls it where JAX does:
+bf16, three blocks and ``downpath_fusable(L)``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from fastdiff_tpu_torch.ops import _build
+from fastdiff_tpu_torch.ops.nn import leaky_relu
+
+# launches of the CUDA kernel since the last reset (plain runs not counted)
+LAUNCHES = {"downpath": 0}
+
+# what csrc/downpath.cu is built for
+KERNEL_CHANNELS = 32
+KERNEL_FACTORS = (4, 8, 8)
+KERNEL_TAPS = 7
+KERNEL_LAYERS = 3
+
+
+@torch.no_grad()
+def pack_downpath_weights(first_audio_conv, downsample,
+                          dtype=torch.bfloat16) -> tuple:
+    """The model's first conv and DBlocks -> (first_aug (K0+1, C), res_aug
+    (nb, C+1, C), conv_aug (nb, layers, 3C+1, C)), JAX's packing: row
+    k*C + i of a conv operand is tap k, input channel i; the last row is
+    the bias. Takes modules with PyTorch-layout ``weight`` (O, I, K) and
+    ``bias``; the packs are constants (no autograd)."""
+    wf = first_audio_conv.weight                             # (C, 1, K0)
+    first = torch.cat([wf[:, 0, :].t(), first_audio_conv.bias[None, :]])
+    res, conv = [], []
+    for blk in downsample:
+        rd = blk.residual_dense
+        res.append(torch.cat([rd.weight[:, :, 0].t(), rd.bias[None, :]]))
+        conv.append(torch.stack([
+            torch.cat([cv.weight.permute(2, 1, 0).reshape(
+                -1, cv.weight.shape[0]), cv.bias[None, :]])
+            for cv in blk.convs]))
+    return (first.to(dtype).contiguous(),
+            torch.stack(res).to(dtype).contiguous(),
+            torch.stack(conv).to(dtype).contiguous())
+
+
+def required_halo(factors, k0: int = 7, n_layers: int = 3) -> int:
+    """Whole-path receptive field at input rate, rounded up to a multiple
+    of the final rate (JAX's ``required_halo``; 2048 for (4, 8, 8))."""
+    rf = (k0 - 1) // 2
+    rate, prod = 1, 1
+    for f in factors:
+        prod *= f
+    for f in factors:
+        rate *= f
+        rf += (2 ** n_layers - 1) * rate
+    return -(-rf // prod) * prod
+
+
+def downpath_fusable(length: int, factors) -> bool:
+    """JAX's route gate: at least 2 halo units and a halo-aligned length."""
+    halo = required_halo(factors)
+    return length % halo == 0 and length // halo >= 2
+
+
+def _conv_nwc(x: torch.Tensor, w_aug: torch.Tensor, offsets) -> torch.Tensor:
+    """f32 sum over taps of x shifted by each offset (zero filled) @ its
+    rows of w_aug, plus the bias row: x (B, L, I), w_aug (T*I+1, O)."""
+    cin = x.shape[-1]
+    taps = len(offsets)
+    w = w_aug[:-1].float().reshape(taps, cin, -1).permute(2, 1, 0)
+    d = offsets[1] - offsets[0] if taps > 1 else 1
+    y = F.conv1d(x.transpose(1, 2).float(), w, w_aug[-1].float(),
+                 padding=-offsets[0], dilation=d)
+    return y.transpose(1, 2)
+
+
+def downpath_plain(audio: torch.Tensor, first_aug: torch.Tensor,
+                   res_aug: torch.Tensor, conv_aug: torch.Tensor,
+                   factors) -> tuple:
+    """Plain PyTorch K8 with the kernel's cast points (those of JAX's
+    ``_unfused_reference``): audio (B, L, 1) float32 -> (skip0, skip1,
+    skip2, x) in bf16, NWC."""
+    k0 = first_aug.shape[0] - 1
+    half = (k0 - 1) // 2
+    x = _conv_nwc(audio.to(torch.bfloat16), first_aug,
+                  range(-half, half + 1)).to(torch.bfloat16)
+    outs = [x]
+    for bi, f in enumerate(factors):
+        x = x[:, ::f]
+        res = _conv_nwc(x, res_aug[bi], (0,))
+        y = x
+        for li in range(conv_aug.shape[1]):
+            d = 2 ** li
+            y = _conv_nwc(leaky_relu(y), conv_aug[bi, li],
+                          (-d, 0, d)).to(torch.bfloat16)
+        x = y + res.to(torch.bfloat16)
+        outs.append(x)
+    return tuple(outs)
+
+
+def _check_cuda_operands(audio, first_aug, res_aug, conv_aug, factors):
+    b, length, ch = audio.shape
+    if audio.dtype != torch.float32 or ch != 1:
+        raise ValueError(f"downpath_fused: audio must be f32 (B, L, 1), got "
+                         f"{audio.dtype} {tuple(audio.shape)}")
+    for name, t in (("audio", audio), ("first_aug", first_aug),
+                    ("res_aug", res_aug), ("conv_aug", conv_aug)):
+        if t.device != audio.device:
+            raise ValueError(f"downpath_fused: {name} on {t.device}, audio "
+                             f"on {audio.device}")
+        if name != "audio" and t.dtype != torch.bfloat16:
+            raise ValueError(f"downpath_fused: {name} must be bf16, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"downpath_fused: {name} must be contiguous "
+                             "and 16-byte aligned")
+    c = first_aug.shape[1]
+    nb, n_layers = conv_aug.shape[:2]
+    if (c != KERNEL_CHANNELS or tuple(factors) != KERNEL_FACTORS
+            or first_aug.shape[0] != KERNEL_TAPS + 1
+            or n_layers != KERNEL_LAYERS or nb != len(KERNEL_FACTORS)):
+        raise ValueError(
+            f"downpath_fused: the kernel is built for C={KERNEL_CHANNELS}, "
+            f"factors {KERNEL_FACTORS}, a k={KERNEL_TAPS} first conv and "
+            f"{KERNEL_LAYERS} layers per block; got C={c}, factors "
+            f"{tuple(factors)}, first_aug {tuple(first_aug.shape)}, conv_aug "
+            f"{tuple(conv_aug.shape)}")
+    if (res_aug.shape != (nb, c + 1, c)
+            or conv_aug.shape != (nb, n_layers, 3 * c + 1, c)
+            or length % 256):
+        raise ValueError(
+            f"downpath_fused: bad shapes audio {tuple(audio.shape)} (L must "
+            f"be a multiple of 256), res_aug {tuple(res_aug.shape)}, "
+            f"conv_aug {tuple(conv_aug.shape)}")
+
+
+def downpath_fused(audio: torch.Tensor, first_aug: torch.Tensor,
+                   res_aug: torch.Tensor, conv_aug: torch.Tensor,
+                   factors) -> tuple:
+    """K8: audio (B, L, 1) float32 and the packed weights -> (skip0 (B, L,
+    C), skip1 (B, L/4, C), skip2 (B, L/32, C), x (B, L/256, C)), bf16.
+
+    CPU tensors run ``downpath_plain``. CUDA tensors launch
+    ``csrc/downpath.cu`` or raise."""
+    if audio.device.type == "cpu":
+        return downpath_plain(audio, first_aug, res_aug, conv_aug, factors)
+    if audio.device.type != "cuda":
+        raise ValueError(f"downpath_fused: unsupported device {audio.device}")
+    _check_cuda_operands(audio, first_aug, res_aug, conv_aug, factors)
+    b, length, _ = audio.shape
+    c = first_aug.shape[1]
+    outs = []
+    rate = 1
+    for f in (1, *factors):
+        rate *= f
+        outs.append(torch.empty((b, length // rate, c), dtype=torch.bfloat16,
+                                device=audio.device))
+    if b == 0 or length == 0:
+        return tuple(outs)
+    lib = _build.library()
+    with torch.cuda.device(audio.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.downpath_launch(
+            audio.data_ptr(), first_aug.data_ptr(), res_aug.data_ptr(),
+            conv_aug.data_ptr(), *(o.data_ptr() for o in outs), b, length,
+            c, stream)
+    _build.check(code, "downpath_launch")
+    LAUNCHES["downpath"] += 1
+    return tuple(outs)

@@ -83,39 +83,52 @@ def taug_head_matmul(tap: torch.Tensor, w_head: torch.Tensor,
     ``csrc/taug_head.cu`` (bf16 tap and weights, f32 bias) or raise."""
     if tap.device.type == "cpu":
         return taug_head_matmul_plain(tap, w_head, b_head)
+    out = launch_head_gemm("taug_head_launch", "taug_head_matmul", tap,
+                           w_head, b_head, n_multiple=8)
+    if out.shape[0]:
+        LAUNCHES["taug_head"] += 1
+    return out
+
+
+def launch_head_gemm(entry: str, fn: str, tap: torch.Tensor,
+                     w_head: torch.Tensor, b_head: torch.Tensor, *,
+                     n_multiple: int) -> torch.Tensor:
+    """Check the operands of ``csrc/taug_head.cu``'s GEMM and launch it
+    through the C entry ``entry``: tap (M, K) bf16 @ w_head (K, N) bf16 +
+    b_head (N,) f32 -> (M, N) bf16, row-major. K must be a multiple of 8
+    and N of ``n_multiple``; raises on anything else."""
     if tap.device.type != "cuda":
-        raise ValueError(f"taug_head_matmul: unsupported device {tap.device}")
+        raise ValueError(f"{fn}: unsupported device {tap.device}")
     m, k = tap.shape
     k2, n = w_head.shape
     for name, t in (("w_head", w_head), ("b_head", b_head)):
         if t.device != tap.device:
-            raise ValueError(f"taug_head_matmul: {name} on {t.device}, "
-                             f"tap on {tap.device}")
+            raise ValueError(f"{fn}: {name} on {t.device}, tap on "
+                             f"{tap.device}")
     if tap.dtype != torch.bfloat16 or w_head.dtype != torch.bfloat16:
-        raise ValueError("taug_head_matmul: tap and w_head must be bf16, got "
+        raise ValueError(f"{fn}: tap and w_head must be bf16, got "
                          f"{tap.dtype}, {w_head.dtype}")
     if b_head.dtype != torch.float32 or b_head.shape != (n,):
-        raise ValueError(f"taug_head_matmul: b_head must be f32 ({n},), got "
+        raise ValueError(f"{fn}: b_head must be f32 ({n},), got "
                          f"{b_head.dtype} {tuple(b_head.shape)}")
-    if k2 != k or k % 8 or n % 8:
-        raise ValueError(f"taug_head_matmul: shapes {tuple(tap.shape)} @ "
-                         f"{tuple(w_head.shape)} (K and N must be multiples "
-                         "of 8)")
+    if k2 != k or k % 8 or n % n_multiple:
+        raise ValueError(f"{fn}: shapes {tuple(tap.shape)} @ "
+                         f"{tuple(w_head.shape)} (K must be a multiple of 8 "
+                         f"and N of {n_multiple})")
     for name, t in (("tap", tap), ("w_head", w_head), ("b_head", b_head)):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"taug_head_matmul: {name} must be contiguous "
-                             "and 16-byte aligned")
+            raise ValueError(f"{fn}: {name} must be contiguous and 16-byte "
+                             "aligned")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=tap.device)
     if m == 0:
         return out
     lib = _build.library()
     with torch.cuda.device(tap.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.taug_head_launch(tap.data_ptr(), w_head.data_ptr(),
-                                    b_head.data_ptr(), out.data_ptr(),
-                                    m, n, k, stream)
-    _build.check(code, "taug_head_launch")
-    LAUNCHES["taug_head"] += 1
+        code = getattr(lib, entry)(tap.data_ptr(), w_head.data_ptr(),
+                                   b_head.data_ptr(), out.data_ptr(),
+                                   m, n, k, stream)
+    _build.check(code, entry)
     return out
 
 

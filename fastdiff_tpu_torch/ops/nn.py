@@ -1,4 +1,5 @@
-"""NCL conv, transposed conv, dense and activations (``fastdiff_tpu/ops/nn.py``).
+"""NCL conv, transposed conv, dense and activations (``fastdiff_tpu/ops/nn.py``),
+with NWC (B, L, C) twins of the convs and the downsample for the NWC route.
 
 Weights are in PyTorch's layouts: ``Conv1d`` (O, I, K), ``ConvTranspose1d``
 (I, O, K), ``Linear`` (O, I). Inference takes weights with weight norm
@@ -66,6 +67,26 @@ def conv_transpose1d_ncl(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return y.to(out_dtype)
 
 
+def conv1d_nwc(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
+               dilation: int = 1, compute_dtype=None) -> torch.Tensor:
+    """``conv1d_ncl`` for NWC activations (``conv1d_dot`` in JAX):
+    x (B, L, I), w (O, I, K) -> (B, L, O), the same cast points."""
+    return conv1d_ncl(w, b, x.transpose(1, 2), dilation=dilation,
+                      compute_dtype=compute_dtype).transpose(1, 2)
+
+
+def conv_transpose1d_nwc(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                         *, stride: int, torch_padding: int,
+                         output_padding: int = 0,
+                         compute_dtype=None) -> torch.Tensor:
+    """``conv_transpose1d_ncl`` for NWC activations
+    (``conv_transpose1d_dot`` in JAX): x (B, L, I) -> (B, L', O)."""
+    return conv_transpose1d_ncl(
+        w, b, x.transpose(1, 2), stride=stride, torch_padding=torch_padding,
+        output_padding=output_padding,
+        compute_dtype=compute_dtype).transpose(1, 2)
+
+
 def dense(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
           compute_dtype=None) -> torch.Tensor:
     """x (..., I) @ w (O, I).T + b -> float32 (the JAX ``dense`` keeps the
@@ -85,6 +106,11 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
 def nearest_downsample_ncl(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Nearest-neighbour ``interpolate(size=L // factor)`` == strided slice."""
     return x[..., ::factor]
+
+
+def nearest_downsample_nwc(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """``nearest_downsample`` for NWC (B, L, C): the phase-0 strided pick."""
+    return x[:, ::factor]
 
 
 def diffusion_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:

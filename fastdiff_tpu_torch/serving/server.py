@@ -10,6 +10,10 @@ vocode.
     python -m fastdiff_tpu_torch.serving.server --device cuda --port 8300 \
         --hparams '{"N": 4}'
 
+``use_pallas_block: true`` in the hparams (and ``use_pallas_down: true``)
+serves the NWC route with its kernels; see
+``vocoders/fastdiff_vocoder.py``.
+
 Endpoints:
     POST /vocode    body: .npy mel -> audio/wav (503 while cold or full)
     GET  /healthz   200 once the model is warm

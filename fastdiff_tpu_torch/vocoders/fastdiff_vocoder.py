@@ -4,7 +4,11 @@
 Built from a plain hparams dict and an explicit ``device``. ``vocoder_ckpt``
 names a ``FastDiff`` state_dict saved with ``torch.save`` (a JAX tree converts
 with ``models/bridge.py:params_from_jax``); without one the model runs with
-seeded random weights, as the JAX vocoder does.
+seeded random weights, as the JAX vocoder does. ``use_pallas_block`` and
+``use_pallas_down`` pick the route as the JAX vocoder's
+``inference_model_config`` does (``models/fastdiff.py:resolve_infer_route``
+and ``resolve_down_kernel``): true runs the NWC route with K6 and K7, and
+with ``use_pallas_down`` K8 too; anything else runs the NCL route.
 """
 
 from __future__ import annotations
@@ -16,17 +20,21 @@ import torch
 
 from fastdiff_tpu.config import ModelConfig
 from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
-from fastdiff_tpu_torch.models.fastdiff import FastDiff
+from fastdiff_tpu_torch.models.fastdiff import (FastDiff,
+                                                resolve_down_kernel,
+                                                resolve_infer_route)
 
-# ModelConfig fields that select JAX/TPU routes and mean nothing here
-_JAX_ONLY_FIELDS = ("use_pallas_block", "use_pallas_down", "conv_impl")
+# ModelConfig fields that are not architecture: the routes are resolved by
+# resolve_infer_route / resolve_down_kernel, and conv_impl picks a JAX
+# lowering that means nothing here
+_ROUTE_FIELDS = ("use_pallas_block", "use_pallas_down", "conv_impl")
 
 
 def model_config_from_hparams(hp: dict) -> ModelConfig:
     """ModelConfig from hparams, reading only the architecture fields."""
     kwargs = {}
     for field in dataclasses.fields(ModelConfig):
-        if field.name in hp and field.name not in _JAX_ONLY_FIELDS:
+        if field.name in hp and field.name not in _ROUTE_FIELDS:
             kwargs[field.name] = hp[field.name]
     if "upsample_ratios" in kwargs:
         kwargs["upsample_ratios"] = tuple(int(r) for r in
@@ -42,15 +50,21 @@ class FastDiffVocoder:
         self.model_cfg = model_config_from_hparams(hp)
         self.hop = self.model_cfg.total_hop
         self.constants = constants_for_hparams(hp)
+        self.route = resolve_infer_route(hp)
+        if str(hp.get("use_pallas_block", "")).strip().lower() == "ncl_fh":
+            print("| use_pallas_block: ncl_fh runs the NCL route's K1 + K3 "
+                  "(the fused-head kernel K5 is not ported)")
+        route = dict(infer_route=self.route,
+                     down_kernel=resolve_down_kernel(hp))
         ckpt = hp.get("vocoder_ckpt", "")
         if ckpt:
-            model = FastDiff(self.model_cfg, seed=None)
+            model = FastDiff(self.model_cfg, seed=None, **route)
             model.load_state_dict(torch.load(ckpt, map_location="cpu",
                                              weights_only=True))
         else:
             print("| WARNING: no vocoder_ckpt given; FastDiff vocoder runs "
                   "with random weights.")
-            model = FastDiff(self.model_cfg, seed=0)
+            model = FastDiff(self.model_cfg, seed=0, **route)
         self.model = model.to(self.device).eval()
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(hp.get("seed", 1234)))

@@ -29,6 +29,25 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.training.checkpoint\n"
             "import fastdiff_tpu_torch.training.task\n"
             "import fastdiff_tpu_torch.training.trainer\n"
+            "import fastdiff_tpu_torch.ops.lvc_block_pallas\n"
+            "import fastdiff_tpu_torch.ops.downpath_pallas\n"
+            "from fastdiff_tpu_torch.models.fastdiff import (FastDiff, "
+            "resolve_down_kernel, resolve_infer_route)\n"
+            "assert resolve_infer_route({'use_pallas_block': True}) == "
+            "'nwc'\n"
+            "assert resolve_down_kernel({'use_pallas_down': 'true'})\n"
+            "from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import "
+            "FastDiffVocoder\n"
+            "hp = {'inner_channels': 8, 'cond_channels': 16, "
+            "'kpnet_hidden_channels': 8, 'diffusion_step_embed_dim_in': 16, "
+            "'diffusion_step_embed_dim_mid': 32, "
+            "'diffusion_step_embed_dim_out': 32, 'use_pallas_block': True, "
+            "'use_pallas_down': True}\n"
+            "voc = FastDiffVocoder(hp)\n"
+            "import numpy as np\n"
+            "assert voc.route == 'nwc'\n"
+            "assert voc.spec2wav(np.zeros((16, 16), np.float32)).shape == "
+            "(4096,)\n"
             "from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import "
             "model_config_from_hparams\n"
             "model_config_from_hparams({'use_pallas_block': 'auto'})\n"

@@ -165,7 +165,8 @@ def test_route_resolver():
         "ncl_sr"
     assert resolve_train_route({"use_pallas_block": False}, "cuda") == "plain"
     for raw in (True, "true"):
-        with pytest.raises(NotImplementedError, match="K6"):
+        with pytest.raises(NotImplementedError,
+                           match="trainable NWC route.*item 7d"):
             resolve_train_route({"use_pallas_block": raw}, "cuda")
 
 
