@@ -56,11 +56,38 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     K8 by 4 (256 and 864 frames) or 0 (100 frames: not a multiple of
     2,048 samples, so the plain down path runs, as in JAX), K1 and K3 by 0.
 
-Any failed check exits non-zero. The line before the last is a JSON
-object with each of the seven kernels' launches (phase 7 for K1-K3, phase
-11 for K4, phase 15 for K6-K8), its largest error against its plain
-version, and its time beside the plain version's; the last line is
-``{"ok": true, "device": {...}}``.
+16. K5 (the fused-head LVC block) against its plain version at hops 8, 64
+    and 256 with 864 frames (hop 256 with the final-conv epilogue too) and
+    at b = 2 x 100 frames of hop 64, with phase 4's bounds; each case timed
+    against its plain version and against K3 + K1 on the same inputs,
+    raced in turns;
+17. the fused-head route (``use_pallas_block: ncl_fh``): a full-width bf16
+    denoiser forward, kernels against plain (relative L2 <= 5e-2) and
+    against the NCL route; the N=4 sampler at 864 frames, b = 1 and b = 4,
+    raced against the NCL route (``scripts/exp_r4b.py``'s experiment D);
+    the HTTP server built from ``{"N": 4, "use_pallas_block": "ncl_fh"}``
+    answering 100, 256 and 864 frames, each request raising K5 by 8 and K5
+    final by 4 at 256 and 864 frames, K1 and K3 by 0; at 100 frames the
+    hop-8 block is not fusable (100 % 16 != 0), so K5 +4, K5 final +4, K1
+    +4 and K3 +4; then the server of ``use_pallas_block: false`` (the plain
+    route), whose request launches no kernel at all;
+18. K10 (the head GEMM with its grid order and M tile as parameters),
+    every variant of ``scripts/exp_r4b.py``'s experiment B against its
+    plain version within one bf16 ulp of the largest output, timed
+    (``fastdiff_tpu_torch/scripts/exp_r4b.py:exp_b``);
+19. K9 (the block's conv and LVC stages alone) at the hop-256 block's
+    shape against their plain versions, timed
+    (``fastdiff_tpu_torch/scripts/bench_mosaic_micro.py:run``).
+
+Any failed check exits non-zero. The line before the last is a JSON object
+with each of the twelve kernels' launches (from the run of its path: phase
+7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9),
+its largest error against its plain version, its time beside the plain
+version's, the least time the card could take for the same work
+(``bound_ms``: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, whichever is
+larger, ``bound_by`` says which) and the time of one PyTorch call that
+computes the same function where there is one (``library_ms``, else null).
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import io
@@ -75,6 +102,8 @@ import wave
 
 import numpy as np
 
+from fastdiff_tpu_torch.utils.timing import cuda_ms, race
+
 AUDIO_SECONDS_PER_SAMPLE = 1.0 / 22050
 FRAMES_10S = 864                 # 864 * 256 = 221,184 samples, ~10.03 s
 HOP_SIZE = 256
@@ -84,6 +113,8 @@ TRAIN_BATCH, TRAIN_FRAMES = 20, 100
 # 2.369e5 FLOP per sample per forward
 STEP_FLOP = 3 * 2.369e5 * TRAIN_FRAMES * HOP_SIZE * TRAIN_BATCH
 H100_BF16_PEAK = 989e12
+H100_HBM_BYTES_PER_S = 3.35e12
+HEAD_K = 192                     # predictor head contraction (3 x 64)
 
 
 def fail(msg: str):
@@ -104,28 +135,50 @@ def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean ms per call over ``reps`` calls, timed with CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def bound(works) -> tuple:
+    """The least time the card could take for a run of calls, each
+    (FLOP, bytes): the sum over calls of the larger of bytes / 3.35 TB/s and
+    FLOP / 989 TFLOP/s, in ms, and which of the two bounds the run."""
+    by_bytes = by_ops = 0.0
+    for flop, nbytes in works:
+        t_b = nbytes / H100_HBM_BYTES_PER_S * 1e3
+        t_o = flop / H100_BF16_PEAK * 1e3
+        if t_b >= t_o:
+            by_bytes += t_b
+        else:
+            by_ops += t_o
+    return by_bytes + by_ops, ("bytes" if by_bytes >= by_ops
+                               else "operations")
 
 
-def race(torch, plain, kernel, reps: int):
-    """Warm both, then time plain, kernel, kernel, plain; mean of each."""
-    plain()
-    kernel()
-    torch.cuda.synchronize()
-    p1 = cuda_ms(torch, plain, reps)
-    k1 = cuda_ms(torch, kernel, reps)
-    k2 = cuda_ms(torch, kernel, reps)
-    p2 = cuda_ms(torch, plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def gemm_work(m: int, k: int, n: int) -> tuple:
+    """(FLOP, bytes) of (M, K) @ (K, N) + f32 bias (N,) -> (M, N), bf16."""
+    return 2.0 * m * k * n, 2.0 * (m * k + k * n + m * n) + 4.0 * n
+
+
+def block_work(b: int, c: int, length: int, kern_bytes: float = 0.0,
+               final: bool = False, save: bool = False,
+               layers: int = 4) -> tuple:
+    """(FLOP, bytes) of one LVC block call: per sample and layer the
+    dilated conv (2 C (3C+1)) and the LVC (2 2C (3C+1)); x and skip read and
+    out written once, plus the kernel operand, the final conv's f32 output
+    and the saved s, y, z residuals where the call has them."""
+    rows = 3 * c + 1
+    flop = b * length * layers * 2.0 * 3 * c * rows
+    nbytes = 3 * 2.0 * b * c * length + kern_bytes
+    if final:
+        flop += 2.0 * 7 * c * b * length
+        nbytes += 4.0 * b * length
+    if save:
+        nbytes += 2.0 * b * layers * 4 * c * length
+    return flop, nbytes
+
+
+def entry(max_abs_err, ms, plain_ms, works, library_ms=None) -> dict:
+    """One kernel's numbers for the JSON line."""
+    b_ms, by = bound(works)
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=library_ms)
 
 
 def check_pairs(pairs, what: str):
@@ -233,7 +286,7 @@ def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
                     dev):
     """Kernel B-SR against its plain version at the recipe's shapes."""
     wstack_t = randn(layers, c, rows, scale=0.1)
-    worst, ms_k, ms_p = 0.0, 0.0, 0.0
+    worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
     for hop in (8, 64, 256):
         length = TRAIN_FRAMES * hop
         x = randn(TRAIN_BATCH, c, length)
@@ -253,7 +306,7 @@ def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
         errs = check_pairs(list(zip(got, ref)), f"Kernel B-SR (hop {hop})")
-        k, p = race(torch, run_p, run_k, 5)
+        k, p = race(run_p, run_k, 5)
         phase(8, f"Kernel B-SR hop {hop}, b {TRAIN_BATCH} x {TRAIN_FRAMES} "
                  "frames: " + ", ".join(
                      f"{n} max_abs_err {e:.3e} rel_l2 {r:.3e}" for n, (e, r)
@@ -262,7 +315,9 @@ def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
         worst = max([worst] + [e for e, _ in errs])
         ms_k += k
         ms_p += p
-    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p)
+        works.append(block_work(TRAIN_BATCH, c, length, 2.0 * kern.numel(),
+                                save=True))
+    return entry(worst, ms_k, ms_p, works)
 
 
 def phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
@@ -348,7 +403,7 @@ def phase10_train_step(torch, FastDiffTask, smi_line, dev):
         torch.cuda.synchronize()
         peak[r] = torch.cuda.max_memory_allocated(dev)
     for r in routes + routes[::-1]:
-        times[r].append(cuda_ms(torch, lambda: step(r), 3))
+        times[r].append(cuda_ms(lambda: step(r), 3))
     report = {}
     for r in routes:
         ms = sum(times[r]) / len(times[r])
@@ -375,8 +430,8 @@ def phase10_train_step(torch, FastDiffTask, smi_line, dev):
 
 def write_synthetic_dataset(binary_dir: str, seed: int = 0) -> None:
     """24 train and 4 valid items of 120-200 random frames, binarized the
-    way ``fastdiff_tpu/data`` reads them."""
-    from fastdiff_tpu.data.indexed_dataset import IndexedDatasetBuilder
+    way ``fastdiff_tpu_torch/data`` (and the JAX package) reads them."""
+    from fastdiff_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
     rng = np.random.default_rng(seed)
     for prefix, n_items in (("train", 24), ("valid", 4)):
         builder = IndexedDatasetBuilder(os.path.join(binary_dir, prefix))
@@ -495,16 +550,19 @@ def phase12_aug_head(torch, nwc_ops, randn, c, layers, hid):
     err = max_abs(out_k, out_p)
     # f32 sums in another order, one bf16 rounding: at most one bf16 ulp
     bound = 2.0 ** -7 * float(out_p.float().abs().max()) + 1e-6
-    ms_k, ms_p = race(torch, lambda: nwc_ops.aug_head_matmul_plain(
+    ms_k, ms_p = race(lambda: nwc_ops.aug_head_matmul_plain(
         tap, w_aug, b_aug), lambda: nwc_ops.aug_head_matmul(
         tap, w_aug, b_aug), 20)
+    b_bf16 = b_aug.to(torch.bfloat16)
+    ms_lib = cuda_ms(lambda: torch.addmm(b_bf16, tap, w_aug), 20)
     phase(12, f"K7 aug_head ({m}x{k} @ {k}x{n}): max_abs_err {err:.3e} "
               f"(bound {bound:.3e}), kernel {ms_k:.4f} ms, plain "
-              f"{ms_p:.4f} ms per call")
+              f"{ms_p:.4f} ms, torch.addmm {ms_lib:.4f} ms per call")
     if not err <= bound or not bool(out_k.isfinite().all()):
         fail("K7 disagrees with its plain version")
     # two fused blocks (hops 64 and 256) per denoiser forward
-    return dict(max_abs_err=err, ms=2 * ms_k, plain_ms=2 * ms_p)
+    return entry(err, 2 * ms_k, 2 * ms_p, [gemm_work(m, k, n)] * 2,
+                 2 * ms_lib)
 
 
 def phase13_nwc_block(torch, nwc_ops, randn, c, layers):
@@ -512,7 +570,7 @@ def phase13_nwc_block(torch, nwc_ops, randn, c, layers):
     multi-tile edge case; phase 4's bounds."""
     rows = 3 * c + 1
     wstack = randn(layers, rows, c, scale=0.1)
-    worst, ms_k, ms_p = 0.0, 0.0, 0.0
+    worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
     for hop, frames, b, on_path in ((64, FRAMES_10S, 1, True),
                                     (256, FRAMES_10S, 1, True),
                                     (64, 100, 2, False)):
@@ -531,7 +589,7 @@ def phase13_nwc_block(torch, nwc_ops, randn, c, layers):
         torch.cuda.synchronize()
         (e, r), = check_pairs([(got, ref)], f"K6 (hop {hop}, {frames} "
                                            f"frames, b {b})")
-        k, p = race(torch, run_p, run_k, 10)
+        k, p = race(run_p, run_k, 10)
         phase(13, f"K6 lvc_block_nwc hop {hop}, {frames} frames, b {b}: "
                   f"max_abs_err {e:.3e} rel_l2 {r:.3e}; kernel {k:.4f} ms, "
                   f"plain {p:.4f} ms")
@@ -539,7 +597,8 @@ def phase13_nwc_block(torch, nwc_ops, randn, c, layers):
         if on_path:
             ms_k += k
             ms_p += p
-    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p)
+            works.append(block_work(b, c, length, 2.0 * kern_aug.numel()))
+    return entry(worst, ms_k, ms_p, works)
 
 
 def phase14_downpath(torch, down_ops, model, dev):
@@ -549,7 +608,7 @@ def phase14_downpath(torch, down_ops, model, dev):
     gen = torch.Generator(device=dev).manual_seed(14)
     factors = tuple(model.cfg.upsample_ratios[::-1])
     packs = (model.down_first, model.down_res, model.down_conv)
-    worst, ms_k, ms_p = 0.0, 0.0, 0.0
+    worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
     for b, length, on_path in ((1, FRAMES_10S * HOP_SIZE, True),
                                (2, 2 * 2048, False)):
         audio = torch.randn((b, length, 1), generator=gen, device=dev)
@@ -571,7 +630,7 @@ def phase14_downpath(torch, down_ops, model, dev):
                     a.isfinite().all()):
                 fail(f"K8 output {i} disagrees with its plain version "
                      f"(b {b}, {length} samples): {e:.3e} > {bound:.3e}")
-        k, p = race(torch, run_p, run_k, 10)
+        k, p = race(run_p, run_k, 10)
         phase(14, f"K8 downpath b {b} x {length} samples: max_abs_err "
                   + ", ".join(f"{e:.3e}" for e in errs) + " (skip0, skip1, "
                   f"skip2, x; bound 4 bf16 ulps of each); kernel {k:.4f} ms, "
@@ -579,7 +638,16 @@ def phase14_downpath(torch, down_ops, model, dev):
         worst = max([worst] + errs)
         if on_path:
             ms_k, ms_p = k, p
-    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p)
+            c = model.cfg.inner_channels
+            lengths = [length // r for r in (4, 32, 256)]
+            # first conv (7 taps, 1 -> C), then per DBlock output sample the
+            # 1x1 residual and three k=3 convs; audio in, four outputs out
+            flop = 2.0 * 7 * c * length + sum(
+                n * (2.0 * c * (c + 1) + 3 * 2.0 * c * (3 * c + 1))
+                for n in lengths)
+            nbytes = 4.0 * length + 2.0 * c * (length + sum(lengths))
+            works = [(flop, nbytes)]
+    return entry(worst, ms_k, ms_p, works)
 
 
 def phase15_nwc_route(torch, model, sample, const, gen, dev):
@@ -612,8 +680,7 @@ def phase15_nwc_route(torch, model, sample, const, gen, dev):
         def run():
             return sample(model, mel, const, length, generator=g)
 
-        run()                                      # warm-up
-        times.setdefault(use, []).append(cuda_ms(torch, run, 3))
+        times.setdefault(use, []).append(cuda_ms(run, 3))
         wavs[use] = run()
     model.use_kernels = True
     audio_s = length * AUDIO_SECONDS_PER_SAMPLE
@@ -634,6 +701,174 @@ def phase15_nwc_route(torch, model, sample, const, gen, dev):
     return out
 
 
+def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
+                     rows_p):
+    """K5 against its plain version (phase 4's bounds) and raced against
+    K3 + K1 on the same inputs, at the route's hops with 864 frames and at
+    b = 2 x 100 frames of hop 64."""
+    n = layers * 2 * c * rows_p
+    wstack_t = randn(layers, c, rows, scale=0.1)
+    final_wb = randn(8, c, scale=0.1)
+    # head weights scaled so the kernels come out near phase 4's (~0.05)
+    w_head = randn(HEAD_K, n, scale=0.004)
+    b_head = randn(n, scale=0.01, dtype=torch.float32)
+    per_forward = {"lvc_block_ncl_fh": dict(err=0.0, ms=0.0, plain=0.0,
+                                            works=[]),
+                   "lvc_block_ncl_fh_final": dict(err=0.0, ms=0.0, plain=0.0,
+                                                  works=[])}
+    cases = [(8, FRAMES_10S, 1, False, True), (64, FRAMES_10S, 1, False, True),
+             (256, FRAMES_10S, 1, False, False),
+             (256, FRAMES_10S, 1, True, True), (64, 100, 2, False, False)]
+    for hop, frames, b, final, on_path in cases:
+        length = frames * hop
+        x = randn(b, c, length)
+        skip = randn(b, c, length)
+        tap_c = randn(b, frames, HEAD_K)
+        fwb = final_wb if final else None
+
+        def run_k():
+            return block_ops.lvc_block_ncl_fh(x, skip, tap_c, w_head, b_head,
+                                              wstack_t, hop, fwb)
+
+        def run_p():
+            return block_ops.lvc_block_ncl_fh_plain(x, skip, tap_c, w_head,
+                                                    b_head, wstack_t, hop,
+                                                    fwb)
+
+        def run_two():
+            kern = lvc_head.taug_head_matmul(
+                tap_c.view(b * frames, HEAD_K), w_head, b_head).view(
+                    b, frames, layers, 2 * c, rows_p)
+            return block_ops.lvc_block_ncl(x, skip, kern, wstack_t, hop, fwb)
+
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        pairs = list(zip(got, ref)) if final else [(got, ref)]
+        what = f"K5 (hop {hop}, {frames} frames, b {b}" + (
+            ", with epilogue)" if final else ")")
+        errs = check_pairs(pairs, what)
+        ms_k, ms_p = race(run_p, run_k, 10)
+        ms_k2, ms_two = race(run_two, run_k, 10)
+        phase(16, f"{what}: " + ", ".join(
+            f"max_abs_err {e:.3e} rel_l2 {r:.3e}" for e, r in errs)
+            + f"; K5 {ms_k:.4f} ms, plain {ms_p:.4f} ms; raced against "
+            f"K3 + K1: K5 {ms_k2:.4f} ms, K3 + K1 {ms_two:.4f} ms")
+        acc = per_forward["lvc_block_ncl_fh_final" if final
+                          else "lvc_block_ncl_fh"]
+        acc["err"] = max([acc["err"]] + [e for e, _ in errs])
+        if on_path:
+            acc["ms"] += ms_k
+            acc["plain"] += ms_p
+            head_flop, head_bytes = gemm_work(b * frames, HEAD_K, n)
+            flop, nbytes = block_work(b, c, length, final=final)
+            # the head's output never reaches memory: taps and weights in
+            acc["works"].append((flop + head_flop,
+                                 nbytes + head_bytes - 2.0 * b * frames * n))
+    return {name: entry(a["err"], a["ms"], a["plain"], a["works"])
+            for name, a in per_forward.items()}
+
+
+def phase17_fh_route(torch, FastDiff, exp_r4b, cfg, gen, dev):
+    """The fused-head route's full-width forward, kernels against plain and
+    against the NCL route, then its N = 4 sampler raced against the NCL
+    route at b = 1 and b = 4 (experiment D)."""
+    length = FRAMES_10S * HOP_SIZE
+    audio = torch.randn((1, length, 1), generator=gen, device=dev)
+    mel = torch.randn((1, FRAMES_10S, cfg.cond_channels), generator=gen,
+                      device=dev)
+    t = torch.full((1, 1), 498.0, device=dev)
+    eps = {}
+    for route in ("ncl_fh", "ncl"):
+        model = FastDiff(cfg, seed=0, device=dev, infer_route=route).eval()
+        for use in (True, False) if route == "ncl_fh" else (True,):
+            model.use_kernels = use
+            eps[route, use] = model(audio, mel, t)
+        del model
+    torch.cuda.synchronize()
+    err = rel_l2(eps["ncl_fh", True], eps["ncl_fh", False])
+    err_ncl = rel_l2(eps["ncl_fh", True], eps["ncl", True])
+    phase(17, f"ncl_fh denoiser forward (1, {length}, 1) bf16: kernel vs "
+              f"plain rel_l2 {err:.3e} (bound 5e-2), max_abs_err "
+              f"{max_abs(eps['ncl_fh', True], eps['ncl_fh', False]):.3e}; "
+              f"vs the ncl route rel_l2 {err_ncl:.3e} (bound 5e-2)")
+    out = eps["ncl_fh", True]
+    if out.shape != (1, length, 1) or not torch.isfinite(out).all():
+        fail("ncl_fh denoiser output has the wrong shape or is not finite")
+    if not (err <= 5e-2 and err_ncl <= 5e-2):
+        fail("ncl_fh denoiser disagrees with its plain path or the ncl route")
+    del eps
+    report = exp_r4b.exp_d(dev, batches=(1, 4))
+    for batch, row in report["batches"].items():
+        phase(17, f"N=4 sampler, b {batch} x {FRAMES_10S} frames, raced in "
+                  "turns: " + ", ".join(
+                      f"{r} {row[r]['ms']:.3f} ms ({row[r]['ms_per_item']:.3f}"
+                      f" per item, {row[r]['x_realtime']:.1f} x realtime; "
+                      f"runs {', '.join(f'{v:.3f}' for v in row[r]['runs'])})"
+                      for r in ("ncl", "ncl_fh"))
+                  + f"; max |ncl - ncl_fh| {row['max_abs_diff']:.3e}")
+        if not np.isfinite(row["max_abs_diff"]):
+            fail("the ncl_fh sampler output is not finite")
+    return report
+
+
+def phase18_head_variants(exp_r4b, dev):
+    """K10: every variant of experiment B against its plain version."""
+    report = exp_r4b.exp_b(dev)
+    bound_err = report["err_bound"]
+    for row in report["variants"]:
+        phase(18, f"K10 {row['name']} ({'x'.join(map(str, report['shape']))}"
+                  f"): max_abs_err {row['max_abs_err']:.3e} (bound "
+                  f"{bound_err:.3e}), kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms")
+        if not row["max_abs_err"] <= bound_err:
+            fail(f"K10 {row['name']} disagrees with its plain version")
+    phase(18, f"Kernel A {report['taug_head_ms']:.4f} ms, torch.addmm "
+              f"{report['library_ms']:.4f} ms per call (same shape)")
+    shipped = report["variants"][0]
+    return entry(max(r["max_abs_err"] for r in report["variants"]),
+                 shipped["ms"], shipped["plain_ms"],
+                 [gemm_work(*report["shape"])], report["library_ms"])
+
+
+def phase19_stages(micro, dev):
+    """K9: the conv and LVC stages at the hop-256 block's shape against
+    their plain versions; the JSON keeps the wrappers' default settings."""
+    report = micro.run(dev)
+    defaults = {"conv_stage": ("tile_s", 2048), "lvc_stage": ("tf", 8)}
+    out = {}
+    for name, (key, default) in defaults.items():
+        stage = report[name]
+        for row in stage["rows"]:
+            phase(19, f"K9 {name} {key}={row[key]} (L {report['length']}): "
+                      f"max_abs_err {row['max_abs_err']:.3e} (bound "
+                      f"{row['err_bound']:.3e}) rel_l2 {row['rel_l2']:.3e}; "
+                      f"kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms")
+            if not (row["max_abs_err"] <= row["err_bound"]
+                    and row["rel_l2"] <= 1e-2):
+                fail(f"K9 {name} ({key}={row[key]}) disagrees with its plain "
+                     "version")
+        phase(19, f"K9 {name}: library {stage['library_ms']:.4f} ms, bound "
+                  f"{stage['bound_ms']:.4f} ms ({stage['bound_by']})")
+        row = next(r for r in stage["rows"] if r[key] == default)
+        out[name] = dict(max_abs_err=max(r["max_abs_err"]
+                                         for r in stage["rows"]),
+                         ms=row["ms"], plain_ms=row["plain_ms"],
+                         bound_ms=stage["bound_ms"],
+                         bound_by=stage["bound_by"],
+                         library_ms=stage["library_ms"])
+    phase(19, f"gate_stage (plain, f32) {report['gate_stage_ms']:.4f} ms")
+    return out
+
+
+def check_no_jax():
+    """Fail if jax or any module of the JAX package was imported."""
+    bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
+                 or m.startswith(("jax.", "jaxlib", "fastdiff_tpu.")))
+    if bad:
+        fail(f"the port imported the JAX side: {bad[:8]}")
+
+
 def main():
     import torch
 
@@ -644,21 +879,21 @@ def main():
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     try:
-        from fastdiff_tpu.config import ModelConfig
+        from fastdiff_tpu_torch.config import ModelConfig
         from fastdiff_tpu_torch.diffusion.sampler import (
             constants_for_hparams, sample)
         from fastdiff_tpu_torch.models.fastdiff import FastDiff
         from fastdiff_tpu_torch.ops import (_build, downpath_pallas,
                                             lvc_block_ncl, lvc_block_pallas,
                                             lvc_head)
+        from fastdiff_tpu_torch.scripts import bench_mosaic_micro, exp_r4b
         from fastdiff_tpu_torch.serving.server import (VocoderService,
                                                        start_server)
         from fastdiff_tpu_torch.training.task import FastDiffTask
         from fastdiff_tpu_torch.training.trainer import Trainer
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout of the repo): {e}")
-    if "jax" in sys.modules:
-        fail("the port imported jax")
+    check_no_jax()
     # f32 references: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -710,22 +945,24 @@ def main():
         # f32 sums in another order, then one bf16 rounding: at most one
         # bf16 ulp apart (2^-7 relative) where a rounding flips
         bound = 2.0 ** -7 * float(out_p.float().abs().max()) + 1e-6
-        ms_k, ms_p = race(torch, lambda: lvc_head.taug_head_matmul_plain(
+        ms_k, ms_p = race(lambda: lvc_head.taug_head_matmul_plain(
             tap, w_head, b_head), lambda: lvc_head.taug_head_matmul(
             tap, w_head, b_head), 20)
+        b_bf16 = b_head.to(bf16)
+        ms_lib = cuda_ms(lambda: torch.addmm(b_bf16, tap, w_head), 20)
         phase(3, f"Kernel A taug_head ({m}x{k} @ {k}x{n}): max_abs_err "
                  f"{err:.3e} (bound {bound:.3e}), kernel {ms_k:.4f} ms, "
-                 f"plain {ms_p:.4f} ms per call")
+                 f"plain {ms_p:.4f} ms, torch.addmm {ms_lib:.4f} ms per call")
         if not err <= bound:
             fail("Kernel A disagrees with its plain version")
-        report["taug_head"] = dict(max_abs_err=err, ms=3 * ms_k,
-                                   plain_ms=3 * ms_p)
+        report["taug_head"] = entry(err, 3 * ms_k, 3 * ms_p,
+                                    [gemm_work(m, k, n)] * 3, 3 * ms_lib)
 
         # --- phase 4: Kernel B ---------------------------------------------
         wstack_t = randn(layers, c, rows, scale=0.1)
         final_wb = randn(8, c, scale=0.1)
-        per_forward = {"lvc_block_ncl": [0.0, 0.0, 0.0],
-                       "lvc_block_ncl_final": [0.0, 0.0, 0.0]}
+        per_forward = {"lvc_block_ncl": [0.0, 0.0, 0.0, []],
+                       "lvc_block_ncl_final": [0.0, 0.0, 0.0, []]}
         cases = [(8, FRAMES_10S, False, True), (64, FRAMES_10S, False, True),
                  (256, FRAMES_10S, False, False),
                  (256, FRAMES_10S, True, True), (8, 100, False, False)]
@@ -752,7 +989,7 @@ def main():
             pairs = [(got[0], ref[0]), (got[1], ref[1])] if final else [
                 (got, ref)]
             errs = [(max_abs(a, b), rel_l2(a, b)) for a, b in pairs]
-            ms_k, ms_p = race(torch, run_p, run_k, 10)
+            ms_k, ms_p = race(run_p, run_k, 10)
             what = "with epilogue" if final else "block only"
             phase(4, f"Kernel B hop {hop}, {frames} frames ({what}): "
                      + ", ".join(f"max_abs_err {e:.3e} rel_l2 {r:.3e}"
@@ -773,8 +1010,10 @@ def main():
             if on_path:
                 acc[1] += ms_k
                 acc[2] += ms_p
-        for name, (err, ms_k, ms_p) in per_forward.items():
-            report[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p)
+                acc[3].append(block_work(1, c, length, 2.0 * kern.numel(),
+                                         final=final))
+        for name, (err, ms_k, ms_p, works) in per_forward.items():
+            report[name] = entry(err, ms_k, ms_p, works)
 
         # --- phase 5: full-width denoiser forward --------------------------
         model = FastDiff(cfg, seed=0, device=dev).eval()
@@ -902,6 +1141,57 @@ def main():
         fail("a kernel of the NWC route was never launched")
     launches.update(nwc_launches)
 
+    # --- phases 16-17: the fused-head route ----------------------------------
+    with torch.inference_mode():
+        report.update(phase16_fh_block(torch, lvc_block_ncl, lvc_head, randn,
+                                       c, layers, rows, rows_p))
+        fh_sampler = phase17_fh_route(torch, FastDiff, exp_r4b, cfg, gen, dev)
+    all_counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
+                    lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES,
+                    bench_mosaic_micro.LAUNCHES)
+    k1_keys = ("lvc_block_ncl", "lvc_block_ncl_final")
+    # per request: K5 on the hop-8 and hop-64 blocks of every step and K5
+    # final on the hop-256 block; at 100 frames the hop-8 block is not
+    # fusable (100 % 16 != 0) and runs K3 + K1, as the ncl route does
+    fh_launches = serve_and_count(
+        17, VocoderService({"N": 4, "seed": 1234,
+                            "use_pallas_block": "ncl_fh"}, device=dev),
+        start_server, all_counters,
+        {frames: {"K5": (("lvc_block_ncl_fh",), fused * steps),
+                  "K5 final": (("lvc_block_ncl_fh_final",), steps),
+                  "K1": (k1_keys, (2 - fused) * steps),
+                  "K3": (("taug_head",), (2 - fused) * steps)}
+         for frames, fused in ((100, 1), (256, 2), (FRAMES_10S, 2))},
+        cfg.cond_channels)
+    fh_launches = {k: fh_launches[k] for k in
+                   ("lvc_block_ncl_fh", "lvc_block_ncl_fh_final")}
+    phase(17, f"ncl_fh server answered 3 requests; launches in the main "
+              f"path: {fh_launches}")
+    if any(v == 0 for v in fh_launches.values()):
+        fail("a kernel of the ncl_fh route was never launched")
+    launches.update(fh_launches)
+    every_kernel = [k for counter in all_counters for k in counter]
+    serve_and_count(
+        17, VocoderService({"N": 4, "seed": 1234, "use_pallas_block": False},
+                           device=dev),
+        start_server, all_counters,
+        {256: {"all kernels": (every_kernel, 0)}}, cfg.cond_channels)
+    phase(17, "plain-route server (use_pallas_block: false) answered with no "
+              "kernel launched")
+
+    # --- phases 18-19: the experiment scripts' kernels ---------------------
+    for counter in all_counters:
+        for key in counter:
+            counter[key] = 0
+    report["taug_head_variant"] = phase18_head_variants(exp_r4b, dev)
+    launches["taug_head_variant"] = lvc_head.LAUNCHES["taug_head_variant"]
+    report.update(phase19_stages(bench_mosaic_micro, dev))
+    launches.update(bench_mosaic_micro.LAUNCHES)
+    if any(launches[k] == 0 for k in ("taug_head_variant", "conv_stage",
+                                      "lvc_stage")):
+        fail("a kernel of the experiment scripts was never launched")
+    check_no_jax()
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -917,25 +1207,43 @@ def main():
                      "fastdiff_tpu/ops/lvc_block_pallas.py:396"),
         "downpath": ("fastdiff_tpu_torch/csrc/downpath.cu",
                      "fastdiff_tpu/ops/downpath_pallas.py:230"),
+        "lvc_block_ncl_fh": ("fastdiff_tpu_torch/csrc/lvc_block_ncl_fh.cu",
+                             "fastdiff_tpu/ops/lvc_block_ncl.py:584"),
+        "lvc_block_ncl_fh_final": (
+            "fastdiff_tpu_torch/csrc/lvc_block_ncl_fh.cu",
+            "fastdiff_tpu/ops/lvc_block_ncl.py:575"),
+        "taug_head_variant": ("fastdiff_tpu_torch/csrc/taug_head.cu",
+                              "scripts/exp_r4b.py:140"),
+        "conv_stage": ("fastdiff_tpu_torch/csrc/stage_micro.cu",
+                       "scripts/bench_mosaic_micro.py:68"),
+        "lvc_stage": ("fastdiff_tpu_torch/csrc/stage_micro.cu",
+                      "scripts/bench_mosaic_micro.py:104"),
     }
-    print("  kernel ms below are per denoiser forward at 864 frames: "
-          "taug_head 3 calls, lvc_block_ncl hops 8 + 64, "
-          "lvc_block_ncl_final hop 256, aug_head 2 calls, lvc_block_nwc "
-          "hops 64 + 256, downpath 1 call; lvc_block_ncl_sr per train-step "
-          "forward at the recipe (hops 8 + 64 + 256, b 20 x 100 frames), "
-          "its launches from phase 11; launches of taug_head and "
-          "lvc_block_ncl* from phase 7, of lvc_block_nwc, aug_head and "
-          "downpath from phase 15", flush=True)
+    print("  kernel ms (and bound_ms, library_ms) below are per denoiser "
+          "forward at 864 frames: taug_head 3 calls, lvc_block_ncl hops 8 + "
+          "64, lvc_block_ncl_final hop 256, aug_head 2 calls, lvc_block_nwc "
+          "hops 64 + 256, downpath 1 call, lvc_block_ncl_fh hops 8 + 64, "
+          "lvc_block_ncl_fh_final hop 256; lvc_block_ncl_sr per train-step "
+          "forward at the recipe (hops 8 + 64 + 256, b 20 x 100 frames); "
+          "taug_head_variant per call (m_outer, m_tile 216); conv_stage "
+          "(tile_s 2048) and lvc_stage (tf 8) per call at 221,184 samples. "
+          "Launches from the run of each kernel's path: phase 7 (taug_head, "
+          "lvc_block_ncl*), 11 (lvc_block_ncl_sr), 15 (lvc_block_nwc, "
+          "aug_head, downpath), 17 (lvc_block_ncl_fh*), 18 "
+          "(taug_head_variant), 19 (conv_stage, lvc_stage)", flush=True)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name],
-                    max_abs_err=report[name]["max_abs_err"],
-                    ms=report[name]["ms"], plain_ms=report[name]["plain_ms"])
+                    launches=launches[name], **report[name])
                for name, (src, rep) in sources.items()]
+    fh = fh_sampler["batches"]
     print(json.dumps({"kernels": kernels,
                       "sampler_ms": report["sampler_kernel_ms"],
                       "sampler_plain_ms": report["sampler_plain_ms"],
                       "nwc_sampler_ms": nwc_sampler["kernel"],
                       "nwc_sampler_plain_ms": nwc_sampler["plain"],
+                      "fh_sampler_ms": {b: row["ncl_fh"]["ms"]
+                                        for b, row in fh.items()},
+                      "fh_race_ncl_ms": {b: row["ncl"]["ms"]
+                                         for b, row in fh.items()},
                       "train_step": train_report, "fit_s": fit_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

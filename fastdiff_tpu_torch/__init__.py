@@ -1,15 +1,18 @@
-"""FastDiff in PyTorch for NVIDIA Hopper: the inference slice of ``fastdiff_tpu``.
+"""FastDiff in PyTorch for NVIDIA Hopper: the port of ``fastdiff_tpu``.
 
-The mel -> waveform serving path of ``fastdiff_tpu`` (N-step reverse
-diffusion around the FastDiff denoiser, served over HTTP), written as
-PyTorch modules in the NCL ``(B, C, L)`` layout. The two kernels that carry
-the denoiser's LVC blocks are hand-written CUDA C++ for ``sm_90a``
+The mel -> waveform serving path (N-step reverse diffusion around the
+FastDiff denoiser, served over HTTP) on every inference route, and the
+trainer, written as PyTorch modules. Every kernel the JAX package wrote in
+Pallas (the LVC blocks, the predictor heads, the down path and the two
+experiment scripts' kernels) is hand-written CUDA C++ for ``sm_90a``
 (``csrc/``), built with ``nvcc`` on first use; every other op is plain
-PyTorch. On CPU tensors each kernel wrapper runs its plain PyTorch version.
+PyTorch. Entry points run on the CUDA card unless the caller asks for the
+CPU; on CPU tensors each kernel wrapper runs its plain PyTorch version.
 
 Module names follow ``fastdiff_tpu`` so each port module sits beside its
-JAX counterpart. The package never imports jax: from ``fastdiff_tpu`` it
-uses only the jax-free ``config`` and ``diffusion.schedules`` modules.
+JAX counterpart. The package imports neither jax nor ``fastdiff_tpu``: it
+keeps its own copies of the jax-free modules it needs (``config``,
+``diffusion/schedules``, ``data``, ``utils/logging_utils``).
 """
 
 __version__ = "0.1.0"

@@ -60,63 +60,12 @@
 // frame count work; the route still calls it only where JAX's fusable
 // admits the block (hop >= 64, at least 2 frames).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "lvc_block_common.cuh"
 
 namespace {
 
-constexpr int C = 32;                   // inner channels
-constexpr int HALO = 48;
-constexpr int EXT = 512;                // samples per block = threads
-constexpr int TILE = EXT - 2 * HALO;    // 416 output samples per block
-constexpr int ROWS = 3 * C + 1;         // augmented contraction rows
-constexpr int LAYERS = 4;
 constexpr size_t SMEM_BYTES =
     3 * C * EXT * sizeof(bf16) + (3 * C * C + C + 8 * C) * sizeof(float);
-
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float round_bf(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ float leaky(float v) {
-  return v >= 0.0f ? v : 0.2f * v;
-}
-
-// element (c, g) of a (C, L) NCL or (L, C) NWC activation row of one batch
-template <bool NWC>
-__device__ __forceinline__ size_t act_at(int c, long g, int L) {
-  return NWC ? (size_t)g * C + c : (size_t)c * L + g;
-}
-
-// acc[j] += k[j] * v over 8 bf16 packed in a 16-byte vector
-__device__ __forceinline__ void axpy8(uint4 k, float v, float* acc) {
-  const uint32_t words[4] = {k.x, k.y, k.z, k.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    __nv_bfloat162 pair;
-    *reinterpret_cast<uint32_t*>(&pair) = words[q];
-    const float2 f = __bfloat1622float2(pair);
-    acc[2 * q] = fmaf(f.x, v, acc[2 * q]);
-    acc[2 * q + 1] = fmaf(f.y, v, acc[2 * q + 1]);
-  }
-}
-
-// acc + sum_q k[q] * v[q] over 8 bf16 packed in a 16-byte vector
-__device__ __forceinline__ float dot8(uint4 k, const float* v, float acc) {
-  const uint32_t words[4] = {k.x, k.y, k.z, k.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    __nv_bfloat162 pair;
-    *reinterpret_cast<uint32_t*>(&pair) = words[q];
-    const float2 f = __bfloat1622float2(pair);
-    acc = fmaf(f.x, v[2 * q], acc);
-    acc = fmaf(f.y, v[2 * q + 1], acc);
-  }
-  return acc;
-}
 
 template <bool FINAL, bool SAVE, bool NWC>
 __global__ void __launch_bounds__(EXT, 2)
@@ -157,63 +106,14 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
   int d = 1;
   for (int i = 0; i < LAYERS; ++i, d *= 3) {
     __syncthreads();
-    // stage W_i as wt[r][o] and its bias: wstack_t (C, 3C+1) rows are
-    // outputs, NWC's wstack (3C+1, C) rows are contraction rows
-    const bf16* w = wstack + (size_t)i * C * ROWS;
-    for (int idx = e; idx < C * ROWS; idx += EXT) {
-      const int o = NWC ? idx % C : idx / ROWS;
-      const int r = NWC ? idx / C : idx % ROWS;
-      const float v = to_f(w[idx]);
-      if (r < 3 * C)
-        wt[r * C + o] = v;
-      else
-        wb[o] = v;
-    }
-    // s = carry + skip (masked), a = leaky(s)
     // residual rows of layer i: s/y at (b, i, c, g), z at (b, i, c2, g)
     bf16* si = s_all + ((size_t)b * LAYERS + i) * C * L + g;
     bf16* yi = y_all + ((size_t)b * LAYERS + i) * C * L + g;
     bf16* zi = z_all + ((size_t)b * LAYERS + i) * 2 * C * L + g;
-    for (int c = 0; c < C; ++c) {
-      float s = 0.0f;
-      if (valid)
-        s = round_bf(to_f(carry[c * EXT + e]) +
-                     to_f(sb[act_at<NWC>(c, g, L)]));
-      carry[c * EXT + e] = __float2bfloat16(s);
-      act[c * EXT + e] = __float2bfloat16(leaky(s));
-      if (save) si[(size_t)c * L] = __float2bfloat16(s);
-    }
+    skip_add_stage<NWC, SAVE>(wstack + (size_t)i * C * ROWS, sb, carry, act,
+                              wt, wb, e, g, L, valid, save, si);
     __syncthreads();
-
-    // y = leaky(W_i . [a(t-d); a; a(t+d)] + bias), masked
-    {
-      float acc[C];
-#pragma unroll
-      for (int o = 0; o < C; ++o) acc[o] = wb[o];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int src = e + (k - 1) * d;
-        const bool in = src >= 0 && src < EXT;
-        for (int c = 0; c < C; ++c) {
-          const float v = in ? to_f(act[c * EXT + src]) : 0.0f;
-          const float4* wr = reinterpret_cast<const float4*>(wt + (k * C + c) * C);
-#pragma unroll
-          for (int o4 = 0; o4 < C / 4; ++o4) {
-            const float4 w4 = wr[o4];
-            acc[4 * o4 + 0] = fmaf(w4.x, v, acc[4 * o4 + 0]);
-            acc[4 * o4 + 1] = fmaf(w4.y, v, acc[4 * o4 + 1]);
-            acc[4 * o4 + 2] = fmaf(w4.z, v, acc[4 * o4 + 2]);
-            acc[4 * o4 + 3] = fmaf(w4.w, v, acc[4 * o4 + 3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < C; ++o) {
-        const bf16 y = valid ? __float2bfloat16(leaky(acc[o])) : zero;
-        ybuf[o * EXT + e] = y;
-        if (save) yi[(size_t)o * L] = y;
-      }
-    }
+    dilated_conv<SAVE>(act, wt, wb, ybuf, e, d, L, valid, save, yi);
     __syncthreads();
 
     // z = K_{i,f} . [y(t-1); y; y(t+1); 1]; carry = s + bf16(gate)
@@ -238,43 +138,16 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
           }
         }
       } else {  // ki[o][r]: rows_p-padded rows, 16-byte vectors along r
+        lvc_dot_ncl<true>(ki, rows_p, ybuf, e, oc, zs, zt);
+      }
+      if (save) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          zs[j] = to_f(ki[(size_t)(oc + j) * rows_p + 3 * C]);
-          zt[j] = to_f(ki[(size_t)(C + oc + j) * rows_p + 3 * C]);
-        }
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const int src = e + k - 1;
-          const bool in = src >= 0 && src < EXT;
-          for (int c8 = 0; c8 < C; c8 += 8) {
-            float v[8];
-#pragma unroll
-            for (int q = 0; q < 8; ++q)
-              v[q] = in ? to_f(ybuf[(c8 + q) * EXT + src]) : 0.0f;
-            const int r = k * C + c8;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const uint4 ks = __ldg(reinterpret_cast<const uint4*>(
-                  ki + (size_t)(oc + j) * rows_p + r));
-              const uint4 kt = __ldg(reinterpret_cast<const uint4*>(
-                  ki + (size_t)(C + oc + j) * rows_p + r));
-              zs[j] = dot8(ks, v, zs[j]);
-              zt[j] = dot8(kt, v, zt[j]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (save) {
           zi[(size_t)(oc + j) * L] = __float2bfloat16(zs[j]);
           zi[(size_t)(C + oc + j) * L] = __float2bfloat16(zt[j]);
         }
-        const float gate = tanhf(zt[j]) / (1.0f + expf(-zs[j]));
-        const float s = to_f(carry[(oc + j) * EXT + e]);
-        carry[(oc + j) * EXT + e] = __float2bfloat16(s + round_bf(gate));
       }
+      gate_update(carry, e, oc, zs, zt);
     }
   }
   __syncthreads();
@@ -282,18 +155,7 @@ lvc_block_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
   if (e < HALO || e >= HALO + TILE || !valid) return;
   bf16* ob = out + (size_t)b * C * L;
   for (int c = 0; c < C; ++c) ob[act_at<NWC>(c, g, L)] = carry[c * EXT + e];
-  if (FINAL) {
-    float acc = wf[7 * C];
-#pragma unroll
-    for (int tap = 0; tap < 7; ++tap) {
-      const long gs = g + tap - 3;
-      if (gs < 0 || gs >= L) continue;
-      const int src = e + tap - 3;
-      for (int c = 0; c < C; ++c)
-        acc = fmaf(to_f(carry[c * EXT + src]), wf[tap * C + c], acc);
-    }
-    fin[(size_t)b * L + g] = acc;
-  }
+  if (FINAL) fin[(size_t)b * L + g] = final_conv(carry, wf, e, g, L);
 }
 
 template <bool FINAL, bool SAVE, bool NWC = false>

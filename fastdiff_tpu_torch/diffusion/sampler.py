@@ -1,7 +1,7 @@
 """Reverse-diffusion sampling (``fastdiff_tpu/diffusion/sampler.py``).
 
 A Python loop over the N steps of the inference schedule; the per-step
-constants come from ``fastdiff_tpu.diffusion.schedules``. DDPM update:
+constants come from ``diffusion/schedules.py``. DDPM update:
 
     x <- (x - beta_n / sqrt(1 - alpha_n^2) * eps(x, mel, t_n)) / sqrt(1 - beta_n)
     x <- x + sigma_n * z            (no noise after the final step)
@@ -18,9 +18,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from fastdiff_tpu.config import DiffusionConfig
-from fastdiff_tpu.diffusion import schedules
-from fastdiff_tpu.diffusion.schedules import SamplerConstants
+from fastdiff_tpu_torch.config import DiffusionConfig
+from fastdiff_tpu_torch.diffusion import schedules
+from fastdiff_tpu_torch.diffusion.schedules import SamplerConstants
 
 
 def constants_for_hparams(hp: dict) -> SamplerConstants:

@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fastdiff_tpu.config import ModelConfig
+from fastdiff_tpu_torch.config import ModelConfig
 
 
 def _entries(cfg: ModelConfig) -> list:

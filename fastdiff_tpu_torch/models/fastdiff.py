@@ -8,14 +8,18 @@
          diffusion-step embedding through a kernel predictor
       -> output conv (k=7, C->1), run as the last LVC block's epilogue
 
-Two inference routes, picked by ``infer_route`` (``resolve_infer_route``
+Four inference routes, picked by ``infer_route`` (``resolve_infer_route``
 reads it from ``use_pallas_block``), with the same parameters and the same
-``state_dict``, so one converted JAX tree loads into either:
+``state_dict``, so one converted JAX tree loads into any of them:
 
 - ``"ncl"``: the JAX ``use_pallas_block="ncl"`` route
   (``_fastdiff_apply_ncl``), (B, C, L) activations; every LVC block runs
   Kernel A (K3) and Kernel B (K1), the last with the final conv as K2's
   epilogue.
+- ``"ncl_fh"``: the JAX ``use_pallas_block="ncl_fh"`` route, the NCL route
+  with the head fused into the block: blocks that JAX's NCL ``fusable``
+  admits run K5 (``lvc_block_ncl_fh``; the last with the final-conv
+  epilogue), the others K3 + K1 as on ``"ncl"``.
 - ``"nwc"``: the JAX ``use_pallas_block=True`` route (``fastdiff_apply``'s
   NWC branch), (B, L, C) activations. Blocks that JAX's ``fusable`` admits
   (hops 64 and 256) run K7 (row-major head) and K6 (NWC block); the hop-8
@@ -23,6 +27,9 @@ reads it from ``use_pallas_block``), with the same parameters and the same
   JAX. With ``down_kernel`` (``use_pallas_down``) the first conv and the
   DBlocks run as K8 where JAX runs its kernel: bf16, three blocks and
   ``downpath_fusable(L)``; elsewhere they run the plain NWC ops.
+- ``"plain"``: the JAX ``use_pallas_block=False`` route, the same NWC
+  branch with every LVC block on the plain loop. It launches no kernel but
+  K8, and that only where ``down_kernel`` asks for it, as in JAX.
 
 Parameter names mirror the JAX tree from ``init_fastdiff``; weights are the
 weight-norm-fused ones (``bridge.py`` converts a JAX tree). The kernels'
@@ -56,7 +63,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fastdiff_tpu.config import ModelConfig
+from fastdiff_tpu_torch.config import ModelConfig
 from fastdiff_tpu_torch.ops import downpath_pallas as down_ops
 from fastdiff_tpu_torch.ops import lvc_block_ncl as block_ops
 from fastdiff_tpu_torch.ops import lvc_block_pallas as nwc_ops
@@ -66,7 +73,7 @@ from fastdiff_tpu_torch.ops.lvc import lvc_gated_residual_nwc
 
 
 TRAIN_ROUTES = ("ncl_sr", "ncl_vjp", "plain")
-INFER_ROUTES = ("ncl", "nwc")
+INFER_ROUTES = ("ncl", "ncl_fh", "nwc", "plain")
 _TRUE = ("1", "true", "yes", "on")
 
 
@@ -76,17 +83,34 @@ def resolve_infer_route(hp: dict) -> str:
 
     - true (or "1", "yes", "on") -> "nwc": K6, K7 and, with
       ``use_pallas_down``, K8, as JAX runs its NWC kernels;
-    - "auto", "", "ncl", "ncl_sr", "ncl_vjp" -> "ncl";
-    - "ncl_fh" -> "ncl": JAX's fused-head kernel (K5) is not ported yet, so
-      the port runs K1 + K3 for it (the vocoder says so when it is built);
-      JAX's own tests hold ``ncl_fh`` equal to ``ncl``;
-    - false (and any other value) -> "ncl". JAX runs its XLA path there;
-      the port has no separate plain route for inference and keeps the NCL
-      route with its kernels, as it always has."""
+    - "ncl_fh" -> "ncl_fh": K5 on the blocks JAX fuses, K3 + K1 elsewhere;
+    - "auto", "", "ncl", "ncl_sr", "ncl_vjp" -> "ncl" (JAX's "auto" picks
+      its XLA path off the TPU because its kernels would run interpreted
+      there; the port's kernels are native on the card);
+    - false (and any other value) -> "plain", JAX's XLA path: the NWC
+      forward with every LVC block on the plain loop."""
     raw = hp.get("use_pallas_block", "auto")
     if not isinstance(raw, str):
-        return "nwc" if bool(raw) else "ncl"
-    return "nwc" if raw.strip().lower() in _TRUE else "ncl"
+        return "nwc" if bool(raw) else "plain"
+    low = raw.strip().lower()
+    if low in _TRUE:
+        return "nwc"
+    if low == "ncl_fh":
+        return "ncl_fh"
+    if low in ("auto", "", "ncl", "ncl_sr", "ncl_vjp"):
+        return "ncl"
+    return "plain"
+
+
+def checked_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card raises
+    (the entry points never fall back to the CPU: ask for it by name)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def resolve_down_kernel(hp: dict) -> bool:
@@ -249,8 +273,12 @@ class LVCBlock(nn.Module):
 
     @torch.no_grad()
     def pack(self, dtype, route: str = "ncl"):
+        """Pack the kernel operands ``route`` reads (the plain route reads
+        the weights as they are)."""
+        if route == "plain":
+            return
         names, operands = ((("w_head", "b_head", "wstack_t"),
-                            self.operands(dtype)) if route == "ncl" else
+                            self.operands(dtype)) if route != "nwc" else
                            (("w_aug", "b_aug", "wstack"),
                             self.nwc_operands(dtype)))
         for name, t in zip(names, operands):
@@ -299,15 +327,16 @@ class LVCBlock(nn.Module):
         return (kw.reshape(b, frames, self.layers, -1, c, 2 * c),
                 kb.reshape(b, frames, self.layers, 2 * c))
 
-    def forward_nwc(self, x, skip, mel, emb, dtype, use_kernels: bool):
+    def forward_nwc(self, x, skip, mel, emb, dtype, use_kernels: bool,
+                    fuse: bool = True):
         """``_lvc_block_apply``: x (B, L/ratio, C), skip (B, L, C), mel
-        (B, n_mels, F) -> (B, L, C). Blocks that ``fusable`` admits run K7
-        and K6 (their plain versions without ``use_kernels``); the others
-        the plain NWC loop, as in JAX."""
+        (B, n_mels, F) -> (B, L, C). With ``fuse``, blocks that ``fusable``
+        admits run K7 and K6 (their plain versions without
+        ``use_kernels``); the others the plain NWC loop, as in JAX."""
         b, _, frames = mel.shape
         c = self.convs[0].bias.shape[0]
         skip = skip.to(dtype)
-        if nwc_ops.fusable(self.hop, frames):
+        if fuse and nwc_ops.fusable(self.hop, frames):
             head = (nwc_ops.aug_head_matmul if use_kernels
                     else nwc_ops.aug_head_matmul_plain)
             kern_aug = head(self._taps(mel, emb, dtype), self.w_aug,
@@ -328,12 +357,26 @@ class LVCBlock(nn.Module):
         return x
 
     def forward(self, x, skip, mel, emb, dtype, use_kernels: bool,
-                final_wb=None):
+                final_wb=None, fused_head: bool = False):
+        """``_lvc_block_apply_ncl``: x (B, C, L/ratio), skip (B, C, L), mel
+        (B, n_mels, F) -> (B, C, L), and the final conv's (B, 1, L) float32
+        with ``final_wb``. With ``fused_head``, a block that the NCL
+        ``fusable`` admits runs K5 where JAX runs ``lvc_block_ncl_fh``;
+        every other block runs K3 + K1 (their plain versions without
+        ``use_kernels``)."""
         b, _, frames = mel.shape
+        c = self.convs[0].bias.shape[0]
+        if (fused_head and block_ops.fusable(self.hop, frames)
+                and 2 * c % 8 == 0):
+            tap_c = lvc_head.frame_taps(self._trunk(mel, emb, dtype).to(dtype))
+            block = (block_ops.lvc_block_ncl_fh if use_kernels
+                     else block_ops.lvc_block_ncl_fh_plain)
+            return block(self._upsample(x, dtype), skip.to(dtype).contiguous(),
+                         tap_c, self.w_head, self.b_head, self.wstack_t,
+                         self.hop, final_wb)
         tap = self._taps(mel, emb, dtype)
         head = (lvc_head.taug_head_matmul if use_kernels
                 else lvc_head.taug_head_matmul_plain)
-        c = self.convs[0].weight.shape[0]
         kern = head(tap, self.w_head, self.b_head).reshape(
             b, frames, self.layers, 2 * c, -1)
         block = (block_ops.lvc_block_ncl if use_kernels
@@ -363,8 +406,9 @@ class FastDiff(nn.Module):
     """Epsilon model: ``forward(audio (B, T, 1), mel (B, T', n_mels),
     t (B, 1)) -> (B, T, 1)`` float32, T == T' * prod(upsample_ratios).
 
-    ``infer_route`` ("ncl" or "nwc") and ``down_kernel`` pick the inference
-    route (module docstring); ``train_route`` makes the trainable model."""
+    ``infer_route`` (one of ``INFER_ROUTES``) and ``down_kernel`` pick the
+    inference route (module docstring); ``train_route`` makes the trainable
+    model."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), *,
                  seed: int | None = 0, device=None,
@@ -442,7 +486,7 @@ class FastDiff(nn.Module):
             return
         for block in self.lvc_blocks:
             block.pack(self.dtype, self.infer_route)
-        if self.infer_route == "ncl":
+        if self.infer_route in ("ncl", "ncl_fh"):
             self.register_buffer(
                 "final_wb", block_ops.final_conv_wb(
                     self.final_conv.weight, self.final_conv.bias, self.dtype),
@@ -484,16 +528,17 @@ class FastDiff(nn.Module):
                 t: torch.Tensor) -> torch.Tensor:
         if self.train_route is not None:
             return self._forward_train(audio, mel, t)
-        if self.infer_route == "nwc":
+        if self.infer_route in ("nwc", "plain"):
             return self._forward_nwc(audio, mel, t)
         dtype = self.dtype
         b, length, _ = audio.shape
         emb, x, skips, mel_ncl = self._down_path(audio, mel, t)
         n_blocks = len(self.lvc_blocks)
+        fused_head = self.infer_route == "ncl_fh"
         for n, (block, skip) in enumerate(zip(self.lvc_blocks, skips)):
             last = n == n_blocks - 1
             x = block(x, skip, mel_ncl, emb, dtype, self.use_kernels,
-                      self.final_wb if last else None)
+                      self.final_wb if last else None, fused_head)
         _, fin = x
         return fin.reshape(b, length, 1)
 
@@ -520,14 +565,16 @@ class FastDiff(nn.Module):
         return x, skips[::-1]
 
     def _forward_nwc(self, audio, mel, t):
-        """``fastdiff_apply``'s NWC branch (``use_pallas_block=True``)."""
+        """``fastdiff_apply``'s NWC branch: ``use_pallas_block=True`` on the
+        "nwc" route, ``False`` (no block fused) on the "plain" route."""
         dtype = self.dtype
         emb = self._embed(t)
         x, skips = self._down_path_nwc(audio)
         mel_ncl = mel.to(dtype).transpose(1, 2)
+        fuse = self.infer_route == "nwc"
         for block, skip in zip(self.lvc_blocks, skips):
             x = block.forward_nwc(x, skip, mel_ncl, emb, dtype,
-                                  self.use_kernels)
+                                  self.use_kernels, fuse)
         return _conv_apply_nwc(self.final_conv, x, dtype).float()
 
     def _forward_train(self, audio, mel, t):

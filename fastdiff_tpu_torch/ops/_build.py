@@ -1,11 +1,13 @@
 """Build ``csrc/*.cu`` with ``nvcc`` into one shared library, load it with ctypes.
 
 The library has a plain C interface (no PyTorch headers), so a cold build
-takes seconds. It goes to ``build/kernels/`` at the repository root, named by
-a hash of the sources, and is built on first use: a run from a clean
-checkout builds it once, and an edited source never loads a stale binary.
-``nvcc``'s resource report (``-Xptxas -v``: registers, shared memory, spills
-per kernel) is kept beside it as ``build.log``.
+takes seconds: one ``nvcc -c`` per source, all started together, then one
+link. It goes to ``build/kernels/`` at the repository root, named by a hash
+of the sources (``*.cu`` and the ``*.cuh`` they include), and is built on
+first use: a run from a clean checkout builds it once, and an edited source
+never loads a stale binary. ``nvcc``'s resource report (``-Xptxas -v``:
+registers, shared memory, spills per kernel) is kept beside it as
+``build.log``.
 """
 
 from __future__ import annotations
@@ -21,8 +23,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +47,16 @@ SIGNATURES = {
     # audio, first_aug, res_aug, conv_aug, skip0, skip1, skip2, x,
     # B, L, C, stream
     "downpath_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, skip, tap_c, w_head, b_head, wstack_t, final_wb (or NULL), out,
+    # fin (or NULL), B, C, L, F, hop, khead, rows_p, layers, stream
+    "lvc_block_ncl_fh_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # tap, w_head, b_head, out, M, N, K, m_tile, w_resident, stream
+    "taug_head_variant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # tap, w, out, B, E, rows, tile_s, stream
+    "conv_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # tap, kern, out, B, L, F, hop, rows, tf, stream
+    "lvc_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -74,19 +85,38 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile the kernels if this source set has no library yet."""
+    """Compile the kernels if this source set has no library yet: every
+    source in its own ``nvcc -c`` process, all at once, then one link."""
     target = library_path()
     if target.exists():
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    objs = BUILD_DIR / f"obj.{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    procs = [(src, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for src in sources]
+    logs, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out[-4000:]}")
+    if not failed:
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp),
+             *[str(objs / f"{src.stem}.o") for src in sources]],
+            capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
+    (BUILD_DIR / "build.log").write_text("".join(logs))
+    shutil.rmtree(objs, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, target)
     return target
 

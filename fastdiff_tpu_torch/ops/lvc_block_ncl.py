@@ -22,6 +22,13 @@ block of every request runs through it. On a CUDA tensor
 ``lvc_block_ncl`` launches ``csrc/lvc_block_ncl.cu``; on a CPU tensor it
 runs the plain version, which keeps the kernel's cast points.
 
+K5 (``lvc_block_ncl_fh``, JAX's ``lvc_block_ncl_fh``) is Kernel B with the
+predictor head (Kernel A's GEMM) run inside the kernel: it takes the trunk
+taps (B, F, 192) and the merged head weights instead of ``kern_taug``,
+which then never reaches device memory (``csrc/lvc_block_ncl_fh.cu``). Its
+plain version is Kernel A's plain head followed by Kernel B's, with their
+cast points. The ``ncl_fh`` route runs it on the blocks ``fusable`` admits.
+
 Training (``models/fastdiff.py`` routes):
 
 - ``ncl_sr``: ``LVCBlockSR``. The forward is Kernel B-SR
@@ -40,18 +47,38 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from fastdiff_tpu_torch.ops import _build
+from fastdiff_tpu_torch.ops import _build, lvc_head
 from fastdiff_tpu_torch.ops.lvc import (location_variable_convolution,
                                         lvc_gated_residual)
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
-# launches of the CUDA kernel since the last reset (plain runs not counted)
+# launches of the CUDA kernels since the last reset (plain runs not counted)
 LAUNCHES = {"lvc_block_ncl": 0, "lvc_block_ncl_final": 0,
-            "lvc_block_ncl_sr": 0}
+            "lvc_block_ncl_sr": 0, "lvc_block_ncl_fh": 0,
+            "lvc_block_ncl_fh_final": 0}
 
-# what csrc/lvc_block_ncl.cu is built for
+# what csrc/lvc_block_ncl.cu and csrc/lvc_block_ncl_fh.cu are built for
 KERNEL_CHANNELS = 32
 KERNEL_LAYERS = 4
+KERNEL_HEAD_K = 192          # K5's head contraction: conv taps x hidden
+
+_MIN_FUSED_HOP = 8
+_MIN_HALO = 48
+
+
+def fusable(hop: int, n_frames: int) -> bool:
+    """The blocks JAX's NCL kernels tile (``fastdiff_tpu/ops/lvc_block_ncl.py:
+    fusable``): hop >= 8, at least 2 frames, and a frame count that is a
+    whole number of halo units (the halo is the smallest multiple of
+    lcm(hop, 128) covering 48 samples: 16 frames at hop 8, 2 at hop 64, 1 at
+    hop 256). The ``ncl_fh`` route runs K5 on these blocks only."""
+    if hop < _MIN_FUSED_HOP or n_frames < 2:
+        return False
+    halo = max(hop, _MIN_HALO, 128)
+    while halo % 128 or halo % hop:
+        halo += hop
+    hf = halo // hop
+    return n_frames % hf == 0 and n_frames >= hf
 
 
 def stack_conv_weights(conv_ws, conv_bs, dtype=torch.bfloat16) -> torch.Tensor:
@@ -203,6 +230,112 @@ def lvc_block_ncl(x: torch.Tensor, skip: torch.Tensor,
         LAUNCHES["lvc_block_ncl"] += 1
         return out
     LAUNCHES["lvc_block_ncl_final"] += 1
+    return out, fin
+
+
+def lvc_block_ncl_fh_plain(x: torch.Tensor, skip: torch.Tensor,
+                           tap_c: torch.Tensor, w_head: torch.Tensor,
+                           b_head: torch.Tensor, wstack_t: torch.Tensor,
+                           hop: int, final_wb: torch.Tensor | None = None):
+    """Plain PyTorch K5: Kernel A's plain head over the taps, then Kernel B's
+    plain block, with both cast points (bit-identical to the two on the
+    CPU)."""
+    b, frames, k = tap_c.shape
+    kern = lvc_head.taug_head_matmul_plain(
+        tap_c.reshape(b * frames, k), w_head, b_head).reshape(
+            b, frames, wstack_t.shape[0], 2 * x.shape[1], -1)
+    return lvc_block_ncl_plain(x, skip, kern, wstack_t, hop, final_wb)
+
+
+def _check_fh_operands(x, skip, tap_c, w_head, b_head, wstack_t, hop,
+                       final_wb):
+    fn = "lvc_block_ncl_fh"
+    b, c, length = x.shape
+    if tap_c.dim() != 3 or w_head.dim() != 2 or b_head.dim() != 1:
+        raise ValueError(f"{fn}: tap_c (B, F, K), w_head (K, N) and b_head "
+                         f"(N,) expected, got {tuple(tap_c.shape)}, "
+                         f"{tuple(w_head.shape)}, {tuple(b_head.shape)}")
+    _, frames, khead = tap_c.shape
+    layers = wstack_t.shape[0]
+    slabs = layers * 2 * c            # (layer, output channel) rows of w_head
+    named = [("x", x, torch.bfloat16), ("skip", skip, torch.bfloat16),
+             ("tap_c", tap_c, torch.bfloat16),
+             ("w_head", w_head, torch.bfloat16),
+             ("b_head", b_head, torch.float32),
+             ("wstack_t", wstack_t, torch.bfloat16)]
+    if final_wb is not None:
+        named.append(("final_wb", final_wb, torch.bfloat16))
+    for name, t, dtype in named:
+        if t.device != x.device:
+            raise ValueError(f"{fn}: {name} on {t.device}, x on {x.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+        # the head's tensor-core loads read w_head in 32-byte rows
+        align = 32 if name == "w_head" else 16
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{fn}: {name} must be contiguous and "
+                             f"{align}-byte aligned")
+    if (c != KERNEL_CHANNELS or layers != KERNEL_LAYERS
+            or khead != KERNEL_HEAD_K):
+        raise ValueError(f"{fn}: the kernel is built for C={KERNEL_CHANNELS}"
+                         f", {KERNEL_LAYERS} layers, K={KERNEL_HEAD_K}; got "
+                         f"C={c}, {layers} layers, K={khead}")
+    rows_p = w_head.shape[1] // slabs
+    if (skip.shape != x.shape or tap_c.shape[0] != b or hop < 1
+            or frames * hop != length or w_head.shape[0] != khead
+            or w_head.shape[1] != slabs * rows_p or rows_p % 8
+            or rows_p < 3 * c + 1 or b_head.shape != (w_head.shape[1],)
+            or wstack_t.shape != (layers, c, 3 * c + 1)
+            or (final_wb is not None and final_wb.shape != (8, c))):
+        raise ValueError(
+            f"{fn}: bad shapes x {tuple(x.shape)}, skip {tuple(skip.shape)}, "
+            f"tap_c {tuple(tap_c.shape)}, w_head {tuple(w_head.shape)}, "
+            f"b_head {tuple(b_head.shape)}, wstack_t "
+            f"{tuple(wstack_t.shape)}, hop {hop}")
+    return rows_p
+
+
+def lvc_block_ncl_fh(x: torch.Tensor, skip: torch.Tensor,
+                     tap_c: torch.Tensor, w_head: torch.Tensor,
+                     b_head: torch.Tensor, wstack_t: torch.Tensor, hop: int,
+                     final_wb: torch.Tensor | None = None):
+    """K5: x, skip (B, C, L); tap_c (B, F, K) trunk taps (``lvc_head.
+    frame_taps``); w_head (K, layers*2C*rows_p), b_head (layers*2C*rows_p,)
+    float32 (``lvc_head.pack_head``); wstack_t (layers, C, 3C+1); L == F *
+    hop -> carry (B, C, L), plus (B, 1, L) float32 with ``final_wb`` (8, C).
+
+    CPU tensors run ``lvc_block_ncl_fh_plain``. CUDA tensors (bf16 but the
+    f32 bias, C = 32, 4 layers, K = 192) launch ``csrc/lvc_block_ncl_fh.cu``
+    or raise."""
+    if x.device.type == "cpu":
+        return lvc_block_ncl_fh_plain(x, skip, tap_c, w_head, b_head,
+                                      wstack_t, hop, final_wb)
+    if x.device.type != "cuda":
+        raise ValueError(f"lvc_block_ncl_fh: unsupported device {x.device}")
+    rows_p = _check_fh_operands(x, skip, tap_c, w_head, b_head, wstack_t,
+                                hop, final_wb)
+    b, c, length = x.shape
+    frames, khead = tap_c.shape[1:]
+    out = torch.empty_like(x)
+    fin = (torch.empty((b, 1, length), dtype=torch.float32, device=x.device)
+           if final_wb is not None else None)
+    if b == 0 or length == 0:
+        return out if fin is None else (out, fin)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lvc_block_ncl_fh_launch(
+            x.data_ptr(), skip.data_ptr(), tap_c.data_ptr(),
+            w_head.data_ptr(), b_head.data_ptr(), wstack_t.data_ptr(),
+            None if final_wb is None else final_wb.data_ptr(),
+            out.data_ptr(), None if fin is None else fin.data_ptr(),
+            b, c, length, frames, hop, khead, rows_p, wstack_t.shape[0],
+            stream)
+    _build.check(code, "lvc_block_ncl_fh_launch")
+    if fin is None:
+        LAUNCHES["lvc_block_ncl_fh"] += 1
+        return out
+    LAUNCHES["lvc_block_ncl_fh_final"] += 1
     return out, fin
 
 

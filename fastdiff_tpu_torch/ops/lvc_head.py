@@ -28,8 +28,12 @@ import torch.nn.functional as F
 
 from fastdiff_tpu_torch.ops import _build
 
-# launches of the CUDA kernel since the last reset (plain runs not counted)
-LAUNCHES = {"taug_head": 0}
+# launches of the CUDA kernels since the last reset (plain runs not counted)
+LAUNCHES = {"taug_head": 0, "taug_head_variant": 0}
+
+# K10's grid orders: the block index walks the column blocks first
+# ("m_outer") or the row stripes first ("w_res", weight-resident)
+VARIANT_ORDERS = ("m_outer", "w_res")
 
 
 def rows_padded(c: int, k: int = 3) -> int:
@@ -60,13 +64,21 @@ def pack_head(kernel_w: torch.Tensor, kernel_b: torch.Tensor,
     return w_head.contiguous(), b.reshape(-1).float().contiguous()
 
 
-def head_taps(trunk: torch.Tensor, ksz: int = 3) -> torch.Tensor:
-    """Trunk output (B, hid, F) -> zero-padded k-tap rows (B*F, ksz*hid)."""
+def frame_taps(trunk: torch.Tensor, ksz: int = 3) -> torch.Tensor:
+    """Trunk output (B, hid, F) -> zero-padded k-tap rows per frame
+    (B, F, ksz*hid), contraction index tap*hid + h: K5's ``tap_c``."""
     b, hid, frames = trunk.shape
     pad = (ksz - 1) // 2
     cp = F.pad(trunk, (pad, pad))
     taps = torch.stack([cp[:, :, t:t + frames] for t in range(ksz)], dim=1)
-    return taps.permute(0, 3, 1, 2).reshape(b * frames, ksz * hid).contiguous()
+    return taps.permute(0, 3, 1, 2).reshape(b, frames, ksz * hid).contiguous()
+
+
+def head_taps(trunk: torch.Tensor, ksz: int = 3) -> torch.Tensor:
+    """Trunk output (B, hid, F) -> zero-padded k-tap rows (B*F, ksz*hid),
+    Kernel A's ``tap``."""
+    taps = frame_taps(trunk, ksz)
+    return taps.reshape(-1, taps.shape[-1])
 
 
 def taug_head_matmul_plain(tap: torch.Tensor, w_head: torch.Tensor,
@@ -90,13 +102,54 @@ def taug_head_matmul(tap: torch.Tensor, w_head: torch.Tensor,
     return out
 
 
+def taug_head_variant_plain(tap: torch.Tensor, w_head: torch.Tensor,
+                            b_head: torch.Tensor, *, order: str = "m_outer",
+                            m_tile: int = 216) -> torch.Tensor:
+    """Plain PyTorch K10: Kernel A's plain head (order and tile change only
+    how the kernel walks the output)."""
+    del order, m_tile
+    return taug_head_matmul_plain(tap, w_head, b_head)
+
+
+def taug_head_variant(tap: torch.Tensor, w_head: torch.Tensor,
+                      b_head: torch.Tensor, *, order: str = "m_outer",
+                      m_tile: int = 216) -> torch.Tensor:
+    """K10, the head GEMM of ``scripts/exp_r4b.py:_taug_head_variant``: tap
+    (M, K) @ w_head (K, N) + b_head (N,) -> (M, N) row-major, as Kernel A,
+    with the grid ``order`` ("m_outer" or "w_res") and the rows per block
+    ``m_tile`` (a multiple of 8; clipped to M as the script clips it) as
+    launch parameters.
+
+    CPU tensors run ``taug_head_variant_plain``. CUDA tensors launch
+    ``csrc/taug_head.cu``'s variant entry (K a multiple of 16, at most 256)
+    or raise."""
+    if order not in VARIANT_ORDERS:
+        raise ValueError(f"taug_head_variant: order {order!r} is not one of "
+                         f"{VARIANT_ORDERS}")
+    if tap.device.type == "cpu":
+        return taug_head_variant_plain(tap, w_head, b_head, order=order,
+                                       m_tile=m_tile)
+    tile = min(m_tile, -(-tap.shape[0] // 8) * 8)
+    if tile < 8 or tile % 8 or tap.shape[1] % 16 or tap.shape[1] > 256:
+        raise ValueError(f"taug_head_variant: m_tile {m_tile} (a multiple of "
+                         f"8) and K {tap.shape[1]} (a multiple of 16, at most "
+                         "256) are what the kernel takes")
+    out = launch_head_gemm("taug_head_variant_launch", "taug_head_variant",
+                           tap, w_head, b_head, n_multiple=8,
+                           extra=(tile, int(order == "w_res")))
+    if out.shape[0]:
+        LAUNCHES["taug_head_variant"] += 1
+    return out
+
+
 def launch_head_gemm(entry: str, fn: str, tap: torch.Tensor,
                      w_head: torch.Tensor, b_head: torch.Tensor, *,
-                     n_multiple: int) -> torch.Tensor:
+                     n_multiple: int, extra: tuple = ()) -> torch.Tensor:
     """Check the operands of ``csrc/taug_head.cu``'s GEMM and launch it
     through the C entry ``entry``: tap (M, K) bf16 @ w_head (K, N) bf16 +
     b_head (N,) f32 -> (M, N) bf16, row-major. K must be a multiple of 8
-    and N of ``n_multiple``; raises on anything else."""
+    and N of ``n_multiple``; raises on anything else. ``extra`` are the
+    entry's int arguments after M, N, K."""
     if tap.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {tap.device}")
     m, k = tap.shape
@@ -127,7 +180,7 @@ def launch_head_gemm(entry: str, fn: str, tap: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(tap.data_ptr(), w_head.data_ptr(),
                                    b_head.data_ptr(), out.data_ptr(),
-                                   m, n, k, stream)
+                                   m, n, k, *extra, stream)
     _build.check(code, entry)
     return out
 

@@ -1,0 +1,228 @@
+"""The LVC block's matmul stages timed alone at the hop-256 block's scale:
+the port's twin of ``scripts/bench_mosaic_micro.py``.
+
+    python -m fastdiff_tpu_torch.scripts.bench_mosaic_micro [--device cuda]
+
+Each stage is a hand-written kernel (K9, ``csrc/stage_micro.cu``) beside
+its plain PyTorch version, at L = 221,184 samples (864 frames of hop 256):
+
+- ``conv_stage``: 4 chained (E, 97) @ (97, 32) dots, each output re-fed as
+  [y, y, y, 1] (f32 sums, a bf16 store between layers); the kernel's rows
+  per block ``tile_s`` is swept over 2,048 / 4,096 / 8,192, as the
+  script's tile;
+- ``lvc_stage``: one layer's per-frame grouped GEMM, tap (L, 97) @
+  kern[l // hop] (97, 64) -> (L, 64) bf16; frames per block ``tf`` swept
+  over 8 / 16 / 32 (the script's "batched" and "unroll" variants are two
+  Mosaic lowerings of the same product and have no counterpart here);
+- ``gate_stage``: sigmoid(z[:C]) * tanh(z[C:]) at (L, 64) f32, plain only.
+
+Next to each: its plain version's time, one PyTorch call's (chained
+``torch.matmul`` in bf16 for the conv, ``torch.bmm`` over frames for the
+LVC; timed as a yardstick, never used by the port) and the least time the
+card could take (bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, the
+larger). Runs on the card unless ``--device cpu`` (plain versions only,
+no times).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from fastdiff_tpu_torch.models.fastdiff import checked_device
+from fastdiff_tpu_torch.ops import _build
+from fastdiff_tpu_torch.utils.timing import cuda_ms, race
+
+ROWS = 97          # 3 * 32 taps + 1 bias row
+C = 32
+C2 = 64
+LAYERS = 4
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+CONV_TILES = (2048, 4096, 8192)
+LVC_TFS = (8, 16, 32)
+
+# launches of the CUDA kernels since the last reset (plain runs not counted)
+LAUNCHES = {"conv_stage": 0, "lvc_stage": 0}
+
+
+def bound_ms(flop: float, nbytes: float) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_stage_plain(tap: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """tap (B, E, 97), w (layers, 97, C) -> (B, E, C): each layer's dot
+    summed in float32 and rounded to tap.dtype, re-fed as [y, y, y, 1]."""
+    x = tap
+    for i in range(w.shape[0]):
+        y = (x.float() @ w[i].float()).to(tap.dtype)
+        x = torch.cat([y, y, y, torch.ones_like(y[..., :1])], dim=-1)
+    return x[..., :w.shape[-1]]
+
+
+def lvc_stage_plain(tap: torch.Tensor, kern: torch.Tensor,
+                    hop: int) -> torch.Tensor:
+    """tap (B, L, 97), kern (B, F, 97, 2C) -> (B, L, 2C): sample l times
+    the kernels of frame l // hop, summed in float32, rounded to
+    tap.dtype."""
+    b, length, rows = tap.shape
+    frames = kern.shape[1]
+    z = tap.float().reshape(b, frames, hop, rows) @ kern.float()
+    return z.reshape(b, length, -1).to(tap.dtype)
+
+
+def gate_stage(z: torch.Tensor) -> torch.Tensor:
+    """The per-layer gate alone: sigmoid(z[..., :C]) * tanh(z[..., C:])."""
+    return torch.sigmoid(z[..., :C]) * torch.tanh(z[..., C:])
+
+
+def _check(fn: str, tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.bfloat16:
+            raise ValueError(f"{fn}: operands must be bf16 on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: operands must be contiguous and 16-byte "
+                             "aligned")
+
+
+def conv_stage(tap: torch.Tensor, w: torch.Tensor,
+               tile_s: int = 2048) -> torch.Tensor:
+    """K9 conv stage: ``conv_stage_plain``'s function, ``tile_s`` rows per
+    thread block. CPU tensors run the plain version; CUDA tensors (bf16,
+    97 rows, 4 layers of 32 outputs) launch ``csrc/stage_micro.cu`` or
+    raise."""
+    if tap.device.type == "cpu":
+        return conv_stage_plain(tap, w)
+    _check("conv_stage", (tap, w))
+    b, e, rows = tap.shape
+    if rows != ROWS or w.shape != (LAYERS, ROWS, C) or tile_s < 1:
+        raise ValueError(f"conv_stage: tap {tuple(tap.shape)}, w "
+                         f"{tuple(w.shape)}, tile_s {tile_s}")
+    out = tap.new_empty((b, e, C))
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(tap.device):
+        code = _build.library().conv_stage_launch(
+            tap.data_ptr(), w.data_ptr(), out.data_ptr(), b, e, rows, tile_s,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "conv_stage_launch")
+    LAUNCHES["conv_stage"] += 1
+    return out
+
+
+def lvc_stage(tap: torch.Tensor, kern: torch.Tensor, hop: int,
+              tf: int = 8) -> torch.Tensor:
+    """K9 LVC stage: ``lvc_stage_plain``'s function, ``tf`` frames per
+    thread block. CPU tensors run the plain version; CUDA tensors (bf16,
+    97 rows, 2C = 64) launch ``csrc/stage_micro.cu`` or raise."""
+    if tap.device.type == "cpu":
+        return lvc_stage_plain(tap, kern, hop)
+    _check("lvc_stage", (tap, kern))
+    b, length, rows = tap.shape
+    frames = kern.shape[1]
+    if (rows != ROWS or kern.shape != (b, frames, ROWS, C2) or tf < 1
+            or hop < 1 or frames * hop != length):
+        raise ValueError(f"lvc_stage: tap {tuple(tap.shape)}, kern "
+                         f"{tuple(kern.shape)}, hop {hop}, tf {tf}")
+    out = tap.new_empty((b, length, C2))
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(tap.device):
+        code = _build.library().lvc_stage_launch(
+            tap.data_ptr(), kern.data_ptr(), out.data_ptr(), b, length,
+            frames, hop, rows, tf, torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "lvc_stage_launch")
+    LAUNCHES["lvc_stage"] += 1
+    return out
+
+
+def _conv_library(tap, w):
+    """The conv stage as chained bf16 ``torch.matmul`` calls."""
+    x = tap
+    for i in range(w.shape[0]):
+        y = torch.matmul(x, w[i])
+        x = torch.cat([y, y, y, torch.ones_like(y[..., :1])], dim=-1)
+    return y
+
+
+def run(device="cuda", hop: int = 256, length: int = 221184,
+        reps: int = 20, seed: int = 0) -> dict:
+    """Every stage at (1, length) against its plain version: per kernel
+    setting its ms, max abs error against the plain output and that error's
+    bound; the plain and library ms; the bound. Times need the card."""
+    dev = checked_device(device)
+    frames = length // hop
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.1).to(dtype)
+
+    tap = randn(1, length, ROWS)
+    w = randn(LAYERS, ROWS, C)
+    kern = randn(1, frames, ROWS, C2)
+    z = randn(1, length, C2, dtype=torch.float32)
+    timed = dev.type == "cuda"
+    report = {"device": torch.cuda.get_device_name(dev) if timed else "cpu",
+              "hop": hop, "length": length}
+    stages = {
+        "conv_stage": (CONV_TILES, "tile_s",
+                       lambda p: conv_stage(tap, w, p),
+                       lambda: conv_stage_plain(tap, w),
+                       lambda: _conv_library(tap, w),
+                       # 4 dots; tap read, out written once
+                       bound_ms(LAYERS * 2.0 * length * ROWS * C,
+                                2.0 * length * (ROWS + C)),
+                       4),
+        "lvc_stage": (LVC_TFS, "tf",
+                      lambda p: lvc_stage(tap, kern, hop, p),
+                      lambda: lvc_stage_plain(tap, kern, hop),
+                      lambda: torch.bmm(tap.view(frames, hop, ROWS),
+                                        kern.view(frames, ROWS, C2)),
+                      bound_ms(2.0 * length * ROWS * C2,
+                               2.0 * (length * (ROWS + C2)
+                                      + frames * ROWS * C2)),
+                      1),
+    }
+    for name, (params, key, kernel, plain, library, bound, ulps) in \
+            stages.items():
+        ref = plain()
+        top = float(ref.float().abs().max())
+        rows = []
+        for p in params:
+            out = kernel(p)
+            err = float((out.float() - ref.float()).abs().max())
+            rel = float((out.float() - ref.float()).norm()
+                        / ref.float().norm())
+            row = {key: p, "max_abs_err": err, "rel_l2": rel,
+                   # f32 sums in another order: one bf16 ulp of the largest
+                   # output per rounding a flip can reach (4 chained layers)
+                   "err_bound": ulps * 2.0 ** -7 * top + 1e-6}
+            if timed:
+                row["ms"], row["plain_ms"] = race(plain, lambda: kernel(p),
+                                                  reps)
+            rows.append(row)
+        report[name] = {"rows": rows, "bound_ms": bound[0],
+                        "bound_by": bound[1]}
+        if timed:
+            report[name]["library_ms"] = cuda_ms(library, reps)
+    if timed:
+        report["gate_stage_ms"] = cuda_ms(lambda: gate_stage(z), reps)
+    return report
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--reps", type=int, default=20)
+    args = parser.parse_args()
+    print(json.dumps(run(args.device, reps=args.reps), indent=1))
+
+
+if __name__ == "__main__":
+    main()

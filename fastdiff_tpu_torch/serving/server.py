@@ -10,8 +10,8 @@ vocode.
     python -m fastdiff_tpu_torch.serving.server --device cuda --port 8300 \
         --hparams '{"N": 4}'
 
-``use_pallas_block: true`` in the hparams (and ``use_pallas_down: true``)
-serves the NWC route with its kernels; see
+``use_pallas_block`` in the hparams picks the route (``ncl_fh``, true for
+the NWC route with ``use_pallas_down``, false for the plain route); see
 ``vocoders/fastdiff_vocoder.py``.
 
 Endpoints:
@@ -36,7 +36,8 @@ from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import get_vocoder_cls
 
 
 class VocoderService:
-    """Wraps a vocoder built from a plain hparams dict on ``device``.
+    """Wraps a vocoder built from a plain hparams dict on ``device`` (the
+    CUDA card unless the caller names another; no card raises).
 
     ``max_queue`` bounds how many vocode requests may wait on the device
     lock; an over-limit request raises ``Busy`` (mapped to 503)."""
@@ -44,7 +45,7 @@ class VocoderService:
     class Busy(RuntimeError):
         pass
 
-    def __init__(self, hparams: dict, device="cpu", max_queue: int = 4):
+    def __init__(self, hparams: dict, device="cuda", max_queue: int = 4):
         self.hparams = hparams
         self.sample_rate = int(hparams.get("audio_sample_rate", 22050))
         self.num_mels = int(hparams.get("audio_num_mel_bins", 80))

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fastdiff_tpu.config import TrainConfig
+from fastdiff_tpu_torch.config import TrainConfig
 
 
 def learning_rate(cfg: TrainConfig, count: int, warmup_updates: int = 8000,

@@ -10,10 +10,9 @@ the parameters nor the optimizer state, and the step counter still
 advances. The route of the LVC blocks comes from ``use_pallas_block``
 (``models/fastdiff.py:resolve_train_route``).
 
-The data pipeline is the JAX package's own, which is plain numpy:
-``fastdiff_tpu/data/dataset.py`` (binarized ``<split>`` files and
-``<split>_lengths.npy`` under ``binary_data_dir``, random aligned crops of
-``max_samples``).
+The data pipeline is ``data/dataset.py``, plain numpy copied from the JAX
+package (binarized ``<split>`` files and ``<split>_lengths.npy`` under
+``binary_data_dir``, random aligned crops of ``max_samples``).
 """
 
 from __future__ import annotations
@@ -24,11 +23,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fastdiff_tpu.config import AudioConfig, DiffusionConfig, TrainConfig
-from fastdiff_tpu.data.dataset import VocoderDataset, train_batch_iterator
-from fastdiff_tpu.diffusion import schedules
+from fastdiff_tpu_torch.config import AudioConfig, DiffusionConfig, TrainConfig
+from fastdiff_tpu_torch.data.dataset import VocoderDataset, train_batch_iterator
+from fastdiff_tpu_torch.diffusion import schedules
 from fastdiff_tpu_torch.diffusion.losses import theta_timestep_loss
-from fastdiff_tpu_torch.models.fastdiff import (FastDiff, num_params,
+from fastdiff_tpu_torch.models.fastdiff import (FastDiff, checked_device,
+                                                num_params,
                                                 resolve_train_route)
 from fastdiff_tpu_torch.training.checkpoint import load_checkpoint
 from fastdiff_tpu_torch.training.optim import AdamW, global_norm
@@ -49,14 +49,14 @@ class TrainState:
 class FastDiffTask:
     """Conditional diffusion vocoder task (mel -> waveform)."""
 
-    def __init__(self, hparams: dict, device="cpu"):
+    def __init__(self, hparams: dict, device="cuda"):
         denoiser = str(hparams.get("denoiser", "fastdiff"))
         if denoiser != "fastdiff":
             raise NotImplementedError(
                 f"denoiser {denoiser!r} is not ported (ROADMAP.md queue 1, "
                 "the model zoo); the port trains the fastdiff denoiser")
         self.hparams = hparams
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.diff_cfg = DiffusionConfig.from_hparams(hparams)
         self.audio_cfg = AudioConfig.from_hparams(hparams)
         self.train_cfg = TrainConfig.from_hparams(hparams)

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fastdiff_tpu.utils.logging_utils import MeterBank, ScalarLogger
+from fastdiff_tpu_torch.utils.logging_utils import MeterBank, ScalarLogger
 from fastdiff_tpu_torch.training import checkpoint as ckpt
 
 

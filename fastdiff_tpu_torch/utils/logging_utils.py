@@ -1,0 +1,76 @@
+"""Training observability: scalar logging and meters, a copy of
+``fastdiff_tpu/utils/logging_utils.py`` (``ScalarLogger``, ``MeterBank``).
+
+Scalars go to TensorBoard when ``torch.utils.tensorboard`` is importable
+and always to a ``metrics.jsonl`` file, so runs are inspectable without TB.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from collections import defaultdict
+from typing import Dict
+
+
+class ScalarLogger:
+    def __init__(self, log_dir: str, enabled: bool = True):
+        self.enabled = enabled
+        self.log_dir = log_dir
+        self._tb = None
+        self._jsonl = None
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(log_dir=log_dir)
+            except Exception:
+                self._tb = None
+
+    def log(self, metrics: Dict[str, float], step: int, prefix: str = "") -> None:
+        if not self.enabled:
+            return
+        flat = {f"{prefix}{k}": float(v) for k, v in metrics.items()}
+        self._jsonl.write(json.dumps({"step": step, **flat}) + "\n")
+        self._jsonl.flush()
+        if self._tb is not None:
+            for k, v in flat.items():
+                self._tb.add_scalar(k, v, step)
+
+    def close(self) -> None:
+        if self._jsonl:
+            self._jsonl.close()
+        if self._tb:
+            self._tb.close()
+
+
+class AvgMeter:
+    """Weighted running average (reference AvgrageMeter semantics)."""
+
+    def __init__(self):
+        self.sum = 0.0
+        self.cnt = 0
+
+    def update(self, val: float, n: int = 1) -> None:
+        self.sum += float(val) * n
+        self.cnt += n
+
+    @property
+    def avg(self) -> float:
+        return self.sum / max(1, self.cnt)
+
+
+class MeterBank:
+    def __init__(self):
+        self.meters = defaultdict(AvgMeter)
+
+    def update(self, metrics: Dict[str, float], n: int = 1) -> None:
+        for k, v in metrics.items():
+            self.meters[k].update(float(v), n)
+
+    def averages(self) -> Dict[str, float]:
+        return {k: m.avg for k, m in self.meters.items()}
+
+    def reset(self) -> None:
+        self.meters.clear()

@@ -1,14 +1,16 @@
 """FastDiff as a vocoder: mel -> waveform through the N-step sampler
 (``fastdiff_tpu/vocoders/fastdiff_vocoder.py``).
 
-Built from a plain hparams dict and an explicit ``device``. ``vocoder_ckpt``
-names a ``FastDiff`` state_dict saved with ``torch.save`` (a JAX tree converts
-with ``models/bridge.py:params_from_jax``); without one the model runs with
+Built from a plain hparams dict on ``device``, the CUDA card unless the
+caller names another (no card raises). ``vocoder_ckpt`` names a
+``FastDiff`` state_dict saved with ``torch.save`` (a JAX tree converts with
+``models/bridge.py:params_from_jax``); without one the model runs with
 seeded random weights, as the JAX vocoder does. ``use_pallas_block`` and
 ``use_pallas_down`` pick the route as the JAX vocoder's
 ``inference_model_config`` does (``models/fastdiff.py:resolve_infer_route``
-and ``resolve_down_kernel``): true runs the NWC route with K6 and K7, and
-with ``use_pallas_down`` K8 too; anything else runs the NCL route.
+and ``resolve_down_kernel``): "auto" / "ncl" run the NCL route (K3, K1),
+"ncl_fh" the fused-head route (K5), true the NWC route (K6, K7, and with
+``use_pallas_down`` K8), false the plain route (no kernel).
 """
 
 from __future__ import annotations
@@ -18,23 +20,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from fastdiff_tpu.config import ModelConfig
+from fastdiff_tpu_torch.config import ModelConfig
 from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
-from fastdiff_tpu_torch.models.fastdiff import (FastDiff,
+from fastdiff_tpu_torch.models.fastdiff import (FastDiff, checked_device,
                                                 resolve_down_kernel,
                                                 resolve_infer_route)
 
-# ModelConfig fields that are not architecture: the routes are resolved by
-# resolve_infer_route / resolve_down_kernel, and conv_impl picks a JAX
-# lowering that means nothing here
-_ROUTE_FIELDS = ("use_pallas_block", "use_pallas_down", "conv_impl")
-
-
 def model_config_from_hparams(hp: dict) -> ModelConfig:
-    """ModelConfig from hparams, reading only the architecture fields."""
+    """ModelConfig from the hparams' architecture fields (the routes are
+    resolved by resolve_infer_route / resolve_down_kernel)."""
     kwargs = {}
     for field in dataclasses.fields(ModelConfig):
-        if field.name in hp and field.name not in _ROUTE_FIELDS:
+        if field.name in hp:
             kwargs[field.name] = hp[field.name]
     if "upsample_ratios" in kwargs:
         kwargs["upsample_ratios"] = tuple(int(r) for r in
@@ -43,17 +40,14 @@ def model_config_from_hparams(hp: dict) -> ModelConfig:
 
 
 class FastDiffVocoder:
-    def __init__(self, hparams: dict | None = None, device="cpu"):
+    def __init__(self, hparams: dict | None = None, device="cuda"):
         hp = dict(hparams or {})
         self.hparams = hp
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.model_cfg = model_config_from_hparams(hp)
         self.hop = self.model_cfg.total_hop
         self.constants = constants_for_hparams(hp)
         self.route = resolve_infer_route(hp)
-        if str(hp.get("use_pallas_block", "")).strip().lower() == "ncl_fh":
-            print("| use_pallas_block: ncl_fh runs the NCL route's K1 + K3 "
-                  "(the fused-head kernel K5 is not ported)")
         route = dict(infer_route=self.route,
                      down_kernel=resolve_down_kernel(hp))
         ckpt = hp.get("vocoder_ckpt", "")

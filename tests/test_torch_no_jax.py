@@ -1,11 +1,18 @@
-"""The port never imports jax, and chip_smoke.py refuses to run without a GPU.
+"""The port never imports jax or the JAX package, its entry points run on the
+card unless asked for the CPU, and chip_smoke.py refuses to run without a GPU.
 
-Both run in subprocesses: this test process has jax loaded (root conftest).
+The import checks run in subprocesses (this test process has jax loaded by
+the root conftest) and, statically, over the sources.
 """
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
+
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,6 +26,14 @@ def _run(args, cwd=REPO, timeout=120):
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import fastdiff_tpu_torch\n"
+            "import fastdiff_tpu_torch.config\n"
+            "import fastdiff_tpu_torch.diffusion.schedules\n"
+            "import fastdiff_tpu_torch.data.dataset\n"
+            "import fastdiff_tpu_torch.utils.logging_utils\n"
+            "import fastdiff_tpu_torch.utils.timing\n"
+            "import fastdiff_tpu_torch.ops.lvc_block_ncl\n"
+            "import fastdiff_tpu_torch.scripts.bench_mosaic_micro\n"
+            "import fastdiff_tpu_torch.scripts.exp_r4b\n"
             "import fastdiff_tpu_torch.models.fastdiff\n"
             "import fastdiff_tpu_torch.models.bridge\n"
             "import fastdiff_tpu_torch.diffusion.sampler\n"
@@ -43,7 +58,7 @@ def test_port_imports_no_jax():
             "'diffusion_step_embed_dim_mid': 32, "
             "'diffusion_step_embed_dim_out': 32, 'use_pallas_block': True, "
             "'use_pallas_down': True}\n"
-            "voc = FastDiffVocoder(hp)\n"
+            "voc = FastDiffVocoder(hp, device='cpu')\n"
             "import numpy as np\n"
             "assert voc.route == 'nwc'\n"
             "assert voc.spec2wav(np.zeros((16, 16), np.float32)).shape == "
@@ -58,15 +73,60 @@ def test_port_imports_no_jax():
             "assert resolve_train_route({'use_pallas_block': 'auto'}, "
             "'cuda') == 'ncl_sr'\n"
             "from fastdiff_tpu_torch.training.task import FastDiffTask\n"
-            "assert FastDiffTask({'use_pallas_block': 'auto'}).route == "
-            "'plain'\n"
+            "assert FastDiffTask({'use_pallas_block': 'auto'}, "
+            "device='cpu').route == 'plain'\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
+            "assert not bad, bad\n"
+            "bad = sorted(m for m in sys.modules if m == 'fastdiff_tpu' "
+            "or m.startswith('fastdiff_tpu.'))\n"
             "assert not bad, bad\n"
             "print('no-jax-ok')\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     assert "no-jax-ok" in proc.stdout
+
+
+def _imported_modules(path: pathlib.Path) -> list:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                not node.level:
+            names.append(node.module)
+    return names
+
+
+def test_port_sources_import_nothing_of_the_jax_side():
+    """Every module of the port and chip_smoke.py, read as source: no
+    import of jax, jaxlib, fastdiff_tpu or a fastdiff_tpu module, at any
+    depth (a function-level import counts too)."""
+    root = pathlib.Path(REPO)
+    files = sorted((root / "fastdiff_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [(str(f.relative_to(root)), name) for f in files
+           for name in _imported_modules(f)
+           if name.split(".")[0] in ("jax", "jaxlib", "fastdiff_tpu")]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device the vocoder, the server and the task ask for the
+    CUDA card; with no card they raise and never fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from fastdiff_tpu_torch.serving.server import VocoderService
+    from fastdiff_tpu_torch.training.task import FastDiffTask
+    from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import FastDiffVocoder
+    hp = {"inner_channels": 8, "cond_channels": 16,
+          "kpnet_hidden_channels": 8, "diffusion_step_embed_dim_in": 16,
+          "diffusion_step_embed_dim_mid": 32,
+          "diffusion_step_embed_dim_out": 32}
+    for make in (FastDiffVocoder, VocoderService, FastDiffTask):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(dict(hp))
 
 
 def test_chip_smoke_fails_without_gpu():

@@ -131,8 +131,11 @@ def test_denoiser_matches_jax_nwc_bf16_with_down_kernel(params):
 def test_resolvers():
     for raw in (True, "true", "True", "1", "yes", "on", 1):
         assert resolve_infer_route({"use_pallas_block": raw}) == "nwc"
-    for raw in ("auto", "", "ncl", "ncl_sr", "ncl_vjp", False, "false", 0):
+    for raw in ("auto", "", "ncl", "ncl_sr", "ncl_vjp"):
         assert resolve_infer_route({"use_pallas_block": raw}) == "ncl"
+    for raw in (False, "false", 0, "nonsense"):
+        assert resolve_infer_route({"use_pallas_block": raw}) == "plain"
+    assert resolve_infer_route({"use_pallas_block": "ncl_fh"}) == "ncl_fh"
     assert resolve_infer_route({}) == "ncl"
     for raw, want in (("auto", False), ("", False), ("on", True),
                       ("true", True), ("false", False), (True, True),
@@ -172,18 +175,31 @@ def test_vocoder_selects_nwc_route_and_gates_the_kernels():
         size=(FRAMES, 16)).astype(np.float32))
     assert wav.shape == (LENGTH,) and np.isfinite(wav).all()
     assert _counts() == before
-    for raw in ("auto", "ncl_fh"):
+    for raw, route in (("auto", "ncl"), ("ncl_fh", "ncl_fh"),
+                       (False, "plain")):
         voc = FastDiffVocoder(dict(hp, use_pallas_block=raw), device="cpu")
-        assert voc.route == "ncl" and voc.model.infer_route == "ncl"
+        assert voc.route == route and voc.model.infer_route == route
 
 
 def test_ncl_fh_runs_ncl_and_says_so(capsys):
+    """``ncl_fh`` is a route of its own now (K5 where JAX fuses the head),
+    the vocoder builds it without a word about K1 + K3, and on the CPU its
+    waveform equals the ``ncl`` route's bit for bit (K5's plain version is
+    Kernel A's plain head then Kernel B's plain block)."""
     hp = {"inner_channels": 8, "cond_channels": 16,
           "upsample_ratios": [4, 2, 2], "kpnet_hidden_channels": 8,
           "diffusion_step_embed_dim_in": 16,
           "diffusion_step_embed_dim_mid": 32,
-          "diffusion_step_embed_dim_out": 32, "use_pallas_block": "ncl_fh"}
-    assert resolve_infer_route(hp) == "ncl"
-    assert FastDiffVocoder(hp, device="cpu").route == "ncl"
+          "diffusion_step_embed_dim_out": 32, "use_pallas_block": "ncl_fh",
+          "N": 4, "seed": 5}
+    assert resolve_infer_route(hp) == "ncl_fh"
+    voc = FastDiffVocoder(hp, device="cpu")
+    assert voc.route == "ncl_fh" and voc.model.infer_route == "ncl_fh"
+    assert hasattr(voc.model.lvc_blocks[0], "w_head")
     out = capsys.readouterr().out
-    assert out.count("ncl_fh") == 1 and "K1 + K3" in out
+    assert "ncl_fh" not in out and "K1 + K3" not in out
+    ncl = FastDiffVocoder(dict(hp, use_pallas_block="ncl"), device="cpu")
+    mel = np.random.default_rng(1).normal(size=(32, 16)).astype(np.float32)
+    before = _counts()
+    np.testing.assert_array_equal(voc.spec2wav(mel), ncl.spec2wav(mel))
+    assert _counts() == before

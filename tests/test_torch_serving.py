@@ -70,11 +70,11 @@ def test_bad_mel_is_400(server):
 
 def test_vocoder_loads_checkpoint(tmp_path):
     """``vocoder_ckpt`` names a saved state_dict; the vocoder serves it."""
-    seeded = FastDiffVocoder(dict(HP))
+    seeded = FastDiffVocoder(dict(HP), device="cpu")
     path = tmp_path / "fastdiff.pt"
     sd = {k: v + 0.01 for k, v in seeded.model.state_dict().items()}
     torch.save(sd, path)
-    loaded = FastDiffVocoder(dict(HP, vocoder_ckpt=str(path)))
+    loaded = FastDiffVocoder(dict(HP, vocoder_ckpt=str(path)), device="cpu")
     for name, value in loaded.model.state_dict().items():
         torch.testing.assert_close(value, sd[name], rtol=0, atol=0)
     wav = loaded.spec2wav(np.zeros((4, 16), np.float32))

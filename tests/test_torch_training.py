@@ -251,7 +251,7 @@ def _tiny_hparams(tmp_path):
 def trained(tmp_path_factory):
     tmp_path = tmp_path_factory.mktemp("torch_train")
     hp = _tiny_hparams(tmp_path)
-    task = FastDiffTask(hp)
+    task = FastDiffTask(hp, device="cpu")
     before = {k: p.detach().clone()
               for k, p in task.build_state().model.named_parameters()}
     result = Trainer(task, hp["work_dir"]).fit()
@@ -284,7 +284,7 @@ def test_checkpoints_written_with_retention(trained):
 
 def test_resume_continues_from_step(trained):
     hp, _, result = trained
-    task = FastDiffTask(dict(hp, max_updates=14))
+    task = FastDiffTask(dict(hp, max_updates=14), device="cpu")
     trainer = Trainer(task, hp["work_dir"])
     state, step = trainer.restore(task.build_state())
     assert step == 12 and state.optimizer.count == 12
@@ -297,7 +297,7 @@ def test_resume_continues_from_step(trained):
 
 def test_nan_gradients_skip_the_update(tmp_path):
     hp = _tiny_hparams(tmp_path)
-    task = FastDiffTask(hp)
+    task = FastDiffTask(hp, device="cpu")
     state = task.build_state()
     batch = next(task.train_dataloader())
     task.train_step(state, batch, torch.Generator().manual_seed(0))
@@ -317,7 +317,7 @@ def test_nan_gradients_skip_the_update(tmp_path):
 
 def test_ema_tracks_parameters(tmp_path):
     hp = dict(_tiny_hparams(tmp_path), ema_decay=0.9)
-    task = FastDiffTask(hp)
+    task = FastDiffTask(hp, device="cpu")
     state = task.build_state()
     init = {k: v.clone() for k, v in state.ema.items()}
     task.train_step(state, next(task.train_dataloader()),
@@ -332,7 +332,7 @@ def test_ema_tracks_parameters(tmp_path):
 def test_training_reduces_loss_on_overfit(tmp_path):
     """One fixed batch and fixed draws: the loss falls over 30 updates."""
     hp = dict(_tiny_hparams(tmp_path), use_pallas_block="ncl_vjp")
-    task = FastDiffTask(hp)
+    task = FastDiffTask(hp, device="cpu")
     state = task.build_state()
     batch = next(task.train_dataloader())
     gen = torch.Generator().manual_seed(0)
