@@ -9,9 +9,14 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    power limit (fails when no CUDA device is present: nothing falls back
    to the CPU);
 2. builds the CUDA kernels from ``fastdiff_tpu_torch/csrc`` (``nvcc``) and
-   prints the build time and each kernel's registers / spills;
-3. Kernel A (predictor head GEMM) against its plain PyTorch version at the
-   10 s shapes (M = 864, K = 192, N = 4 * 64 * rows_p);
+   prints the build time, each kernel's registers / spills, and the head
+   GEMM's (K3 and K7) shared memory and persistent grid at 864 frames;
+3. Kernel A (predictor head GEMM, wgmma + TMA) against its plain PyTorch
+   version at K = 192, N = 4 * 64 * rows_p and every row count its paths
+   give it (M = 100, 256 and 864 frames, 20 x 100 in training, 4 x 864),
+   within one bf16 ulp of the largest output; timed against ``torch.addmm``
+   raced in turns (CUDA-graph replay: device time alone), with the
+   achieved TB/s and share of the bound at each M;
 4. Kernel B (LVC block) against its plain version at hops 8, 64 and 256
    with 864 frames (hop 256 with and without the final-conv epilogue), and
    at 100 frames of hop 8 (a block the JAX kernel cannot tile);
@@ -40,8 +45,8 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     directory): 6 updates at the recipe's batch with validation and a
     checkpoint every 3, then a second ``fit`` to 8 that resumes from step
     6; every train step launches Kernel A and Kernel B-SR exactly 3 times;
-12. K7 (the NWC route's row-major head GEMM) against its plain version at
-    864 x 192 @ 192 x 24,832, within one bf16 ulp of the largest output;
+12. K7 (the NWC route's row-major head GEMM, the same kernel) against its
+    plain version at 256 and 864 x 192 @ 192 x 24,832, as phase 3;
 13. K6 (the NWC LVC block) against its plain version at hops 64 and 256
     with 864 frames and at b = 2 x 100 frames of hop 64 (a multi-tile edge
     case), with phase 4's bounds;
@@ -102,7 +107,7 @@ import wave
 
 import numpy as np
 
-from fastdiff_tpu_torch.utils.timing import cuda_ms, race
+from fastdiff_tpu_torch.utils.timing import cuda_ms, race, race_graph
 
 AUDIO_SECONDS_PER_SAMPLE = 1.0 / 22050
 FRAMES_10S = 864                 # 864 * 256 = 221,184 samples, ~10.03 s
@@ -280,6 +285,61 @@ def serve_and_count(n, service, start_server, counters, expected,
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
+
+
+def ptxas_entry(log: str, mangled: str) -> str:
+    """ptxas's registers, spills and static shared memory for the first
+    kernel whose mangled name contains ``mangled``, from ``build.log``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and mangled in line:
+            info = []
+            for nxt in lines[i + 1:]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "spill" in nxt or "registers" in nxt:
+                    info.append(nxt.split(":", 1)[-1].strip())
+            return "; ".join(info)
+    return "not in the build log"
+
+
+def head_gemm_cases(n_phase, label, torch, fn, plain, randn, k, n, rows):
+    """A head GEMM kernel (K3 or K7) against its plain version at each row
+    count of ``rows``: within one bf16 ulp of the largest output (f32 sums
+    in another order, then one rounding), timed against ``torch.addmm`` (a
+    yardstick the port never calls) raced in turns, both by CUDA-graph
+    replay (device time alone), and against the plain version (eager). The
+    eager per-call time of the kernel's wrapper, host included, is printed
+    beside it. Returns {M: (max_abs_err, ms, plain_ms, addmm_ms)}."""
+    out = {}
+    for m in rows:
+        tap = randn(m, k)
+        w = randn(k, n, scale=0.05)
+        b = randn(n, scale=0.1, dtype=torch.float32)
+        got, ref = fn(tap, w, b), plain(tap, w, b)
+        torch.cuda.synchronize()
+        err = max_abs(got, ref)
+        bound_err = 2.0 ** -7 * float(ref.float().abs().max()) + 1e-6
+        if not err <= bound_err or not bool(got.isfinite().all()):
+            fail(f"{label} disagrees with its plain version at M = {m}")
+        b_bf16 = b.to(torch.bfloat16)
+        reps = 20 if m <= FRAMES_10S else 10
+        ms_k, ms_lib = race_graph(lambda: torch.addmm(b_bf16, tap, w),
+                                  lambda: fn(tap, w, b), reps)
+        ms_eager = cuda_ms(lambda: fn(tap, w, b), reps)
+        ms_p = cuda_ms(lambda: plain(tap, w, b), 5)
+        flop, nbytes = gemm_work(m, k, n)
+        b_ms, _ = bound([(flop, nbytes)])
+        phase(n_phase, f"{label} ({m}x{k} @ {k}x{n}): max_abs_err "
+                       f"{err:.3e} (bound {bound_err:.3e}); kernel "
+                       f"{ms_k:.4f} ms, torch.addmm {ms_lib:.4f} ms (raced, "
+                       f"CUDA graphs), plain {ms_p:.4f} ms, kernel eager "
+                       f"with its wrapper {ms_eager:.4f} ms; "
+                       f"{nbytes / ms_k / 1e9:.3f} TB/s, {b_ms / ms_k:.1%} "
+                       f"of the bound {b_ms:.4f} ms")
+        out[m] = (err, ms_k, ms_p, ms_lib)
+        del tap, w, b, b_bf16, got, ref
+    return out
 
 
 def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
@@ -539,30 +599,16 @@ def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
 
 
 def phase12_aug_head(torch, nwc_ops, randn, c, layers, hid):
-    """K7 against its plain version at the 10 s head shape."""
-    m, k, n = FRAMES_10S, 3 * hid, layers * (3 * c + 1) * 2 * c
-    tap = randn(m, k)
-    w_aug = randn(k, n, scale=0.05)
-    b_aug = randn(n, scale=0.1, dtype=torch.float32)
-    out_k = nwc_ops.aug_head_matmul(tap, w_aug, b_aug)
-    out_p = nwc_ops.aug_head_matmul_plain(tap, w_aug, b_aug)
-    torch.cuda.synchronize()
-    err = max_abs(out_k, out_p)
-    # f32 sums in another order, one bf16 rounding: at most one bf16 ulp
-    bound = 2.0 ** -7 * float(out_p.float().abs().max()) + 1e-6
-    ms_k, ms_p = race(lambda: nwc_ops.aug_head_matmul_plain(
-        tap, w_aug, b_aug), lambda: nwc_ops.aug_head_matmul(
-        tap, w_aug, b_aug), 20)
-    b_bf16 = b_aug.to(torch.bfloat16)
-    ms_lib = cuda_ms(lambda: torch.addmm(b_bf16, tap, w_aug), 20)
-    phase(12, f"K7 aug_head ({m}x{k} @ {k}x{n}): max_abs_err {err:.3e} "
-              f"(bound {bound:.3e}), kernel {ms_k:.4f} ms, plain "
-              f"{ms_p:.4f} ms, torch.addmm {ms_lib:.4f} ms per call")
-    if not err <= bound or not bool(out_k.isfinite().all()):
-        fail("K7 disagrees with its plain version")
-    # two fused blocks (hops 64 and 256) per denoiser forward
-    return entry(err, 2 * ms_k, 2 * ms_p, [gemm_work(m, k, n)] * 2,
-                 2 * ms_lib)
+    """K7 against its plain version at the NWC route's head shapes (the
+    hop-64 and hop-256 blocks at 256 and 864 frames)."""
+    k, n = 3 * hid, layers * (3 * c + 1) * 2 * c
+    cases = head_gemm_cases(12, "K7 aug_head", torch, nwc_ops.aug_head_matmul,
+                            nwc_ops.aug_head_matmul_plain, randn, k, n,
+                            (256, FRAMES_10S))
+    _, ms_k, ms_p, ms_lib = cases[FRAMES_10S]
+    # two fused blocks (hops 64 and 256) per denoiser forward at 864 frames
+    return entry(max(v[0] for v in cases.values()), 2 * ms_k, 2 * ms_p,
+                 [gemm_work(FRAMES_10S, k, n)] * 2, 2 * ms_lib)
 
 
 def phase13_nwc_block(torch, nwc_ops, randn, c, layers):
@@ -823,7 +869,8 @@ def phase18_head_variants(exp_r4b, dev):
         if not row["max_abs_err"] <= bound_err:
             fail(f"K10 {row['name']} disagrees with its plain version")
     phase(18, f"Kernel A {report['taug_head_ms']:.4f} ms, torch.addmm "
-              f"{report['library_ms']:.4f} ms per call (same shape)")
+              f"{report['library_ms']:.4f} ms per call (same shape, raced, "
+              "CUDA graphs)")
     shipped = report["variants"][0]
     return entry(max(r["max_abs_err"] for r in report["variants"]),
                  shipped["ms"], shipped["plain_ms"],
@@ -909,6 +956,10 @@ def main():
     print(smi_line, flush=True)
 
     # --- phase 2: build ----------------------------------------------------
+    cfg = ModelConfig()
+    c, layers = cfg.inner_channels, cfg.lvc_layers_each_block
+    rows = 3 * c + 1
+    rows_p = lvc_head.rows_padded(c)
     t0 = time.perf_counter()
     _build.library()
     log = (_build.BUILD_DIR / "build.log")
@@ -918,13 +969,17 @@ def main():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
+        plan = lvc_head.head_gemm_plan(
+            FRAMES_10S, layers * 2 * c * rows_p, HEAD_K,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        phase(2, f"K3/K7 head GEMM (head_gemm_kernel<3>, K = {HEAD_K}): "
+                 f"{ptxas_entry(log.read_text(), 'head_gemm_kernelILi3E')}; "
+                 f"dynamic shared memory {plan.smem_bytes} bytes "
+                 f"({plan.stages} tap stages), {plan.grid} persistent blocks "
+                 f"for {plan.units} units at {FRAMES_10S} frames")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
-    cfg = ModelConfig()
-    c, layers = cfg.inner_channels, cfg.lvc_layers_each_block
-    rows = 3 * c + 1
-    rows_p = lvc_head.rows_padded(c)
     report = {}
 
     def randn(*shape, scale=1.0, dtype=bf16):
@@ -933,30 +988,19 @@ def main():
 
     with torch.inference_mode():
         # --- phase 3: Kernel A ---------------------------------------------
-        m, k, n = FRAMES_10S, 3 * cfg.kpnet_hidden_channels, \
-            layers * 2 * c * rows_p
-        tap = randn(m, k)
-        w_head = randn(k, n, scale=0.05)
-        b_head = randn(n, scale=0.1, dtype=torch.float32)
-        out_k = lvc_head.taug_head_matmul(tap, w_head, b_head)
-        out_p = lvc_head.taug_head_matmul_plain(tap, w_head, b_head)
-        torch.cuda.synchronize()
-        err = max_abs(out_k, out_p)
-        # f32 sums in another order, then one bf16 rounding: at most one
-        # bf16 ulp apart (2^-7 relative) where a rounding flips
-        bound = 2.0 ** -7 * float(out_p.float().abs().max()) + 1e-6
-        ms_k, ms_p = race(lambda: lvc_head.taug_head_matmul_plain(
-            tap, w_head, b_head), lambda: lvc_head.taug_head_matmul(
-            tap, w_head, b_head), 20)
-        b_bf16 = b_head.to(bf16)
-        ms_lib = cuda_ms(lambda: torch.addmm(b_bf16, tap, w_head), 20)
-        phase(3, f"Kernel A taug_head ({m}x{k} @ {k}x{n}): max_abs_err "
-                 f"{err:.3e} (bound {bound:.3e}), kernel {ms_k:.4f} ms, "
-                 f"plain {ms_p:.4f} ms, torch.addmm {ms_lib:.4f} ms per call")
-        if not err <= bound:
-            fail("Kernel A disagrees with its plain version")
-        report["taug_head"] = entry(err, 3 * ms_k, 3 * ms_p,
-                                    [gemm_work(m, k, n)] * 3, 3 * ms_lib)
+        # its row counts on the main paths: 100, 256, 864 frames (b 1),
+        # the training recipe's 20 x 100 and 864 frames at b 4
+        k, n = 3 * cfg.kpnet_hidden_channels, layers * 2 * c * rows_p
+        cases = head_gemm_cases(3, "Kernel A taug_head", torch,
+                                lvc_head.taug_head_matmul,
+                                lvc_head.taug_head_matmul_plain, randn, k, n,
+                                (100, 256, FRAMES_10S,
+                                 TRAIN_BATCH * TRAIN_FRAMES, 4 * FRAMES_10S))
+        _, ms_k, ms_p, ms_lib = cases[FRAMES_10S]
+        report["taug_head"] = entry(max(v[0] for v in cases.values()),
+                                    3 * ms_k, 3 * ms_p,
+                                    [gemm_work(FRAMES_10S, k, n)] * 3,
+                                    3 * ms_lib)
 
         # --- phase 4: Kernel B ---------------------------------------------
         wstack_t = randn(layers, c, rows, scale=0.1)

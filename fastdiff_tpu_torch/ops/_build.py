@@ -29,8 +29,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
-    # tap, w_head, b_head, out, M, N, K, stream
-    "taug_head_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # tap, w_head, b_head, out, M, N, K, then lvc_head.head_gemm_plan's
+    # tile_m, tile_n, stages, units, grid, smem; stream
+    "taug_head_launch": [_P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P],
     # x, skip, kern, wstack_t, final_wb (or NULL), out, fin (or NULL),
     # B, C, L, F, hop, rows_p, layers, stream
     "lvc_block_ncl_launch": [_P, _P, _P, _P, _P, _P, _P,
@@ -39,8 +41,10 @@ SIGNATURES = {
     # B, C, L, F, hop, rows_p, layers, stream
     "lvc_block_ncl_sr_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
-    # tap, w_aug, b_aug, out, M, N, K, stream
-    "aug_head_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # tap, w_aug, b_aug, out, M, N, K, tile_m, tile_n, stages, units,
+    # grid, smem, stream
+    "aug_head_launch": [_P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P],
     # x, skip, kern_aug, wstack, out, B, C, L, F, hop, rows, layers, stream
     "lvc_block_nwc_launch": [_P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _P],

@@ -112,13 +112,13 @@ def aug_head_matmul(tap: torch.Tensor, w_aug: torch.Tensor,
 
     CPU tensors run ``aug_head_matmul_plain``. CUDA tensors launch
     ``csrc/taug_head.cu`` (bf16 tap and weights, f32 bias, K a multiple of
-    8, N of 16) or raise. JAX falls back to ``jnp.dot`` where no
+    8 and at most 256, N of 16) or raise. JAX falls back to ``jnp.dot`` where no
     128-multiple tile divides N, a TPU tiling limit the card does not
     have."""
     if tap.device.type == "cpu":
         return aug_head_matmul_plain(tap, w_aug, b_aug)
     out = launch_head_gemm("aug_head_launch", "aug_head_matmul", tap, w_aug,
-                           b_aug, n_multiple=16)
+                           b_aug, n_multiple=16, planned=True)
     if out.shape[0]:
         LAUNCHES["aug_head"] += 1
     return out

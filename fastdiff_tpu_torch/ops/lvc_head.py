@@ -15,13 +15,18 @@ a 16-byte boundary for the kernels' vector loads (104 at C = 32; the TPU
 package pads to its 128-lane tile instead).
 
 On a CUDA tensor ``taug_head_matmul`` launches the hand-written kernel
-(``csrc/taug_head.cu``); on a CPU tensor it runs the plain version.
+(``csrc/taug_head.cu``: a persistent ``wgmma`` + TMA GEMM for ``sm_90a``,
+whose tile walk ``head_gemm_plan`` computes); on a CPU tensor it runs the
+plain version.
 ``TaugHead`` is the trainable form: Kernel A forward, and the plain matmul
 VJP of the JAX ``_taug5d_bwd`` as its backward. ``pack_head`` and
 ``head_taps`` are differentiable.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +39,76 @@ LAUNCHES = {"taug_head": 0, "taug_head_variant": 0}
 # K10's grid orders: the block index walks the column blocks first
 # ("m_outer") or the row stripes first ("w_res", weight-resident)
 VARIANT_ORDERS = ("m_outer", "w_res")
+
+# The head GEMM's geometry (csrc/taug_head.cu, which refuses any other):
+# 128 x 128 output units, K in chunks of 64 (one 128-byte swizzled row of
+# bf16, at most 4 chunks), a tap ring of 16 KB stages, two slots of a w_head
+# tile (K x 128) and its f32 bias, two bf16 staging tiles of 64 x 128 per
+# consumer warpgroup, mbarriers and 1 KB of alignment slack, within the
+# 232,448 bytes of shared memory a block can use.
+HEAD_TILE_M, HEAD_TILE_N, HEAD_CHUNK_K = 128, 128, 64
+HEAD_MAX_STAGES, HEAD_MAX_CHUNKS = 8, 4
+SMEM_PER_BLOCK = 232_448
+_A_STAGE_BYTES = HEAD_TILE_M * HEAD_CHUNK_K * 2
+_B_CHUNK_BYTES = HEAD_CHUNK_K * HEAD_TILE_N * 2
+_OUT_TILE_BYTES = 64 * HEAD_TILE_N * 2
+_SMEM_SLACK = 1024 + 256 + 2 * HEAD_TILE_N * 4   # alignment, mbarriers, bias
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadGemmPlan:
+    """The persistent head GEMM's walk over its output: ``units`` tiles of
+    ``tile_m`` x ``tile_n``, unit u at N tile u // m_tiles and M tile
+    u % m_tiles (N-major: a block reloads its w_head tile only when the N
+    tile changes), block b running ``ranges[b]`` = [begin, end)."""
+    tile_m: int
+    tile_n: int
+    k_chunks: int
+    stages: int
+    m_tiles: int
+    n_tiles: int
+    units: int
+    grid: int
+    ranges: tuple
+    smem_bytes: int
+
+    @property
+    def c_args(self) -> tuple:
+        """The int arguments the C entry takes after M, N, K."""
+        return (self.tile_m, self.tile_n, self.stages, self.units, self.grid,
+                self.smem_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def head_gemm_plan(m: int, n: int, k: int, sms: int = 132) -> HeadGemmPlan:
+    """The tile walk of ``csrc/taug_head.cu`` for tap (m, k) @ w (k, n) on a
+    card of ``sms`` SMs: one block per SM (or per unit, if fewer), each a
+    contiguous run of units, the runs differing by at most one unit. Raises
+    if k is too deep for the shared memory (k > 256)."""
+    k_chunks = -(-k // HEAD_CHUNK_K)
+    fixed = (_SMEM_SLACK + 2 * k_chunks * _B_CHUNK_BYTES
+             + 4 * _OUT_TILE_BYTES)
+    stages = min(HEAD_MAX_STAGES, (SMEM_PER_BLOCK - fixed) // _A_STAGE_BYTES)
+    if m < 1 or n < 1 or k_chunks > HEAD_MAX_CHUNKS:
+        raise ValueError(f"head GEMM: no plan for ({m}, {k}) @ ({k}, {n}) "
+                         "(K at most 256)")
+    m_tiles = -(-m // HEAD_TILE_M)
+    n_tiles = -(-n // HEAD_TILE_N)
+    units = m_tiles * n_tiles
+    grid = min(sms, units)
+    per, extra = divmod(units, grid)
+    starts = [b * per + min(b, extra) for b in range(grid + 1)]
+    return HeadGemmPlan(
+        tile_m=HEAD_TILE_M, tile_n=HEAD_TILE_N, k_chunks=k_chunks,
+        stages=stages, m_tiles=m_tiles, n_tiles=n_tiles, units=units,
+        grid=grid, ranges=tuple(zip(starts[:-1], starts[1:])),
+        smem_bytes=fixed + stages * _A_STAGE_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def rows_padded(c: int, k: int = 3) -> int:
@@ -92,11 +167,12 @@ def taug_head_matmul(tap: torch.Tensor, w_head: torch.Tensor,
     """Kernel A: tap (M, K) @ w_head (K, N) + b_head (N,) -> (M, N).
 
     CPU tensors run ``taug_head_matmul_plain``. CUDA tensors launch
-    ``csrc/taug_head.cu`` (bf16 tap and weights, f32 bias) or raise."""
+    ``csrc/taug_head.cu`` (bf16 tap and weights, f32 bias, K at most 256)
+    or raise."""
     if tap.device.type == "cpu":
         return taug_head_matmul_plain(tap, w_head, b_head)
     out = launch_head_gemm("taug_head_launch", "taug_head_matmul", tap,
-                           w_head, b_head, n_multiple=8)
+                           w_head, b_head, n_multiple=8, planned=True)
     if out.shape[0]:
         LAUNCHES["taug_head"] += 1
     return out
@@ -144,12 +220,14 @@ def taug_head_variant(tap: torch.Tensor, w_head: torch.Tensor,
 
 def launch_head_gemm(entry: str, fn: str, tap: torch.Tensor,
                      w_head: torch.Tensor, b_head: torch.Tensor, *,
-                     n_multiple: int, extra: tuple = ()) -> torch.Tensor:
+                     n_multiple: int, extra: tuple = (),
+                     planned: bool = False) -> torch.Tensor:
     """Check the operands of ``csrc/taug_head.cu``'s GEMM and launch it
     through the C entry ``entry``: tap (M, K) bf16 @ w_head (K, N) bf16 +
     b_head (N,) f32 -> (M, N) bf16, row-major. K must be a multiple of 8
     and N of ``n_multiple``; raises on anything else. ``extra`` are the
-    entry's int arguments after M, N, K."""
+    entry's int arguments after M, N, K; ``planned`` passes
+    ``head_gemm_plan``'s instead (K3 and K7, K at most 256)."""
     if tap.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {tap.device}")
     m, k = tap.shape
@@ -175,6 +253,8 @@ def launch_head_gemm(entry: str, fn: str, tap: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=tap.device)
     if m == 0:
         return out
+    if planned:
+        extra = head_gemm_plan(m, n, k, sm_count(out.device.index)).c_args
     lib = _build.library()
     with torch.cuda.device(tap.device):
         stream = torch.cuda.current_stream().cuda_stream

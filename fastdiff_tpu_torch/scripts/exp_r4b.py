@@ -7,7 +7,8 @@
   (order, M tile) of the script's list against its plain version, at
   864 x 192 @ 192 x 26,624 (4 layers x 64 x rows_p 104, the port's row
   padding; the TPU script pads rows to 128), beside Kernel A (the shipped
-  head) and ``torch.addmm`` (a yardstick the port never calls).
+  head) and ``torch.addmm`` (a yardstick the port never calls), those two
+  raced in turns by CUDA-graph replay (device time alone).
 - D: the fused-head route against the NCL route. The N = 4 sampler at 864
   frames (10 s) on ``FastDiff(infer_route="ncl")`` and ``"ncl_fh"`` with
   the same seeded weights and noise, at b = 1 and b = 4, raced in turns
@@ -30,7 +31,7 @@ from fastdiff_tpu_torch.config import ModelConfig
 from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
 from fastdiff_tpu_torch.models.fastdiff import FastDiff, checked_device
 from fastdiff_tpu_torch.ops import lvc_head
-from fastdiff_tpu_torch.utils.timing import cuda_ms, race
+from fastdiff_tpu_torch.utils.timing import cuda_ms, race, race_graph
 
 SECONDS = 10.0
 HOP = 256
@@ -77,10 +78,9 @@ def exp_b(device="cuda", reps: int = 20, seed: int = 0) -> dict:
         report["variants"].append(row)
     if timed:
         b_bf16 = b.to(torch.bfloat16)
-        report["taug_head_ms"] = cuda_ms(
+        report["taug_head_ms"], report["library_ms"] = race_graph(
+            lambda: torch.addmm(b_bf16, tap, w),
             lambda: lvc_head.taug_head_matmul(tap, w, b), reps)
-        report["library_ms"] = cuda_ms(lambda: torch.addmm(b_bf16, tap, w),
-                                       reps)
     return report
 
 
