@@ -9,25 +9,31 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    power limit (fails when no CUDA device is present: nothing falls back
    to the CPU);
 2. builds the CUDA kernels from ``fastdiff_tpu_torch/csrc`` (``nvcc``) and
-   prints the build time, each kernel's registers / spills, and the head
-   GEMM's (K3 and K7) shared memory and persistent grid at 864 frames;
+   prints the build time, each kernel's registers / spills, the head
+   GEMM's (K3 and K7) shared memory and persistent grid at 864 frames, and
+   the tensor-core Kernel B's (K1, K2) registers and spills (fails on any
+   spill) and its tile, waves and shared memory at each hop;
 3. Kernel A (predictor head GEMM, wgmma + TMA) against its plain PyTorch
    version at K = 192, N = 4 * 64 * rows_p and every row count its paths
    give it (M = 100, 256 and 864 frames, 20 x 100 in training, 4 x 864),
    within one bf16 ulp of the largest output; timed against ``torch.addmm``
    raced in turns (CUDA-graph replay: device time alone), with the
    achieved TB/s and share of the bound at each M;
-4. Kernel B (LVC block) against its plain version at hops 8, 64 and 256
-   with 864 frames (hop 256 with and without the final-conv epilogue), and
-   at 100 frames of hop 8 (a block the JAX kernel cannot tile);
+4. Kernel B (LVC block) on the tensor cores and on the CUDA cores, each
+   against its plain version, at hops 8, 64 and 256 with 864 frames (hop
+   256 with and without the final-conv epilogue), and at 100 frames of hop
+   8 (a block the JAX kernel cannot tile); the three raced in turns (the
+   kernels by CUDA-graph replay), with the tensor cores' share of the
+   bound;
 5. a full-width bf16 denoiser forward at 864 frames, kernel path against
    plain path, bounded by a relative L2 error;
 6. the N=4 sampler on 10 s of audio (864 frames, 221,184 samples, b = 1),
    kernel and plain paths timed with CUDA events after warm-up;
 7. the port's HTTP server on 127.0.0.1 (the NCL route): three mels of
    100, 256 and 864 frames, each answered with a WAV of frames * 256
-   finite samples, each raising Kernel A's and Kernel B's launch counts by
-   exactly 3 blocks x 4 steps;
+   finite samples, each raising Kernel A's launch count by exactly 3
+   blocks x 4 steps, the tensor-core K1's by 8, K2's by 4 and the
+   CUDA-core Kernel B's by 0;
 8. Kernel B-SR (the training block, which also writes s, y and z) against
    its plain version at the training recipe's shapes (b = 20, 100 frames,
    hops 8, 64 and 256), with phase 4's bounds;
@@ -98,6 +104,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -977,6 +984,27 @@ def main():
                  f"dynamic shared memory {plan.smem_bytes} bytes "
                  f"({plan.stages} tap stages), {plan.grid} persistent blocks "
                  f"for {plan.units} units at {FRAMES_10S} frames")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for final, wide in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            info = ptxas_entry(log.read_text(), f"lvc_block_tc_kernelILb"
+                                                f"{final}ELb{wide}E")
+            phase(2, f"{'K2' if final else 'K1'} tensor-core Kernel B "
+                     f"(lvc_block_tc_kernel<{bool(final)}, {bool(wide)}>, "
+                     f"{'hop 8' if wide else 'hops 16, 24, ...'}): {info}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", info)
+            if not spills or spills.groups() != ("0", "0"):
+                fail("the tensor-core Kernel B spills registers (or has no "
+                     "ptxas line)")
+        for hop in (8, 64, HOP_SIZE):
+            bp = lvc_block_ncl.block_tile_plan(1, FRAMES_10S * hop, sms)
+            phase(2, f"tensor-core Kernel B at hop {hop}, {FRAMES_10S} "
+                     f"frames: tile {bp.tile} + 2 x {lvc_block_ncl.TC_HALO} "
+                     f"halo ({1 - bp.tile / bp.ext:.1%} of the extent "
+                     f"recomputed), {bp.blocks} blocks of "
+                     f"{lvc_block_ncl.TC_THREADS} threads in {bp.waves} "
+                     f"wave(s) of {lvc_block_ncl.TC_BLOCKS_PER_SM} per SM, "
+                     f"{bp.smem_bytes} bytes of dynamic shared memory")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -1005,8 +1033,8 @@ def main():
         # --- phase 4: Kernel B ---------------------------------------------
         wstack_t = randn(layers, c, rows, scale=0.1)
         final_wb = randn(8, c, scale=0.1)
-        per_forward = {"lvc_block_ncl": [0.0, 0.0, 0.0, []],
-                       "lvc_block_ncl_final": [0.0, 0.0, 0.0, []]}
+        per_forward = {"lvc_block_ncl": [0.0, 0.0, 0.0, [], 0.0],
+                       "lvc_block_ncl_final": [0.0, 0.0, 0.0, [], 0.0]}
         cases = [(8, FRAMES_10S, False, True), (64, FRAMES_10S, False, True),
                  (256, FRAMES_10S, False, False),
                  (256, FRAMES_10S, True, True), (8, 100, False, False)]
@@ -1024,30 +1052,44 @@ def main():
                 return lvc_block_ncl.lvc_block_ncl(x, skip, kern, wstack_t,
                                                    hop, fwb)
 
+            def run_cc():
+                return lvc_block_ncl.lvc_block_ncl_cc(x, skip, kern,
+                                                      wstack_t, hop, fwb)
+
             def run_p():
                 return lvc_block_ncl.lvc_block_ncl_plain(x, skip, kern,
                                                          wstack_t, hop, fwb)
 
-            got, ref = run_k(), run_p()
+            got, got_cc, ref = run_k(), run_cc(), run_p()
             torch.cuda.synchronize()
-            pairs = [(got[0], ref[0]), (got[1], ref[1])] if final else [
-                (got, ref)]
-            errs = [(max_abs(a, b), rel_l2(a, b)) for a, b in pairs]
-            ms_k, ms_p = race(run_p, run_k, 10)
             what = "with epilogue" if final else "block only"
-            phase(4, f"Kernel B hop {hop}, {frames} frames ({what}): "
-                     + ", ".join(f"max_abs_err {e:.3e} rel_l2 {r:.3e}"
-                                 for e, r in errs)
-                     + f"; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+            both = (lambda a, b: [(a[0], b[0]), (a[1], b[1])] if final
+                    else [(a, b)])
             # bf16 carries: a flipped rounding in s or y moves later layers
             # by a few bf16 ulps (2^-5 relative to the largest value is four
             # ulps of it); a wrong kernel is off by O(1)
-            if any(not (r <= 1e-2 and e <= 2.0 ** -5 * float(
-                    b.float().abs().max())) for (e, r), (_, b) in zip(
-                    errs, pairs)):
-                fail(f"Kernel B disagrees with its plain version (hop {hop})")
-            if not all(torch.isfinite(a).all() for a, _ in pairs):
-                fail("Kernel B output is not finite")
+            errs = check_pairs(both(got, ref), f"Kernel B tensor cores (hop "
+                                               f"{hop}, {frames} frames, "
+                                               f"{what})")
+            errs_cc = check_pairs(both(got_cc, ref), f"Kernel B CUDA cores "
+                                                     f"(hop {hop})")
+            # plain, CUDA cores, tensor cores, tensor cores, CUDA cores,
+            # plain: the kernels by CUDA-graph replay (device time alone)
+            ms_p1 = cuda_ms(run_p, 3)
+            ms_k, ms_cc = race_graph(run_cc, run_k, 10)
+            ms_p = (ms_p1 + cuda_ms(run_p, 3)) / 2
+            b_ms, by = bound([block_work(1, c, length, 2.0 * kern.numel(),
+                                         final=final)])
+            phase(4, f"Kernel B hop {hop}, {frames} frames ({what}): tensor "
+                     "cores " + ", ".join(f"max_abs_err {e:.3e} rel_l2 "
+                                          f"{r:.3e}" for e, r in errs)
+                     + "; CUDA cores " + ", ".join(
+                         f"max_abs_err {e:.3e} rel_l2 {r:.3e}"
+                         for e, r in errs_cc)
+                     + f"; raced: tensor cores {ms_k:.4f} ms, CUDA cores "
+                     f"{ms_cc:.4f} ms ({ms_cc / ms_k:.2f}x), plain "
+                     f"{ms_p:.4f} ms; bound {b_ms:.4f} ms ({by}), tensor "
+                     f"cores at {b_ms / ms_k:.1%} of it [{smi_line}]")
             name = "lvc_block_ncl_final" if final else "lvc_block_ncl"
             acc = per_forward[name]
             acc[0] = max(acc[0], max(e for e, _ in errs))
@@ -1056,8 +1098,11 @@ def main():
                 acc[2] += ms_p
                 acc[3].append(block_work(1, c, length, 2.0 * kern.numel(),
                                          final=final))
-        for name, (err, ms_k, ms_p, works) in per_forward.items():
-            report[name] = entry(err, ms_k, ms_p, works)
+                acc[4] += ms_cc
+            del x, skip, kern, got, got_cc, ref
+        for name, (err, ms_k, ms_p, works, ms_cc) in per_forward.items():
+            report[name] = dict(entry(err, ms_k, ms_p, works),
+                                cuda_core_ms=ms_cc)
 
         # --- phase 5: full-width denoiser forward --------------------------
         model = FastDiff(cfg, seed=0, device=dev).eval()
@@ -1122,8 +1167,13 @@ def main():
     # --- phase 7: HTTP server, main path -----------------------------------
     counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES)
     per_step = len(cfg.upsample_ratios) * const.n_steps
+    # K1 on the hop-8 and hop-64 blocks and K2 on the hop-256 block of every
+    # step, all on the tensor cores; the CUDA-core Kernel B never
     rises = {"A": (("taug_head",), per_step),
-             "B": (("lvc_block_ncl", "lvc_block_ncl_final"), per_step)}
+             "K1": (("lvc_block_ncl",), (len(cfg.upsample_ratios) - 1)
+                    * const.n_steps),
+             "K2": (("lvc_block_ncl_final",), const.n_steps),
+             "K1 CUDA cores": (("lvc_block_ncl_cc",), 0)}
     launches = serve_and_count(
         7, VocoderService({"N": 4, "seed": 1234}, device=dev), start_server,
         counters, {frames: rises for frames in (100, 256, FRAMES_10S)},
@@ -1173,7 +1223,8 @@ def main():
         {frames: {"K6": (("lvc_block_nwc",), 2 * steps),
                   "K7": (("aug_head",), 2 * steps),
                   "K8": (("downpath",), k8),
-                  "K1": (("lvc_block_ncl", "lvc_block_ncl_final"), 0),
+                  "K1": (("lvc_block_ncl", "lvc_block_ncl_final",
+                          "lvc_block_ncl_cc"), 0),
                   "K3": (("taug_head",), 0)}
          for frames, k8 in ((100, 0), (256, steps), (FRAMES_10S, steps))},
         cfg.cond_channels)
@@ -1239,9 +1290,9 @@ def main():
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
-        "lvc_block_ncl": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
+        "lvc_block_ncl": ("fastdiff_tpu_torch/csrc/lvc_block_ncl_tc.cu",
                           "fastdiff_tpu/ops/lvc_block_ncl.py:431"),
-        "lvc_block_ncl_final": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
+        "lvc_block_ncl_final": ("fastdiff_tpu_torch/csrc/lvc_block_ncl_tc.cu",
                                 "fastdiff_tpu/ops/lvc_block_ncl.py:422"),
         "lvc_block_ncl_sr": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
                              "fastdiff_tpu/ops/lvc_block_ncl.py:468"),
@@ -1265,7 +1316,9 @@ def main():
     }
     print("  kernel ms (and bound_ms, library_ms) below are per denoiser "
           "forward at 864 frames: taug_head 3 calls, lvc_block_ncl hops 8 + "
-          "64, lvc_block_ncl_final hop 256, aug_head 2 calls, lvc_block_nwc "
+          "64, lvc_block_ncl_final hop 256 (both on the tensor cores; "
+          "cuda_core_ms is the CUDA-core Kernel B raced beside them), "
+          "aug_head 2 calls, lvc_block_nwc "
           "hops 64 + 256, downpath 1 call, lvc_block_ncl_fh hops 8 + 64, "
           "lvc_block_ncl_fh_final hop 256; lvc_block_ncl_sr per train-step "
           "forward at the recipe (hops 8 + 64 + 256, b 20 x 100 frames); "

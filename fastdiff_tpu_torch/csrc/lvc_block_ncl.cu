@@ -1,7 +1,9 @@
-// Kernel B: the whole 4-layer time-aware LVC block, NCL layout, with an
-// optional epilogue for the model's final k=7 C->1 conv; Kernel B-SR, the
-// same block writing the per-layer residuals that the training backward
-// reads; and K6, the same block in the NWC layout (template flag NWC).
+// Kernel B on the CUDA cores: the whole 4-layer time-aware LVC block, NCL
+// layout, with an optional epilogue for the model's final k=7 C->1 conv
+// (K1 and K2 for hops that are no multiple of 8; lvc_block_ncl_tc.cu runs
+// the others on the tensor cores); Kernel B-SR, the same block writing the
+// per-layer residuals that the training backward reads; and K6, the same
+// block in the NWC layout (template flag NWC).
 //
 // Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_aug, both of its
 // pallas_call sites (_kernel_body and _kernel_body_final, through
@@ -30,8 +32,8 @@
 // and any frame count work. The carry, a and y live in shared memory as
 // bf16 (3 x 32 KB), W_i as f32 (12 KB); the per-frame LVC kernels are read
 // from global memory / L1 / L2 as 16-byte vectors (rows padded to a
-// multiple of 8). All products run on the f32 CUDA cores; moving the two
-// contractions onto the tensor cores is the next step.
+// multiple of 8). All products run on the f32 CUDA cores;
+// lvc_block_ncl_tc.cu runs the two contractions on the tensor cores.
 //
 // Kernel B-SR (template flag SAVE) adds a store epilogue to each layer: the
 // center samples of a tile write s (after the skip-add, masked, before the
@@ -188,14 +190,15 @@ bool bad_shape(int channels, int L, int F, int hop, int rows_p, int layers) {
 // x, skip (B, C, L) bf16; kern (B, F, layers, 2C, rows_p) bf16;
 // wstack_t (layers, C, 3C+1) bf16; final_wb (8, C) bf16 or NULL;
 // out (B, C, L) bf16; fin (B, 1, L) f32 or NULL. Only C = 32, layers = 4 and
-// rows_p % 8 == 0 are built (the Python wrapper checks). Launches on
-// `stream`; returns cudaGetLastError() (or the attribute call's error).
-extern "C" int lvc_block_ncl_launch(const void* x, const void* skip,
-                                    const void* kern, const void* wstack_t,
-                                    const void* final_wb, void* out,
-                                    void* fin, int B, int channels, int L,
-                                    int F, int hop, int rows_p, int layers,
-                                    void* stream) {
+// rows_p % 8 == 0 are built (the Python wrapper checks). Any hop >= 1.
+// Launches on `stream`; returns cudaGetLastError() (or the attribute call's
+// error).
+extern "C" int lvc_block_ncl_cc_launch(const void* x, const void* skip,
+                                       const void* kern, const void* wstack_t,
+                                       const void* final_wb, void* out,
+                                       void* fin, int B, int channels, int L,
+                                       int F, int hop, int rows_p, int layers,
+                                       void* stream) {
   if (bad_shape(channels, L, F, hop, rows_p, layers))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -210,7 +213,8 @@ extern "C" int lvc_block_ncl_launch(const void* x, const void* skip,
 
 // Kernel B-SR: Kernel B that also writes s_all, y_all (B, layers, C, L) and
 // z_all (B, layers, 2C, L), all bf16, for the center samples of every tile
-// (so every sample once). Same operands and checks as lvc_block_ncl_launch.
+// (so every sample once). Same operands and checks as
+// lvc_block_ncl_cc_launch.
 extern "C" int lvc_block_ncl_sr_launch(const void* x, const void* skip,
                                        const void* kern, const void* wstack_t,
                                        void* out, void* s_all, void* y_all,

@@ -34,9 +34,13 @@ SIGNATURES = {
     "taug_head_launch": [_P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P],
     # x, skip, kern, wstack_t, final_wb (or NULL), out, fin (or NULL),
-    # B, C, L, F, hop, rows_p, layers, stream
+    # B, C, L, F, hop, rows_p, layers, then lvc_block_ncl.block_tile_plan's
+    # tile; stream (the tensor-core kernel, hop % 8 == 0)
     "lvc_block_ncl_launch": [_P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the same operands but the tile: the CUDA-core kernel, any hop
+    "lvc_block_ncl_cc_launch": [_P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _P],
     # x, skip, kern, wstack_t, out, s_all, y_all, z_all,
     # B, C, L, F, hop, rows_p, layers, stream
     "lvc_block_ncl_sr_launch": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -19,8 +19,11 @@ model's final k=7 C->1 conv of the carry, in float32.
 The JAX kernel only fuses blocks whose hop and frame count fit its tiling
 (``fusable``); Kernel B takes any hop >= 1 and any frame count, so every
 block of every request runs through it. On a CUDA tensor
-``lvc_block_ncl`` launches ``csrc/lvc_block_ncl.cu``; on a CPU tensor it
-runs the plain version, which keeps the kernel's cast points.
+``lvc_block_ncl`` launches the tensor-core kernel
+(``csrc/lvc_block_ncl_tc.cu``, tiles from ``block_tile_plan``) when the
+hop is a multiple of 8, and the CUDA-core kernel (``lvc_block_ncl_cc``,
+``csrc/lvc_block_ncl.cu``) for any other hop; on a CPU tensor it runs the
+plain version, which keeps the kernels' cast points.
 
 K5 (``lvc_block_ncl_fh``, JAX's ``lvc_block_ncl_fh``) is Kernel B with the
 predictor head (Kernel A's GEMM) run inside the kernel: it takes the trunk
@@ -44,6 +47,9 @@ plain math as its ``_sr_backward`` and ``_nat_bwd``.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -52,18 +58,80 @@ from fastdiff_tpu_torch.ops.lvc import (location_variable_convolution,
                                         lvc_gated_residual)
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
-# launches of the CUDA kernels since the last reset (plain runs not counted)
+# launches of the CUDA kernels since the last reset (plain runs not counted):
+# lvc_block_ncl / _final the tensor-core Kernel B, lvc_block_ncl_cc the
+# CUDA-core one (hops that are no multiple of 8, with or without epilogue)
 LAUNCHES = {"lvc_block_ncl": 0, "lvc_block_ncl_final": 0,
-            "lvc_block_ncl_sr": 0, "lvc_block_ncl_fh": 0,
-            "lvc_block_ncl_fh_final": 0}
+            "lvc_block_ncl_cc": 0, "lvc_block_ncl_sr": 0,
+            "lvc_block_ncl_fh": 0, "lvc_block_ncl_fh_final": 0}
 
 # what csrc/lvc_block_ncl.cu and csrc/lvc_block_ncl_fh.cu are built for
 KERNEL_CHANNELS = 32
 KERNEL_LAYERS = 4
 KERNEL_HEAD_K = 192          # K5's head contraction: conv taps x hidden
 
+# the tensor-core Kernel B's geometry (csrc/lvc_block_tc.cuh, namespace tc)
+TC_HALO = 48                 # samples recomputed on each side of a tile
+TC_THREADS = 256
+TC_BLOCKS_PER_SM = 2
+TC_TILE_MAX = 328
+TC_ROW = 40                  # bf16 per sample row of an activation buffer
+TC_WROW = 104                # bf16 per staged W_i row
+TC_APAD = 27                 # zero rows around the conv's input
+TC_YPAD = 1                  # zero rows around the LVC's input
+SMEM_PER_BLOCK = 232_448
+H100_SMS = 132
+
 _MIN_FUSED_HOP = 8
 _MIN_HALO = 48
+
+
+def tc_smem_bytes(ext: int) -> int:
+    """Dynamic shared memory of a tensor-core block whose extent (tile plus
+    halos) is ``ext`` samples: carry, a and y with their pad rows, W_i, its
+    bias and the final conv (``tc::smem_bytes``)."""
+    return ((3 * ext + 2 * TC_APAD + 2 * TC_YPAD) * TC_ROW * 2
+            + KERNEL_CHANNELS * TC_WROW * 2 + 9 * KERNEL_CHANNELS * 4)
+
+
+def tensor_core_hop(hop: int) -> bool:
+    """Whether the tensor-core Kernel B takes this hop: a multiple of 8, so
+    that no n8 tile of samples straddles two frames. Other hops run the
+    CUDA-core kernel."""
+    return hop >= 8 and hop % 8 == 0
+
+
+class BlockPlan(NamedTuple):
+    tile: int                # output samples per block
+    ext: int                 # tile + both halos
+    blocks: int              # grid size, batch rows included
+    waves: int               # ceil(blocks / (SMs x blocks per SM))
+    smem_bytes: int
+
+
+def block_tile_plan(b: int, length: int, sms: int = H100_SMS) -> BlockPlan:
+    """The tensor-core Kernel B's tile for a (b, C, length) block call: the
+    multiple of 8 up to ``TC_TILE_MAX`` that minimises waves x extent (the
+    time of the slowest SM, counting the recomputed halo), the larger tile
+    on a tie. Two blocks share an SM."""
+    if b < 1 or length < 1:
+        raise ValueError(f"block_tile_plan: empty block ({b}, {length})")
+    slots = sms * TC_BLOCKS_PER_SM
+    best = None
+    for tile in range(TC_TILE_MAX, 7, -8):
+        blocks = b * -(-length // tile)
+        waves = -(-blocks // slots)
+        cost = waves * (tile + 2 * TC_HALO)
+        if best is None or cost < best[0]:
+            best = (cost, tile, blocks, waves)
+    _, tile, blocks, waves = best
+    ext = tile + 2 * TC_HALO
+    return BlockPlan(tile, ext, blocks, waves, tc_smem_bytes(ext))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fusable(hop: int, n_frames: int) -> bool:
@@ -202,10 +270,41 @@ def lvc_block_ncl(x: torch.Tensor, skip: torch.Tensor,
     (B, 1, L) float32 when ``final_wb`` (8, C) is given.
 
     CPU tensors run ``lvc_block_ncl_plain``. CUDA tensors (all bf16, C = 32,
-    4 layers) launch ``csrc/lvc_block_ncl.cu`` or raise."""
+    4 layers) launch the tensor-core kernel (``csrc/lvc_block_ncl_tc.cu``)
+    when ``tensor_core_hop(hop)``, else the CUDA-core one
+    (``lvc_block_ncl_cc``), or raise."""
     if x.device.type == "cpu":
         return lvc_block_ncl_plain(x, skip, kern_taug, wstack_t, hop,
                                    final_wb)
+    if x.device.type != "cuda" or not tensor_core_hop(hop):
+        return lvc_block_ncl_cc(x, skip, kern_taug, wstack_t, hop, final_wb)
+    # (an empty call launches nothing; its plan is never read)
+    plan = block_tile_plan(max(x.shape[0], 1), max(x.shape[2], 1),
+                           _sm_count(x.device.index or 0))
+    key = "lvc_block_ncl" if final_wb is None else "lvc_block_ncl_final"
+    return _launch_block("lvc_block_ncl_launch", (plan.tile,), key, x, skip,
+                         kern_taug, wstack_t, hop, final_wb)
+
+
+def lvc_block_ncl_cc(x: torch.Tensor, skip: torch.Tensor,
+                     kern_taug: torch.Tensor, wstack_t: torch.Tensor,
+                     hop: int, final_wb: torch.Tensor | None = None):
+    """Kernel B on the CUDA cores (``csrc/lvc_block_ncl.cu``), any hop >= 1:
+    ``lvc_block_ncl``'s operands and results. ``lvc_block_ncl`` runs it for
+    hops that are no multiple of 8; ``chip_smoke.py`` races it against the
+    tensor-core kernel. CPU tensors run ``lvc_block_ncl_plain``."""
+    if x.device.type == "cpu":
+        return lvc_block_ncl_plain(x, skip, kern_taug, wstack_t, hop,
+                                   final_wb)
+    return _launch_block("lvc_block_ncl_cc_launch", (), "lvc_block_ncl_cc",
+                         x, skip, kern_taug, wstack_t, hop, final_wb)
+
+
+def _launch_block(entry: str, extra: tuple, key: str, x, skip, kern_taug,
+                  wstack_t, hop, final_wb):
+    """Check the operands, allocate out (and fin) and launch the Kernel B
+    C entry ``entry`` (``extra`` are its arguments before the stream);
+    counts the launch under ``LAUNCHES[key]``."""
     if x.device.type != "cuda":
         raise ValueError(f"lvc_block_ncl: unsupported device {x.device}")
     _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, final_wb)
@@ -219,18 +318,15 @@ def lvc_block_ncl(x: torch.Tensor, skip: torch.Tensor,
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lvc_block_ncl_launch(
+        code = getattr(lib, entry)(
             x.data_ptr(), skip.data_ptr(), kern_taug.data_ptr(),
             wstack_t.data_ptr(),
             None if final_wb is None else final_wb.data_ptr(),
             out.data_ptr(), None if fin is None else fin.data_ptr(),
-            b, c, length, frames, hop, rows_p, layers, stream)
-    _build.check(code, "lvc_block_ncl_launch")
-    if fin is None:
-        LAUNCHES["lvc_block_ncl"] += 1
-        return out
-    LAUNCHES["lvc_block_ncl_final"] += 1
-    return out, fin
+            b, c, length, frames, hop, rows_p, layers, *extra, stream)
+    _build.check(code, entry)
+    LAUNCHES[key] += 1
+    return out if fin is None else (out, fin)
 
 
 def lvc_block_ncl_fh_plain(x: torch.Tensor, skip: torch.Tensor,

@@ -4,8 +4,11 @@
 Built from a plain hparams dict on ``device``, the CUDA card unless the
 caller names another (no card raises). ``vocoder_ckpt`` names a
 ``FastDiff`` state_dict saved with ``torch.save`` (a JAX tree converts with
-``models/bridge.py:params_from_jax``); without one the model runs with
-seeded random weights, as the JAX vocoder does. ``use_pallas_block`` and
+``models/bridge.py:params_from_jax``) or a checkpoint of the port's
+``Trainer``, whose weight norm is fused on load; without one, or when the
+path does not exist, the model runs with the seed-0 random weights, as the
+JAX vocoder does. A non-zero ``chunked_infer_frames`` raises until the
+chunked vocoder is ported (ROADMAP item 8). ``use_pallas_block`` and
 ``use_pallas_down`` pick the route as the JAX vocoder's
 ``inference_model_config`` does (``models/fastdiff.py:resolve_infer_route``
 and ``resolve_down_kernel``): "auto" / "ncl" run the NCL route (K3, K1),
@@ -16,12 +19,14 @@ and ``resolve_down_kernel``): "auto" / "ncl" run the NCL route (K3, K1),
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from fastdiff_tpu_torch.config import ModelConfig
 from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
+from fastdiff_tpu_torch.models import bridge
 from fastdiff_tpu_torch.models.fastdiff import (FastDiff, checked_device,
                                                 resolve_down_kernel,
                                                 resolve_infer_route)
@@ -39,6 +44,18 @@ def model_config_from_hparams(hp: dict) -> ModelConfig:
     return ModelConfig(**kwargs)
 
 
+def inference_state_dict(saved: dict, cfg: ModelConfig) -> dict:
+    """The inference ``FastDiff`` state_dict in a loaded ``vocoder_ckpt``:
+    a bare state_dict as it is, or the ``params`` of a ``Trainer``
+    checkpoint (the trainable model's v / g / bias) with weight norm fused
+    as the JAX vocoder fuses it (``bridge.params_to_jax`` then
+    ``params_from_jax``)."""
+    state = saved.get("params", saved)
+    if not any(k.endswith(".v") for k in state):
+        return state
+    return bridge.params_from_jax(bridge.params_to_jax(state, cfg), cfg)
+
+
 class FastDiffVocoder:
     def __init__(self, hparams: dict | None = None, device="cuda"):
         hp = dict(hparams or {})
@@ -50,11 +67,16 @@ class FastDiffVocoder:
         self.route = resolve_infer_route(hp)
         route = dict(infer_route=self.route,
                      down_kernel=resolve_down_kernel(hp))
+        if int(hp.get("chunked_infer_frames", 0) or 0):
+            raise ValueError("chunked_infer_frames is not supported by the "
+                             "port yet: the chunked vocoder comes with "
+                             "ROADMAP item 8; set it to 0")
         ckpt = hp.get("vocoder_ckpt", "")
-        if ckpt:
+        if ckpt and os.path.exists(ckpt):
             model = FastDiff(self.model_cfg, seed=None, **route)
-            model.load_state_dict(torch.load(ckpt, map_location="cpu",
-                                             weights_only=True))
+            model.load_state_dict(inference_state_dict(
+                torch.load(ckpt, map_location="cpu", weights_only=True),
+                self.model_cfg))
         else:
             print("| WARNING: no vocoder_ckpt given; FastDiff vocoder runs "
                   "with random weights.")
