@@ -11,8 +11,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
 2. builds the CUDA kernels from ``fastdiff_tpu_torch/csrc`` (``nvcc``) and
    prints the build time, each kernel's registers / spills, the head
    GEMM's (K3 and K7) shared memory and persistent grid at 864 frames, and
-   the tensor-core Kernel B's (K1, K2) registers and spills (fails on any
-   spill) and its tile, waves and shared memory at each hop;
+   the tensor-core Kernel B's (K1, K2) registers and spills and its tile,
+   waves and shared memory at each hop, and K9 ``lvc_stage``'s tensor-core
+   kernel's registers, spills and shared memory (fails on any spill of
+   the head GEMM, Kernel B or ``lvc_stage``);
 3. Kernel A (predictor head GEMM, wgmma + TMA) against its plain PyTorch
    version at K = 192, N = 4 * 64 * rows_p and every row count its paths
    give it (M = 100, 256 and 864 frames, 20 x 100 in training, 4 x 864),
@@ -82,12 +84,16 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     hop-8 block is not fusable (100 % 16 != 0), so K5 +4, K5 final +4, K1
     +4 and K3 +4; then the server of ``use_pallas_block: false`` (the plain
     route), whose request launches no kernel at all;
-18. K10 (the head GEMM with its grid order and M tile as parameters),
-    every variant of ``scripts/exp_r4b.py``'s experiment B against its
-    plain version within one bf16 ulp of the largest output, timed
+18. K10 (Kernel A's kernel on the walk of each grid order and M tile of
+    ``scripts/exp_r4b.py``'s experiment B) at 100, 256 and 864 rows, every
+    variant against its plain version within one bf16 ulp of the largest
+    output, each raced against ``torch.addmm`` by CUDA-graph replay, with
+    its share of the bound, beside Kernel A raced the same way
     (``fastdiff_tpu_torch/scripts/exp_r4b.py:exp_b``);
 19. K9 (the block's conv and LVC stages alone) at the hop-256 block's
-    shape against their plain versions, timed
+    shape against their plain versions (``lvc_stage`` at every ``tf``),
+    each setting raced against its library call (chained ``torch.matmul``,
+    ``torch.bmm``) by CUDA-graph replay, with its share of the bound
     (``fastdiff_tpu_torch/scripts/bench_mosaic_micro.py:run``).
 
 Any failed check exits non-zero. The line before the last is a JSON object
@@ -308,6 +314,14 @@ def ptxas_entry(log: str, mangled: str) -> str:
                     info.append(nxt.split(":", 1)[-1].strip())
             return "; ".join(info)
     return "not in the build log"
+
+
+def check_no_spill(info: str, what: str):
+    """Fail unless ptxas's line reports 0 bytes of spill stores and loads."""
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       info)
+    if not spills or spills.groups() != ("0", "0"):
+        fail(f"{what} spills registers (or has no ptxas line)")
 
 
 def head_gemm_cases(n_phase, label, torch, fn, plain, randn, k, n, rows):
@@ -864,53 +878,66 @@ def phase17_fh_route(torch, FastDiff, exp_r4b, cfg, gen, dev):
     return report
 
 
-def phase18_head_variants(exp_r4b, dev):
-    """K10: every variant of experiment B against its plain version."""
-    report = exp_r4b.exp_b(dev)
-    bound_err = report["err_bound"]
-    for row in report["variants"]:
-        phase(18, f"K10 {row['name']} ({'x'.join(map(str, report['shape']))}"
-                  f"): max_abs_err {row['max_abs_err']:.3e} (bound "
-                  f"{bound_err:.3e}), kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms")
-        if not row["max_abs_err"] <= bound_err:
-            fail(f"K10 {row['name']} disagrees with its plain version")
-    phase(18, f"Kernel A {report['taug_head_ms']:.4f} ms, torch.addmm "
-              f"{report['library_ms']:.4f} ms per call (same shape, raced, "
-              "CUDA graphs)")
+def phase18_head_variants(exp_r4b, dev, smi_line):
+    """K10: every walk of experiment B at 100, 256 and 864 rows against its
+    plain version, each raced against ``torch.addmm`` (CUDA graphs); the
+    JSON keeps the script's first variant at 864 rows."""
+    entries = {}
+    for m in (100, 256, FRAMES_10S):
+        report = exp_r4b.exp_b(dev, m=m)
+        bound_err = report["err_bound"]
+        b_ms, _ = bound([gemm_work(*report["shape"])])
+        for row in report["variants"]:
+            shape = "x".join(map(str, report["shape"]))
+            phase(18, f"K10 {row['name']} ({shape}): max_abs_err {row['max_abs_err']:.3e} (bound "
+                      f"{bound_err:.3e}); raced: kernel {row['ms']:.4f} ms, "
+                      f"torch.addmm {row['library_ms']:.4f} ms; plain "
+                      f"{row['plain_ms']:.4f} ms; {b_ms / row['ms']:.1%} of "
+                      f"the bound {b_ms:.4f} ms [{smi_line}]")
+            if not row["max_abs_err"] <= bound_err:
+                fail(f"K10 {row['name']} disagrees with its plain version "
+                     f"at M = {m}")
+        phase(18, f"M = {m}: Kernel A (N-major walk) "
+                  f"{report['taug_head_ms']:.4f} ms, torch.addmm {report['library_ms']:.4f} ms (raced, "
+                  "CUDA graphs)")
+        entries[m] = report
+    report = entries[FRAMES_10S]
     shipped = report["variants"][0]
-    return entry(max(r["max_abs_err"] for r in report["variants"]),
+    return entry(max(r["max_abs_err"] for rep in entries.values()
+                     for r in rep["variants"]),
                  shipped["ms"], shipped["plain_ms"],
-                 [gemm_work(*report["shape"])], report["library_ms"])
+                 [gemm_work(*report["shape"])], shipped["library_ms"])
 
 
-def phase19_stages(micro, dev):
+def phase19_stages(micro, dev, smi_line):
     """K9: the conv and LVC stages at the hop-256 block's shape against
-    their plain versions; the JSON keeps the wrappers' default settings."""
+    their plain versions, each setting raced against its library call; the
+    JSON keeps the wrappers' default settings."""
     report = micro.run(dev)
-    defaults = {"conv_stage": ("tile_s", 2048), "lvc_stage": ("tf", 8)}
+    defaults = {"conv_stage": ("tile_s", 2048), "lvc_stage": ("tf", 1)}
     out = {}
     for name, (key, default) in defaults.items():
         stage = report[name]
+        b_ms = stage["bound_ms"]
         for row in stage["rows"]:
             phase(19, f"K9 {name} {key}={row[key]} (L {report['length']}): "
                       f"max_abs_err {row['max_abs_err']:.3e} (bound "
                       f"{row['err_bound']:.3e}) rel_l2 {row['rel_l2']:.3e}; "
-                      f"kernel {row['ms']:.4f} ms, plain "
-                      f"{row['plain_ms']:.4f} ms")
+                      f"raced: kernel {row['ms']:.4f} ms, library "
+                      f"{row['library_ms']:.4f} ms; plain "
+                      f"{row['plain_ms']:.4f} ms; {b_ms / row['ms']:.1%} of "
+                      f"the bound {b_ms:.4f} ms ({stage['bound_by']}) "
+                      f"[{smi_line}]")
             if not (row["max_abs_err"] <= row["err_bound"]
                     and row["rel_l2"] <= 1e-2):
                 fail(f"K9 {name} ({key}={row[key]}) disagrees with its plain "
                      "version")
-        phase(19, f"K9 {name}: library {stage['library_ms']:.4f} ms, bound "
-                  f"{stage['bound_ms']:.4f} ms ({stage['bound_by']})")
         row = next(r for r in stage["rows"] if r[key] == default)
         out[name] = dict(max_abs_err=max(r["max_abs_err"]
                                          for r in stage["rows"]),
                          ms=row["ms"], plain_ms=row["plain_ms"],
-                         bound_ms=stage["bound_ms"],
-                         bound_by=stage["bound_by"],
-                         library_ms=stage["library_ms"])
+                         bound_ms=b_ms, bound_by=stage["bound_by"],
+                         library_ms=row["library_ms"])
     phase(19, f"gate_stage (plain, f32) {report['gate_stage_ms']:.4f} ms")
     return out
 
@@ -979,11 +1006,12 @@ def main():
         plan = lvc_head.head_gemm_plan(
             FRAMES_10S, layers * 2 * c * rows_p, HEAD_K,
             torch.cuda.get_device_properties(0).multi_processor_count)
-        phase(2, f"K3/K7 head GEMM (head_gemm_kernel<3>, K = {HEAD_K}): "
-                 f"{ptxas_entry(log.read_text(), 'head_gemm_kernelILi3E')}; "
-                 f"dynamic shared memory {plan.smem_bytes} bytes "
+        info = ptxas_entry(log.read_text(), "head_gemm_kernelILi3E")
+        phase(2, f"K3/K7/K10 head GEMM (head_gemm_kernel<3>, K = {HEAD_K}): "
+                 f"{info}; dynamic shared memory {plan.smem_bytes} bytes "
                  f"({plan.stages} tap stages), {plan.grid} persistent blocks "
                  f"for {plan.units} units at {FRAMES_10S} frames")
+        check_no_spill(info, "the head GEMM")
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for final, wide in ((0, 0), (0, 1), (1, 0), (1, 1)):
             info = ptxas_entry(log.read_text(), f"lvc_block_tc_kernelILb"
@@ -991,11 +1019,17 @@ def main():
             phase(2, f"{'K2' if final else 'K1'} tensor-core Kernel B "
                      f"(lvc_block_tc_kernel<{bool(final)}, {bool(wide)}>, "
                      f"{'hop 8' if wide else 'hops 16, 24, ...'}): {info}")
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                               r"spill loads", info)
-            if not spills or spills.groups() != ("0", "0"):
-                fail("the tensor-core Kernel B spills registers (or has no "
-                     "ptxas line)")
+            check_no_spill(info, "the tensor-core Kernel B")
+        info = ptxas_entry(log.read_text(), "lvc_stage_kernel")
+        phase(2, f"K9 lvc_stage on the tensor cores (lvc_stage_kernel): "
+                 f"{info}; dynamic shared memory "
+                 f"{bench_mosaic_micro.LVC_SMEM_BYTES} bytes, "
+                 f"{bench_mosaic_micro.LVC_STAGES} ring stages of "
+                 f"{bench_mosaic_micro.LVC_PIECE_ROWS} rows, K padded to "
+                 f"{bench_mosaic_micro.LVC_K_PAD}, "
+                 f"{bench_mosaic_micro.lvc_stage_grid(1, FRAMES_10S, 1, sms)}"
+                 f" persistent blocks at {FRAMES_10S} frames (tf 1)")
+        check_no_spill(info, "K9 lvc_stage")
         for hop in (8, 64, HOP_SIZE):
             bp = lvc_block_ncl.block_tile_plan(1, FRAMES_10S * hop, sms)
             phase(2, f"tensor-core Kernel B at hop {hop}, {FRAMES_10S} "
@@ -1278,9 +1312,10 @@ def main():
     for counter in all_counters:
         for key in counter:
             counter[key] = 0
-    report["taug_head_variant"] = phase18_head_variants(exp_r4b, dev)
+    report["taug_head_variant"] = phase18_head_variants(exp_r4b, dev,
+                                                        smi_line)
     launches["taug_head_variant"] = lvc_head.LAUNCHES["taug_head_variant"]
-    report.update(phase19_stages(bench_mosaic_micro, dev))
+    report.update(phase19_stages(bench_mosaic_micro, dev, smi_line))
     launches.update(bench_mosaic_micro.LAUNCHES)
     if any(launches[k] == 0 for k in ("taug_head_variant", "conv_stage",
                                       "lvc_stage")):
@@ -1322,8 +1357,9 @@ def main():
           "hops 64 + 256, downpath 1 call, lvc_block_ncl_fh hops 8 + 64, "
           "lvc_block_ncl_fh_final hop 256; lvc_block_ncl_sr per train-step "
           "forward at the recipe (hops 8 + 64 + 256, b 20 x 100 frames); "
-          "taug_head_variant per call (m_outer, m_tile 216); conv_stage "
-          "(tile_s 2048) and lvc_stage (tf 8) per call at 221,184 samples. "
+          "taug_head_variant per call at 864 rows (m_outer, m_tile 216); "
+          "conv_stage (tile_s 2048) and lvc_stage (tf 1) per call at 221,184 "
+          "samples; library_ms of K9/K10 raced with the kernel. "
           "Launches from the run of each kernel's path: phase 7 (taug_head, "
           "lvc_block_ncl*), 11 (lvc_block_ncl_sr), 15 (lvc_block_nwc, "
           "aug_head, downpath), 17 (lvc_block_ncl_fh*), 18 "

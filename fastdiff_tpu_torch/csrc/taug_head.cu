@@ -3,9 +3,9 @@
 // output is row-major (M, N) for both, and the packed weights' column order
 // makes it K1's kern_taug (2C, rows_p)-minor (K3, taug_head_launch) or K6's
 // kern_aug (3C+1, 2C)-minor with no row padding (K7, aug_head_launch).
-// K10 (taug_head_variant_launch, at the end of this file) is the first
-// version of this GEMM (WMMA tiles) with its grid order and M tile as launch
-// parameters, the twin of an experiment script.
+// K10 (taug_head_variant_launch) is the same kernel on another walk of its
+// output units: the twin of an experiment script that varies the grid
+// order and the M tile.
 //
 // Replaces fastdiff_tpu/ops/lvc_block_pallas.py:taug_head_matmul_5d (body
 // _head_mm5d_body; K3) and aug_head_matmul (body _head_mm_body; K7). It
@@ -26,12 +26,16 @@
 // Design, each choice against that bound:
 // - Persistent blocks, one per SM (231,680 bytes of shared memory at
 //   K = 192), each walking a contiguous, balanced run of 128 x 128 output
-//   units in N-major order (ops/lvc_head.py:head_gemm_plan computes the
-//   walk; the runs differ by at most one unit: 11 or 12 at 864 frames). A
-//   block reloads its w_head tile (K x 128) and that tile's 128 f32 biases
-//   only when its N tile changes, and requests the next tile a whole tile
-//   of units early, so the stores of every SM run back to back for the
-//   whole call instead of in 5.5 waves of short blocks.
+//   units (ops/lvc_head.py:head_gemm_plan computes the walk; the runs
+//   differ by at most one unit: 11 or 12 at 864 frames). K3 and K7 walk
+//   N-major: every M tile of an N tile, then the next N tile. A block
+//   reloads its w_head tile (K x 128) and that tile's 128 f32 biases only
+//   when its N tile changes, and requests the next tile a whole tile of
+//   units early, so the stores of every SM run back to back for the whole
+//   call instead of in 5.5 waves of short blocks. The walk is a launch
+//   parameter (`stripe`, M tiles per stripe: stripes of M tiles in order,
+//   each walked N tile by N tile; stripe = m_tiles is the N-major walk),
+//   which K10 varies (ops/lvc_head.py:head_gemm_walk_plan).
 // - One producer warp issues TMA loads (cp.async.bulk.tensor, 128-byte
 //   swizzle) into a ring of tap chunks (128 rows x 64 k, 16 KB, 4 stages at
 //   K = 192) and two w_head + bias slots, signalled by mbarriers; no thread
@@ -60,15 +64,8 @@
 // epilogue run one after the other in both warpgroups, ~1.8 us per unit
 // against the 1.3 us its 32 KB of output take at the card's write rate.
 
-#include <cuda.h>  // CUtensorMap types; cuTensorMapEncodeTiled is looked up
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "tma.cuh"
 
-#include <mutex>
-
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -102,63 +99,6 @@ int head_fixed_smem(int k_chunks) {
 int head_stages(int k_chunks) {
   const int s = (SMEM_LIMIT - head_fixed_smem(k_chunks)) / A_CHUNK;
   return k_chunks > MAX_KC || s < 2 ? 0 : (s > MAX_STAGES ? MAX_STAGES : s);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed. The loop is in
-// PTX so that the compiler sees no divergent branch around the wgmmas.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// TMA: box at (c0 inner, c1 outer) of `map` -> shared `dst`, completion
-// counted in bytes on `bar`; out-of-bounds elements are filled with zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// TMA: shared `src` -> box at (c0, c1) of `map`, clipped to its bounds.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1)
-      : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
@@ -222,15 +162,33 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Non-tensor bulk copy global -> shared, counted in bytes on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
-}
+// A position on the walk of the output units. The M tiles go in stripes of
+// `stripe` (the last one may be shorter), stripe after stripe; a stripe is
+// walked N tile by N tile, all its `rows` M tiles under each. Unit (M tile
+// k * stripe + mi, N tile nt). stripe = m_tiles is the N-major walk (unit
+// u at nt = u / m_tiles, mt = u % m_tiles). Divides only at `start`: next()
+// is a few adds, so the walk costs the loop nothing per unit.
+struct Walk {
+  int k, mi, nt, rows;
+  __device__ __forceinline__ void start(int u, int m_tiles, int n_tiles,
+                                        int stripe) {
+    const int per = stripe * n_tiles;
+    k = u / per;
+    rows = min(stripe, m_tiles - k * stripe);
+    const int r = u - k * per;
+    nt = r / rows;
+    mi = r - nt * rows;
+  }
+  __device__ __forceinline__ void next(int m_tiles, int n_tiles,
+                                       int stripe) {
+    if (++mi < rows) return;
+    mi = 0;
+    if (++nt < n_tiles) return;
+    nt = 0;
+    ++k;
+    rows = min(stripe, m_tiles - k * stripe);
+  }
+};
 
 template <int KC>
 __global__ void __launch_bounds__(HEAD_THREADS, 1)
@@ -238,7 +196,7 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const __grid_constant__ CUtensorMap map_out,
                  const float* __restrict__ bias, int M, int N, int stages,
-                 int m_tiles, int units) {
+                 int m_tiles, int units, int stripe) {
   extern __shared__ unsigned char smem_raw[];
   constexpr uint32_t B_SLOT = KC * B_CHUNK;
   const uint32_t a_ring =
@@ -252,14 +210,13 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t full_b = empty_a + 8 * MAX_STAGES;
   const uint32_t empty_b = full_b + 16;
 
-  // this block's run of units (head_gemm_plan's ranges), over N tiles
-  // nt_first..nt_last; the i-th of them lives in w_head slot i & 1
+  // this block's run of units (head_gemm_plan's ranges); the i-th w_head
+  // tile along it (i counts the changes of N tile) lives in slot i & 1
   const int q = units / gridDim.x, r = units % gridDim.x;
   const int bid = blockIdx.x;
   const int u_begin = bid * q + min(bid, r);
   const int u_end = u_begin + q + (bid < r ? 1 : 0);
-  const int nt_first = u_begin / m_tiles;
-  const int nt_last = (u_end - 1) / m_tiles;
+  const int n_tiles = (N + HN - 1) / HN;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -280,13 +237,13 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   if (wg == 2) {
     // ---- producer: one thread issues every load -------------------------
     if (tid != 2 * 128) return;
-    // w_head tile i (K x 128) and its 128 biases into slot i & 1. Tile
-    // i + 1 is requested as soon as tile i's first unit has its tap chunks
-    // in flight (its slot frees when the consumers finish tile i - 1), so
-    // it lands a whole tile of units before it is needed.
-    auto load_b = [&](int i) {
+    // w_head tile i (K x 128, N tile nt) and its 128 biases into slot
+    // i & 1. Tile i + 1 is requested as soon as tile i's first unit has its
+    // tap chunks in flight (its slot frees when the consumers finish tile
+    // i - 1), so it lands a whole tile of units before it is needed.
+    auto load_b = [&](int i, int nt) {
       const int slot = i & 1;
-      const int n0 = (nt_first + i) * HN;
+      const int n0 = nt * HN;
       const uint32_t bias_bytes = 4 * min(HN, N - n0);
       mbar_wait(empty_b + 8 * slot, ((i >> 1) & 1) ^ 1);
       mbar_expect_tx(full_b + 8 * slot, B_SLOT + bias_bytes);
@@ -298,9 +255,14 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       bulk_load(bias_slots + slot * (HN * 4), bias + n0, bias_bytes,
                 full_b + 8 * slot);
     };
-    load_b(0);
-    for (int u = u_begin, c = 0; u < u_end; ++u) {
-      const int nt = u / m_tiles, mt = u - nt * m_tiles;
+    Walk w;
+    w.start(u_begin, m_tiles, n_tiles, stripe);
+    load_b(0, w.nt);
+    for (int u = u_begin, c = 0, i = 0; u < u_end;
+         ++u, w.next(m_tiles, n_tiles, stripe)) {
+      const int mt = w.k * stripe + w.mi;
+      const bool first = u == u_begin || w.mi == 0;  // of a w_head tile
+      if (u > u_begin && first) ++i;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc, ++c) {
         const int s = c % stages;
@@ -309,7 +271,9 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         tma_load(a_ring + s * A_CHUNK, &map_a, full_a + 8 * s, kc * HK,
                  mt * HM);
       }
-      if ((u == u_begin || mt == 0) && nt < nt_last) load_b(nt - nt_first + 1);
+      // the run's next w_head tile, if the run goes past this one's units
+      if (first && u + w.rows - w.mi < u_end)
+        load_b(i + 1, w.nt + 1 < n_tiles ? w.nt + 1 : 0);
     }
     return;
   }
@@ -325,12 +289,19 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   float d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.0f;
-  for (int u = u_begin; u < u_end; ++u) {
+  Walk w;
+  w.start(u_begin, m_tiles, n_tiles, stripe);
+  for (int u = u_begin, i = -1; u < u_end;
+       ++u, w.next(m_tiles, n_tiles, stripe)) {
     const int t = u - u_begin;
-    const int nt = u / m_tiles, mt = u - nt * m_tiles;
-    const int slot = (nt - nt_first) & 1;
-    if (u == u_begin || mt == 0)  // the first unit of a w_head tile
-      mbar_wait(full_b + 8 * slot, ((nt - nt_first) >> 1) & 1);
+    const int mt = w.k * stripe + w.mi, nt = w.nt;
+    if (u == u_begin || w.mi == 0) {  // the first unit of a w_head tile
+      ++i;
+      mbar_wait(full_b + 8 * (i & 1), (i >> 1) & 1);
+    }
+    const int slot = i & 1;
+    // the tile's last unit here: its w_head and bias slot frees after it
+    const bool last_of_tile = u + 1 == u_end || w.mi + 1 == w.rows;
     const uint32_t b_base = b_slots + slot * B_SLOT;
     fence_acc(d);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -389,86 +360,14 @@ head_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         tma_store(&map_out, tile + OUT_HALF, nt * HN + 64, row);
       }
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      // the tile's last unit here: its w_head and bias slot is free
-      if (u + 1 == u_end || (u + 1) % m_tiles == 0)
-        mbar_arrive(empty_b + 8 * slot);
+      if (last_of_tile) mbar_arrive(empty_b + 8 * slot);
     }
   }
   if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-// ---- host side: tensor maps, encoded once per (pointer, dims, box) ------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-struct MapEntry {
-  const void* ptr;
-  uint64_t inner, outer;
-  uint32_t box_inner, box_outer;
-  CUtensorMap map;
-};
-
-constexpr int MAP_CACHE = 64;
-std::mutex g_mutex;
-MapEntry g_maps[MAP_CACHE];
-int g_map_count = 0, g_map_next = 0;
-EncodeTiledFn g_encode = nullptr;
 bool g_smem_set[64] = {};
-
-EncodeTiledFn encode_fn() {  // under g_mutex
-  if (!g_encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      g_encode = reinterpret_cast<EncodeTiledFn>(fn);
-  }
-  return g_encode;
-}
-
-// A row-major bf16 (outer, inner) matrix read or written in boxes of
-// (box_outer, box_inner) with the 128-byte swizzle; 0 or a cudaError_t.
-int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner,
-               uint64_t outer, uint32_t box_inner, uint32_t box_outer) {
-  std::lock_guard<std::mutex> lock(g_mutex);
-  for (int i = 0; i < g_map_count; ++i) {
-    const MapEntry& e = g_maps[i];
-    if (e.ptr == ptr && e.inner == inner && e.outer == outer &&
-        e.box_inner == box_inner && e.box_outer == box_outer) {
-      *out = e.map;
-      return 0;
-    }
-  }
-  EncodeTiledFn encode = encode_fn();
-  if (!encode) return static_cast<int>(cudaErrorNotSupported);
-  MapEntry e{ptr, inner, outer, box_inner, box_outer, {}};
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * sizeof(bf16)};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(ptr), dims, strides, box, elem_strides,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  g_maps[g_map_next] = e;
-  g_map_next = (g_map_next + 1) % MAP_CACHE;
-  if (g_map_count < MAP_CACHE) ++g_map_count;
-  *out = e.map;
-  return 0;
-}
+std::mutex g_mutex;
 
 int allow_head_smem() {
   int dev = 0;
@@ -491,18 +390,18 @@ int allow_head_smem() {
   return 0;
 }
 
-}  // namespace
-
-// tap (M, K) bf16, w_head (K, N) bf16, b_head (N,) f32 -> out (M, N) bf16.
-// K and N must be multiples of 8, K at most 256, and every pointer 16-byte
-// aligned (the Python wrapper checks all three). tile_m, tile_n, stages,
-// units, grid and smem are ops/lvc_head.py:head_gemm_plan's; a plan that
-// differs from this kernel's geometry returns cudaErrorInvalidValue.
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int taug_head_launch(const void* tap, const void* w_head,
-                                const void* b_head, void* out, int M, int N,
-                                int K, int tile_m, int tile_n, int stages,
-                                int units, int grid, int smem, void* stream) {
+// The checks and the launch of every entry: tap (M, K) bf16, w_head (K, N)
+// bf16, b_head (N,) f32 -> out (M, N) bf16 on the walk of `stripe` M tiles
+// per stripe. K and N must be multiples of 8, K at most 256, and every
+// pointer 16-byte aligned (the Python wrapper checks all three). tile_m,
+// tile_n, stages, units, grid, smem and stripe are ops/lvc_head.py's plan;
+// a plan that differs from this kernel's geometry (or a stripe outside
+// 1..m_tiles) returns cudaErrorInvalidValue. Launches on `stream`; returns
+// cudaGetLastError().
+int head_gemm_launch(const void* tap, const void* w_head, const void* b_head,
+                     void* out, int M, int N, int K, int tile_m, int tile_n,
+                     int stages, int units, int grid, int smem, int stripe,
+                     void* stream) {
   if (M < 1 || K < 8 || K % 8 != 0 || N < 8 || N % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int k_chunks = (K + HK - 1) / HK;
@@ -511,7 +410,7 @@ extern "C" int taug_head_launch(const void* tap, const void* w_head,
   const int want_stages = head_stages(k_chunks);
   if (want_stages == 0 || tile_m != HM || tile_n != HN ||
       stages != want_stages || units != m_tiles * n_tiles || grid < 1 ||
-      grid > units ||
+      grid > units || stripe < 1 || stripe > m_tiles ||
       smem != head_fixed_smem(k_chunks) + want_stages * A_CHUNK)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_a, map_b, map_out;
@@ -525,21 +424,35 @@ extern "C" int taug_head_launch(const void* tap, const void* w_head,
   switch (k_chunks) {
     case 1:
       head_gemm_kernel<1><<<grid, HEAD_THREADS, smem, s>>>(
-          map_a, map_b, map_out, bias, M, N, stages, m_tiles, units);
+          map_a, map_b, map_out, bias, M, N, stages, m_tiles, units, stripe);
       break;
     case 2:
       head_gemm_kernel<2><<<grid, HEAD_THREADS, smem, s>>>(
-          map_a, map_b, map_out, bias, M, N, stages, m_tiles, units);
+          map_a, map_b, map_out, bias, M, N, stages, m_tiles, units, stripe);
       break;
     case 3:
       head_gemm_kernel<3><<<grid, HEAD_THREADS, smem, s>>>(
-          map_a, map_b, map_out, bias, M, N, stages, m_tiles, units);
+          map_a, map_b, map_out, bias, M, N, stages, m_tiles, units, stripe);
       break;
     default:
       head_gemm_kernel<4><<<grid, HEAD_THREADS, smem, s>>>(
-          map_a, map_b, map_out, bias, M, N, stages, m_tiles, units);
+          map_a, map_b, map_out, bias, M, N, stages, m_tiles, units, stripe);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K3: tap (M, K) @ w_head (K, N) + b_head (N,) -> out (M, N) bf16 on the
+// N-major walk of ops/lvc_head.py:head_gemm_plan (tile_m, tile_n, stages,
+// units, grid, smem); as head_gemm_launch above.
+extern "C" int taug_head_launch(const void* tap, const void* w_head,
+                                const void* b_head, void* out, int M, int N,
+                                int K, int tile_m, int tile_n, int stages,
+                                int units, int grid, int smem, void* stream) {
+  return head_gemm_launch(tap, w_head, b_head, out, M, N, K, tile_m, tile_n,
+                          stages, units, grid, smem, (M + HM - 1) / HM,
+                          stream);
 }
 
 // K7: the same GEMM for the NWC route's head (replaces fastdiff_tpu/ops/
@@ -557,145 +470,19 @@ extern "C" int aug_head_launch(const void* tap, const void* w_aug,
                           stages, units, grid, smem, stream);
 }
 
-// K10: the first version of Kernel A's GEMM (WMMA tiles, one 8-warp block
-// per output region) with the grid order and the M tile as parameters, the
-// counterpart of scripts/exp_r4b.py:_taug_head_variant (experiment B: the
-// head's grid order, m-outer or weight-resident, and its M tile). Each block
-// owns an (m_tile, 128) output region: it loads its (K, 128) column block of
-// w_head into shared memory once and runs over the region in 64-row steps
-// (WMMA bf16 16x16x16, f32 accumulation, f32 bias, one rounding), so a
-// larger m_tile reads the weights fewer times over fewer blocks. The linear
-// block index walks the column blocks first (m_outer: a row stripe's blocks
-// run together and share its tap rows) or the row stripes first
-// (w_resident: a column block's stripes run together and share its weights
-// in L2). Same row-major (M, N) output as Kernel A.
-namespace {
-
-constexpr int BN = 128;
-constexpr int C_LD = BN + 4;
-constexpr int THREADS = 256;    // 8 warps: 2 (rows) x 4 (cols), 32x32 each
-constexpr int VBM = 64;                 // rows per step of a block
-
-__global__ void __launch_bounds__(THREADS)
-taug_head_variant_kernel(const bf16* __restrict__ tap,
-                         const bf16* __restrict__ w,
-                         const float* __restrict__ bias,
-                         bf16* __restrict__ out, int M, int N, int K,
-                         int m_tile, int w_resident) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int w_ld = BN + 8;
-  const int a_ld = K + 8;
-  bf16* w_s = reinterpret_cast<bf16*>(smem_raw);          // [K][w_ld]
-  bf16* a_s = w_s + K * w_ld;                             // [VBM][a_ld]
-  float* c_s = reinterpret_cast<float*>(a_s + VBM * a_ld);  // [VBM][C_LD]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  const int n_tiles = (N + BN - 1) / BN;
-  const int m_tiles = (M + m_tile - 1) / m_tile;
-  const int bid = blockIdx.x;
-  const int mi = w_resident ? bid % m_tiles : bid / n_tiles;
-  const int ni = w_resident ? bid / m_tiles : bid % n_tiles;
-  const int n0 = ni * BN;
-  const int m_begin = mi * m_tile;
-  const int m_end = min(M, m_begin + m_tile);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int idx = tid; idx < K * (BN / 8); idx += THREADS) {
-    const int k = idx / (BN / 8);
-    const int nv = (idx % (BN / 8)) * 8;
-    uint4 v = zero;
-    if (n0 + nv < N)
-      v = *reinterpret_cast<const uint4*>(w + (size_t)k * N + n0 + nv);
-    *reinterpret_cast<uint4*>(w_s + k * w_ld + nv) = v;
-  }
-  for (int m0 = m_begin; m0 < m_end; m0 += VBM) {
-    for (int idx = tid; idx < VBM * (K / 8); idx += THREADS) {
-      const int row = idx / (K / 8);
-      const int kv = (idx % (K / 8)) * 8;
-      uint4 v = zero;
-      if (m0 + row < m_end)
-        v = *reinterpret_cast<const uint4*>(tap + (size_t)(m0 + row) * K +
-                                            kv);
-      *reinterpret_cast<uint4*>(a_s + row * a_ld + kv) = v;
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a_s + (wm * 32 + i * 16) * a_ld + kk,
-                               a_ld);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], w_s + kk * w_ld + wn * 32 + j * 16,
-                               w_ld);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(
-            c_s + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16, acc[i][j],
-            C_LD, wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = tid; idx < VBM * BN / 2; idx += THREADS) {
-      const int row = idx / (BN / 2);
-      const int col = (idx % (BN / 2)) * 2;
-      const int m = m0 + row;
-      const int n = n0 + col;
-      if (m < m_end && n < N) {
-        const float v0 = c_s[row * C_LD + col] + bias[n];
-        const float v1 = c_s[row * C_LD + col + 1] + bias[n + 1];
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-}  // namespace
-
-// K10: tap (M, K) bf16 @ w_head (K, N) bf16 + b_head (N,) f32 -> out (M, N)
-// bf16, as taug_head_launch, with the grid order (w_resident 0: m-outer, 1:
-// weight-resident) and the rows per block (m_tile, a multiple of 8) as
-// parameters. K must be a multiple of 16 and at most 256, N of 8; other
-// values return cudaErrorInvalidValue (the Python wrapper raises first).
+// K10: the same GEMM on the walk of ops/lvc_head.py:head_gemm_walk_plan,
+// the counterpart of scripts/exp_r4b.py:_taug_head_variant (experiment B:
+// the head's grid order, m-outer or weight-resident, and its M tile). The
+// plan's `stripe` (M tiles per stripe) is the 15th argument; "w_res" and an
+// M tile of all rows are the N-major walk of K3, "m_outer" stripes of
+// ceil(m_tile / 128) M tiles. As head_gemm_launch above.
 extern "C" int taug_head_variant_launch(const void* tap, const void* w_head,
                                         const void* b_head, void* out, int M,
-                                        int N, int K, int m_tile,
-                                        int w_resident, void* stream) {
-  if (K % 16 != 0 || K > 256 || N % 8 != 0 || M < 1 || m_tile < 8 ||
-      m_tile % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)K * (BN + 8) * sizeof(bf16) +
-                      (size_t)VBM * (K + 8) * sizeof(bf16) +
-                      (size_t)VBM * C_LD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      taug_head_variant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = ((N + BN - 1) / BN) * ((M + m_tile - 1) / m_tile);
-  taug_head_variant_kernel<<<blocks, THREADS, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(tap), static_cast<const bf16*>(w_head),
-      static_cast<const float*>(b_head), static_cast<bf16*>(out), M, N, K,
-      m_tile, w_resident);
-  return static_cast<int>(cudaGetLastError());
+                                        int N, int K, int tile_m, int tile_n,
+                                        int stages, int units, int grid,
+                                        int smem, int stripe, void* stream) {
+  return head_gemm_launch(tap, w_head, b_head, out, M, N, K, tile_m, tile_n,
+                          stages, units, grid, smem, stripe, stream);
 }
 
 extern "C" const char* fastdiff_cuda_error_string(int code) {

@@ -59,12 +59,15 @@ SIGNATURES = {
     # fin (or NULL), B, C, L, F, hop, khead, rows_p, layers, stream
     "lvc_block_ncl_fh_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # tap, w_head, b_head, out, M, N, K, m_tile, w_resident, stream
-    "taug_head_variant_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # as taug_head_launch, then lvc_head.head_gemm_walk_plan's stripe
+    "taug_head_variant_launch": [_P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _P],
     # tap, w, out, B, E, rows, tile_s, stream
     "conv_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # tap, kern, out, B, L, F, hop, rows, tf, stream
-    "lvc_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # tap, kern, out, B, L, F, hop, rows, tf, then the kernel's geometry
+    # (padded K, ring stages, shared memory) and its grid; stream
+    "lvc_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _P],
 }
 
 

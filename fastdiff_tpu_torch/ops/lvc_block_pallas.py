@@ -118,7 +118,7 @@ def aug_head_matmul(tap: torch.Tensor, w_aug: torch.Tensor,
     if tap.device.type == "cpu":
         return aug_head_matmul_plain(tap, w_aug, b_aug)
     out = launch_head_gemm("aug_head_launch", "aug_head_matmul", tap, w_aug,
-                           b_aug, n_multiple=16, planned=True)
+                           b_aug, n_multiple=16)
     if out.shape[0]:
         LAUNCHES["aug_head"] += 1
     return out

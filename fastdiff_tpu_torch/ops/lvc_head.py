@@ -36,8 +36,9 @@ from fastdiff_tpu_torch.ops import _build
 # launches of the CUDA kernels since the last reset (plain runs not counted)
 LAUNCHES = {"taug_head": 0, "taug_head_variant": 0}
 
-# K10's grid orders: the block index walks the column blocks first
-# ("m_outer") or the row stripes first ("w_res", weight-resident)
+# K10's walk orders (head_gemm_walk_plan): a stripe of M tiles across every
+# N tile, stripe after stripe ("m_outer"), or every M tile under one N tile,
+# N tile after N tile ("w_res", weight-resident: K3's walk)
 VARIANT_ORDERS = ("m_outer", "w_res")
 
 # The head GEMM's geometry (csrc/taug_head.cu, which refuses any other):
@@ -58,9 +59,11 @@ _SMEM_SLACK = 1024 + 256 + 2 * HEAD_TILE_N * 4   # alignment, mbarriers, bias
 @dataclasses.dataclass(frozen=True)
 class HeadGemmPlan:
     """The persistent head GEMM's walk over its output: ``units`` tiles of
-    ``tile_m`` x ``tile_n``, unit u at N tile u // m_tiles and M tile
-    u % m_tiles (N-major: a block reloads its w_head tile only when the N
-    tile changes), block b running ``ranges[b]`` = [begin, end)."""
+    ``tile_m`` x ``tile_n`` in the order of ``unit_tile``, block b running
+    ``ranges[b]`` = [begin, end). The M tiles go in stripes of ``stripe``,
+    each stripe walked N tile by N tile; ``stripe == m_tiles`` (K3, K7) is
+    the N-major walk, unit u at N tile u // m_tiles and M tile u % m_tiles.
+    A block reloads its w_head tile only when the N tile changes."""
     tile_m: int
     tile_n: int
     k_chunks: int
@@ -71,12 +74,23 @@ class HeadGemmPlan:
     grid: int
     ranges: tuple
     smem_bytes: int
+    stripe: int
 
     @property
     def c_args(self) -> tuple:
-        """The int arguments the C entry takes after M, N, K."""
+        """The int arguments K3's and K7's C entries take after M, N, K
+        (K10's take ``stripe`` after them)."""
         return (self.tile_m, self.tile_n, self.stages, self.units, self.grid,
                 self.smem_bytes)
+
+    def unit_tile(self, u: int) -> tuple:
+        """(M tile, N tile) of unit u: the position that
+        ``csrc/taug_head.cu``'s ``Walk`` reaches at u."""
+        per = self.stripe * self.n_tiles
+        k, r = divmod(u, per)
+        rows = min(self.stripe, self.m_tiles - k * self.stripe)
+        nt, mt = divmod(r, rows)
+        return k * self.stripe + mt, nt
 
 
 @functools.lru_cache(maxsize=256)
@@ -102,7 +116,31 @@ def head_gemm_plan(m: int, n: int, k: int, sms: int = 132) -> HeadGemmPlan:
         tile_m=HEAD_TILE_M, tile_n=HEAD_TILE_N, k_chunks=k_chunks,
         stages=stages, m_tiles=m_tiles, n_tiles=n_tiles, units=units,
         grid=grid, ranges=tuple(zip(starts[:-1], starts[1:])),
-        smem_bytes=fixed + stages * _A_STAGE_BYTES)
+        smem_bytes=fixed + stages * _A_STAGE_BYTES, stripe=m_tiles)
+
+
+def check_walk(order: str, m_tile: int) -> None:
+    """Raise unless (order, m_tile) is a walk of experiment B."""
+    if order not in VARIANT_ORDERS or m_tile < 1:
+        raise ValueError(f"taug_head_variant: order {order!r} (one of "
+                         f"{VARIANT_ORDERS}), m_tile {m_tile} (at least 1)")
+
+
+@functools.lru_cache(maxsize=256)
+def head_gemm_walk_plan(m: int, n: int, k: int, order: str, m_tile: int,
+                        sms: int = 132) -> HeadGemmPlan:
+    """K10's plan: ``head_gemm_plan``'s units, grid and balanced runs on the
+    walk of experiment B's (order, m_tile). An M tile of ``m_tile`` rows is
+    a stripe of ceil(m_tile / 128) units of 128 rows (216 -> 2, 432 -> 4,
+    864 -> 7), at most all of them. "m_outer" walks a stripe across every
+    N tile before the next stripe; "w_res" keeps a w_head tile for every M
+    tile, which is K3's N-major walk whatever m_tile is."""
+    check_walk(order, m_tile)
+    plan = head_gemm_plan(m, n, k, sms)
+    if order == "w_res":
+        return plan
+    return dataclasses.replace(
+        plan, stripe=min(plan.m_tiles, -(-m_tile // HEAD_TILE_M)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -172,7 +210,7 @@ def taug_head_matmul(tap: torch.Tensor, w_head: torch.Tensor,
     if tap.device.type == "cpu":
         return taug_head_matmul_plain(tap, w_head, b_head)
     out = launch_head_gemm("taug_head_launch", "taug_head_matmul", tap,
-                           w_head, b_head, n_multiple=8, planned=True)
+                           w_head, b_head, n_multiple=8)
     if out.shape[0]:
         LAUNCHES["taug_head"] += 1
     return out
@@ -192,27 +230,19 @@ def taug_head_variant(tap: torch.Tensor, w_head: torch.Tensor,
                       m_tile: int = 216) -> torch.Tensor:
     """K10, the head GEMM of ``scripts/exp_r4b.py:_taug_head_variant``: tap
     (M, K) @ w_head (K, N) + b_head (N,) -> (M, N) row-major, as Kernel A,
-    with the grid ``order`` ("m_outer" or "w_res") and the rows per block
-    ``m_tile`` (a multiple of 8; clipped to M as the script clips it) as
-    launch parameters.
+    on the walk that ``head_gemm_walk_plan`` makes of the grid ``order``
+    ("m_outer" or "w_res") and the M tile ``m_tile`` (rows, at least 1).
 
-    CPU tensors run ``taug_head_variant_plain``. CUDA tensors launch
-    ``csrc/taug_head.cu``'s variant entry (K a multiple of 16, at most 256)
-    or raise."""
-    if order not in VARIANT_ORDERS:
-        raise ValueError(f"taug_head_variant: order {order!r} is not one of "
-                         f"{VARIANT_ORDERS}")
+    CPU tensors run ``taug_head_variant_plain``. CUDA tensors launch K3's
+    kernel through ``csrc/taug_head.cu``'s variant entry (K a multiple of
+    8, at most 256) or raise."""
+    check_walk(order, m_tile)
     if tap.device.type == "cpu":
         return taug_head_variant_plain(tap, w_head, b_head, order=order,
                                        m_tile=m_tile)
-    tile = min(m_tile, -(-tap.shape[0] // 8) * 8)
-    if tile < 8 or tile % 8 or tap.shape[1] % 16 or tap.shape[1] > 256:
-        raise ValueError(f"taug_head_variant: m_tile {m_tile} (a multiple of "
-                         f"8) and K {tap.shape[1]} (a multiple of 16, at most "
-                         "256) are what the kernel takes")
     out = launch_head_gemm("taug_head_variant_launch", "taug_head_variant",
                            tap, w_head, b_head, n_multiple=8,
-                           extra=(tile, int(order == "w_res")))
+                           walk=(order, m_tile))
     if out.shape[0]:
         LAUNCHES["taug_head_variant"] += 1
     return out
@@ -220,14 +250,14 @@ def taug_head_variant(tap: torch.Tensor, w_head: torch.Tensor,
 
 def launch_head_gemm(entry: str, fn: str, tap: torch.Tensor,
                      w_head: torch.Tensor, b_head: torch.Tensor, *,
-                     n_multiple: int, extra: tuple = (),
-                     planned: bool = False) -> torch.Tensor:
+                     n_multiple: int, walk: tuple = None) -> torch.Tensor:
     """Check the operands of ``csrc/taug_head.cu``'s GEMM and launch it
     through the C entry ``entry``: tap (M, K) bf16 @ w_head (K, N) bf16 +
-    b_head (N,) f32 -> (M, N) bf16, row-major. K must be a multiple of 8
-    and N of ``n_multiple``; raises on anything else. ``extra`` are the
-    entry's int arguments after M, N, K; ``planned`` passes
-    ``head_gemm_plan``'s instead (K3 and K7, K at most 256)."""
+    b_head (N,) f32 -> (M, N) bf16, row-major. K must be a multiple of 8,
+    at most 256, and N of ``n_multiple``; raises on anything else. The
+    entry takes ``head_gemm_plan``'s ints after M, N, K (K3, K7), or, for a
+    ``walk`` (order, m_tile), ``head_gemm_walk_plan``'s and its stripe
+    (K10)."""
     if tap.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {tap.device}")
     m, k = tap.shape
@@ -253,8 +283,12 @@ def launch_head_gemm(entry: str, fn: str, tap: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.bfloat16, device=tap.device)
     if m == 0:
         return out
-    if planned:
-        extra = head_gemm_plan(m, n, k, sm_count(out.device.index)).c_args
+    sms = sm_count(out.device.index)
+    if walk is None:
+        extra = head_gemm_plan(m, n, k, sms).c_args
+    else:
+        plan = head_gemm_walk_plan(m, n, k, *walk, sms)
+        extra = plan.c_args + (plan.stripe,)
     lib = _build.library()
     with torch.cuda.device(tap.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -11,17 +11,19 @@ its plain PyTorch version, at L = 221,184 samples (864 frames of hop 256):
   per block ``tile_s`` is swept over 2,048 / 4,096 / 8,192, as the
   script's tile;
 - ``lvc_stage``: one layer's per-frame grouped GEMM, tap (L, 97) @
-  kern[l // hop] (97, 64) -> (L, 64) bf16; frames per block ``tf`` swept
-  over 8 / 16 / 32 (the script's "batched" and "unroll" variants are two
-  Mosaic lowerings of the same product and have no counterpart here);
+  kern[l // hop] (97, 64) -> (L, 64) bf16, on the tensor cores; the grain
+  of its persistent walk ``tf`` (frames per unit) swept over 1 / 2 / 4 / 8
+  (the script's "batched" and "unroll" variants are two Mosaic lowerings
+  of the same product and have no counterpart here);
 - ``gate_stage``: sigmoid(z[:C]) * tanh(z[C:]) at (L, 64) f32, plain only.
 
-Next to each: its plain version's time, one PyTorch call's (chained
-``torch.matmul`` in bf16 for the conv, ``torch.bmm`` over frames for the
-LVC; timed as a yardstick, never used by the port) and the least time the
-card could take (bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, the
-larger). Runs on the card unless ``--device cpu`` (plain versions only,
-no times).
+Each kernel setting is raced in turns against one PyTorch call of the same
+function (chained ``torch.matmul`` in bf16 for the conv, ``torch.bmm`` over
+frames for the LVC; a yardstick the port never calls), both by CUDA-graph
+replay (``utils/timing.race_graph``: device time alone), with its plain
+version's time (CUDA events) beside them and the least time the card could
+take (bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, the larger). Runs
+on the card unless ``--device cpu`` (plain versions only, no times).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 
 from fastdiff_tpu_torch.models.fastdiff import checked_device
 from fastdiff_tpu_torch.ops import _build
-from fastdiff_tpu_torch.utils.timing import cuda_ms, race
+from fastdiff_tpu_torch.utils.timing import cuda_ms, race_graph
 
 ROWS = 97          # 3 * 32 taps + 1 bias row
 C = 32
@@ -42,7 +44,18 @@ LAYERS = 4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 CONV_TILES = (2048, 4096, 8192)
-LVC_TFS = (8, 16, 32)
+LVC_TFS = (1, 2, 4, 8)
+
+# lvc_stage's geometry (csrc/stage_micro.cu, which refuses any other): K = 97
+# padded to 7 k16 steps, pieces of at most 256 rows of one frame in a ring
+# of 2 stages (one frame's kernels as 112 rows of 128 bytes, a piece's
+# 16-byte-aligned tap span with slack), 8 consumer warps of 32 rows each
+# with a repacked A buffer of 240-byte rows, mbarriers, 1 KB of alignment
+LVC_K_PAD, LVC_PIECE_ROWS, LVC_STAGES, LVC_WARPS = 112, 256, 2, 8
+_TAP_STAGE_BYTES, _A_ROW, _SMEM_ALIGN = 49_792, 120, 1024
+LVC_SMEM_BYTES = (_SMEM_ALIGN + LVC_STAGES * (LVC_K_PAD * C2 * 2
+                                              + _TAP_STAGE_BYTES)
+                  + LVC_WARPS * 32 * _A_ROW * 2 + 16 * LVC_STAGES)
 
 # launches of the CUDA kernels since the last reset (plain runs not counted)
 LAUNCHES = {"conv_stage": 0, "lvc_stage": 0}
@@ -116,27 +129,41 @@ def conv_stage(tap: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def lvc_stage_grid(b: int, frames: int, tf: int, sms: int) -> int:
+    """Persistent blocks of ``lvc_stage``'s kernel: one per SM, or one per
+    unit of ``tf`` frames if there are fewer units."""
+    return min(sms, b * -(-frames // tf))
+
+
 def lvc_stage(tap: torch.Tensor, kern: torch.Tensor, hop: int,
-              tf: int = 8) -> torch.Tensor:
-    """K9 LVC stage: ``lvc_stage_plain``'s function, ``tf`` frames per
-    thread block. CPU tensors run the plain version; CUDA tensors (bf16,
-    97 rows, 2C = 64) launch ``csrc/stage_micro.cu`` or raise."""
+              tf: int = 1) -> torch.Tensor:
+    """K9 LVC stage: ``lvc_stage_plain``'s function on the tensor cores.
+    ``tf`` (>= 1) is the grain of the kernel's persistent walk: the frames
+    go to the blocks in units of ``tf`` frames, unit u to block u % grid,
+    so it sets the balance over the SMs and nothing else; every tf gives
+    the same output. Raises on any device for shapes the kernel does not
+    take (97 rows, 2C = 64, F * hop == L, tf >= 1); then CPU tensors run
+    the plain version and CUDA tensors (bf16, 16-byte aligned) launch
+    ``csrc/stage_micro.cu`` or raise."""
+    b, length, rows = tap.shape
+    frames = kern.shape[1] if kern.dim() == 4 else 0
+    if (rows != ROWS or tuple(kern.shape) != (b, frames, ROWS, C2)
+            or tf < 1 or hop < 1 or frames * hop != length):
+        raise ValueError(f"lvc_stage: tap {tuple(tap.shape)}, kern "
+                         f"{tuple(kern.shape)}, hop {hop}, tf {tf}")
     if tap.device.type == "cpu":
         return lvc_stage_plain(tap, kern, hop)
     _check("lvc_stage", (tap, kern))
-    b, length, rows = tap.shape
-    frames = kern.shape[1]
-    if (rows != ROWS or kern.shape != (b, frames, ROWS, C2) or tf < 1
-            or hop < 1 or frames * hop != length):
-        raise ValueError(f"lvc_stage: tap {tuple(tap.shape)}, kern "
-                         f"{tuple(kern.shape)}, hop {hop}, tf {tf}")
     out = tap.new_empty((b, length, C2))
     if out.numel() == 0:
         return out
+    grid = lvc_stage_grid(b, frames, tf, torch.cuda.get_device_properties(
+        tap.device).multi_processor_count)
     with torch.cuda.device(tap.device):
         code = _build.library().lvc_stage_launch(
             tap.data_ptr(), kern.data_ptr(), out.data_ptr(), b, length,
-            frames, hop, rows, tf, torch.cuda.current_stream().cuda_stream)
+            frames, hop, rows, tf, LVC_K_PAD, LVC_STAGES, LVC_SMEM_BYTES,
+            grid, torch.cuda.current_stream().cuda_stream)
     _build.check(code, "lvc_stage_launch")
     LAUNCHES["lvc_stage"] += 1
     return out
@@ -154,8 +181,9 @@ def _conv_library(tap, w):
 def run(device="cuda", hop: int = 256, length: int = 221184,
         reps: int = 20, seed: int = 0) -> dict:
     """Every stage at (1, length) against its plain version: per kernel
-    setting its ms, max abs error against the plain output and that error's
-    bound; the plain and library ms; the bound. Times need the card."""
+    setting its max abs error against the plain output, that error's bound
+    and the rel L2 error; on the card its ms raced against the library
+    call's (CUDA graphs) and the plain version's ms; the bound."""
     dev = checked_device(device)
     frames = length // hop
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -204,13 +232,12 @@ def run(device="cuda", hop: int = 256, length: int = 221184,
                    # output per rounding a flip can reach (4 chained layers)
                    "err_bound": ulps * 2.0 ** -7 * top + 1e-6}
             if timed:
-                row["ms"], row["plain_ms"] = race(plain, lambda: kernel(p),
-                                                  reps)
+                row["ms"], row["library_ms"] = race_graph(
+                    library, lambda: kernel(p), reps)
+                row["plain_ms"] = cuda_ms(plain, reps)
             rows.append(row)
         report[name] = {"rows": rows, "bound_ms": bound[0],
                         "bound_by": bound[1]}
-        if timed:
-            report[name]["library_ms"] = cuda_ms(library, reps)
     if timed:
         report["gate_stage_ms"] = cuda_ms(lambda: gate_stage(z), reps)
     return report

@@ -47,8 +47,7 @@ _DROP_ACC = """    float acc = 0.f;
     for (int i = 0; i < 64; ++i) acc += d[i];
     if (acc == 1.2345e30f)
       asm volatile("st.shared.f32 [%0], %1;" ::"r"(my_tiles), "f"(acc));
-    if (leader && (u + 1 == u_end || (u + 1) % m_tiles == 0))
-      mbar_arrive(empty_b + 8 * slot);
+    if (leader && last_of_tile) mbar_arrive(empty_b + 8 * slot);
 """
 
 
@@ -72,8 +71,8 @@ def build_variants() -> dict:
         cu = OUT_DIR / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-             str(OUT_DIR / f"lib{name}.so"), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-shared", "-o", str(OUT_DIR / f"lib{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

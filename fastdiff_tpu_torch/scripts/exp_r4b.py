@@ -1,14 +1,18 @@
 """Experiments B and D of ``scripts/exp_r4b.py`` on the card, the port's twin.
 
     python -m fastdiff_tpu_torch.scripts.exp_r4b [B] [D] [--device cuda]
+        [--rows 100 256 864]
 
 - B: the predictor head's grid order and M tile. K10
-  (``ops/lvc_head.py:taug_head_variant``, ``csrc/taug_head.cu``) at every
-  (order, M tile) of the script's list against its plain version, at
-  864 x 192 @ 192 x 26,624 (4 layers x 64 x rows_p 104, the port's row
-  padding; the TPU script pads rows to 128), beside Kernel A (the shipped
-  head) and ``torch.addmm`` (a yardstick the port never calls), those two
-  raced in turns by CUDA-graph replay (device time alone).
+  (``ops/lvc_head.py:taug_head_variant``: Kernel A's persistent wgmma +
+  TMA kernel on the walk ``head_gemm_walk_plan`` makes of each (order,
+  M tile) of the script's list) against its plain version, at M x 192 @
+  192 x 26,624 (4 layers x 64 x rows_p 104, the port's row padding; the
+  TPU script pads rows to 128) for each M of ``--rows`` (864 frames by
+  default), beside Kernel A (the shipped head, N-major walk). Every kernel
+  is raced in turns against ``torch.addmm`` (a yardstick the port never
+  calls) by CUDA-graph replay (device time alone); the plain version is
+  timed with CUDA events.
 - D: the fused-head route against the NCL route. The N = 4 sampler at 864
   frames (10 s) on ``FastDiff(infer_route="ncl")`` and ``"ncl_fh"`` with
   the same seeded weights and noise, at b = 1 and b = 4, raced in turns
@@ -31,7 +35,7 @@ from fastdiff_tpu_torch.config import ModelConfig
 from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
 from fastdiff_tpu_torch.models.fastdiff import FastDiff, checked_device
 from fastdiff_tpu_torch.ops import lvc_head
-from fastdiff_tpu_torch.utils.timing import cuda_ms, race, race_graph
+from fastdiff_tpu_torch.utils.timing import cuda_ms, race_graph
 
 SECONDS = 10.0
 HOP = 256
@@ -44,10 +48,12 @@ VARIANTS = (("m_outer m216 (shipped)", "m_outer", 216),
             ("w_resident m864", "w_res", 864))
 
 
-def exp_b(device="cuda", reps: int = 20, seed: int = 0) -> dict:
-    """K10 at every variant against its plain version: max abs error (and
-    its bound, one bf16 ulp of the largest output) and, on the card, ms per
-    call beside the plain version's, Kernel A's and ``torch.addmm``'s."""
+def exp_b(device="cuda", reps: int = 20, seed: int = 0,
+          m: int = FRAMES) -> dict:
+    """K10 at every variant against its plain version at ``m`` rows: max
+    abs error (and its bound, one bf16 ulp of the largest output) and, on
+    the card, ms per call raced against ``torch.addmm``'s (CUDA graphs)
+    and the plain version's ms; then Kernel A raced the same way."""
     dev = checked_device(device)
     cfg = ModelConfig()
     layers, c = cfg.lvc_layers_each_block, cfg.inner_channels
@@ -55,15 +61,19 @@ def exp_b(device="cuda", reps: int = 20, seed: int = 0) -> dict:
     k = cfg.kpnet_conv_size * cfg.kpnet_hidden_channels
     n = layers * 2 * c * rows_p
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tap = torch.randn((FRAMES, k), generator=gen, device=dev).to(
-        torch.bfloat16)
+    tap = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     w = (torch.randn((k, n), generator=gen, device=dev) * 0.05).to(
         torch.bfloat16)
     b = torch.randn((n,), generator=gen, device=dev)
     ref = lvc_head.taug_head_variant_plain(tap, w, b)
     bound = 2.0 ** -7 * float(ref.float().abs().max()) + 1e-6
     timed = dev.type == "cuda"
-    report = {"shape": [FRAMES, k, n], "err_bound": bound, "variants": []}
+    report = {"shape": [m, k, n], "err_bound": bound, "variants": []}
+    b_bf16 = b.to(torch.bfloat16)
+
+    def library():
+        return torch.addmm(b_bf16, tap, w)
+
     for name, order, m_tile in VARIANTS:
         def run(order=order, m_tile=m_tile):
             return lvc_head.taug_head_variant(tap, w, b, order=order,
@@ -72,15 +82,13 @@ def exp_b(device="cuda", reps: int = 20, seed: int = 0) -> dict:
         row = {"name": name, "order": order, "m_tile": m_tile,
                "max_abs_err": float((out.float() - ref.float()).abs().max())}
         if timed:
-            row["ms"], row["plain_ms"] = race(
-                lambda: lvc_head.taug_head_variant_plain(tap, w, b), run,
-                reps)
+            row["ms"], row["library_ms"] = race_graph(library, run, reps)
+            row["plain_ms"] = cuda_ms(
+                lambda: lvc_head.taug_head_variant_plain(tap, w, b), 5)
         report["variants"].append(row)
     if timed:
-        b_bf16 = b.to(torch.bfloat16)
         report["taug_head_ms"], report["library_ms"] = race_graph(
-            lambda: torch.addmm(b_bf16, tap, w),
-            lambda: lvc_head.taug_head_matmul(tap, w, b), reps)
+            library, lambda: lvc_head.taug_head_matmul(tap, w, b), reps)
     return report
 
 
@@ -129,10 +137,11 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("which", nargs="*", default=["B", "D"])
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--rows", type=int, nargs="*", default=[FRAMES])
     args = parser.parse_args()
     out = {}
     if "B" in args.which:
-        out["B"] = exp_b(args.device)
+        out["B"] = {m: exp_b(args.device, m=m) for m in args.rows}
     if "D" in args.which:
         out["D"] = exp_d(args.device)
     print(json.dumps(out, indent=1))

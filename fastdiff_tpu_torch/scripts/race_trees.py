@@ -1,0 +1,140 @@
+"""K9 ``lvc_stage``, K10 and the head GEMM of two source trees raced on one
+card.
+
+    python -m fastdiff_tpu_torch.scripts.race_trees OTHER_TREE [--reps 20]
+
+``OTHER_TREE`` is another checkout of the repository (for a parent commit:
+``git archive <commit> | tar -x -C build/parent``; ``build/`` is
+gitignored). The same probe runs in a process of its own from each tree in
+turns (other, this, this, other); each builds that tree's kernels and
+calls that tree's wrappers, whose signatures are the same in both:
+
+- ``bench_mosaic_micro.lvc_stage`` at hop 256, 221,184 samples, for each
+  ``--tfs`` value, beside ``torch.bmm`` over frames;
+- ``lvc_head.taug_head_variant`` at 864 x 192 @ 192 x 26,624 for every
+  (order, M tile) of ``exp_r4b.VARIANTS``, beside Kernel A
+  (``taug_head_matmul``, K3), K7 (``aug_head_matmul`` at 24,832 columns)
+  and ``torch.addmm``.
+
+Every call is timed by CUDA-graph replay (``utils/timing.graph_ms``:
+device time alone) on inputs made from one seed, and checked against its
+plain version (max abs error). Prints one JSON object: ms per call of each
+tree (the mean of its two runs, and the runs), with the card's name and
+power limit. Needs the card and the CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parents[2]
+
+# Runs in a fresh process from the root of one tree: only names that both
+# trees' packages have.
+PROBE = r"""
+import json, sys
+import torch
+from fastdiff_tpu_torch.ops import lvc_block_pallas, lvc_head
+from fastdiff_tpu_torch.scripts import bench_mosaic_micro as micro
+from fastdiff_tpu_torch.utils.timing import graph_ms
+
+reps, tfs = int(sys.argv[1]), [int(t) for t in sys.argv[2].split(",")]
+variants = [(o, int(t)) for o, t in
+            (v.split(":") for v in sys.argv[3].split(","))]
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+
+def randn(*shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).bfloat16()
+
+def err(out, ref):
+    return float((out.float() - ref.float()).abs().max())
+
+ms, errs = {}, {}
+with torch.inference_mode():
+    tap = randn(1, 221184, 97, scale=0.1)
+    kern = randn(1, 864, 97, 64, scale=0.1)
+    ref = micro.lvc_stage_plain(tap, kern, 256)
+    for tf in tfs:
+        stage = lambda: micro.lvc_stage(tap, kern, 256, tf)
+        errs[f"lvc_stage tf {tf}"] = err(stage(), ref)
+        ms[f"lvc_stage tf {tf}"] = graph_ms(stage, reps)
+    ms["torch.bmm"] = graph_ms(lambda: torch.bmm(
+        tap.view(864, 256, 97), kern.view(864, 97, 64)), reps)
+    del tap, kern, ref
+    tap = randn(864, 192)
+    for n, name in ((26624, "K3 taug_head"), (24832, "K7 aug_head")):
+        w = randn(192, n, scale=0.05)
+        b = torch.randn((n,), generator=gen, device=dev) * 0.1
+        ref = lvc_head.taug_head_matmul_plain(tap, w, b)
+        fn = (lvc_head.taug_head_matmul if n == 26624
+              else lvc_block_pallas.aug_head_matmul)
+        errs[name] = err(fn(tap, w, b), ref)
+        ms[name] = graph_ms(lambda: fn(tap, w, b), reps)
+    w = randn(192, 26624, scale=0.05)
+    b = torch.randn((26624,), generator=gen, device=dev) * 0.1
+    ref = lvc_head.taug_head_matmul_plain(tap, w, b)
+    for order, m_tile in variants:
+        key = f"K10 {order} m{m_tile}"
+        run = lambda: lvc_head.taug_head_variant(tap, w, b, order=order,
+                                                 m_tile=m_tile)
+        errs[key] = err(run(), ref)
+        ms[key] = graph_ms(run, reps)
+    b_bf16 = b.bfloat16()
+    ms["torch.addmm"] = graph_ms(lambda: torch.addmm(b_bf16, tap, w), reps)
+print("RESULT " + json.dumps({"ms": ms, "max_abs_err": errs}))
+"""
+
+
+def probe(tree: pathlib.Path, reps: int, tfs, variants) -> dict:
+    """The probe's result from a fresh process at the root of ``tree``."""
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE, str(reps), ",".join(map(str, tfs)),
+         ",".join(f"{o}:{t}" for o, t in variants)],
+        cwd=tree, env=env, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+    raise RuntimeError(f"probe failed in {tree} ({proc.returncode}):\n"
+                       f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+
+
+def run(other: pathlib.Path, reps: int = 20, tfs=(1, 8)) -> dict:
+    from fastdiff_tpu_torch.scripts.exp_r4b import VARIANTS
+    variants = [(order, m_tile) for _, order, m_tile in VARIANTS]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    trees = {"other": other.resolve(), "this": HERE}
+    runs = {"other": [], "this": []}
+    for name in ("other", "this", "this", "other"):
+        runs[name].append(probe(trees[name], reps, tfs, variants))
+    report = {"card": smi.stdout.strip(), "trees": {
+        k: str(v) for k, v in trees.items()}}
+    for name, results in runs.items():
+        keys = results[0]["ms"]
+        report[name] = {
+            "ms": {k: sum(r["ms"][k] for r in results) / len(results)
+                   for k in keys},
+            "runs": {k: [r["ms"][k] for r in results] for k in keys},
+            "max_abs_err": results[0]["max_abs_err"]}
+    return report
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("other", type=pathlib.Path)
+    parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--tfs", type=int, nargs="*", default=[1, 8])
+    args = parser.parse_args()
+    print(json.dumps(run(args.other, args.reps, tuple(args.tfs)), indent=1))
+
+
+if __name__ == "__main__":
+    main()

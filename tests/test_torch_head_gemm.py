@@ -52,6 +52,96 @@ def test_plan_covers_every_tile_once(m, n):
                            plan.smem_bytes)
 
 
+@pytest.mark.parametrize("m", [100, 256, 864, 2000])
+@pytest.mark.parametrize("m_tile", [216, 432, 864])
+@pytest.mark.parametrize("order", ["m_outer", "w_res"])
+def test_walk_plan_covers_every_unit_once(order, m_tile, m):
+    """K10's walks: every 128 x 128 unit once, in balanced contiguous runs;
+    "w_res" is K3's N-major walk, "m_outer" stripes of ceil(m_tile / 128)
+    M tiles, each walked across every N tile before the next stripe."""
+    plan = lvc_head.head_gemm_walk_plan(m, N_TAUG, K, order, m_tile)
+    k3 = lvc_head.head_gemm_plan(m, N_TAUG, K)
+    assert plan.c_args == k3.c_args and plan.ranges == k3.ranges
+    want = k3.m_tiles if order == "w_res" else min(k3.m_tiles,
+                                                   -(-m_tile // 128))
+    assert plan.stripe == want
+    seen = [plan.unit_tile(u) for u in range(plan.units)]
+    assert sorted(seen) == [(mt, nt) for mt in range(plan.m_tiles)
+                            for nt in range(plan.n_tiles)]
+    # stripe by stripe, and within one every M tile of an N tile together
+    firsts = [mt // plan.stripe for mt, _ in seen]
+    assert firsts == sorted(firsts)
+    for u in range(1, plan.units):
+        (m0, n0), (m1, n1) = seen[u - 1], seen[u]
+        if m0 // plan.stripe == m1 // plan.stripe:
+            assert (n1, m1) > (n0, m0)
+    runs = [end - begin for begin, end in plan.ranges]
+    assert max(runs) - min(runs) <= 1 and min(runs) >= 1
+    assert sum(runs) == plan.units
+
+
+@pytest.mark.parametrize("m", [100, 864, 2000])
+@pytest.mark.parametrize("stripe_rows", [216, 432, 864])
+def test_kernel_walk_matches_the_plan(stripe_rows, m):
+    """``csrc/taug_head.cu``'s ``Walk`` (divisions at the start of a run,
+    adds after) written out: every block's run reaches the plan's units,
+    and its w_head tile changes (first unit, prefetch of the next tile,
+    release after the last unit) fall where the N tile changes."""
+    plan = lvc_head.head_gemm_walk_plan(m, N_TAUG, K, "m_outer", stripe_rows,
+                                        sms=13)
+    stripe, m_tiles, n_tiles = plan.stripe, plan.m_tiles, plan.n_tiles
+    for begin, end in plan.ranges:
+        per = stripe * n_tiles
+        k, r = divmod(begin, per)
+        rows = min(stripe, m_tiles - k * stripe)
+        nt, mi = divmod(r, rows)
+        loads = [nt]                      # load_b(0, w.nt)
+        for u in range(begin, end):
+            assert (k * stripe + mi, nt) == plan.unit_tile(u)
+            first = u == begin or mi == 0
+            assert first == (u == begin or plan.unit_tile(u - 1)[1] != nt)
+            last = u + 1 == end or mi + 1 == rows
+            assert last == (u + 1 == end or plan.unit_tile(u + 1)[1] != nt)
+            if first and u + rows - mi < end:
+                loads.append(nt + 1 if nt + 1 < n_tiles else 0)
+            mi += 1                       # Walk.next
+            if mi == rows:
+                mi, nt = 0, nt + 1
+                if nt == n_tiles:
+                    nt, k = 0, k + 1
+                    rows = min(stripe, m_tiles - k * stripe)
+        # one w_head load per run of units under one N tile, in order
+        tiles = [plan.unit_tile(u)[1] for u in range(begin, end)]
+        want = [t for i, t in enumerate(tiles) if i == 0 or t != tiles[i - 1]]
+        assert loads == want
+
+
+def test_n_major_walk_is_k3s():
+    """The stripe walk at stripe = m_tiles is K3's: nt = u // m_tiles."""
+    plan = lvc_head.head_gemm_plan(864, N_TAUG, K)
+    assert plan.stripe == plan.m_tiles == 7
+    assert all(plan.unit_tile(u) == (u % 7, u // 7)
+               for u in range(plan.units))
+
+
+@pytest.mark.parametrize("order,m_tile", [("sideways", 216),
+                                          ("m_outer", 0)])
+def test_walk_plan_refuses(order, m_tile):
+    with pytest.raises(ValueError):
+        lvc_head.head_gemm_walk_plan(864, N_TAUG, K, order, m_tile)
+
+
+def test_variant_entry_takes_the_walk():
+    """K10's entry takes K3's arguments and the walk's stripe before the
+    stream, and its definition has as many parameters."""
+    sig = _build.SIGNATURES["taug_head_variant_launch"]
+    assert sig == _build.SIGNATURES["taug_head_launch"][:-1] + [
+        _build._I, _build._P]
+    assert _extern_c_arities()["taug_head_variant_launch"] == len(sig)
+    src = _source("taug_head.cu")
+    assert "wmma" not in src and "taug_head_variant_kernel" not in src
+
+
 def test_plan_at_the_10s_shapes():
     """The numbers the source's header and PERF.md quote."""
     k3 = lvc_head.head_gemm_plan(864, N_TAUG, K)

@@ -156,3 +156,75 @@ def test_experiments_on_cpu():
     with pytest.raises(ValueError, match="order"):
         lvc_head.taug_head_variant(torch.zeros(8, 16), torch.zeros(16, 8),
                                    torch.zeros(8), order="sideways")
+
+
+def test_lvc_geometry_matches_the_source():
+    """The geometry ``lvc_stage`` passes to ``lvc_stage_launch`` (padded K,
+    ring stages, shared-memory bytes) is the one ``csrc/stage_micro.cu``
+    declares, which the entry point checks."""
+    from fastdiff_tpu_torch.ops import _build
+    import re
+    src = (_build.CSRC / "stage_micro.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)
+                   .group(1))
+
+    assert const("LVC_KPAD") == micro.LVC_K_PAD == 112
+    assert const("LVC_STAGES") == micro.LVC_STAGES
+    assert const("LVC_PIECE") == micro.LVC_PIECE_ROWS
+    assert const("LVC_WARPS") == micro.LVC_WARPS
+    assert const("TAP_STAGE") == micro._TAP_STAGE_BYTES
+    assert const("AROW") == micro._A_ROW
+    assert const("LVC_ALIGN") == micro._SMEM_ALIGN
+    assert re.search(r"constexpr int LVC_SMEM = LVC_ALIGN \+ LVC_STAGES \* "
+                     r"\(KERN_STAGE \+ TAP_STAGE\) \+\s+LVC_WARPS \* "
+                     r"WARP_BUF \+ 16 \* LVC_STAGES;", src)
+    assert micro.LVC_SMEM_BYTES == 190_752 <= 232_448
+    # a piece's tap span, 16-byte aligned at both ends, and the repack's
+    # 32-byte overread fit a stage
+    span = -(-(14 + 2 * micro.ROWS * micro.LVC_PIECE_ROWS) // 16) * 16
+    assert span + 32 <= micro._TAP_STAGE_BYTES
+    assert "mma.sync.aligned.m16n8k16" in src and "cp.async.bulk" in src
+    assert "float acc[ZO]" not in src     # the CUDA-core kernel is gone
+    assert _build.SIGNATURES["lvc_stage_launch"][9:13] == [_build._I] * 4
+
+
+@pytest.mark.parametrize("what", ["tf", "rows", "frames", "hop"])
+def test_lvc_stage_refuses(what):
+    """The wrapper refuses, on any device, a tf below 1, a tap or kern row
+    count other than 97, and F * hop != L."""
+    hop, frames, tf = 16, 4, 1
+    tap = torch.zeros(1, frames * hop, micro.ROWS, dtype=torch.bfloat16)
+    kern = torch.zeros(1, frames, micro.ROWS, micro.C2, dtype=torch.bfloat16)
+    if what == "tf":
+        tf = 0
+    elif what == "rows":
+        tap, kern = tap[..., :96], kern[:, :, :96]
+    elif what == "frames":
+        kern = kern[:, :3]
+    else:
+        hop = 8
+    with pytest.raises(ValueError, match="lvc_stage"):
+        micro.lvc_stage(tap, kern, hop, tf)
+
+
+def test_lvc_stage_grid():
+    """One block per SM, fewer when there are fewer units of tf frames."""
+    assert micro.lvc_stage_grid(1, 864, 1, 132) == 132
+    assert micro.lvc_stage_grid(1, 864, 8, 132) == 108
+    assert micro.lvc_stage_grid(2, 864, 8, 132) == 132
+    assert micro.lvc_stage_grid(1, 5, 2, 132) == 3
+
+
+def test_lvc_experiment_variants_apply():
+    """``scripts/exp_lvc_stage.py`` edits the kernel's source into its
+    variants; the lines it removes are still there."""
+    from fastdiff_tpu_torch.scripts import exp_lvc_stage
+    sources = exp_lvc_stage.variant_sources()
+    assert set(sources) == {"kernel", "no_repack", "no_mma", "no_store",
+                            "io_only", "loads_only"}
+    assert "__byte_perm" not in sources["no_repack"]
+    assert "mma_bf16(acc" not in sources["no_mma"]
+    assert "rows_here" not in sources["no_store"]
+    assert all(k in sources["loads_only"] for k in ("bulk_load", "tma_load"))
