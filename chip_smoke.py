@@ -12,9 +12,12 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    prints the build time, each kernel's registers / spills, the head
    GEMM's (K3 and K7) shared memory and persistent grid at 864 frames, and
    the tensor-core Kernel B's (K1, K2) registers and spills and its tile,
-   waves and shared memory at each hop, and K9 ``lvc_stage``'s tensor-core
-   kernel's registers, spills and shared memory (fails on any spill of
-   the head GEMM, Kernel B or ``lvc_stage``);
+   waves and shared memory at each hop, K9 ``lvc_stage``'s tensor-core
+   kernel's registers, spills and shared memory, the tensor-core K5's four
+   instantiations (with and without the epilogue, clusters of 1 and 2) and
+   its tile, head frames, cluster, grid, shared memory and reckoned w_head
+   bytes at each hop, and the tensor-core K6's registers, tile and shared
+   memory (fails on any spill of any of these);
 3. Kernel A (predictor head GEMM, wgmma + TMA) against its plain PyTorch
    version at K = 192, N = 4 * 64 * rows_p and every row count its paths
    give it (M = 100, 256 and 864 frames, 20 x 100 in training, 4 x 864),
@@ -55,9 +58,11 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     6; every train step launches Kernel A and Kernel B-SR exactly 3 times;
 12. K7 (the NWC route's row-major head GEMM, the same kernel) against its
     plain version at 256 and 864 x 192 @ 192 x 24,832, as phase 3;
-13. K6 (the NWC LVC block) against its plain version at hops 64 and 256
-    with 864 frames and at b = 2 x 100 frames of hop 64 (a multi-tile edge
-    case), with phase 4's bounds;
+13. K6 (the NWC LVC block) on the tensor cores and on the CUDA cores,
+    each against its plain version, at hops 64 and 256 with 864 frames and
+    at b = 2 x 100 frames of hop 64 (a multi-tile edge case), with phase
+    4's bounds; the three raced in turns (the kernels by CUDA-graph
+    replay), with the tensor cores' share of the bound;
 14. K8 (the fused down path) against its plain version at 221,184 samples
     (b = 1) and at two 2,048-sample halo units (b = 2), each output within
     4 bf16 ulps of its largest value;
@@ -69,11 +74,13 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     K8 by 4 (256 and 864 frames) or 0 (100 frames: not a multiple of
     2,048 samples, so the plain down path runs, as in JAX), K1 and K3 by 0.
 
-16. K5 (the fused-head LVC block) against its plain version at hops 8, 64
-    and 256 with 864 frames (hop 256 with the final-conv epilogue too) and
-    at b = 2 x 100 frames of hop 64, with phase 4's bounds; each case timed
-    against its plain version and against K3 + K1 on the same inputs,
-    raced in turns;
+16. K5 (the fused-head LVC block) on the tensor cores (no cluster, and
+    clusters of 2) and on the CUDA cores, each against its plain version, at hops
+    8, 64 and 256 with 864 frames (hop 256 with the final-conv epilogue
+    too) and at b = 2 x 100 frames of hop 64, with phase 4's bounds; the
+    tensor-core kernel raced by CUDA-graph replay against the CUDA-core
+    kernel, against K3 + K1 on the same inputs and against itself in
+    clusters of 2, with its share of the bound;
 17. the fused-head route (``use_pallas_block: ncl_fh``): a full-width bf16
     denoiser forward, kernels against plain (relative L2 <= 5e-2) and
     against the NCL route; the N=4 sampler at 864 frames, b = 1 and b = 4,
@@ -103,8 +110,10 @@ its largest error against its plain version, its time beside the plain
 version's, the least time the card could take for the same work
 (``bound_ms``: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, whichever is
 larger, ``bound_by`` says which) and the time of one PyTorch call that
-computes the same function where there is one (``library_ms``, else null).
-The last line is ``{"ok": true, "device": {...}}``.
+computes the same function where there is one (``library_ms``, else null);
+the five tensor-core block kernels (K1, K2, K5, K5 final, K6) also carry
+``cuda_core_ms``, the CUDA-core kernel of the same function raced beside
+them. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import io
@@ -632,12 +641,14 @@ def phase12_aug_head(torch, nwc_ops, randn, c, layers, hid):
                  [gemm_work(FRAMES_10S, k, n)] * 2, 2 * ms_lib)
 
 
-def phase13_nwc_block(torch, nwc_ops, randn, c, layers):
-    """K6 against its plain version at the route's hops, 864 frames, and a
-    multi-tile edge case; phase 4's bounds."""
+def phase13_nwc_block(torch, nwc_ops, randn, c, layers, smi_line):
+    """K6 on the tensor cores and on the CUDA cores, each against its plain
+    version (phase 4's bounds), at the route's hops with 864 frames and at
+    b = 2 x 100 frames of hop 64; the three raced in turns (the kernels by
+    CUDA-graph replay)."""
     rows = 3 * c + 1
     wstack = randn(layers, rows, c, scale=0.1)
-    worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
+    worst, ms_k, ms_p, ms_c, works = 0.0, 0.0, 0.0, 0.0, []
     for hop, frames, b, on_path in ((64, FRAMES_10S, 1, True),
                                     (256, FRAMES_10S, 1, True),
                                     (64, 100, 2, False)):
@@ -649,23 +660,35 @@ def phase13_nwc_block(torch, nwc_ops, randn, c, layers):
         def run_k():
             return nwc_ops.lvc_block_nwc(x, skip, kern_aug, wstack, hop)
 
+        def run_cc():
+            return nwc_ops.lvc_block_nwc_cc(x, skip, kern_aug, wstack, hop)
+
         def run_p():
             return nwc_ops.lvc_block_nwc_plain(x, skip, kern_aug, wstack, hop)
 
-        got, ref = run_k(), run_p()
+        got, got_cc, ref = run_k(), run_cc(), run_p()
         torch.cuda.synchronize()
-        (e, r), = check_pairs([(got, ref)], f"K6 (hop {hop}, {frames} "
-                                           f"frames, b {b})")
-        k, p = race(run_p, run_k, 10)
-        phase(13, f"K6 lvc_block_nwc hop {hop}, {frames} frames, b {b}: "
-                  f"max_abs_err {e:.3e} rel_l2 {r:.3e}; kernel {k:.4f} ms, "
-                  f"plain {p:.4f} ms")
+        what = f"hop {hop}, {frames} frames, b {b}"
+        (e, r), = check_pairs([(got, ref)], f"K6 tensor cores ({what})")
+        (e_c, r_c), = check_pairs([(got_cc, ref)], f"K6 CUDA cores ({what})")
+        ms_p1 = cuda_ms(run_p, 3)
+        k, cc = race_graph(run_cc, run_k, 10)
+        p = (ms_p1 + cuda_ms(run_p, 3)) / 2
+        work = block_work(b, c, length, 2.0 * kern_aug.numel())
+        b_ms, by = bound([work])
+        phase(13, f"K6 lvc_block_nwc {what}: tensor cores max_abs_err "
+                  f"{e:.3e} rel_l2 {r:.3e}; CUDA cores max_abs_err {e_c:.3e} "
+                  f"rel_l2 {r_c:.3e}; raced: tensor cores {k:.4f} ms, CUDA "
+                  f"cores {cc:.4f} ms ({cc / k:.2f}x), plain {p:.4f} ms; "
+                  f"bound {b_ms:.4f} ms ({by}), tensor cores at "
+                  f"{b_ms / k:.1%} of it [{smi_line}]")
         worst = max(worst, e)
         if on_path:
             ms_k += k
             ms_p += p
-            works.append(block_work(b, c, length, 2.0 * kern_aug.numel()))
-    return entry(worst, ms_k, ms_p, works)
+            ms_c += cc
+            works.append(work)
+    return dict(entry(worst, ms_k, ms_p, works), cuda_core_ms=ms_c)
 
 
 def phase14_downpath(torch, down_ops, model, dev):
@@ -769,20 +792,20 @@ def phase15_nwc_route(torch, model, sample, const, gen, dev):
 
 
 def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
-                     rows_p):
-    """K5 against its plain version (phase 4's bounds) and raced against
-    K3 + K1 on the same inputs, at the route's hops with 864 frames and at
-    b = 2 x 100 frames of hop 64."""
+                     rows_p, smi_line):
+    """K5 on the tensor cores and on the CUDA cores, each against its plain
+    version (phase 4's bounds), at the route's hops with 864 frames and at
+    b = 2 x 100 frames of hop 64; raced in turns by CUDA-graph replay
+    against the CUDA-core kernel, against K3 + K1 on the same inputs, and
+    against itself in clusters of 2 that multicast each w_head chunk."""
     n = layers * 2 * c * rows_p
     wstack_t = randn(layers, c, rows, scale=0.1)
     final_wb = randn(8, c, scale=0.1)
     # head weights scaled so the kernels come out near phase 4's (~0.05)
     w_head = randn(HEAD_K, n, scale=0.004)
     b_head = randn(n, scale=0.01, dtype=torch.float32)
-    per_forward = {"lvc_block_ncl_fh": dict(err=0.0, ms=0.0, plain=0.0,
-                                            works=[]),
-                   "lvc_block_ncl_fh_final": dict(err=0.0, ms=0.0, plain=0.0,
-                                                  works=[])}
+    per_forward = {name: dict(err=0.0, ms=0.0, plain=0.0, cc=0.0, works=[])
+                   for name in ("lvc_block_ncl_fh", "lvc_block_ncl_fh_final")}
     cases = [(8, FRAMES_10S, 1, False, True), (64, FRAMES_10S, 1, False, True),
              (256, FRAMES_10S, 1, False, False),
              (256, FRAMES_10S, 1, True, True), (64, 100, 2, False, False)]
@@ -793,9 +816,14 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
         tap_c = randn(b, frames, HEAD_K)
         fwb = final_wb if final else None
 
-        def run_k():
+        def run_k(cluster=block_ops.FH_CLUSTER):
             return block_ops.lvc_block_ncl_fh(x, skip, tap_c, w_head, b_head,
-                                              wstack_t, hop, fwb)
+                                              wstack_t, hop, fwb,
+                                              cluster=cluster)
+
+        def run_cc():
+            return block_ops.lvc_block_ncl_fh_cc(x, skip, tap_c, w_head,
+                                                 b_head, wstack_t, hop, fwb)
 
         def run_p():
             return block_ops.lvc_block_ncl_fh_plain(x, skip, tap_c, w_head,
@@ -808,30 +836,52 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
                     b, frames, layers, 2 * c, rows_p)
             return block_ops.lvc_block_ncl(x, skip, kern, wstack_t, hop, fwb)
 
-        got, ref = run_k(), run_p()
+        got, got_2, got_cc, ref = run_k(), run_k(2), run_cc(), run_p()
         torch.cuda.synchronize()
-        pairs = list(zip(got, ref)) if final else [(got, ref)]
-        what = f"K5 (hop {hop}, {frames} frames, b {b}" + (
-            ", with epilogue)" if final else ")")
-        errs = check_pairs(pairs, what)
-        ms_k, ms_p = race(run_p, run_k, 10)
-        ms_k2, ms_two = race(run_two, run_k, 10)
-        phase(16, f"{what}: " + ", ".join(
+        both = (lambda a, r: list(zip(a, r))) if final else (
+            lambda a, r: [(a, r)])
+        what = f"hop {hop}, {frames} frames, b {b}" + (
+            ", with epilogue" if final else "")
+        errs = check_pairs(both(got, ref), f"K5 tensor cores ({what})")
+        check_pairs(both(got_2, ref), f"K5 tensor cores, clusters of 2 "
+                                      f"({what})")
+        errs_cc = check_pairs(both(got_cc, ref), f"K5 CUDA cores ({what})")
+        ms_p1 = cuda_ms(run_p, 3)
+        ms_k, ms_cc = race_graph(run_cc, run_k, 5)
+        ms_k2, ms_two = race_graph(run_two, run_k, 10)
+        ms_k3, ms_2 = race_graph(lambda: run_k(2), run_k, 10)
+        ms_p = (ms_p1 + cuda_ms(run_p, 3)) / 2
+        head_flop, head_bytes = gemm_work(b * frames, HEAD_K, n)
+        flop, nbytes = block_work(b, c, length, final=final)
+        # the head's output never reaches memory: taps and weights in
+        work = (flop + head_flop, nbytes + head_bytes - 2.0 * b * frames * n)
+        b_ms, by = bound([work])
+        plan = block_ops.fh_tile_plan(b, frames, hop)
+        phase(16, f"K5 {what}: tensor cores " + ", ".join(
             f"max_abs_err {e:.3e} rel_l2 {r:.3e}" for e, r in errs)
-            + f"; K5 {ms_k:.4f} ms, plain {ms_p:.4f} ms; raced against "
-            f"K3 + K1: K5 {ms_k2:.4f} ms, K3 + K1 {ms_two:.4f} ms")
+            + "; CUDA cores " + ", ".join(
+                f"max_abs_err {e:.3e} rel_l2 {r:.3e}" for e, r in errs_cc)
+            + f"; raced (CUDA graphs): tensor cores {ms_k:.4f} ms, CUDA "
+            f"cores {ms_cc:.4f} ms ({ms_cc / ms_k:.2f}x); tensor cores "
+            f"{ms_k2:.4f} ms, K3 + K1 {ms_two:.4f} ms; no cluster "
+            f"{ms_k3:.4f} ms, clusters of 2 {ms_2:.4f} ms; plain "
+            f"{ms_p:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({by}), tensor cores at {b_ms / ms_k:.1%} "
+            f"of it; tile {plan.tile}, {plan.blocks} CTAs in {plan.waves} "
+            f"wave(s), w_head {plan.sm_bytes / 1e9:.2f} GB into the SMs, "
+            f"{plan.l2_bytes / 1e9:.2f} GB from L2 "
+            f"({plan.sm_bytes / 1e9 / ms_k:.2f} TB/s into the SMs) "
+            f"[{smi_line}]")
         acc = per_forward["lvc_block_ncl_fh_final" if final
                           else "lvc_block_ncl_fh"]
         acc["err"] = max([acc["err"]] + [e for e, _ in errs])
         if on_path:
             acc["ms"] += ms_k
             acc["plain"] += ms_p
-            head_flop, head_bytes = gemm_work(b * frames, HEAD_K, n)
-            flop, nbytes = block_work(b, c, length, final=final)
-            # the head's output never reaches memory: taps and weights in
-            acc["works"].append((flop + head_flop,
-                                 nbytes + head_bytes - 2.0 * b * frames * n))
-    return {name: entry(a["err"], a["ms"], a["plain"], a["works"])
+            acc["cc"] += ms_cc
+            acc["works"].append(work)
+    return {name: dict(entry(a["err"], a["ms"], a["plain"], a["works"]),
+                       cuda_core_ms=a["cc"])
             for name, a in per_forward.items()}
 
 
@@ -1030,6 +1080,42 @@ def main():
                  f"{bench_mosaic_micro.lvc_stage_grid(1, FRAMES_10S, 1, sms)}"
                  f" persistent blocks at {FRAMES_10S} frames (tf 1)")
         check_no_spill(info, "K9 lvc_stage")
+        for final, cluster in ((0, 1), (0, 2), (1, 1), (1, 2)):
+            info = ptxas_entry(log.read_text(), f"lvc_block_fh_tc_kernelILb"
+                                                f"{final}ELi{cluster}E")
+            phase(2, f"{'K5 final' if final else 'K5'} on the tensor cores "
+                     f"(lvc_block_fh_tc_kernel<{bool(final)}, {cluster}>, "
+                     f"{lvc_block_ncl.FH_THREADS} threads, cluster of "
+                     f"{cluster}): {info}")
+            check_no_spill(info, "the tensor-core K5")
+        for hop in (8, 64, HOP_SIZE):
+            fp = lvc_block_ncl.fh_tile_plan(1, FRAMES_10S, hop, sms)
+            phase(2, f"tensor-core K5 at hop {hop}, {FRAMES_10S} frames: tile "
+                     f"{fp.tile} + 2 x {lvc_block_ncl.TC_HALO} halo, head "
+                     f"over {fp.npad} frames, grid {fp.grid_x} x 1 in "
+                     f"clusters of {fp.cluster} ({fp.blocks} CTAs, "
+                     f"{fp.waves} wave(s) of one per SM), {fp.smem_bytes} "
+                     f"bytes of dynamic shared memory; w_head "
+                     f"{fp.sm_bytes / 1e9:.3f} GB from L2 into the SMs, "
+                     f"{fp.l2_bytes / 1e9:.3f} GB read from L2 per call "
+                     f"({fp.l2_bytes // 2 / 1e9:.3f} in clusters of 2); the "
+                     f"card holds "
+                     f"{lvc_block_ncl.fh_max_clusters(1, fp.smem_bytes)} "
+                     f"such CTAs at once, "
+                     f"{lvc_block_ncl.fh_max_clusters(2, fp.smem_bytes)} "
+                     f"clusters of 2")
+        info = ptxas_entry(log.read_text(), "lvc_block_nwc_tc_kernel")
+        phase(2, f"K6 on the tensor cores (lvc_block_nwc_tc_kernel): {info}")
+        check_no_spill(info, "the tensor-core K6")
+        for hop in (64, HOP_SIZE):
+            np_ = lvc_block_pallas.nwc_tile_plan(1, FRAMES_10S * hop, sms)
+            phase(2, f"tensor-core K6 at hop {hop}, {FRAMES_10S} frames: tile "
+                     f"{np_.tile}, {np_.blocks} blocks of "
+                     f"{lvc_block_ncl.TC_THREADS} threads (no cluster) in "
+                     f"{np_.waves} wave(s) of "
+                     f"{lvc_block_ncl.TC_BLOCKS_PER_SM} per SM, "
+                     f"{np_.smem_bytes} bytes of dynamic shared memory, "
+                     f"{lvc_block_pallas.NWC_STAGES} TMA slots of K_(i,f)")
         for hop in (8, 64, HOP_SIZE):
             bp = lvc_block_ncl.block_tile_plan(1, FRAMES_10S * hop, sms)
             phase(2, f"tensor-core Kernel B at hop {hop}, {FRAMES_10S} "
@@ -1239,7 +1325,7 @@ def main():
             torch, lvc_block_pallas, randn, c, layers,
             cfg.kpnet_hidden_channels)
         report["lvc_block_nwc"] = phase13_nwc_block(
-            torch, lvc_block_pallas, randn, c, layers)
+            torch, lvc_block_pallas, randn, c, layers, smi_line)
         report["downpath"] = phase14_downpath(torch, downpath_pallas,
                                               nwc_model, dev)
         nwc_sampler = phase15_nwc_route(torch, nwc_model, sample, const, gen,
@@ -1255,6 +1341,7 @@ def main():
         start_server, (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
                        lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES),
         {frames: {"K6": (("lvc_block_nwc",), 2 * steps),
+                  "K6 CUDA cores": (("lvc_block_nwc_cc",), 0),
                   "K7": (("aug_head",), 2 * steps),
                   "K8": (("downpath",), k8),
                   "K1": (("lvc_block_ncl", "lvc_block_ncl_final",
@@ -1273,7 +1360,7 @@ def main():
     # --- phases 16-17: the fused-head route ----------------------------------
     with torch.inference_mode():
         report.update(phase16_fh_block(torch, lvc_block_ncl, lvc_head, randn,
-                                       c, layers, rows, rows_p))
+                                       c, layers, rows, rows_p, smi_line))
         fh_sampler = phase17_fh_route(torch, FastDiff, exp_r4b, cfg, gen, dev)
     all_counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
                     lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES,
@@ -1288,6 +1375,7 @@ def main():
         start_server, all_counters,
         {frames: {"K5": (("lvc_block_ncl_fh",), fused * steps),
                   "K5 final": (("lvc_block_ncl_fh_final",), steps),
+                  "K5 CUDA cores": (("lvc_block_ncl_fh_cc",), 0),
                   "K1": (k1_keys, (2 - fused) * steps),
                   "K3": (("taug_head",), (2 - fused) * steps)}
          for frames, fused in ((100, 1), (256, 2), (FRAMES_10S, 2))},
@@ -1331,7 +1419,7 @@ def main():
                                 "fastdiff_tpu/ops/lvc_block_ncl.py:422"),
         "lvc_block_ncl_sr": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
                              "fastdiff_tpu/ops/lvc_block_ncl.py:468"),
-        "lvc_block_nwc": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
+        "lvc_block_nwc": ("fastdiff_tpu_torch/csrc/lvc_block_nwc_tc.cu",
                           "fastdiff_tpu/ops/lvc_block_pallas.py:238"),
         "aug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                      "fastdiff_tpu/ops/lvc_block_pallas.py:396"),
@@ -1351,11 +1439,12 @@ def main():
     }
     print("  kernel ms (and bound_ms, library_ms) below are per denoiser "
           "forward at 864 frames: taug_head 3 calls, lvc_block_ncl hops 8 + "
-          "64, lvc_block_ncl_final hop 256 (both on the tensor cores; "
-          "cuda_core_ms is the CUDA-core Kernel B raced beside them), "
-          "aug_head 2 calls, lvc_block_nwc "
-          "hops 64 + 256, downpath 1 call, lvc_block_ncl_fh hops 8 + 64, "
-          "lvc_block_ncl_fh_final hop 256; lvc_block_ncl_sr per train-step "
+          "64, lvc_block_ncl_final hop 256, aug_head 2 calls, "
+          "lvc_block_nwc hops 64 + 256, downpath 1 call, lvc_block_ncl_fh "
+          "hops 8 + 64, lvc_block_ncl_fh_final hop 256 (the five block "
+          "kernels on the tensor cores; cuda_core_ms is the CUDA-core kernel "
+          "of the same function raced beside each); lvc_block_ncl_sr per "
+          "train-step "
           "forward at the recipe (hops 8 + 64 + 256, b 20 x 100 frames); "
           "taug_head_variant per call at 864 rows (m_outer, m_tile 216); "
           "conv_stage (tile_s 2048) and lvc_stage (tf 1) per call at 221,184 "

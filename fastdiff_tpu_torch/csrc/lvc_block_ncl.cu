@@ -1,9 +1,13 @@
 // Kernel B on the CUDA cores: the whole 4-layer time-aware LVC block, NCL
 // layout, with an optional epilogue for the model's final k=7 C->1 conv
 // (K1 and K2 for hops that are no multiple of 8; lvc_block_ncl_tc.cu runs
-// the others on the tensor cores); Kernel B-SR, the same block writing the
-// per-layer residuals that the training backward reads; and K6, the same
-// block in the NWC layout (template flag NWC).
+// the others on the tensor cores); Kernel B-SR (K4), the same block writing
+// the per-layer residuals that the training backward reads; and K6 for hops
+// that are no multiple of 8 (lvc_block_nwc_tc.cu runs the others on the
+// tensor cores), the same block in the NWC layout (template flag NWC). Of
+// the block kernels only K4 runs these CUDA-core stages on a route's main
+// path; the others are the fallbacks for other hops and the yardsticks
+// that chip_smoke.py races the tensor-core kernels against.
 //
 // Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_aug, both of its
 // pallas_call sites (_kernel_body and _kernel_body_final, through
@@ -59,8 +63,9 @@
 //   wstack        (layers, 3C+1, C): staged into the same f32 tile as
 //                 wstack_t, read in its own order.
 // Like K1 it recomputes a 48-sample halo per tile, so any hop >= 1 and any
-// frame count work; the route still calls it only where JAX's fusable
-// admits the block (hop >= 64, at least 2 frames).
+// frame count work; the route calls K6 only where JAX's fusable admits the
+// block (hop >= 64, at least 2 frames), and this kernel only where the hop
+// is no multiple of 8.
 
 #include "lvc_block_common.cuh"
 
@@ -228,16 +233,17 @@ extern "C" int lvc_block_ncl_sr_launch(const void* x, const void* skip,
                              static_cast<cudaStream_t>(stream));
 }
 
-// K6: the block in the NWC layout. x, skip, out (B, L, C) bf16; kern_aug
-// (B, F, layers, 3C+1, 2C) bf16, rows unpadded (rows == 3C+1); wstack
-// (layers, 3C+1, C) bf16. Only C = 32 and layers = 4 are built (the Python
-// wrapper checks). Launches on `stream`; returns cudaGetLastError() (or the
-// attribute call's error).
-extern "C" int lvc_block_nwc_launch(const void* x, const void* skip,
-                                    const void* kern_aug, const void* wstack,
-                                    void* out, int B, int channels, int L,
-                                    int F, int hop, int rows, int layers,
-                                    void* stream) {
+// K6 on the CUDA cores (any hop >= 1; lvc_block_nwc_tc.cu runs hops that
+// are multiples of 8): the block in the NWC layout. x, skip, out (B, L, C)
+// bf16; kern_aug (B, F, layers, 3C+1, 2C) bf16, rows unpadded (rows ==
+// 3C+1); wstack (layers, 3C+1, C) bf16. Only C = 32 and layers = 4 are
+// built (the Python wrapper checks). Launches on `stream`; returns
+// cudaGetLastError() (or the attribute call's error).
+extern "C" int lvc_block_nwc_cc_launch(const void* x, const void* skip,
+                                       const void* kern_aug,
+                                       const void* wstack, void* out, int B,
+                                       int channels, int L, int F, int hop,
+                                       int rows, int layers, void* stream) {
   if (channels != C || layers != LAYERS || rows != ROWS || hop < 1 ||
       (long)F * hop != L)
     return static_cast<int>(cudaErrorInvalidValue);

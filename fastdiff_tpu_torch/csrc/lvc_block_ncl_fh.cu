@@ -1,256 +1,535 @@
-// K5: the fused-head LVC block. Kernel B's whole 4-layer block (NCL, see
-// lvc_block_ncl.cu) with the kernel-predictor head GEMM run inside the
-// kernel, so the per-frame LVC kernels (kern_taug, 46 MB per block call at
-// 864 frames) never reach device memory. With final_wb the block also runs
-// Kernel B's final-conv epilogue (K5 final).
+// K5 on the tensor cores: the fused-head LVC block (NCL) for every hop that
+// is a multiple of 8. Kernel B's whole 4-layer block with the
+// kernel-predictor head GEMM run inside the kernel, so the per-frame LVC
+// kernels (kern_taug, 46 MB per block call at 864 frames) never reach
+// device memory; with final_wb also Kernel B's final-conv epilogue (K5
+// final). lvc_block_ncl_fh_cc.cu keeps the CUDA-core kernel for other hops.
 //
 // Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_fh, both of its
 // pallas_call sites (_kernel_body_fh and _kernel_body_fh_final, whose head
-// is _compute_kern_slabs). For every frame f a tile touches and layer i:
+// is _compute_kern_slabs). For every frame f a CTA touches and layer i:
 //
-//   K_{i,f}[o, r] = bf16( sum_k tap_c[f, k] * w_head[k, i, o, r]
-//                         + b_head[i, o, r] )          (f32 accumulation)
+//   K_{i,f}[o, r] = bf16( sum_k tap_c[f, k] * w_head[k, (i, o, r)]
+//                         + b_head[(i, o, r)] )        (f32 sums and bias)
 //
-// then the layer of lvc_block_common.cuh with K_{i,f}. The head's cast
-// points are Kernel A's (taug_head.cu): f32 sums, f32 bias, one rounding.
+// Kernel A's cast points (taug_head.cu), then K1's layer with K_{i,f}
+// (lvc_block_ncl_tc.cu) and K2's final conv.
 //
-// What bounds it on an H100: the useful work of one block call at 864
-// frames is the head (864 x 192 x 26,624 x 2 = 8.8 GFLOP) plus the block
-// (~16.5 GFLOP at hop 256), against x, skip and out (3 x 14 MB at hop 256),
-// the taps (0.3 MB) and w_head (10.2 MB) in device memory: the math bounds
-// it. Each tile recomputes the head for every frame it touches, halo
-// included (65 / 9 / 3 frames per tile at hops 8 / 64 / 256).
+// What bounds it on an H100: the useful work of one call at 864 frames is
+// the head (864 x 192 x 26,624 x 2 = 8.8 GFLOP) and the block (4.1 / 16.5
+// GFLOP at hops 64 / 256), against 0.3 MB of taps, 10.2 MB of w_head and x,
+// skip and out in device memory: 9-26 us at 989 TFLOP/s, the operations
+// bound it. But every CTA needs all of w_head (10,223,616 bytes: 4 layers x
+// 64 output rows x 104 kern rows x 192) for the frames it touches, so the
+// bytes that reach the SMs from L2 are CTAs x 10.2 MB per call, and that is
+// what holds the kernel back. Reckoned from ops/lvc_block_ncl.py:
+// fh_tile_plan at 864 frames, b 1, on 132 SMs:
 //
-// Design (simple first): Kernel B's tile (512 threads, 416 outputs + a
-// 48-sample halo each side, one thread per sample; carry and y as bf16 in
-// shared memory) with the LVC of each layer run in chunks of FC = 8 frames.
-// One frame's slab for one layer is 2C x rows_p bf16 = 13.3 KB, so a chunk
-// is 107 KB; it lives where the conv's input `a` lived (free once y is
-// made), so the block needs 207 KB of shared memory and one block per SM.
-// Per chunk: the chunk's 8 tap rows go to shared memory; the 16 warps share
-// the chunk's 208 column tiles of 32 and run the head on the tensor cores
-// (WMMA bf16 m8n32k16, f32 accumulators, the B fragments read straight from
-// w_head, which stays in the 50 MB L2), add the bias and round into the
-// slab; then every (sample, 8-channel group) of the chunk's samples runs the
-// LVC from the slab in shared memory and the gate. Slab rows are padded by
-// 16 bytes so the four frames a warp spans at hop 8 fall on other banks.
-// Samples outside [0, L) skip the LVC: they are masked to zero in every
-// layer, as in Kernel B, and no output reads them.
+//   hop  tile  CTAs  waves  frames/CTA  L2 -> SMs   read from L2 in pairs
+//     8    56   124      1    19 (24)     1.27 GB     0.63 GB
+//    64   424   131      1     9 (16)     1.34 GB     0.67 GB (132 CTAs)
+//   256   424   522      4     3 (8)      5.34 GB     2.67 GB
+//
+// against the 92 MB that K3 + K1 move through HBM. Reading w_head once per
+// CTA and call, not once per chunk of 8 frames as the CUDA-core kernel
+// does (1.56 / 2.7 / 5.4 GB per hop, plus its re-reads), is the first cut;
+// the two Hopper mechanisms below are the rest:
+// - TMA loads of w_head in chunks of 64 columns x 192 rows (two boxes of
+//   96 rows x 128 bytes, the 128-byte swizzle) into a 3-stage ring, issued
+//   by one producer warp and counted on mbarriers (tma.cuh's tensor-map
+//   cache encodes the map once per pointer). w_head's rows are 53,248
+//   bytes apart: a multiple of 16, under the tensor map's 2^40 limit; its
+//   base must be 128-byte aligned (the wrapper and this entry check).
+// - Clusters of 2 CTAs (cudaLaunchKernelEx with a cluster dimension) on
+//   neighbouring tiles, as an option (template CS): each CTA loads one of
+//   a chunk's two boxes and multicasts it to both (cp.async.bulk.tensor
+//   ... multicast::cluster), so L2 serves each chunk once per pair (the
+//   right column above); every consumer warp of both CTAs frees a stage on
+//   both CTAs' empty barriers (mapa + a remote arrive). 2 and not 4: each
+//   SM still takes in 10.2 MB per tile, and 4 can leave SMs of a GPC
+//   without a cluster. On the H100 the pairs ran 2.3x slower than single
+//   CTAs though the card holds all of them at once (root PERF.md, section
+//   6; why is not measured), so the plan's default is no cluster
+//   (ops/lvc_block_ncl.py:FH_CLUSTER) and chip_smoke.py races the two.
+//   Without a cluster the w_head bytes reached the SMs at ~4.1 TB/s at
+//   every hop: L2's rate sets the kernel's time.
+// Frames per CTA: the tile that minimises waves x extent whose shared
+// memory fits one CTA per SM (fh_tile_plan). At hop 8, b 1, 124 CTAs of 56
+// outputs fill the card (the CUDA-core kernel ran 17 tiles on 17 SMs).
+//
+// Design (the block is lvc_block_tc.cuh's):
+// - 288 threads: 8 consumer warps run every stage and sync on a named
+//   barrier of 256 threads; one producer warp streams w_head. The stream
+//   (416 chunks per call: 4 layers x 4 groups x 26) is the same for every
+//   CTA, whatever its frames, so both CTAs of a cluster walk it in step.
+// - The head on the tensor cores with w_head's columns as M and the CTA's
+//   frames as N (n8 steps), so a few frames waste no 64-row M tile:
+//   mma.sync.m16n8k16, A = w_head^T read by ldmatrix.trans from the
+//   swizzled stage as it lies (a_frag_swz), B = the CTA's tap rows, staged
+//   once ([frames][200] bf16, conflict-free ldmatrix). Warp w takes the
+//   chunk's m16 tile w & 3 against n8 frame tiles w >> 2 and w >> 2 + 2
+//   (at most 32 frames), K in two halves of 6 k16 steps whose A fragments
+//   serve both tiles (holding all 12 spilled at the 168 registers that 288
+//   threads leave); it frees the stage as soon as the second half's
+//   fragments are in registers. The epilogue adds the f32 bias (read once
+//   per chunk), rounds once and writes the slab.
+// - Slabs by output-channel group: a layer's LVC runs in 4 groups of 8
+//   output channels, and a group's slab holds, per frame, one m16 tile of
+//   16 rows (sigmoid rows o .. o+7, then tanh rows o .. o+7) x 104 kern
+//   rows: 3,344 bytes a frame (208-byte rows, conflict-free for ldmatrix;
+//   frames 16 bytes apart in banks, so the epilogue's stores do not
+//   collide). All of a CTA's frames stay resident, and w_head streams once
+//   per layer. The slabs share their bytes with the conv's input `a`, dead
+//   once y is made; a's pad rows are zeroed again in every layer.
+// - The LVC reads its A fragments from the slab with ldmatrix; a sigmoid
+//   row and its tanh row are rows g and g + 8 of one m16 tile, so the
+//   gate runs on one lane's accumulators. y stays in its own channel order
+//   in ybuf (conv_tc<false>): the A fragments come from shared memory, so
+//   the hop-8 permutation that K1 needs for 16-byte global loads (ypos) has
+//   no use here. The bias row (kern row 96) initialises the accumulators.
+// - skip_add, conv_tc, final_conv_rows and store_rows are K1's stages.
+//   n8 tiles wholly outside [0, L) skip the LVC (their s is zero and is
+//   masked again in the next layer; no output reads them); frames past the
+//   ends are clamped to 0 / F-1.
+// - Every mbarrier wait traps after ~10 s, so a fault ends the launch with
+//   an error instead of hanging the card.
 
-#include <mma.h>
-
-#include "lvc_block_common.cuh"
-
-using namespace nvcuda;
+#include "lvc_block_tc.cuh"
+#include "tma.cuh"
 
 namespace {
+namespace tc {
 
-constexpr int KH = 192;              // head contraction: conv taps x hidden
-constexpr int FC = 8;                // frames per slab chunk (the WMMA M)
-constexpr int TAP_LD = KH + 8;       // tap rows in shared memory (elements)
-constexpr int NWARPS = EXT / 32;
-constexpr int ST_LD = 36;            // per-warp f32 staging tile (8 x 32)
-constexpr size_t MAX_SMEM = 232448;  // what one block may use on sm_90
+// The tensor-core K5's geometry; ops/lvc_block_ncl.py computes the same
+// numbers (fh_tile_plan) and the entry point refuses a plan that differs.
+constexpr int KH = 192;                   // head contraction
+constexpr int FH_RP = 104;                // kern rows: 97 padded to 8
+constexpr int FH_GROUP = 8;               // output channels per slab group
+constexpr int FH_GROUPS = C / FH_GROUP;
+constexpr int FH_HALF = FH_GROUP * FH_RP; // w_head columns of one half: 832
+constexpr int FH_COLS = 64;               // columns per chunk
+constexpr int FH_HALF_CHUNKS = FH_HALF / FH_COLS;      // 13
+constexpr int FH_CHUNKS = 2 * FH_HALF_CHUNKS;          // per group: 26
+constexpr int FH_TOTAL = LAYERS * FH_GROUPS * FH_CHUNKS;  // per call: 416
+constexpr int FH_BOX_K = KH / 2;          // rows per TMA box
+constexpr int FH_CHUNK_BYTES = KH * FH_COLS * 2;       // 24,576
+constexpr int FH_STAGES = 3;
+constexpr int FH_TROW = KH + 8;           // bf16 per staged tap row
+constexpr int FH_FRAME = 2 * FH_GROUP * FH_RP * 2 + 16;  // 3,344 bytes
+constexpr int FH_ALIGN = 1024;
+constexpr int FH_BAR_BYTES = 64;
+constexpr int FH_THREADS = THREADS + 32;
+constexpr int FH_NPAD_MAX = 32;           // head frames: 4 n8 tiles at most
+static_assert(FH_HALF % FH_COLS == 0, "a half group is whole chunks");
+static_assert(2 * FH_STAGES * 8 <= FH_BAR_BYTES, "the mbarriers fit");
 
-size_t fh_smem_bytes(int rows_p) {
-  const size_t slab = (size_t)FC * (2 * C * rows_p + 8) * sizeof(bf16);
-  const size_t act = (size_t)C * EXT * sizeof(bf16);
-  return (NWARPS * FC * ST_LD + 3 * C * C + C + 8 * C) * sizeof(float) +
-         (2 * (size_t)C * EXT + FC * TAP_LD) * sizeof(bf16) +
-         (slab > act ? slab : act);
+__host__ __device__ constexpr int fh_frames_max(int ext, int hop) {
+  return (ext + hop - 2) / hop + 1;
 }
 
-// The head of one layer for the chunk's FC frames: slab[j][n] = bf16(
-// tap_s[j] . wi[:, n] + bi[n]) for n < n_slab; warps take column tiles of 32
-// in turn. wi is layer i's column block of w_head (row length n_all).
-__device__ __forceinline__ void head_slabs(const bf16* tap_s,
-                                           const bf16* __restrict__ wi,
-                                           const float* __restrict__ bi,
-                                           int n_slab, int n_all, bf16* slab,
-                                           int slab_ld, float* st, int warp,
-                                           int lane) {
-  wmma::fragment<wmma::matrix_a, FC, 32, 16, bf16, wmma::row_major>
-      a[KH / 16];
-#pragma unroll
-  for (int kk = 0; kk < KH / 16; ++kk)
-    wmma::load_matrix_sync(a[kk], tap_s + kk * 16, TAP_LD);
-  const int row = lane / 4;
-  const int col = (lane % 4) * 8;
-  for (int n0 = warp * 32; n0 < n_slab; n0 += NWARPS * 32) {
-    wmma::fragment<wmma::accumulator, FC, 32, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < KH / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, FC, 32, 16, bf16, wmma::row_major> bw;
-      wmma::load_matrix_sync(bw, wi + (size_t)kk * 16 * n_all + n0, n_all);
-      wmma::mma_sync(acc, a[kk], bw, acc);
-    }
-    wmma::store_matrix_sync(st, acc, ST_LD, wmma::mem_row_major);
-    __syncwarp();
-    const float4 b0 = __ldg(reinterpret_cast<const float4*>(bi + n0 + col));
-    const float4 b1 =
-        __ldg(reinterpret_cast<const float4*>(bi + n0 + col + 4));
-    const float* sr = st + row * ST_LD + col;
-    const __nv_bfloat162 p0 = __floats2bfloat162_rn(sr[0] + b0.x, sr[1] + b0.y);
-    const __nv_bfloat162 p1 = __floats2bfloat162_rn(sr[2] + b0.z, sr[3] + b0.w);
-    const __nv_bfloat162 p2 = __floats2bfloat162_rn(sr[4] + b1.x, sr[5] + b1.y);
-    const __nv_bfloat162 p3 = __floats2bfloat162_rn(sr[6] + b1.z, sr[7] + b1.w);
-    uint4 packed;
-    packed.x = *reinterpret_cast<const uint32_t*>(&p0);
-    packed.y = *reinterpret_cast<const uint32_t*>(&p1);
-    packed.z = *reinterpret_cast<const uint32_t*>(&p2);
-    packed.w = *reinterpret_cast<const uint32_t*>(&p3);
-    *reinterpret_cast<uint4*>(slab + (size_t)row * slab_ld + n0 + col) =
-        packed;
-    __syncwarp();
-  }
+// dynamic shared memory of a CTA whose extent is `ext` samples and whose
+// head covers `npad` frames
+__host__ __device__ constexpr int fh_smem_bytes(int ext, int npad) {
+  return FH_ALIGN + FH_STAGES * FH_CHUNK_BYTES +
+         (2 * ext + 2 * YPAD) * ROW * 2 +
+         ((ext + 2 * APAD) * ROW * 2 > npad * FH_FRAME
+              ? (ext + 2 * APAD) * ROW * 2
+              : npad * FH_FRAME) +
+         npad * FH_TROW * 2 + C * WROW * 2 + 9 * C * 4 + FH_BAR_BYTES;
 }
 
-template <bool FINAL>
-__global__ void __launch_bounds__(EXT, 1)
-lvc_block_fh_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
-                    const bf16* __restrict__ tap_c,
-                    const bf16* __restrict__ w_head,
-                    const float* __restrict__ b_head,
-                    const bf16* __restrict__ wstack,
-                    const bf16* __restrict__ final_wb, bf16* __restrict__ out,
-                    float* __restrict__ fin, int L, int F, int hop,
-                    int rows_p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* stage = reinterpret_cast<float*>(smem_raw);  // [NWARPS][FC][ST_LD]
-  float* wt = stage + NWARPS * FC * ST_LD;             // [3C][C]
-  float* wb = wt + 3 * C * C;                          // [C]
-  float* wf = wb + C;                                  // [8][C]
-  bf16* carry = reinterpret_cast<bf16*>(wf + 8 * C);   // [C][EXT]
-  bf16* ybuf = carry + C * EXT;                        // [C][EXT]
-  bf16* tap_s = ybuf + C * EXT;                        // [FC][TAP_LD]
-  bf16* act = tap_s + FC * TAP_LD;                     // [C][EXT], then
-  bf16* slab = act;                                    // [FC][slab_ld]
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(THREADS) : "memory");
+}
 
-  const int n_slab = 2 * C * rows_p;
-  const int slab_ld = n_slab + 8;
-  const int n_all = LAYERS * n_slab;
-  const int e = threadIdx.x;
-  const int warp = e / 32;
-  const int lane = e % 32;
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// TMA box -> the same shared offset `dst` in every CTA of `mask`, each
+// CTA's mbarrier at offset `bar` counting the bytes
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst,
+                                                   const CUtensorMap* map,
+                                                   uint32_t bar, int c0,
+                                                   int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask)
+      : "memory");
+}
+
+// arrive on the mbarrier at offset `bar` of cluster CTA `cta`
+__device__ __forceinline__ void mbar_arrive_cta(uint32_t bar, uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(bar), "r"(cta));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+          remote)
+      : "memory");
+}
+
+// w_head's first column of chunk c of the call's stream: layer, group,
+// then the sigmoid half's 13 chunks and the tanh half's
+__device__ __forceinline__ int chunk_col(int c, int* half) {
+  const int i = c / (FH_GROUPS * FH_CHUNKS);
+  const int q = (c / FH_CHUNKS) % FH_GROUPS;
+  const int cc = c % FH_CHUNKS;
+  *half = cc / FH_HALF_CHUNKS;
+  return (i * 2 * C + *half * C + q * FH_GROUP) * FH_RP +
+         (cc % FH_HALF_CHUNKS) * FH_COLS;
+}
+
+template <bool FINAL, int CS>
+__global__ void __launch_bounds__(FH_THREADS, 1)
+lvc_block_fh_tc_kernel(const __grid_constant__ CUtensorMap map_w,
+                       const bf16* __restrict__ x,
+                       const bf16* __restrict__ skip,
+                       const bf16* __restrict__ tap_c,
+                       const float* __restrict__ b_head,
+                       const bf16* __restrict__ wstack_t,
+                       const bf16* __restrict__ final_wb,
+                       bf16* __restrict__ out, float* __restrict__ fin, int L,
+                       int F, int hop, int tile, int npad) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + FH_ALIGN - 1) & ~uint32_t(FH_ALIGN - 1);
+  unsigned char* base = smem_raw + (ring - raw);
+  const int ext = tile + 2 * HALO;
+  // ring, carry, ybuf (pad rows), [a (pad rows) | slab], taps, ws, wb, wf,
+  // mbarriers
+  unsigned char* p = base + FH_STAGES * FH_CHUNK_BYTES;
+  bf16* carry = reinterpret_cast<bf16*>(p);
+  bf16* ybuf = carry + (ext + YPAD) * ROW;
+  unsigned char* uni = reinterpret_cast<unsigned char*>(ybuf + (ext + YPAD) *
+                                                                   ROW);
+  bf16* act = reinterpret_cast<bf16*>(uni) + APAD * ROW;
+  const int ubytes = (ext + 2 * APAD) * ROW * 2 > npad * FH_FRAME
+                         ? (ext + 2 * APAD) * ROW * 2
+                         : npad * FH_FRAME;
+  bf16* taps = reinterpret_cast<bf16*>(uni + ubytes);
+  bf16* ws = taps + npad * FH_TROW;
+  float* wb = reinterpret_cast<float*>(ws + C * WROW);
+  float* wf = wb + C;
+  const uint32_t full = smem_u32(wf + 8 * C);
+  const uint32_t empty = full + 8 * FH_STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.y;
-  const long g0 = (long)blockIdx.x * TILE - HALO;     // the extent's first
-  const long g = g0 + e;                              // global sample
-  const bool valid = g >= 0 && g < L;
-  const bf16* xb = x + (size_t)b * C * L;
-  const bf16* sb = skip + (size_t)b * C * L;
-  const bf16* tb = tap_c + (size_t)b * F * KH;
-  const bf16 zero = __float2bfloat16(0.0f);
-
-  for (int c = 0; c < C; ++c)
-    carry[c * EXT + e] = valid ? xb[(size_t)c * L + g] : zero;
-  if (FINAL)
-    for (int idx = e; idx < 8 * C; idx += EXT) wf[idx] = to_f(final_wb[idx]);
-
-  // the extent's samples in [0, L) and the frames they lie in
-  const long g_lo = g0 < 0 ? 0 : g0;
-  const long g_hi = (g0 + EXT < L ? g0 + EXT : (long)L) - 1;
-  const int f_lo = (int)(g_lo / hop);
-  const int f_hi = (int)(g_hi / hop);
-
-  int d = 1;
-  for (int i = 0; i < LAYERS; ++i, d *= 3) {
-    __syncthreads();
-    skip_add_stage<false, false>(wstack + (size_t)i * C * ROWS, sb, carry,
-                                 act, wt, wb, e, g, L, valid, false, nullptr);
-    __syncthreads();
-    dilated_conv<false>(act, wt, wb, ybuf, e, d, L, valid, false, nullptr);
-
-    const bf16* wi = w_head + (size_t)i * n_slab;
-    const float* bi = b_head + (size_t)i * n_slab;
-    for (int fa = f_lo; fa <= f_hi; fa += FC) {
-      const int nf = min(FC, f_hi - fa + 1);
-      // y is made, `a` and the last chunk's slabs are read: reuse them
-      __syncthreads();
-      for (int v = e; v < FC * KH / 8; v += EXT) {
-        const int j = v / (KH / 8);
-        const int k8 = (v % (KH / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (j < nf)
-          val = __ldg(reinterpret_cast<const uint4*>(
-              tb + (size_t)(fa + j) * KH + k8));
-        *reinterpret_cast<uint4*>(tap_s + j * TAP_LD + k8) = val;
-      }
-      __syncthreads();
-      head_slabs(tap_s, wi, bi, n_slab, n_all, slab, slab_ld,
-                 stage + warp * FC * ST_LD, warp, lane);
-      __syncthreads();
-      // the LVC and gate of the chunk's samples, one (sample, group of 8
-      // channels) per item
-      const long s_lo = (long)fa * hop > g_lo ? (long)fa * hop : g_lo;
-      const long s_end = (long)(fa + nf) * hop - 1;
-      const long s_hi = s_end < g_hi ? s_end : g_hi;
-      const int e_lo = (int)(s_lo - g0);
-      const int n = (int)(s_hi - s_lo + 1);
-      for (int it = e; it < (C / 8) * n; it += EXT) {
-        const int oc = (it / n) * 8;
-        const int ee = e_lo + it % n;
-        const int jf = (int)((g0 + ee) / hop) - fa;
-        float zs[8], zt[8];
-        lvc_dot_ncl<false>(slab + (size_t)jf * slab_ld, rows_p, ybuf, ee, oc,
-                           zs, zt);
-        gate_update(carry, ee, oc, zs, zt);
-      }
-    }
+  const long g0 = (long)blockIdx.x * tile - HALO;
+  const size_t brow = (size_t)b * C * L;
+  if (tid == 0) {
+    for (int s = 0; s < FH_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WARPS * CS);  // every consumer warp of the
+    }                                        // cluster, once per chunk
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if (CS > 1) cluster_sync();  // no copy or arrival before every init
 
-  if (e < HALO || e >= HALO + TILE || !valid) return;
-  bf16* ob = out + (size_t)b * C * L;
-  for (int c = 0; c < C; ++c) ob[(size_t)c * L + g] = carry[c * EXT + e];
-  if (FINAL) fin[(size_t)b * L + g] = final_conv(carry, wf, e, g, L);
+  if (warp == WARPS) {
+    // ---- producer: one thread streams w_head, chunk after chunk ---------
+    if (lane == 0) {
+      const uint32_t rank = CS > 1 ? cluster_rank() : 0;
+      for (int c = 0; c < FH_TOTAL; ++c) {
+        const int s = c % FH_STAGES;
+        mbar_wait_or_trap(empty + 8 * s, ((c / FH_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, FH_CHUNK_BYTES);
+        int half;
+        const int col = chunk_col(c, &half);
+        for (int h = 0; h < 2; ++h) {
+          if (h % CS != static_cast<int>(rank)) continue;
+          const uint32_t dst = ring + s * FH_CHUNK_BYTES + h * FH_BOX_K * 128;
+          if (CS > 1)
+            tma_load_multicast(dst, &map_w, full + 8 * s, col, h * FH_BOX_K,
+                               static_cast<uint16_t>((1u << CS) - 1));
+          else
+            tma_load(dst, &map_w, full + 8 * s, col, h * FH_BOX_K);
+        }
+      }
+    }
+    __syncwarp();
+    if (CS > 1) cluster_sync();
+    return;
+  }
+
+  // ---- consumers ----------------------------------------------------------
+  // the extent's samples in [0, L) ([lo, hi); empty for a CTA that only
+  // pads the grid to whole clusters) and their frames
+  int lo = g0 < 0 ? 0 : static_cast<int>(g0 < L ? g0 : L);
+  const int hi = g0 + ext < L ? static_cast<int>(g0 + ext) : L;
+  if (lo > hi) lo = hi;
+  const int f_lo = lo < hi ? lo / hop : F - 1;
+  const int gq = lane >> 2, tq = lane & 3;
+
+  zero_rows(ybuf - YPAD * ROW, YPAD, tid);
+  zero_rows(ybuf + ext * ROW, YPAD, tid);
+  load_rows(x + brow, carry, g0, ext, L, tid);
+  // the CTA's tap rows, frames f_lo .. f_lo + npad - 1 (clamped to F - 1)
+  const bf16* tb = tap_c + (size_t)b * F * KH;
+  for (int idx = tid; idx < npad * (KH / 8); idx += THREADS) {
+    const int n = idx / (KH / 8), k8 = idx % (KH / 8);
+    const int f = min(f_lo + n, F - 1);
+    reinterpret_cast<uint4*>(taps + n * FH_TROW)[k8] =
+        ldg128(tb + (size_t)f * KH + 8 * k8);
+  }
+  if (FINAL)
+    for (int idx = tid; idx < 8 * C; idx += THREADS)
+      wf[idx] = to_f(final_wb[idx]);
+
+  // the LVC's n8 tiles inside [lo, hi), cut into one contiguous run per warp
+  const int j_lo = (lo - static_cast<int>(g0)) / 8;
+  const int j_hi = (hi - static_cast<int>(g0)) / 8;
+  const int per = (j_hi - j_lo + WARPS - 1) / WARPS;
+  const int r0 = j_lo + warp * per;
+  const int r1 = min(j_hi, r0 + per);
+  // the head: warp w takes m16 tile w & 3 of every chunk against n8 frame
+  // tiles w >> 2 and w >> 2 + 2 (npad <= FH_NPAD_MAX: at most 4 tiles)
+  const int mt = warp & 3, nt0 = warp >> 2;
+  const int my_nt = (npad / 8 > nt0) + (npad / 8 > nt0 + 2);
+
+  int c = 0;  // the stream's chunk
+  int d = 1;
+  for (int i = 0; i < LAYERS; ++i, d *= 3) {
+    consumer_sync();  // the last layer's gate is done with carry and ws
+    stage_weights(wstack_t + (size_t)i * C * ROWS, ws, wb, tid);
+    zero_rows(act - APAD * ROW, APAD, tid);  // the slabs overwrote them
+    zero_rows(act + ext * ROW, APAD, tid);
+    skip_add(skip + brow, carry, act, g0, ext, L, tid);
+    consumer_sync();
+    conv_tc<false>(act, ws, wb, ybuf, d, g0, ext, L, warp, lane);
+    consumer_sync();  // a is read: the slabs may take its bytes
+
+    for (int q = 0; q < FH_GROUPS; ++q) {
+      // -- the head of group q: its 26 chunks -> slab[frame][16][FH_RP]
+      for (int cc = 0; cc < FH_CHUNKS; ++cc, ++c) {
+        const int s = c % FH_STAGES;
+        const uint32_t stage = ring + s * FH_CHUNK_BYTES;
+        mbar_wait_or_trap(full + 8 * s, (c / FH_STAGES) & 1);
+        // K = 192 in two halves of 6 k16 steps, each half's A fragments
+        // held while they serve both of the warp's n8 frame tiles
+        float acc[2][2][4] = {};  // [frame tile][accumulator chain]
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh) {
+          uint32_t a[6][4];
+          if (my_nt > 0) {
+#pragma unroll
+            for (int ks = 0; ks < 6; ++ks)
+              a_frag_swz(a[ks], stage, 16 * mt, 6 * kh + ks, lane);
+          }
+          if (kh == 1) {  // the stage is read: free it on every CTA
+            __syncwarp();
+            if (lane == 0) {
+              if (CS > 1)
+                for (int r = 0; r < CS; ++r) mbar_arrive_cta(empty + 8 * s, r);
+              else
+                mbar_arrive(empty + 8 * s);
+            }
+          }
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            if (t >= my_nt) continue;
+            const bf16* trow = taps + (8 * (nt0 + 2 * t) + (lane & 7)) *
+                                          FH_TROW + 96 * kh + (lane >> 3) * 8;
+#pragma unroll
+            for (int kp = 0; kp < 3; ++kp) {
+              uint32_t bb[4];
+              ldsm_x4(bb, trow + 32 * kp);
+              mma_bf16(acc[t][0], a[2 * kp], bb[0], bb[1]);
+              mma_bf16(acc[t][1], a[2 * kp + 1], bb[2], bb[3]);
+            }
+          }
+        }
+        if (my_nt == 0) continue;
+        int half;
+        const int col0 = chunk_col(c, &half);
+        const int m_a = 16 * mt + gq;  // chunk columns m_a and m_a + 8
+        const float bias[2] = {__ldg(b_head + col0 + m_a),
+                               __ldg(b_head + col0 + m_a + 8)};
+        // slab element of chunk column m: (row, kern row) of the group
+        int at[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int local = (cc % FH_HALF_CHUNKS) * FH_COLS + m_a + 8 * h;
+          at[h] = (local / FH_RP + FH_GROUP * half) * FH_RP + local % FH_RP;
+        }
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          if (t >= my_nt) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int cn = 0; cn < 2; ++cn) {
+              const int n = 8 * (nt0 + 2 * t) + 2 * tq + cn;  // the frame
+              const int v = 2 * h + cn;
+              *reinterpret_cast<bf16*>(uni + n * FH_FRAME + at[h] * 2) =
+                  __float2bfloat16(acc[t][0][v] + acc[t][1][v] + bias[h]);
+            }
+        }
+      }
+      consumer_sync();  // the group's slabs are whole
+
+      // -- the LVC and gate of output channels 8q .. 8q+7
+      int cur = -1;
+      uint32_t ka[6][4];
+      float kb0 = 0.0f, kb1 = 0.0f;
+      for (int j = r0; j < r1; ++j) {
+        const int n0 = 8 * j;
+        const int f = (static_cast<int>(g0) + n0) / hop - f_lo;
+        if (f != cur) {
+          cur = f;
+          const bf16* sl = reinterpret_cast<const bf16*>(uni + f * FH_FRAME);
+#pragma unroll
+          for (int ks = 0; ks < 6; ++ks)
+            ldsm_x4(ka[ks], sl + (lane & 15) * FH_RP + 16 * ks +
+                                (lane >> 4) * 8);
+          kb0 = to_f(sl[gq * FH_RP + 3 * C]);
+          kb1 = to_f(sl[(gq + 8) * FH_RP + 3 * C]);
+        }
+        float acc[2][4] = {{kb0, kb0, kb1, kb1}, {}};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          uint32_t bb[4];
+          ldsm_x4(bb, ybuf + (n0 + (lane & 7) + k - 1) * ROW +
+                          (lane >> 3) * 8);
+          mma_bf16(acc[0], ka[2 * k], bb[0], bb[1]);
+          mma_bf16(acc[1], ka[2 * k + 1], bb[2], bb[3]);
+        }
+#pragma unroll
+        for (int cn = 0; cn < 2; ++cn) {
+          bf16* cp = carry + (n0 + 2 * tq + cn) * ROW + FH_GROUP * q + gq;
+          const float gv = gate(acc[0][cn] + acc[1][cn],
+                                acc[0][2 + cn] + acc[1][2 + cn]);
+          *cp = __float2bfloat16(to_f(*cp) + round_bf(gv));
+        }
+      }
+      consumer_sync();  // the slabs are read: the next group may write
+    }
+  }
+  store_rows(carry, out + brow, g0, tile, L, tid);
+  if (FINAL) final_conv_rows(carry, wf, fin + (size_t)b * L, g0, tile, L, tid);
+  if (CS > 1) cluster_sync();  // no CTA leaves while peers may arrive on it
 }
 
-template <bool FINAL>
-int launch_fh(const void* x, const void* skip, const void* tap_c,
-              const void* w_head, const void* b_head, const void* wstack,
-              const void* final_wb, void* out, void* fin, int B, int L,
-              int F, int hop, int rows_p, cudaStream_t stream) {
-  const size_t smem = fh_smem_bytes(rows_p);
+// the plan's checks; 0 if the kernel takes it
+bool fh_bad_plan(int B, int L, int F, int hop, int tile, int npad,
+                 int cluster, int grid_x, int smem) {
+  const int ext = tile + 2 * HALO;
+  return B < 1 || hop < 8 || hop % 8 != 0 || (long)F * hop != L ||
+         tile < 8 || tile % 8 != 0 || tile > L + 8 ||
+         npad != (fh_frames_max(ext, hop) + 7) / 8 * 8 || npad > FH_NPAD_MAX ||
+         (cluster != 1 && cluster != 2) || grid_x % cluster != 0 ||
+         (long)grid_x * tile < L || (long)(grid_x - cluster) * tile >= L ||
+         smem != fh_smem_bytes(ext, npad) || smem > SMEM_LIMIT;
+}
+
+template <bool FINAL, int CS>
+int launch_fh(const CUtensorMap& map, const void* x, const void* skip,
+              const void* tap_c, const void* b_head, const void* wstack,
+              const void* final_wb, void* out, void* fin, int B, int L, int F,
+              int hop, int tile, int npad, int grid_x, int smem,
+              cudaStream_t stream) {
+  auto kernel = lvc_block_fh_tc_kernel<FINAL, CS>;
   cudaError_t err = cudaFuncSetAttribute(
-      lvc_block_fh_kernel<FINAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + TILE - 1) / TILE, B);
-  lvc_block_fh_kernel<FINAL><<<grid, EXT, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
-      static_cast<const bf16*>(tap_c), static_cast<const bf16*>(w_head),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_x, B);
+  cfg.blockDim = dim3(FH_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, map, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(skip), static_cast<const bf16*>(tap_c),
       static_cast<const float*>(b_head), static_cast<const bf16*>(wstack),
       static_cast<const bf16*>(final_wb), static_cast<bf16*>(out),
-      static_cast<float*>(fin), L, F, hop, rows_p);
+      static_cast<float*>(fin), L, F, hop, tile, npad);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace tc
 }  // namespace
 
 // x, skip (B, C, L) bf16; tap_c (B, F, khead) bf16; w_head (khead, layers *
-// 2C * rows_p) bf16 (Kernel A's packing); b_head (layers * 2C * rows_p,) f32;
-// wstack_t (layers, C, 3C+1) bf16; final_wb (8, C) bf16 or NULL; out
-// (B, C, L) bf16; fin (B, 1, L) f32 or NULL. Only C = 32, 4 layers, khead =
-// 192 and rows_p % 8 == 0 are built; w_head must be 32-byte aligned and the
-// other pointers 16-byte aligned (the Python wrapper checks). Launches on
-// `stream`; returns cudaGetLastError() (or the attribute call's error).
-extern "C" int lvc_block_ncl_fh_launch(const void* x, const void* skip,
-                                       const void* tap_c, const void* w_head,
-                                       const void* b_head,
-                                       const void* wstack_t,
-                                       const void* final_wb, void* out,
-                                       void* fin, int B, int channels, int L,
-                                       int F, int hop, int khead, int rows_p,
-                                       int layers, void* stream) {
-  if (channels != C || layers != LAYERS || khead != KH || rows_p % 8 != 0 ||
-      rows_p < ROWS || hop < 1 || (long)F * hop != L ||
-      fh_smem_bytes(rows_p) > MAX_SMEM)
+// 2C * rows_p) bf16 (Kernel A's packing), 128-byte aligned; b_head (layers
+// * 2C * rows_p,) f32; wstack_t (layers, C, 3C+1) bf16; final_wb (8, C)
+// bf16 or NULL; out (B, C, L) bf16; fin (B, 1, L) f32 or NULL; tile, npad,
+// cluster, grid_x and smem from ops/lvc_block_ncl.py:fh_tile_plan. Only
+// C = 32, 4 layers, khead = 192, rows_p = 104 and hop % 8 == 0 are built,
+// the other pointers 16-byte aligned (the Python wrapper checks). Launches
+// on `stream`; returns cudaGetLastError() (or the tensor map's, an
+// attribute call's or the launch's error).
+extern "C" int lvc_block_ncl_fh_launch(
+    const void* x, const void* skip, const void* tap_c, const void* w_head,
+    const void* b_head, const void* wstack_t, const void* final_wb, void* out,
+    void* fin, int B, int channels, int L, int F, int hop, int khead,
+    int rows_p, int layers, int tile, int npad, int cluster, int grid_x,
+    int smem, void* stream) {
+  using namespace tc;
+  if (channels != C || layers != LAYERS || khead != KH || rows_p != FH_RP ||
+      fh_bad_plan(B, L, F, hop, tile, npad, cluster, grid_x, smem) ||
+      reinterpret_cast<uintptr_t>(w_head) % 128 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  const int err = tensor_map(&map, w_head, (uint64_t)LAYERS * 2 * C * FH_RP,
+                             KH, FH_COLS, FH_BOX_K);
+  if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (final_wb != nullptr)
-    return launch_fh<true>(x, skip, tap_c, w_head, b_head, wstack_t,
-                           final_wb, out, fin, B, L, F, hop, rows_p, s);
-  return launch_fh<false>(x, skip, tap_c, w_head, b_head, wstack_t, nullptr,
-                          out, nullptr, B, L, F, hop, rows_p, s);
+  const bool final = final_wb != nullptr;
+  if (cluster == 2)
+    return (final ? launch_fh<true, 2> : launch_fh<false, 2>)(
+        map, x, skip, tap_c, b_head, wstack_t, final_wb, out, fin, B, L, F,
+        hop, tile, npad, grid_x, smem, s);
+  return (final ? launch_fh<true, 1> : launch_fh<false, 1>)(
+      map, x, skip, tap_c, b_head, wstack_t, final_wb, out, fin, B, L, F, hop,
+      tile, npad, grid_x, smem, s);
+}
+
+// How many clusters of `cluster` tensor-core K5 CTAs, each with `smem` bytes
+// of dynamic shared memory, the card holds at once
+// (cudaOccupancyMaxActiveClusters); minus a cudaError_t on failure.
+extern "C" int lvc_block_ncl_fh_max_clusters(int cluster, int smem) {
+  using namespace tc;
+  if ((cluster != 1 && cluster != 2) || smem < 1 || smem > SMEM_LIMIT)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = cluster == 2 ? lvc_block_fh_tc_kernel<false, 2>
+                             : lvc_block_fh_tc_kernel<false, 1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(FH_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err != cudaSuccess ? -static_cast<int>(err) : n;
 }

@@ -1,8 +1,10 @@
 // Tensor-core stages of the 4-layer LVC block: both contractions of a layer
 // as bf16 mma.sync.m16n8k16 products with f32 accumulation, over
 // activations kept sample-major in shared memory. Used by
-// lvc_block_ncl_tc.cu (K1, K2); K4, K5 and K6 still run the CUDA-core
-// stages of lvc_block_common.cuh and can take these in their turn.
+// lvc_block_ncl_tc.cu (K1, K2), lvc_block_ncl_fh.cu (K5) and
+// lvc_block_nwc_tc.cu (K6); only K4 (and the *_cc fallbacks for hops that
+// are no multiple of 8) still run the CUDA-core stages of
+// lvc_block_common.cuh.
 //
 // Every stage is called by all THREADS threads of a block whose extent is
 // `ext` samples (the tile's outputs plus HALO on each side), row 0 being
@@ -69,6 +71,31 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p))
       : "memory");
+}
+
+// the same, each matrix transposed (rows in shared memory are its columns)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The A fragment (m16 x k16, rows m0 .. m0+15, k 16 ks ..) of a K-major
+// operand that lies in shared memory as rows of 64 bf16 along M, one row
+// per k, 128-byte swizzled (16-byte chunk c of row k at c ^ (k & 7)) from
+// the 1,024-byte-aligned address `base`, as a TMA box of 64 columns with
+// the 128-byte swizzle leaves it: ldmatrix.trans reads it in place,
+// conflict-free.
+__device__ __forceinline__ void a_frag_swz(uint32_t (&a)[4], uint32_t base,
+                                           int m0, int ks, int lane) {
+  const int j = lane >> 3;
+  const int k = 16 * ks + (lane & 7) + 8 * (j >> 1);
+  const int chunk = (m0 >> 3) + (j & 1);
+  ldsm_x4_trans(a, base + k * 128 + ((chunk ^ (k & 7)) << 4));
 }
 
 // d += a . b, m16n8k16, bf16 in, f32 accumulate
@@ -300,6 +327,51 @@ __device__ __forceinline__ void conv_tc(const bf16* act, const bf16* ws,
   }
 }
 
+// One warp's LVC and gate on the n8 tile of samples n0 .. n0+7, with the
+// A fragments `ka` of its m16 pair p (z rows 16p.. and C + 16p..: mm 0 the
+// sigmoid half, mm 1 the tanh half; 6 k16 steps, contraction row k C + c)
+// and their bias rows `kb` (rows gq and gq + 8 of each half) in
+// registers: z = ka . [y(t-1); y; y(t+1)] + kb, then carry = s +
+// bf16(sigmoid(z_s) tanh(z_t)) in place. Both halves of a gate sit in the
+// same lane, so nothing is exchanged.
+__device__ __forceinline__ void gate_tile(const uint32_t (&ka)[2][6][4],
+                                          const float (&kb)[2][2],
+                                          const bf16* ybuf, bf16* carry,
+                                          int n0, int p, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  // two accumulator chains per m16 tile, as in conv_tc
+  float acc[2][2][4];
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm) {
+    acc[mm][0][0] = acc[mm][0][1] = kb[mm][0];
+    acc[mm][0][2] = acc[mm][0][3] = kb[mm][1];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[mm][1][v] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    uint32_t b[4];
+    ldsm_x4(b, ybuf + (n0 + (lane & 7) + k - 1) * ROW + (lane >> 3) * 8);
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm) {
+      mma_bf16(acc[mm][0], ka[mm][2 * k], b[0], b[1]);
+      mma_bf16(acc[mm][1], ka[mm][2 * k + 1], b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int e = n0 + 2 * tq + c;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bf16* cp = carry + e * ROW + 16 * p + gq + 8 * h;
+      const int v = 2 * h + c;
+      const float gv = gate(acc[0][0][v] + acc[0][1][v],
+                            acc[1][0][v] + acc[1][1][v]);
+      *cp = __float2bfloat16(to_f(*cp) + round_bf(gv));
+    }
+  }
+}
+
 // z = K_{i,f} . [y(t-1); y; y(t+1)] + bias_f (f32), then carry = s +
 // bf16(sigmoid(z[:C]) * tanh(z[C:])) in place (carry holds s). Warp w owns
 // the m16 pair p = w & 1 (z rows 16p.. and C + 16p.., so each lane holds
@@ -377,37 +449,7 @@ __device__ __forceinline__ void lvc_gate_tc(const bf16* __restrict__ kern_b,
         kb[mm][1] = to_f(r1[3 * C]);
       }
     }
-    // two accumulator chains per m16 tile, as in conv_tc
-    float acc[2][2][4];
-#pragma unroll
-    for (int mm = 0; mm < 2; ++mm) {
-      acc[mm][0][0] = acc[mm][0][1] = kb[mm][0];
-      acc[mm][0][2] = acc[mm][0][3] = kb[mm][1];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[mm][1][v] = 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      uint32_t b[4];
-      ldsm_x4(b, ybuf + (n0 + (lane & 7) + k - 1) * ROW + (lane >> 3) * 8);
-#pragma unroll
-      for (int mm = 0; mm < 2; ++mm) {
-        mma_bf16(acc[mm][0], ka[mm][2 * k], b[0], b[1]);
-        mma_bf16(acc[mm][1], ka[mm][2 * k + 1], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int e = n0 + 2 * tq + c;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        bf16* cp = carry + e * ROW + 16 * p + gq + 8 * h;
-        const int v = 2 * h + c;
-        const float gv = gate(acc[0][0][v] + acc[0][1][v],
-                              acc[1][0][v] + acc[1][1][v]);
-        *cp = __float2bfloat16(to_f(*cp) + round_bf(gv));
-      }
-    }
+    gate_tile(ka, kb, ybuf, carry, n0, p, lane);
   }
 }
 

@@ -3,7 +3,8 @@
 // copies (cp.async.bulk), and the host-side tensor maps they read, encoded
 // with cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint, so
 // the library links no libcuda) and cached by (pointer, dims, box).
-// Included by taug_head.cu (K3, K7, K10) and stage_micro.cu (K9).
+// Included by taug_head.cu (K3, K7, K10), stage_micro.cu (K9),
+// lvc_block_ncl_fh.cu (K5) and lvc_block_nwc_tc.cu (K6).
 
 #pragma once
 
@@ -36,6 +37,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "@!p bra WAIT;\n}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+
+// mbar_wait that gives up: after ~2^34 clocks (about 10 s) of waiting it
+// traps, so a wait that can never complete ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
+                                                  uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 34)) __trap();
+  }
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {

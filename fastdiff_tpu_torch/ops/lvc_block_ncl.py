@@ -28,9 +28,12 @@ plain version, which keeps the kernels' cast points.
 K5 (``lvc_block_ncl_fh``, JAX's ``lvc_block_ncl_fh``) is Kernel B with the
 predictor head (Kernel A's GEMM) run inside the kernel: it takes the trunk
 taps (B, F, 192) and the merged head weights instead of ``kern_taug``,
-which then never reaches device memory (``csrc/lvc_block_ncl_fh.cu``). Its
-plain version is Kernel A's plain head followed by Kernel B's, with their
-cast points. The ``ncl_fh`` route runs it on the blocks ``fusable`` admits.
+which then never reaches device memory. At hops that are multiples of 8 it
+runs on the tensor cores (``csrc/lvc_block_ncl_fh.cu``, tiles and clusters
+from ``fh_tile_plan``), at other hops on the CUDA cores
+(``lvc_block_ncl_fh_cc``). Its plain version is Kernel A's plain head
+followed by Kernel B's, with their cast points. The ``ncl_fh`` route runs
+it on the blocks ``fusable`` admits.
 
 Training (``models/fastdiff.py`` routes):
 
@@ -60,10 +63,13 @@ from fastdiff_tpu_torch.ops.nn import leaky_relu
 
 # launches of the CUDA kernels since the last reset (plain runs not counted):
 # lvc_block_ncl / _final the tensor-core Kernel B, lvc_block_ncl_cc the
-# CUDA-core one (hops that are no multiple of 8, with or without epilogue)
+# CUDA-core one (hops that are no multiple of 8, with or without epilogue);
+# lvc_block_ncl_fh / _final the tensor-core K5, lvc_block_ncl_fh_cc the
+# CUDA-core one
 LAUNCHES = {"lvc_block_ncl": 0, "lvc_block_ncl_final": 0,
             "lvc_block_ncl_cc": 0, "lvc_block_ncl_sr": 0,
-            "lvc_block_ncl_fh": 0, "lvc_block_ncl_fh_final": 0}
+            "lvc_block_ncl_fh": 0, "lvc_block_ncl_fh_final": 0,
+            "lvc_block_ncl_fh_cc": 0}
 
 # what csrc/lvc_block_ncl.cu and csrc/lvc_block_ncl_fh.cu are built for
 KERNEL_CHANNELS = 32
@@ -84,6 +90,25 @@ H100_SMS = 132
 
 _MIN_FUSED_HOP = 8
 _MIN_HALO = 48
+
+# the tensor-core K5's geometry (csrc/lvc_block_ncl_fh.cu, namespace tc)
+FH_THREADS = TC_THREADS + 32   # 8 consumer warps and one producer warp
+FH_ROWS_P = 104                # kern_taug rows: 97 padded to 8
+FH_GROUP = 8                   # output channels of one slab group
+FH_COLS = 64                   # w_head columns per chunk (one swizzle row)
+FH_CHUNKS = 2 * FH_GROUP * FH_ROWS_P // FH_COLS   # chunks per group: 26
+FH_CHUNK_BYTES = KERNEL_HEAD_K * FH_COLS * 2      # 24,576
+FH_STAGES = 3                  # w_head ring stages
+FH_TROW = KERNEL_HEAD_K + 8    # bf16 per staged tap row (400 bytes)
+FH_FRAME = 2 * FH_GROUP * FH_ROWS_P * 2 + 16      # a frame's group slab
+FH_ALIGN = 1024
+FH_BAR_BYTES = 64
+FH_NPAD_MAX = 32               # head frames per CTA: 4 n8 tiles at most
+# CTAs that share each w_head chunk by multicast: 1, because clusters of 2
+# measured slower on the H100 (root PERF.md, section 6); 2 stays selectable
+FH_CLUSTER = 1
+W_HEAD_BYTES = KERNEL_HEAD_K * KERNEL_LAYERS * 2 * KERNEL_CHANNELS \
+    * FH_ROWS_P * 2            # 10,223,616: all of w_head, once per CTA
 
 
 def tc_smem_bytes(ext: int) -> int:
@@ -132,6 +157,86 @@ def block_tile_plan(b: int, length: int, sms: int = H100_SMS) -> BlockPlan:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fh_frames_max(ext: int, hop: int) -> int:
+    """The most frames ``ext`` consecutive samples can touch."""
+    return (ext + hop - 2) // hop + 1
+
+
+def fh_smem_bytes(ext: int, npad: int) -> int:
+    """Dynamic shared memory of a tensor-core K5 block whose extent is
+    ``ext`` samples and whose head covers ``npad`` frames (``tc::
+    fh_smem_bytes``): the alignment slack, the w_head ring, carry and ybuf
+    with its pad rows, the conv's input ``a`` sharing its bytes with the
+    group's slabs, the taps, W_i, its bias, the final conv and the
+    mbarriers."""
+    c = KERNEL_CHANNELS
+    union = max((ext + 2 * TC_APAD) * TC_ROW * 2, npad * FH_FRAME)
+    return (FH_ALIGN + FH_STAGES * FH_CHUNK_BYTES
+            + (2 * ext + 2 * TC_YPAD) * TC_ROW * 2 + union
+            + npad * FH_TROW * 2 + c * TC_WROW * 2 + 9 * c * 4
+            + FH_BAR_BYTES)
+
+
+class FhPlan(NamedTuple):
+    tile: int                # output samples per CTA
+    ext: int                 # tile + both halos
+    npad: int                # frames the head covers, a multiple of 8
+    cluster: int             # CTAs sharing each w_head chunk (multicast)
+    grid_x: int              # CTAs per batch row, a multiple of cluster
+    blocks: int              # grid_x * b
+    waves: int               # one CTA per SM
+    smem_bytes: int
+    sm_bytes: int            # w_head bytes L2 -> SMs per call
+    l2_bytes: int            # w_head bytes read from L2 per call
+
+    @property
+    def c_args(self) -> tuple:
+        """What the C entry takes after ``layers``."""
+        return (self.tile, self.npad, self.cluster, self.grid_x,
+                self.smem_bytes)
+
+
+def fh_tile_plan(b: int, frames: int, hop: int, sms: int = H100_SMS,
+                 cluster: int = FH_CLUSTER) -> FhPlan:
+    """The tensor-core K5's tile for a (b, C, frames * hop) block call: of
+    the multiples of 8 whose shared memory fits, the one that minimises
+    waves x extent (one CTA per SM, clusters of ``cluster`` whole), the
+    larger tile on a tie. Every CTA streams all of w_head once, and
+    ``cluster`` CTAs share each load, so L2 serves ``blocks *
+    W_HEAD_BYTES / cluster`` bytes. The head covers at most
+    ``FH_NPAD_MAX`` frames."""
+    if b < 1 or frames < 1 or hop < 8 or hop % 8 or cluster not in (1, 2):
+        raise ValueError(f"fh_tile_plan: no tensor-core K5 for b {b}, "
+                         f"{frames} frames, hop {hop}, cluster {cluster}")
+    length = frames * hop
+    slots = sms // cluster * cluster
+    best = None
+    for tile in range(8, length + 8, 8):
+        ext = tile + 2 * TC_HALO
+        npad = -(-fh_frames_max(ext, hop) // 8) * 8
+        smem = fh_smem_bytes(ext, npad)
+        if smem > SMEM_PER_BLOCK or npad > FH_NPAD_MAX:
+            break
+        grid_x = -(-(-(-length // tile)) // cluster) * cluster
+        waves = -(-(grid_x * b) // slots)
+        cost = waves * ext
+        if best is None or cost <= best[0]:
+            best = (cost, tile, ext, npad, grid_x, waves, smem)
+    _, tile, ext, npad, grid_x, waves, smem = best
+    blocks = grid_x * b
+    return FhPlan(tile, ext, npad, cluster, grid_x, blocks, waves, smem,
+                  blocks * W_HEAD_BYTES, blocks * W_HEAD_BYTES // cluster)
+
+
+def fh_max_clusters(cluster: int, smem_bytes: int) -> int:
+    """How many clusters of ``cluster`` tensor-core K5 CTAs with
+    ``smem_bytes`` of shared memory the current card holds at once."""
+    n = _build.library().lvc_block_ncl_fh_max_clusters(cluster, smem_bytes)
+    if n < 0:
+        _build.check(-n, "lvc_block_ncl_fh_max_clusters")
+    return n
 
 
 def fusable(hop: int, n_frames: int) -> bool:
@@ -366,8 +471,8 @@ def _check_fh_operands(x, skip, tap_c, w_head, b_head, wstack_t, hop,
             raise ValueError(f"{fn}: {name} on {t.device}, x on {x.device}")
         if t.dtype != dtype:
             raise ValueError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
-        # the head's tensor-core loads read w_head in 32-byte rows
-        align = 32 if name == "w_head" else 16
+        # the tensor-core kernel's TMA reads w_head in swizzled boxes
+        align = 128 if name == "w_head" else 16
         if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"{fn}: {name} must be contiguous and "
                              f"{align}-byte aligned")
@@ -394,18 +499,55 @@ def _check_fh_operands(x, skip, tap_c, w_head, b_head, wstack_t, hop,
 def lvc_block_ncl_fh(x: torch.Tensor, skip: torch.Tensor,
                      tap_c: torch.Tensor, w_head: torch.Tensor,
                      b_head: torch.Tensor, wstack_t: torch.Tensor, hop: int,
-                     final_wb: torch.Tensor | None = None):
+                     final_wb: torch.Tensor | None = None,
+                     cluster: int = FH_CLUSTER):
     """K5: x, skip (B, C, L); tap_c (B, F, K) trunk taps (``lvc_head.
     frame_taps``); w_head (K, layers*2C*rows_p), b_head (layers*2C*rows_p,)
     float32 (``lvc_head.pack_head``); wstack_t (layers, C, 3C+1); L == F *
     hop -> carry (B, C, L), plus (B, 1, L) float32 with ``final_wb`` (8, C).
 
     CPU tensors run ``lvc_block_ncl_fh_plain``. CUDA tensors (bf16 but the
-    f32 bias, C = 32, 4 layers, K = 192) launch ``csrc/lvc_block_ncl_fh.cu``
-    or raise."""
+    f32 bias, C = 32, 4 layers, K = 192, w_head 128-byte aligned) launch the
+    tensor-core kernel (``csrc/lvc_block_ncl_fh.cu``, its tile from
+    ``fh_tile_plan``, clusters of ``cluster`` CTAs sharing each w_head load)
+    when ``tensor_core_hop(hop)``, else the CUDA-core one
+    (``lvc_block_ncl_fh_cc``), or raise."""
     if x.device.type == "cpu":
         return lvc_block_ncl_fh_plain(x, skip, tap_c, w_head, b_head,
                                       wstack_t, hop, final_wb)
+    if x.device.type != "cuda" or not tensor_core_hop(hop):
+        return lvc_block_ncl_fh_cc(x, skip, tap_c, w_head, b_head, wstack_t,
+                                   hop, final_wb)
+    # (an empty call launches nothing; its plan is never read)
+    plan = fh_tile_plan(max(x.shape[0], 1), max(tap_c.shape[1], 1), hop,
+                        _sm_count(x.device.index or 0), cluster)
+    key = "lvc_block_ncl_fh" if final_wb is None else "lvc_block_ncl_fh_final"
+    return _launch_fh("lvc_block_ncl_fh_launch", plan.c_args, key, x, skip,
+                      tap_c, w_head, b_head, wstack_t, hop, final_wb)
+
+
+def lvc_block_ncl_fh_cc(x: torch.Tensor, skip: torch.Tensor,
+                        tap_c: torch.Tensor, w_head: torch.Tensor,
+                        b_head: torch.Tensor, wstack_t: torch.Tensor,
+                        hop: int, final_wb: torch.Tensor | None = None):
+    """K5 on the CUDA cores (``csrc/lvc_block_ncl_fh_cc.cu``), any hop >= 1:
+    ``lvc_block_ncl_fh``'s operands and results. ``lvc_block_ncl_fh`` runs
+    it for hops that are no multiple of 8; ``chip_smoke.py`` races it
+    against the tensor-core kernel. CPU tensors run
+    ``lvc_block_ncl_fh_plain``."""
+    if x.device.type == "cpu":
+        return lvc_block_ncl_fh_plain(x, skip, tap_c, w_head, b_head,
+                                      wstack_t, hop, final_wb)
+    return _launch_fh("lvc_block_ncl_fh_cc_launch", (),
+                      "lvc_block_ncl_fh_cc", x, skip, tap_c, w_head, b_head,
+                      wstack_t, hop, final_wb)
+
+
+def _launch_fh(entry: str, extra: tuple, key: str, x, skip, tap_c, w_head,
+               b_head, wstack_t, hop, final_wb):
+    """Check the operands, allocate out (and fin) and launch the K5 C entry
+    ``entry`` (``extra`` are its arguments before the stream); counts the
+    launch under ``LAUNCHES[key]``."""
     if x.device.type != "cuda":
         raise ValueError(f"lvc_block_ncl_fh: unsupported device {x.device}")
     rows_p = _check_fh_operands(x, skip, tap_c, w_head, b_head, wstack_t,
@@ -420,19 +562,16 @@ def lvc_block_ncl_fh(x: torch.Tensor, skip: torch.Tensor,
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lvc_block_ncl_fh_launch(
+        code = getattr(lib, entry)(
             x.data_ptr(), skip.data_ptr(), tap_c.data_ptr(),
             w_head.data_ptr(), b_head.data_ptr(), wstack_t.data_ptr(),
             None if final_wb is None else final_wb.data_ptr(),
             out.data_ptr(), None if fin is None else fin.data_ptr(),
             b, c, length, frames, hop, khead, rows_p, wstack_t.shape[0],
-            stream)
-    _build.check(code, "lvc_block_ncl_fh_launch")
-    if fin is None:
-        LAUNCHES["lvc_block_ncl_fh"] += 1
-        return out
-    LAUNCHES["lvc_block_ncl_fh_final"] += 1
-    return out, fin
+            *extra, stream)
+    _build.check(code, entry)
+    LAUNCHES[key] += 1
+    return out if fin is None else (out, fin)
 
 
 def lvc_block_ncl_sr(x: torch.Tensor, skip: torch.Tensor,

@@ -13,10 +13,13 @@ the layouts differ:
 
 Two kernels:
 
-- **K6**, ``lvc_block_nwc``: the whole 4-layer block, ``csrc/lvc_block_ncl.cu``
-  built with its NWC layout flag (one source for K1, K2, K4 and K6). The
-  route calls it where JAX's ``fusable`` admits the block (hop >= 64, at
-  least 2 frames); the kernel itself takes any hop and frame count.
+- **K6**, ``lvc_block_nwc``: the whole 4-layer block. At hops that are
+  multiples of 8 it is ``csrc/lvc_block_nwc_tc.cu``, on the tensor cores
+  with the stages of ``csrc/lvc_block_tc.cuh`` and a tile from
+  ``nwc_tile_plan``; at other hops ``lvc_block_nwc_cc``,
+  ``csrc/lvc_block_ncl.cu`` built with its NWC layout flag. The route calls
+  it where JAX's ``fusable`` admits the block (hop >= 64, at least 2
+  frames).
 - **K7**, ``aug_head_matmul``: the predictor head ``tap @ w_aug + b_aug``
   written row-major, which read as (B, F, layers, 3C+1, 2C) is ``kern_aug``
   with no copy. It is ``csrc/taug_head.cu``'s GEMM: K3 and K7 differ only in
@@ -33,16 +36,46 @@ import torch.nn.functional as F
 
 from fastdiff_tpu_torch.ops import _build
 from fastdiff_tpu_torch.ops.lvc import lvc_gated_residual_nwc
+from fastdiff_tpu_torch.ops.lvc_block_ncl import (BlockPlan, TC_APAD,
+                                                  TC_HALO, TC_ROW, TC_WROW,
+                                                  TC_YPAD, _sm_count,
+                                                  block_tile_plan,
+                                                  tensor_core_hop)
 from fastdiff_tpu_torch.ops.lvc_head import launch_head_gemm
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
-# launches of the CUDA kernels since the last reset (plain runs not counted)
-LAUNCHES = {"lvc_block_nwc": 0, "aug_head": 0}
+# launches of the CUDA kernels since the last reset (plain runs not
+# counted): lvc_block_nwc the tensor-core K6, lvc_block_nwc_cc the
+# CUDA-core one (hops that are no multiple of 8)
+LAUNCHES = {"lvc_block_nwc": 0, "lvc_block_nwc_cc": 0, "aug_head": 0}
 
-# what csrc/lvc_block_ncl.cu is built for
+# what csrc/lvc_block_ncl.cu and csrc/lvc_block_nwc_tc.cu are built for
 KERNEL_CHANNELS = 32
 KERNEL_LAYERS = 4
 _MIN_FUSED_HOP = 64
+
+# the tensor-core K6's ring of K_{i,f} slabs (csrc/lvc_block_nwc_tc.cu)
+NWC_STAGES = 2
+NWC_SLOT = 13_312            # one 12,416-byte slab in 13 swizzle atoms
+NWC_ALIGN = 1024
+
+
+def nwc_smem_bytes(ext: int) -> int:
+    """Dynamic shared memory of a tensor-core K6 block whose extent is
+    ``ext`` samples (``tc::nwc_smem_bytes``): the alignment slack, the conv's
+    input ``a`` sharing its bytes with the ring of K_{i,f} slabs, carry,
+    ybuf with its pad rows, W_i, its bias and two mbarriers."""
+    union = max((ext + 2 * TC_APAD) * TC_ROW * 2, NWC_STAGES * NWC_SLOT)
+    return (NWC_ALIGN + union + (2 * ext + 2 * TC_YPAD) * TC_ROW * 2
+            + KERNEL_CHANNELS * TC_WROW * 2 + KERNEL_CHANNELS * 4 + 16)
+
+
+def nwc_tile_plan(b: int, length: int, sms: int = 132) -> BlockPlan:
+    """The tensor-core K6's tile for a (b, length, C) block call: K1's
+    (``block_tile_plan``: waves x extent, two blocks per SM), with K6's
+    shared memory."""
+    plan = block_tile_plan(b, length, sms)
+    return plan._replace(smem_bytes=nwc_smem_bytes(plan.ext))
 
 
 def aug_rows(c: int, k: int = 3) -> int:
@@ -168,9 +201,11 @@ def _check_cuda_operands(x, skip, kern_aug, wstack, hop):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"lvc_block_nwc: {name} must be bf16, got "
                              f"{t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        # the tensor-core kernel's TMA reads kern_aug in swizzled boxes
+        align = 128 if name == "kern_aug" else 16
+        if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"lvc_block_nwc: {name} must be contiguous and "
-                             "16-byte aligned")
+                             f"{align}-byte aligned")
     if c != KERNEL_CHANNELS or layers != KERNEL_LAYERS:
         raise ValueError(f"lvc_block_nwc: the kernel is built for C="
                          f"{KERNEL_CHANNELS}, {KERNEL_LAYERS} layers; got "
@@ -191,10 +226,40 @@ def lvc_block_nwc(x: torch.Tensor, skip: torch.Tensor,
     (layers, 3C+1, C); L == F * hop -> (B, L, C).
 
     CPU tensors run ``lvc_block_nwc_plain``. CUDA tensors (all bf16,
-    C = 32, 4 layers) launch ``csrc/lvc_block_ncl.cu``'s NWC variant or
-    raise."""
+    C = 32, 4 layers, kern_aug 128-byte aligned) launch the tensor-core
+    kernel (``csrc/lvc_block_nwc_tc.cu``) when ``tensor_core_hop(hop)``,
+    else the CUDA-core one (``lvc_block_nwc_cc``), or raise."""
     if x.device.type == "cpu":
         return lvc_block_nwc_plain(x, skip, kern_aug, wstack, hop)
+    if x.device.type != "cuda" or not tensor_core_hop(hop):
+        return lvc_block_nwc_cc(x, skip, kern_aug, wstack, hop)
+    # (an empty call launches nothing; its plan is never read)
+    plan = nwc_tile_plan(max(x.shape[0], 1), max(x.shape[1], 1),
+                         _sm_count(x.device.index or 0))
+    return _launch_nwc("lvc_block_nwc_launch",
+                       (plan.tile, plan.smem_bytes), "lvc_block_nwc", x,
+                       skip, kern_aug, wstack, hop)
+
+
+def lvc_block_nwc_cc(x: torch.Tensor, skip: torch.Tensor,
+                     kern_aug: torch.Tensor, wstack: torch.Tensor,
+                     hop: int) -> torch.Tensor:
+    """K6 on the CUDA cores (``csrc/lvc_block_ncl.cu``'s NWC variant), any
+    hop >= 1: ``lvc_block_nwc``'s operands and result. ``lvc_block_nwc``
+    runs it for hops that are no multiple of 8; ``chip_smoke.py`` races it
+    against the tensor-core kernel. CPU tensors run
+    ``lvc_block_nwc_plain``."""
+    if x.device.type == "cpu":
+        return lvc_block_nwc_plain(x, skip, kern_aug, wstack, hop)
+    return _launch_nwc("lvc_block_nwc_cc_launch", (), "lvc_block_nwc_cc", x,
+                       skip, kern_aug, wstack, hop)
+
+
+def _launch_nwc(entry: str, extra: tuple, key: str, x, skip, kern_aug,
+                wstack, hop) -> torch.Tensor:
+    """Check the operands, allocate out and launch the K6 C entry ``entry``
+    (``extra`` are its arguments before the stream); counts the launch
+    under ``LAUNCHES[key]``."""
     if x.device.type != "cuda":
         raise ValueError(f"lvc_block_nwc: unsupported device {x.device}")
     _check_cuda_operands(x, skip, kern_aug, wstack, hop)
@@ -206,10 +271,10 @@ def lvc_block_nwc(x: torch.Tensor, skip: torch.Tensor,
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lvc_block_nwc_launch(
+        code = getattr(lib, entry)(
             x.data_ptr(), skip.data_ptr(), kern_aug.data_ptr(),
             wstack.data_ptr(), out.data_ptr(), b, c, length, frames, hop,
-            rows, layers, stream)
-    _build.check(code, "lvc_block_nwc_launch")
-    LAUNCHES["lvc_block_nwc"] += 1
+            rows, layers, *extra, stream)
+    _build.check(code, entry)
+    LAUNCHES[key] += 1
     return out

@@ -1,5 +1,5 @@
-"""K9 ``lvc_stage``, K10 and the head GEMM of two source trees raced on one
-card.
+"""K5, K6, K9 ``lvc_stage``, K10, the head GEMM and Kernel B of two source
+trees raced on one card.
 
     python -m fastdiff_tpu_torch.scripts.race_trees OTHER_TREE [--reps 20]
 
@@ -14,7 +14,12 @@ calls that tree's wrappers, whose signatures are the same in both:
 - ``lvc_head.taug_head_variant`` at 864 x 192 @ 192 x 26,624 for every
   (order, M tile) of ``exp_r4b.VARIANTS``, beside Kernel A
   (``taug_head_matmul``, K3), K7 (``aug_head_matmul`` at 24,832 columns)
-  and ``torch.addmm``.
+  and ``torch.addmm``;
+- the block kernels at 864 frames, b 1: K5 (``lvc_block_ncl.
+  lvc_block_ncl_fh``) at hops 8 and 64 and with the final conv at hop 256,
+  K6 (``lvc_block_pallas.lvc_block_nwc``) at hops 64 and 256, and K1
+  (``lvc_block_ncl.lvc_block_ncl``) at hop 64, each by the kernel its
+  tree's wrapper launches for that hop.
 
 Every call is timed by CUDA-graph replay (``utils/timing.graph_ms``:
 device time alone) on inputs made from one seed, and checked against its
@@ -87,6 +92,43 @@ with torch.inference_mode():
         ms[key] = graph_ms(run, reps)
     b_bf16 = b.bfloat16()
     ms["torch.addmm"] = graph_ms(lambda: torch.addmm(b_bf16, tap, w), reps)
+    del tap, w, b, ref
+
+    # the block kernels, 864 frames, b 1; errors against the plain versions
+    from fastdiff_tpu_torch.ops import lvc_block_ncl as ncl
+    wstack_t = randn(4, 32, 97, scale=0.1)
+    final_wb = randn(8, 32, scale=0.1)
+    w_head = randn(192, 26624, scale=0.004)
+    b_head = torch.randn((26624,), generator=gen, device=dev) * 0.01
+    for hop, final in ((8, False), (64, False), (256, True)):
+        x, skip = randn(1, 32, 864 * hop), randn(1, 32, 864 * hop)
+        tap_c = randn(1, 864, 192)
+        fwb = final_wb if final else None
+        args = (x, skip, tap_c, w_head, b_head, wstack_t, hop, fwb)
+        key = f"K5 hop {hop}" + (" final" if final else "")
+        out = ncl.lvc_block_ncl_fh(*args)
+        ref = ncl.lvc_block_ncl_fh_plain(*args)
+        errs[key] = err(out[0] if final else out, ref[0] if final else ref)
+        ms[key] = graph_ms(lambda: ncl.lvc_block_ncl_fh(*args), reps)
+        if hop == 64:
+            kern = randn(1, 864, 4, 64, 104, scale=0.05)
+            errs["K1 hop 64"] = err(
+                ncl.lvc_block_ncl(x, skip, kern, wstack_t, hop),
+                ncl.lvc_block_ncl_plain(x, skip, kern, wstack_t, hop))
+            ms["K1 hop 64"] = graph_ms(
+                lambda: ncl.lvc_block_ncl(x, skip, kern, wstack_t, hop), reps)
+            del kern
+        del x, skip, tap_c, args, out, ref
+    wstack = randn(4, 97, 32, scale=0.1)
+    for hop in (64, 256):
+        x, skip = randn(1, 864 * hop, 32), randn(1, 864 * hop, 32)
+        kern_aug = randn(1, 864, 4, 97, 64, scale=0.05)
+        args = (x, skip, kern_aug, wstack, hop)
+        errs[f"K6 hop {hop}"] = err(lvc_block_pallas.lvc_block_nwc(*args),
+                                    lvc_block_pallas.lvc_block_nwc_plain(*args))
+        ms[f"K6 hop {hop}"] = graph_ms(
+            lambda: lvc_block_pallas.lvc_block_nwc(*args), reps)
+        del x, skip, kern_aug, args
 print("RESULT " + json.dumps({"ms": ms, "max_abs_err": errs}))
 """
 
