@@ -13,11 +13,11 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    GEMM's (K3 and K7) shared memory and persistent grid at 864 frames, and
    the tensor-core Kernel B's (K1, K2) registers and spills and its tile,
    waves and shared memory at each hop, K9 ``lvc_stage``'s tensor-core
-   kernel's registers, spills and shared memory, the tensor-core K5's four
-   instantiations (with and without the epilogue, clusters of 1 and 2) and
-   its tile, head frames, cluster, grid, shared memory and reckoned w_head
-   bytes at each hop, and the tensor-core K6's registers, tile and shared
-   memory (fails on any spill of any of these);
+   kernel's registers, spills and shared memory, the tensor-core K5's two
+   instantiations (with and without the epilogue; no cluster) and its
+   tile, head frames, grid, shared memory and reckoned w_head bytes at each
+   hop, and the tensor-core K6's registers, tile and shared memory (fails
+   on any spill of any of these);
 3. Kernel A (predictor head GEMM, wgmma + TMA) against its plain PyTorch
    version at K = 192, N = 4 * 64 * rows_p and every row count its paths
    give it (M = 100, 256 and 864 frames, 20 x 100 in training, 4 x 864),
@@ -74,13 +74,12 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     K8 by 4 (256 and 864 frames) or 0 (100 frames: not a multiple of
     2,048 samples, so the plain down path runs, as in JAX), K1 and K3 by 0.
 
-16. K5 (the fused-head LVC block) on the tensor cores (no cluster, and
-    clusters of 2) and on the CUDA cores, each against its plain version, at hops
-    8, 64 and 256 with 864 frames (hop 256 with the final-conv epilogue
-    too) and at b = 2 x 100 frames of hop 64, with phase 4's bounds; the
-    tensor-core kernel raced by CUDA-graph replay against the CUDA-core
-    kernel, against K3 + K1 on the same inputs and against itself in
-    clusters of 2, with its share of the bound;
+16. K5 (the fused-head LVC block) on the tensor cores and on the CUDA
+    cores, each against its plain version, at hops 8, 64 and 256 with 864
+    frames (hop 256 with the final-conv epilogue too) and at b = 2 x 100
+    frames of hop 64, with phase 4's bounds; the tensor-core kernel raced
+    by CUDA-graph replay against the CUDA-core kernel and against K3 + K1
+    on the same inputs, with its share of the bound;
 17. the fused-head route (``use_pallas_block: ncl_fh``): a full-width bf16
     denoiser forward, kernels against plain (relative L2 <= 5e-2) and
     against the NCL route; the N=4 sampler at 864 frames, b = 1 and b = 4,
@@ -796,8 +795,7 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
     """K5 on the tensor cores and on the CUDA cores, each against its plain
     version (phase 4's bounds), at the route's hops with 864 frames and at
     b = 2 x 100 frames of hop 64; raced in turns by CUDA-graph replay
-    against the CUDA-core kernel, against K3 + K1 on the same inputs, and
-    against itself in clusters of 2 that multicast each w_head chunk."""
+    against the CUDA-core kernel and against K3 + K1 on the same inputs."""
     n = layers * 2 * c * rows_p
     wstack_t = randn(layers, c, rows, scale=0.1)
     final_wb = randn(8, c, scale=0.1)
@@ -816,10 +814,9 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
         tap_c = randn(b, frames, HEAD_K)
         fwb = final_wb if final else None
 
-        def run_k(cluster=block_ops.FH_CLUSTER):
+        def run_k():
             return block_ops.lvc_block_ncl_fh(x, skip, tap_c, w_head, b_head,
-                                              wstack_t, hop, fwb,
-                                              cluster=cluster)
+                                              wstack_t, hop, fwb)
 
         def run_cc():
             return block_ops.lvc_block_ncl_fh_cc(x, skip, tap_c, w_head,
@@ -836,20 +833,17 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
                     b, frames, layers, 2 * c, rows_p)
             return block_ops.lvc_block_ncl(x, skip, kern, wstack_t, hop, fwb)
 
-        got, got_2, got_cc, ref = run_k(), run_k(2), run_cc(), run_p()
+        got, got_cc, ref = run_k(), run_cc(), run_p()
         torch.cuda.synchronize()
         both = (lambda a, r: list(zip(a, r))) if final else (
             lambda a, r: [(a, r)])
         what = f"hop {hop}, {frames} frames, b {b}" + (
             ", with epilogue" if final else "")
         errs = check_pairs(both(got, ref), f"K5 tensor cores ({what})")
-        check_pairs(both(got_2, ref), f"K5 tensor cores, clusters of 2 "
-                                      f"({what})")
         errs_cc = check_pairs(both(got_cc, ref), f"K5 CUDA cores ({what})")
         ms_p1 = cuda_ms(run_p, 3)
         ms_k, ms_cc = race_graph(run_cc, run_k, 5)
         ms_k2, ms_two = race_graph(run_two, run_k, 10)
-        ms_k3, ms_2 = race_graph(lambda: run_k(2), run_k, 10)
         ms_p = (ms_p1 + cuda_ms(run_p, 3)) / 2
         head_flop, head_bytes = gemm_work(b * frames, HEAD_K, n)
         flop, nbytes = block_work(b, c, length, final=final)
@@ -863,15 +857,12 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
                 f"max_abs_err {e:.3e} rel_l2 {r:.3e}" for e, r in errs_cc)
             + f"; raced (CUDA graphs): tensor cores {ms_k:.4f} ms, CUDA "
             f"cores {ms_cc:.4f} ms ({ms_cc / ms_k:.2f}x); tensor cores "
-            f"{ms_k2:.4f} ms, K3 + K1 {ms_two:.4f} ms; no cluster "
-            f"{ms_k3:.4f} ms, clusters of 2 {ms_2:.4f} ms; plain "
+            f"{ms_k2:.4f} ms, K3 + K1 {ms_two:.4f} ms; plain "
             f"{ms_p:.4f} ms; "
             f"bound {b_ms:.4f} ms ({by}), tensor cores at {b_ms / ms_k:.1%} "
             f"of it; tile {plan.tile}, {plan.blocks} CTAs in {plan.waves} "
-            f"wave(s), w_head {plan.sm_bytes / 1e9:.2f} GB into the SMs, "
-            f"{plan.l2_bytes / 1e9:.2f} GB from L2 "
-            f"({plan.sm_bytes / 1e9 / ms_k:.2f} TB/s into the SMs) "
-            f"[{smi_line}]")
+            f"wave(s), w_head {plan.l2_bytes / 1e9:.2f} GB from L2 into the "
+            f"SMs ({plan.l2_bytes / 1e9 / ms_k:.2f} TB/s) [{smi_line}]")
         acc = per_forward["lvc_block_ncl_fh_final" if final
                           else "lvc_block_ncl_fh"]
         acc["err"] = max([acc["err"]] + [e for e, _ in errs])
@@ -1080,30 +1071,23 @@ def main():
                  f"{bench_mosaic_micro.lvc_stage_grid(1, FRAMES_10S, 1, sms)}"
                  f" persistent blocks at {FRAMES_10S} frames (tf 1)")
         check_no_spill(info, "K9 lvc_stage")
-        for final, cluster in ((0, 1), (0, 2), (1, 1), (1, 2)):
+        for final in (0, 1):
             info = ptxas_entry(log.read_text(), f"lvc_block_fh_tc_kernelILb"
-                                                f"{final}ELi{cluster}E")
+                                                f"{final}E")
             phase(2, f"{'K5 final' if final else 'K5'} on the tensor cores "
-                     f"(lvc_block_fh_tc_kernel<{bool(final)}, {cluster}>, "
-                     f"{lvc_block_ncl.FH_THREADS} threads, cluster of "
-                     f"{cluster}): {info}")
+                     f"(lvc_block_fh_tc_kernel<{bool(final)}>, "
+                     f"{lvc_block_ncl.FH_THREADS} threads, no cluster): "
+                     f"{info}")
             check_no_spill(info, "the tensor-core K5")
         for hop in (8, 64, HOP_SIZE):
             fp = lvc_block_ncl.fh_tile_plan(1, FRAMES_10S, hop, sms)
             phase(2, f"tensor-core K5 at hop {hop}, {FRAMES_10S} frames: tile "
                      f"{fp.tile} + 2 x {lvc_block_ncl.TC_HALO} halo, head "
-                     f"over {fp.npad} frames, grid {fp.grid_x} x 1 in "
-                     f"clusters of {fp.cluster} ({fp.blocks} CTAs, "
-                     f"{fp.waves} wave(s) of one per SM), {fp.smem_bytes} "
-                     f"bytes of dynamic shared memory; w_head "
-                     f"{fp.sm_bytes / 1e9:.3f} GB from L2 into the SMs, "
-                     f"{fp.l2_bytes / 1e9:.3f} GB read from L2 per call "
-                     f"({fp.l2_bytes // 2 / 1e9:.3f} in clusters of 2); the "
-                     f"card holds "
-                     f"{lvc_block_ncl.fh_max_clusters(1, fp.smem_bytes)} "
-                     f"such CTAs at once, "
-                     f"{lvc_block_ncl.fh_max_clusters(2, fp.smem_bytes)} "
-                     f"clusters of 2")
+                     f"over {fp.npad} frames, grid {fp.grid_x} x 1, no "
+                     f"cluster ({fp.blocks} CTAs, {fp.waves} wave(s) of one "
+                     f"per SM), {fp.smem_bytes} bytes of dynamic shared "
+                     f"memory; w_head {fp.l2_bytes / 1e9:.3f} GB from L2 "
+                     f"into the SMs per call")
         info = ptxas_entry(log.read_text(), "lvc_block_nwc_tc_kernel")
         phase(2, f"K6 on the tensor cores (lvc_block_nwc_tc_kernel): {info}")
         check_no_spill(info, "the tensor-core K6")

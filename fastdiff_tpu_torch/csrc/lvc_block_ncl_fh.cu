@@ -25,43 +25,32 @@
 // what holds the kernel back. Reckoned from ops/lvc_block_ncl.py:
 // fh_tile_plan at 864 frames, b 1, on 132 SMs:
 //
-//   hop  tile  CTAs  waves  frames/CTA  L2 -> SMs   read from L2 in pairs
-//     8    56   124      1    19 (24)     1.27 GB     0.63 GB
-//    64   424   131      1     9 (16)     1.34 GB     0.67 GB (132 CTAs)
-//   256   424   522      4     3 (8)      5.34 GB     2.67 GB
+//   hop  tile  CTAs  waves  frames/CTA  w_head L2 -> SMs
+//     8    56   124      1    19 (24)     1.27 GB
+//    64   424   131      1     9 (16)     1.34 GB
+//   256   424   522      4     3 (8)      5.34 GB
 //
 // against the 92 MB that K3 + K1 move through HBM. Reading w_head once per
 // CTA and call, not once per chunk of 8 frames as the CUDA-core kernel
-// does (1.56 / 2.7 / 5.4 GB per hop, plus its re-reads), is the first cut;
-// the two Hopper mechanisms below are the rest:
-// - TMA loads of w_head in chunks of 64 columns x 192 rows (two boxes of
-//   96 rows x 128 bytes, the 128-byte swizzle) into a 3-stage ring, issued
-//   by one producer warp and counted on mbarriers (tma.cuh's tensor-map
-//   cache encodes the map once per pointer). w_head's rows are 53,248
-//   bytes apart: a multiple of 16, under the tensor map's 2^40 limit; its
-//   base must be 128-byte aligned (the wrapper and this entry check).
-// - Clusters of 2 CTAs (cudaLaunchKernelEx with a cluster dimension) on
-//   neighbouring tiles, as an option (template CS): each CTA loads one of
-//   a chunk's two boxes and multicasts it to both (cp.async.bulk.tensor
-//   ... multicast::cluster), so L2 serves each chunk once per pair (the
-//   right column above); every consumer warp of both CTAs frees a stage on
-//   both CTAs' empty barriers (mapa + a remote arrive). 2 and not 4: each
-//   SM still takes in 10.2 MB per tile, and 4 can leave SMs of a GPC
-//   without a cluster. On the H100 the pairs ran 2.3x slower than single
-//   CTAs though the card holds all of them at once (root PERF.md, section
-//   6; why is not measured), so the plan's default is no cluster
-//   (ops/lvc_block_ncl.py:FH_CLUSTER) and chip_smoke.py races the two.
-//   Without a cluster the w_head bytes reached the SMs at ~4.1 TB/s at
-//   every hop: L2's rate sets the kernel's time.
+// does (1.56 / 2.7 / 5.4 GB per hop, plus its re-reads), is the cut; TMA
+// brings it: chunks of 64 columns x 192 rows (two boxes of 96 rows x 128
+// bytes, the 128-byte swizzle) into a 3-stage ring, issued by one producer
+// warp and counted on mbarriers (tma.cuh's tensor-map cache encodes the
+// map once per pointer). w_head's rows are 53,248 bytes apart: a multiple
+// of 16, under the tensor map's 2^40 limit; its base must be 128-byte
+// aligned (the wrapper and this entry check). One CTA per SM and no
+// cluster: clusters of 2 that multicast each chunk (L2 serving it once per
+// pair) ran 2.3x slower on the H100 at every hop (root PERF.md, section
+// 7). Without a cluster the w_head bytes reach the SMs at ~4.1 TB/s at
+// every hop: L2's rate sets the kernel's time.
 // Frames per CTA: the tile that minimises waves x extent whose shared
 // memory fits one CTA per SM (fh_tile_plan). At hop 8, b 1, 124 CTAs of 56
 // outputs fill the card (the CUDA-core kernel ran 17 tiles on 17 SMs).
 //
 // Design (the block is lvc_block_tc.cuh's):
 // - 288 threads: 8 consumer warps run every stage and sync on a named
-//   barrier of 256 threads; one producer warp streams w_head. The stream
-//   (416 chunks per call: 4 layers x 4 groups x 26) is the same for every
-//   CTA, whatever its frames, so both CTAs of a cluster walk it in step.
+//   barrier of 256 threads; one producer warp streams w_head (416 chunks
+//   per call: 4 layers x 4 groups x 26, the same for every CTA).
 // - The head on the tensor cores with w_head's columns as M and the CTA's
 //   frames as N (n8 steps), so a few frames waste no 64-row M tile:
 //   mma.sync.m16n8k16, A = w_head^T read by ldmatrix.trans from the
@@ -83,7 +72,7 @@
 //   once y is made; a's pad rows are zeroed again in every layer.
 // - The LVC reads its A fragments from the slab with ldmatrix; a sigmoid
 //   row and its tanh row are rows g and g + 8 of one m16 tile, so the
-//   gate runs on one lane's accumulators. y stays in its own channel order
+//   gate runs on one lane's accumulators (gate_tile<1>). y stays in its own channel order
 //   in ybuf (conv_tc<false>): the A fragments come from shared memory, so
 //   the hop-8 permutation that K1 needs for 16-byte global loads (ypos) has
 //   no use here. The bias row (kern row 96) initialises the accumulators.
@@ -142,45 +131,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(THREADS) : "memory");
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// TMA box -> the same shared offset `dst` in every CTA of `mask`, each
-// CTA's mbarrier at offset `bar` counting the bytes
-__device__ __forceinline__ void tma_load_multicast(uint32_t dst,
-                                                   const CUtensorMap* map,
-                                                   uint32_t bar, int c0,
-                                                   int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "h"(mask)
-      : "memory");
-}
-
-// arrive on the mbarrier at offset `bar` of cluster CTA `cta`
-__device__ __forceinline__ void mbar_arrive_cta(uint32_t bar, uint32_t cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(remote)
-               : "r"(bar), "r"(cta));
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
-          remote)
-      : "memory");
-}
-
 // w_head's first column of chunk c of the call's stream: layer, group,
 // then the sigmoid half's 13 chunks and the tanh half's
 __device__ __forceinline__ int chunk_col(int c, int* half) {
@@ -192,7 +142,7 @@ __device__ __forceinline__ int chunk_col(int c, int* half) {
          (cc % FH_HALF_CHUNKS) * FH_COLS;
 }
 
-template <bool FINAL, int CS>
+template <bool FINAL>
 __global__ void __launch_bounds__(FH_THREADS, 1)
 lvc_block_fh_tc_kernel(const __grid_constant__ CUtensorMap map_w,
                        const bf16* __restrict__ x,
@@ -233,46 +183,35 @@ lvc_block_fh_tc_kernel(const __grid_constant__ CUtensorMap map_w,
   if (tid == 0) {
     for (int s = 0; s < FH_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, WARPS * CS);  // every consumer warp of the
-    }                                        // cluster, once per chunk
+      mbar_init(empty + 8 * s, WARPS);  // every consumer warp, once per chunk
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (CS > 1) cluster_sync();  // no copy or arrival before every init
 
   if (warp == WARPS) {
     // ---- producer: one thread streams w_head, chunk after chunk ---------
     if (lane == 0) {
-      const uint32_t rank = CS > 1 ? cluster_rank() : 0;
       for (int c = 0; c < FH_TOTAL; ++c) {
         const int s = c % FH_STAGES;
         mbar_wait_or_trap(empty + 8 * s, ((c / FH_STAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, FH_CHUNK_BYTES);
         int half;
         const int col = chunk_col(c, &half);
-        for (int h = 0; h < 2; ++h) {
-          if (h % CS != static_cast<int>(rank)) continue;
-          const uint32_t dst = ring + s * FH_CHUNK_BYTES + h * FH_BOX_K * 128;
-          if (CS > 1)
-            tma_load_multicast(dst, &map_w, full + 8 * s, col, h * FH_BOX_K,
-                               static_cast<uint16_t>((1u << CS) - 1));
-          else
-            tma_load(dst, &map_w, full + 8 * s, col, h * FH_BOX_K);
-        }
+        for (int h = 0; h < 2; ++h)
+          tma_load(ring + s * FH_CHUNK_BYTES + h * FH_BOX_K * 128, &map_w,
+                   full + 8 * s, col, h * FH_BOX_K);
       }
     }
-    __syncwarp();
-    if (CS > 1) cluster_sync();
     return;
   }
 
   // ---- consumers ----------------------------------------------------------
-  // the extent's samples in [0, L) ([lo, hi); empty for a CTA that only
-  // pads the grid to whole clusters) and their frames
-  int lo = g0 < 0 ? 0 : static_cast<int>(g0 < L ? g0 : L);
+  // the extent's samples in [0, L) ([lo, hi), never empty: the plan's grid
+  // has no CTA past the last tile) and their frames
+  const int lo = g0 < 0 ? 0 : static_cast<int>(g0);
   const int hi = g0 + ext < L ? static_cast<int>(g0 + ext) : L;
-  if (lo > hi) lo = hi;
-  const int f_lo = lo < hi ? lo / hop : F - 1;
+  const int f_lo = lo / hop;
   const int gq = lane >> 2, tq = lane & 3;
 
   zero_rows(ybuf - YPAD * ROW, YPAD, tid);
@@ -330,14 +269,9 @@ lvc_block_fh_tc_kernel(const __grid_constant__ CUtensorMap map_w,
             for (int ks = 0; ks < 6; ++ks)
               a_frag_swz(a[ks], stage, 16 * mt, 6 * kh + ks, lane);
           }
-          if (kh == 1) {  // the stage is read: free it on every CTA
+          if (kh == 1) {  // the stage is read: free it
             __syncwarp();
-            if (lane == 0) {
-              if (CS > 1)
-                for (int r = 0; r < CS; ++r) mbar_arrive_cta(empty + 8 * s, r);
-              else
-                mbar_arrive(empty + 8 * s);
-            }
+            if (lane == 0) mbar_arrive(empty + 8 * s);
           }
 #pragma unroll
           for (int t = 0; t < 2; ++t) {
@@ -384,8 +318,8 @@ lvc_block_fh_tc_kernel(const __grid_constant__ CUtensorMap map_w,
 
       // -- the LVC and gate of output channels 8q .. 8q+7
       int cur = -1;
-      uint32_t ka[6][4];
-      float kb0 = 0.0f, kb1 = 0.0f;
+      uint32_t ka[1][6][4];
+      float kb[1][2] = {};
       for (int j = r0; j < r1; ++j) {
         const int n0 = 8 * j;
         const int f = (static_cast<int>(g0) + n0) / hop - f_lo;
@@ -394,77 +328,47 @@ lvc_block_fh_tc_kernel(const __grid_constant__ CUtensorMap map_w,
           const bf16* sl = reinterpret_cast<const bf16*>(uni + f * FH_FRAME);
 #pragma unroll
           for (int ks = 0; ks < 6; ++ks)
-            ldsm_x4(ka[ks], sl + (lane & 15) * FH_RP + 16 * ks +
-                                (lane >> 4) * 8);
-          kb0 = to_f(sl[gq * FH_RP + 3 * C]);
-          kb1 = to_f(sl[(gq + 8) * FH_RP + 3 * C]);
+            ldsm_x4(ka[0][ks], sl + (lane & 15) * FH_RP + 16 * ks +
+                                   (lane >> 4) * 8);
+          kb[0][0] = to_f(sl[gq * FH_RP + 3 * C]);
+          kb[0][1] = to_f(sl[(gq + 8) * FH_RP + 3 * C]);
         }
-        float acc[2][4] = {{kb0, kb0, kb1, kb1}, {}};
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          uint32_t bb[4];
-          ldsm_x4(bb, ybuf + (n0 + (lane & 7) + k - 1) * ROW +
-                          (lane >> 3) * 8);
-          mma_bf16(acc[0], ka[2 * k], bb[0], bb[1]);
-          mma_bf16(acc[1], ka[2 * k + 1], bb[2], bb[3]);
-        }
-#pragma unroll
-        for (int cn = 0; cn < 2; ++cn) {
-          bf16* cp = carry + (n0 + 2 * tq + cn) * ROW + FH_GROUP * q + gq;
-          const float gv = gate(acc[0][cn] + acc[1][cn],
-                                acc[0][2 + cn] + acc[1][2 + cn]);
-          *cp = __float2bfloat16(to_f(*cp) + round_bf(gv));
-        }
+        gate_tile<1>(ka, kb, ybuf, carry, n0, FH_GROUP * q, lane);
       }
       consumer_sync();  // the slabs are read: the next group may write
     }
   }
   store_rows(carry, out + brow, g0, tile, L, tid);
   if (FINAL) final_conv_rows(carry, wf, fin + (size_t)b * L, g0, tile, L, tid);
-  if (CS > 1) cluster_sync();  // no CTA leaves while peers may arrive on it
 }
 
 // the plan's checks; 0 if the kernel takes it
 bool fh_bad_plan(int B, int L, int F, int hop, int tile, int npad,
-                 int cluster, int grid_x, int smem) {
+                 int grid_x, int smem) {
   const int ext = tile + 2 * HALO;
   return B < 1 || hop < 8 || hop % 8 != 0 || (long)F * hop != L ||
          tile < 8 || tile % 8 != 0 || tile > L + 8 ||
          npad != (fh_frames_max(ext, hop) + 7) / 8 * 8 || npad > FH_NPAD_MAX ||
-         (cluster != 1 && cluster != 2) || grid_x % cluster != 0 ||
-         (long)grid_x * tile < L || (long)(grid_x - cluster) * tile >= L ||
+         (long)grid_x * tile < L || (long)(grid_x - 1) * tile >= L ||
          smem != fh_smem_bytes(ext, npad) || smem > SMEM_LIMIT;
 }
 
-template <bool FINAL, int CS>
+template <bool FINAL>
 int launch_fh(const CUtensorMap& map, const void* x, const void* skip,
               const void* tap_c, const void* b_head, const void* wstack,
               const void* final_wb, void* out, void* fin, int B, int L, int F,
               int hop, int tile, int npad, int grid_x, int smem,
               cudaStream_t stream) {
-  auto kernel = lvc_block_fh_tc_kernel<FINAL, CS>;
-  cudaError_t err = cudaFuncSetAttribute(
+  auto kernel = lvc_block_fh_tc_kernel<FINAL>;
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid_x, B);
-  cfg.blockDim = dim3(FH_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, kernel, map, static_cast<const bf16*>(x),
-      static_cast<const bf16*>(skip), static_cast<const bf16*>(tap_c),
-      static_cast<const float*>(b_head), static_cast<const bf16*>(wstack),
-      static_cast<const bf16*>(final_wb), static_cast<bf16*>(out),
-      static_cast<float*>(fin), L, F, hop, tile, npad);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(grid_x, B), FH_THREADS, smem, stream>>>(
+      map, static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
+      static_cast<const bf16*>(tap_c), static_cast<const float*>(b_head),
+      static_cast<const bf16*>(wstack), static_cast<const bf16*>(final_wb),
+      static_cast<bf16*>(out), static_cast<float*>(fin), L, F, hop, tile,
+      npad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -475,7 +379,7 @@ int launch_fh(const CUtensorMap& map, const void* x, const void* skip,
 // 2C * rows_p) bf16 (Kernel A's packing), 128-byte aligned; b_head (layers
 // * 2C * rows_p,) f32; wstack_t (layers, C, 3C+1) bf16; final_wb (8, C)
 // bf16 or NULL; out (B, C, L) bf16; fin (B, 1, L) f32 or NULL; tile, npad,
-// cluster, grid_x and smem from ops/lvc_block_ncl.py:fh_tile_plan. Only
+// grid_x and smem from ops/lvc_block_ncl.py:fh_tile_plan. Only
 // C = 32, 4 layers, khead = 192, rows_p = 104 and hop % 8 == 0 are built,
 // the other pointers 16-byte aligned (the Python wrapper checks). Launches
 // on `stream`; returns cudaGetLastError() (or the tensor map's, an
@@ -484,52 +388,18 @@ extern "C" int lvc_block_ncl_fh_launch(
     const void* x, const void* skip, const void* tap_c, const void* w_head,
     const void* b_head, const void* wstack_t, const void* final_wb, void* out,
     void* fin, int B, int channels, int L, int F, int hop, int khead,
-    int rows_p, int layers, int tile, int npad, int cluster, int grid_x,
-    int smem, void* stream) {
+    int rows_p, int layers, int tile, int npad, int grid_x, int smem,
+    void* stream) {
   using namespace tc;
   if (channels != C || layers != LAYERS || khead != KH || rows_p != FH_RP ||
-      fh_bad_plan(B, L, F, hop, tile, npad, cluster, grid_x, smem) ||
+      fh_bad_plan(B, L, F, hop, tile, npad, grid_x, smem) ||
       reinterpret_cast<uintptr_t>(w_head) % 128 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
   const int err = tensor_map(&map, w_head, (uint64_t)LAYERS * 2 * C * FH_RP,
                              KH, FH_COLS, FH_BOX_K);
   if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool final = final_wb != nullptr;
-  if (cluster == 2)
-    return (final ? launch_fh<true, 2> : launch_fh<false, 2>)(
-        map, x, skip, tap_c, b_head, wstack_t, final_wb, out, fin, B, L, F,
-        hop, tile, npad, grid_x, smem, s);
-  return (final ? launch_fh<true, 1> : launch_fh<false, 1>)(
+  return (final_wb != nullptr ? launch_fh<true> : launch_fh<false>)(
       map, x, skip, tap_c, b_head, wstack_t, final_wb, out, fin, B, L, F, hop,
-      tile, npad, grid_x, smem, s);
-}
-
-// How many clusters of `cluster` tensor-core K5 CTAs, each with `smem` bytes
-// of dynamic shared memory, the card holds at once
-// (cudaOccupancyMaxActiveClusters); minus a cudaError_t on failure.
-extern "C" int lvc_block_ncl_fh_max_clusters(int cluster, int smem) {
-  using namespace tc;
-  if ((cluster != 1 && cluster != 2) || smem < 1 || smem > SMEM_LIMIT)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = cluster == 2 ? lvc_block_fh_tc_kernel<false, 2>
-                             : lvc_block_fh_tc_kernel<false, 1>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(FH_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  return err != cudaSuccess ? -static_cast<int>(err) : n;
+      tile, npad, grid_x, smem, static_cast<cudaStream_t>(stream));
 }

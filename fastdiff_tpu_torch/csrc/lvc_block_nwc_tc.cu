@@ -27,7 +27,7 @@
 //   gather. wstack (97, C) is staged as ws[o][r] for conv_tc.
 // - Both contractions are bf16 mma.sync.m16n8k16 with f32 accumulation,
 //   output channels as M and samples as N, as in K1: conv_tc as it is, and
-//   the LVC through gate_tile, whose sigmoid and tanh m16 tiles hold the
+//   the LVC through gate_tile<2>, whose sigmoid and tanh m16 tiles hold the
 //   same (channel, sample) positions in one lane, so the gate and the
 //   residual update run on the accumulators.
 // - K_{i,f} comes by TMA: one box of 97 rows x 128 bytes (its (3C+1, 2C)
@@ -235,7 +235,7 @@ lvc_block_nwc_tc_kernel(const __grid_constant__ CUtensorMap map_k,
           }
         }
         for (int t = run; t < tiles; t += WARPS / 2)
-          gate_tile(ka, kb, ybuf, carry, e_a + 8 * t, p, lane);
+          gate_tile<2>(ka, kb, ybuf, carry, e_a + 8 * t, 16 * p, lane);
       }
       __syncthreads();  // every warp is done with slot s
       if (tid == 0 && j + NWC_STAGES < nf) {

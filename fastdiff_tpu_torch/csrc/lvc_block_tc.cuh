@@ -328,21 +328,28 @@ __device__ __forceinline__ void conv_tc(const bf16* act, const bf16* ws,
 }
 
 // One warp's LVC and gate on the n8 tile of samples n0 .. n0+7, with the
-// A fragments `ka` of its m16 pair p (z rows 16p.. and C + 16p..: mm 0 the
-// sigmoid half, mm 1 the tanh half; 6 k16 steps, contraction row k C + c)
-// and their bias rows `kb` (rows gq and gq + 8 of each half) in
+// A fragments `ka` of MT m16 tiles (6 k16 steps each, contraction row
+// k C + c) and their bias rows `kb` (rows gq and gq + 8 of each tile) in
 // registers: z = ka . [y(t-1); y; y(t+1)] + kb, then carry = s +
-// bf16(sigmoid(z_s) tanh(z_t)) in place. Both halves of a gate sit in the
-// same lane, so nothing is exchanged.
-__device__ __forceinline__ void gate_tile(const uint32_t (&ka)[2][6][4],
-                                          const float (&kb)[2][2],
+// bf16(sigmoid(z_s) tanh(z_t)) in place, for channels from `ch0`. The row
+// layout is MT's:
+// - MT 2: tile 0 holds the sigmoid rows of channels ch0 .. ch0+15, tile 1
+//   their tanh rows (K1, K6: z rows 16p.. and C + 16p..);
+// - MT 1: one tile whose rows 0-7 are the sigmoid rows of channels
+//   ch0 .. ch0+7 and rows 8-15 their tanh rows (K5's slab).
+// Either way both halves of a gate sit in the same lane, so nothing is
+// exchanged.
+template <int MT>
+__device__ __forceinline__ void gate_tile(const uint32_t (&ka)[MT][6][4],
+                                          const float (&kb)[MT][2],
                                           const bf16* ybuf, bf16* carry,
-                                          int n0, int p, int lane) {
+                                          int n0, int ch0, int lane) {
+  static_assert(MT == 1 || MT == 2, "one or two m16 tiles");
   const int gq = lane >> 2, tq = lane & 3;
   // two accumulator chains per m16 tile, as in conv_tc
-  float acc[2][2][4];
+  float acc[MT][2][4];
 #pragma unroll
-  for (int mm = 0; mm < 2; ++mm) {
+  for (int mm = 0; mm < MT; ++mm) {
     acc[mm][0][0] = acc[mm][0][1] = kb[mm][0];
     acc[mm][0][2] = acc[mm][0][3] = kb[mm][1];
 #pragma unroll
@@ -353,7 +360,7 @@ __device__ __forceinline__ void gate_tile(const uint32_t (&ka)[2][6][4],
     uint32_t b[4];
     ldsm_x4(b, ybuf + (n0 + (lane & 7) + k - 1) * ROW + (lane >> 3) * 8);
 #pragma unroll
-    for (int mm = 0; mm < 2; ++mm) {
+    for (int mm = 0; mm < MT; ++mm) {
       mma_bf16(acc[mm][0], ka[mm][2 * k], b[0], b[1]);
       mma_bf16(acc[mm][1], ka[mm][2 * k + 1], b[2], b[3]);
     }
@@ -362,11 +369,13 @@ __device__ __forceinline__ void gate_tile(const uint32_t (&ka)[2][6][4],
   for (int c = 0; c < 2; ++c) {
     const int e = n0 + 2 * tq + c;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      bf16* cp = carry + e * ROW + 16 * p + gq + 8 * h;
-      const int v = 2 * h + c;
-      const float gv = gate(acc[0][0][v] + acc[0][1][v],
-                            acc[1][0][v] + acc[1][1][v]);
+    for (int h = 0; h < MT; ++h) {
+      // MT 2: accumulator 2h + c of each tile; MT 1: c and 2 + c of one
+      const int vs = MT == 2 ? 2 * h + c : c;
+      const int vt = MT == 2 ? vs : 2 + c;
+      bf16* cp = carry + e * ROW + ch0 + gq + 8 * h;
+      const float gv = gate(acc[0][0][vs] + acc[0][1][vs],
+                            acc[MT - 1][0][vt] + acc[MT - 1][1][vt]);
       *cp = __float2bfloat16(to_f(*cp) + round_bf(gv));
     }
   }
@@ -449,7 +458,7 @@ __device__ __forceinline__ void lvc_gate_tc(const bf16* __restrict__ kern_b,
         kb[mm][1] = to_f(r1[3 * C]);
       }
     }
-    gate_tile(ka, kb, ybuf, carry, n0, p, lane);
+    gate_tile<2>(ka, kb, ybuf, carry, n0, 16 * p, lane);
   }
 }
 

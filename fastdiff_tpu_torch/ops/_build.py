@@ -27,8 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argument types. Each returns cudaGetLastError()
-# (but lvc_block_ncl_fh_max_clusters, which returns a count).
+# C entry points: name -> argument types. Each returns cudaGetLastError().
 SIGNATURES = {
     # tap, w_head, b_head, out, M, N, K, then lvc_head.head_gemm_plan's
     # tile_m, tile_n, stages, units, grid, smem; stream
@@ -63,17 +62,14 @@ SIGNATURES = {
     "downpath_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, skip, tap_c, w_head, b_head, wstack_t, final_wb (or NULL), out,
     # fin (or NULL), B, C, L, F, hop, khead, rows_p, layers, then
-    # lvc_block_ncl.fh_tile_plan's tile, frames, cluster, grid and shared
-    # memory; stream (K5 on the tensor cores, hop % 8 == 0)
+    # lvc_block_ncl.fh_tile_plan's tile, frames, grid and shared memory;
+    # stream (K5 on the tensor cores, hop % 8 == 0)
     "lvc_block_ncl_fh_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _P],
     # the same operands but the plan: K5 on the CUDA cores, any hop
     "lvc_block_ncl_fh_cc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # cluster, shared memory -> clusters of tensor-core K5 CTAs the card
-    # holds at once (cudaOccupancyMaxActiveClusters), or minus the error
-    "lvc_block_ncl_fh_max_clusters": [_I, _I],
     # as taug_head_launch, then lvc_head.head_gemm_walk_plan's stripe
     "taug_head_variant_launch": [_P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],

@@ -29,8 +29,8 @@ K5 (``lvc_block_ncl_fh``, JAX's ``lvc_block_ncl_fh``) is Kernel B with the
 predictor head (Kernel A's GEMM) run inside the kernel: it takes the trunk
 taps (B, F, 192) and the merged head weights instead of ``kern_taug``,
 which then never reaches device memory. At hops that are multiples of 8 it
-runs on the tensor cores (``csrc/lvc_block_ncl_fh.cu``, tiles and clusters
-from ``fh_tile_plan``), at other hops on the CUDA cores
+runs on the tensor cores (``csrc/lvc_block_ncl_fh.cu``, tiles from
+``fh_tile_plan``), at other hops on the CUDA cores
 (``lvc_block_ncl_fh_cc``). Its plain version is Kernel A's plain head
 followed by Kernel B's, with their cast points. The ``ncl_fh`` route runs
 it on the blocks ``fusable`` admits.
@@ -104,9 +104,6 @@ FH_FRAME = 2 * FH_GROUP * FH_ROWS_P * 2 + 16      # a frame's group slab
 FH_ALIGN = 1024
 FH_BAR_BYTES = 64
 FH_NPAD_MAX = 32               # head frames per CTA: 4 n8 tiles at most
-# CTAs that share each w_head chunk by multicast: 1, because clusters of 2
-# measured slower on the H100 (root PERF.md, section 6); 2 stays selectable
-FH_CLUSTER = 1
 W_HEAD_BYTES = KERNEL_HEAD_K * KERNEL_LAYERS * 2 * KERNEL_CHANNELS \
     * FH_ROWS_P * 2            # 10,223,616: all of w_head, once per CTA
 
@@ -183,35 +180,29 @@ class FhPlan(NamedTuple):
     tile: int                # output samples per CTA
     ext: int                 # tile + both halos
     npad: int                # frames the head covers, a multiple of 8
-    cluster: int             # CTAs sharing each w_head chunk (multicast)
-    grid_x: int              # CTAs per batch row, a multiple of cluster
+    grid_x: int              # CTAs per batch row
     blocks: int              # grid_x * b
     waves: int               # one CTA per SM
     smem_bytes: int
-    sm_bytes: int            # w_head bytes L2 -> SMs per call
-    l2_bytes: int            # w_head bytes read from L2 per call
+    l2_bytes: int            # w_head bytes from L2 into the SMs per call
 
     @property
     def c_args(self) -> tuple:
         """What the C entry takes after ``layers``."""
-        return (self.tile, self.npad, self.cluster, self.grid_x,
-                self.smem_bytes)
+        return (self.tile, self.npad, self.grid_x, self.smem_bytes)
 
 
-def fh_tile_plan(b: int, frames: int, hop: int, sms: int = H100_SMS,
-                 cluster: int = FH_CLUSTER) -> FhPlan:
+def fh_tile_plan(b: int, frames: int, hop: int,
+                 sms: int = H100_SMS) -> FhPlan:
     """The tensor-core K5's tile for a (b, C, frames * hop) block call: of
     the multiples of 8 whose shared memory fits, the one that minimises
-    waves x extent (one CTA per SM, clusters of ``cluster`` whole), the
-    larger tile on a tie. Every CTA streams all of w_head once, and
-    ``cluster`` CTAs share each load, so L2 serves ``blocks *
-    W_HEAD_BYTES / cluster`` bytes. The head covers at most
-    ``FH_NPAD_MAX`` frames."""
-    if b < 1 or frames < 1 or hop < 8 or hop % 8 or cluster not in (1, 2):
+    waves x extent (one CTA per SM), the larger tile on a tie. Every CTA
+    streams all of w_head once, so L2 serves ``blocks * W_HEAD_BYTES``
+    bytes. The head covers at most ``FH_NPAD_MAX`` frames."""
+    if b < 1 or frames < 1 or hop < 8 or hop % 8:
         raise ValueError(f"fh_tile_plan: no tensor-core K5 for b {b}, "
-                         f"{frames} frames, hop {hop}, cluster {cluster}")
+                         f"{frames} frames, hop {hop}")
     length = frames * hop
-    slots = sms // cluster * cluster
     best = None
     for tile in range(8, length + 8, 8):
         ext = tile + 2 * TC_HALO
@@ -219,24 +210,15 @@ def fh_tile_plan(b: int, frames: int, hop: int, sms: int = H100_SMS,
         smem = fh_smem_bytes(ext, npad)
         if smem > SMEM_PER_BLOCK or npad > FH_NPAD_MAX:
             break
-        grid_x = -(-(-(-length // tile)) // cluster) * cluster
-        waves = -(-(grid_x * b) // slots)
+        grid_x = -(-length // tile)
+        waves = -(-(grid_x * b) // sms)
         cost = waves * ext
         if best is None or cost <= best[0]:
             best = (cost, tile, ext, npad, grid_x, waves, smem)
     _, tile, ext, npad, grid_x, waves, smem = best
     blocks = grid_x * b
-    return FhPlan(tile, ext, npad, cluster, grid_x, blocks, waves, smem,
-                  blocks * W_HEAD_BYTES, blocks * W_HEAD_BYTES // cluster)
-
-
-def fh_max_clusters(cluster: int, smem_bytes: int) -> int:
-    """How many clusters of ``cluster`` tensor-core K5 CTAs with
-    ``smem_bytes`` of shared memory the current card holds at once."""
-    n = _build.library().lvc_block_ncl_fh_max_clusters(cluster, smem_bytes)
-    if n < 0:
-        _build.check(-n, "lvc_block_ncl_fh_max_clusters")
-    return n
+    return FhPlan(tile, ext, npad, grid_x, blocks, waves, smem,
+                  blocks * W_HEAD_BYTES)
 
 
 def fusable(hop: int, n_frames: int) -> bool:
@@ -499,8 +481,7 @@ def _check_fh_operands(x, skip, tap_c, w_head, b_head, wstack_t, hop,
 def lvc_block_ncl_fh(x: torch.Tensor, skip: torch.Tensor,
                      tap_c: torch.Tensor, w_head: torch.Tensor,
                      b_head: torch.Tensor, wstack_t: torch.Tensor, hop: int,
-                     final_wb: torch.Tensor | None = None,
-                     cluster: int = FH_CLUSTER):
+                     final_wb: torch.Tensor | None = None):
     """K5: x, skip (B, C, L); tap_c (B, F, K) trunk taps (``lvc_head.
     frame_taps``); w_head (K, layers*2C*rows_p), b_head (layers*2C*rows_p,)
     float32 (``lvc_head.pack_head``); wstack_t (layers, C, 3C+1); L == F *
@@ -509,8 +490,7 @@ def lvc_block_ncl_fh(x: torch.Tensor, skip: torch.Tensor,
     CPU tensors run ``lvc_block_ncl_fh_plain``. CUDA tensors (bf16 but the
     f32 bias, C = 32, 4 layers, K = 192, w_head 128-byte aligned) launch the
     tensor-core kernel (``csrc/lvc_block_ncl_fh.cu``, its tile from
-    ``fh_tile_plan``, clusters of ``cluster`` CTAs sharing each w_head load)
-    when ``tensor_core_hop(hop)``, else the CUDA-core one
+    ``fh_tile_plan``) when ``tensor_core_hop(hop)``, else the CUDA-core one
     (``lvc_block_ncl_fh_cc``), or raise."""
     if x.device.type == "cpu":
         return lvc_block_ncl_fh_plain(x, skip, tap_c, w_head, b_head,
@@ -520,7 +500,7 @@ def lvc_block_ncl_fh(x: torch.Tensor, skip: torch.Tensor,
                                    hop, final_wb)
     # (an empty call launches nothing; its plan is never read)
     plan = fh_tile_plan(max(x.shape[0], 1), max(tap_c.shape[1], 1), hop,
-                        _sm_count(x.device.index or 0), cluster)
+                        _sm_count(x.device.index or 0))
     key = "lvc_block_ncl_fh" if final_wb is None else "lvc_block_ncl_fh_final"
     return _launch_fh("lvc_block_ncl_fh_launch", plan.c_args, key, x, skip,
                       tap_c, w_head, b_head, wstack_t, hop, final_wb)

@@ -2,7 +2,7 @@
 entries, checked without a card.
 
 ``csrc/lvc_block_ncl_fh.cu`` (K5 at hops that are multiples of 8) takes its
-tile, head frames, cluster and grid from ``ops/lvc_block_ncl.py:
+tile, head frames and grid from ``ops/lvc_block_ncl.py:
 fh_tile_plan``, whose C entry refuses any other. These tests hold the
 Python constants to the source's; hold the walk the kernel does (CTA ``bx``
 outputs ``[bx * tile, bx * tile + tile)``, runs the head for frames
@@ -28,7 +28,9 @@ from fastdiff_tpu_torch.ops import lvc_block_ncl as ops
 C, LAYERS, K = 32, 4, 192
 N = LAYERS * 2 * C * ops.FH_ROWS_P          # w_head columns: 26,624
 CASES = [(1, 864, 8), (1, 864, 64), (1, 864, 256), (2, 100, 64),
-         (1, 100, 8), (1, 100, 256), (2, 864, 8), (3, 16, 16), (1, 2, 64)]
+         (1, 100, 8), (1, 100, 256), (2, 864, 8), (3, 16, 16), (1, 2, 64),
+         (4, 864, 8), (4, 864, 64), (2, 864, 256), (1, 256, 8), (1, 256, 64),
+         (1, 256, 256), (1, 1, 8), (1, 7, 24), (2, 33, 40)]
 
 
 def _source() -> str:
@@ -75,28 +77,24 @@ def test_rows_are_conflict_free():
 
 
 @pytest.mark.parametrize("b,frames,hop", CASES)
-@pytest.mark.parametrize("cluster", [1, 2])
-def test_walk_covers_every_output_once(b, frames, hop, cluster):
+def test_walk_covers_every_output_once(b, frames, hop):
     length = frames * hop
-    plan = ops.fh_tile_plan(b, frames, hop, cluster=cluster)
+    plan = ops.fh_tile_plan(b, frames, hop)
     tile, ext, npad = plan.tile, plan.ext, plan.npad
     assert tile % 8 == 0 and ext == tile + 2 * ops.TC_HALO
     assert npad % 8 == 0 and npad >= ops.fh_frames_max(ext, hop)
     assert npad <= ops.FH_NPAD_MAX     # a warp's two n8 frame tiles
     assert plan.smem_bytes == ops.fh_smem_bytes(ext, npad) \
         <= ops.SMEM_PER_BLOCK
-    assert plan.grid_x % cluster == 0 and plan.cluster == cluster
-    assert plan.grid_x * tile >= length > (plan.grid_x - cluster) * tile
+    assert plan.grid_x * tile >= length > (plan.grid_x - 1) * tile
     assert plan.blocks == b * plan.grid_x
-    assert plan.waves == -(-plan.blocks // (132 // cluster * cluster))
+    assert plan.waves == -(-plan.blocks // 132)
     hits = np.zeros(length, np.int64)
     for bx in range(plan.grid_x):
         g0 = bx * tile - ops.TC_HALO
         lo, hi = min(max(g0, 0), length), min(g0 + ext, length)
-        lo = min(lo, hi)
-        hits[min(length, bx * tile):min(length, bx * tile + tile)] += 1
-        if lo == hi:           # a CTA that only pads the grid to clusters
-            continue
+        assert lo < hi         # no CTA lies past the last tile
+        hits[bx * tile:min(length, bx * tile + tile)] += 1
         f_lo = lo // hop
         # the head covers every frame the extent's samples need
         assert (hi - 1) // hop - f_lo < npad
@@ -155,17 +153,12 @@ def test_plan_at_the_10s_shapes():
     assert {hop: (p.tile, p.blocks, p.waves, p.npad)
             for hop, p in plans.items()} == {
         8: (56, 124, 1, 24), 64: (424, 131, 1, 16), 256: (424, 522, 4, 8)}
-    assert plans[8].blocks >= 0.9 * 132 and plans[8].cluster == 1
-    # the reckoned w_head bytes: every CTA takes in all of w_head; without
-    # a cluster each CTA reads it from L2, in clusters of 2 a pair reads
-    # each chunk once
+    assert plans[8].blocks >= 0.9 * 132
+    # the reckoned w_head bytes: every CTA reads all of w_head from L2
     w_bytes = 192 * 4 * 64 * 104 * 2
     for hop, blocks in ((8, 124), (64, 131), (256, 522)):
-        assert plans[hop].sm_bytes == plans[hop].l2_bytes == blocks * w_bytes
+        assert plans[hop].l2_bytes == blocks * w_bytes
     assert plans[8].l2_bytes == 1_267_728_384
-    pair = ops.fh_tile_plan(1, 864, 64, cluster=2)
-    assert (pair.blocks, pair.sm_bytes, pair.l2_bytes) == (
-        132, 132 * w_bytes, 66 * w_bytes)
 
 
 def test_plan_minimises_waves_times_extent():
@@ -184,12 +177,11 @@ def test_plan_minimises_waves_times_extent():
             assert plan.waves * plan.ext <= waves * ext
 
 
-@pytest.mark.parametrize("b,frames,hop,cluster", [(0, 8, 8, 2), (1, 8, 12, 2),
-                                                  (1, 8, 4, 1),
-                                                  (1, 8, 8, 4)])
-def test_plan_refuses(b, frames, hop, cluster):
+@pytest.mark.parametrize("b,frames,hop", [(0, 8, 8), (1, 8, 12), (1, 8, 4),
+                                          (1, 0, 8)])
+def test_plan_refuses(b, frames, hop):
     with pytest.raises(ValueError):
-        ops.fh_tile_plan(b, frames, hop, cluster=cluster)
+        ops.fh_tile_plan(b, frames, hop)
 
 
 def _fake_cuda(shape):
