@@ -16,8 +16,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    kernel's registers, spills and shared memory, the tensor-core K5's two
    instantiations (with and without the epilogue; no cluster) and its
    tile, head frames, grid, shared memory and reckoned w_head bytes at each
-   hop, and the tensor-core K6's registers, tile and shared memory (fails
-   on any spill of any of these);
+   hop, the tensor-core K6's registers, tile and shared memory, the
+   tensor-core K4's two instantiations (hop 8 and the others) and its tile
+   at each recipe hop, and K8's two stage kernels with their grids and
+   shared memory at 10 s (fails on any spill of any of these);
 3. Kernel A (predictor head GEMM, wgmma + TMA) against its plain PyTorch
    version at K = 192, N = 4 * 64 * rows_p and every row count its paths
    give it (M = 100, 256 and 864 frames, 20 x 100 in training, 4 x 864),
@@ -39,9 +41,12 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    finite samples, each raising Kernel A's launch count by exactly 3
    blocks x 4 steps, the tensor-core K1's by 8, K2's by 4 and the
    CUDA-core Kernel B's by 0;
-8. Kernel B-SR (the training block, which also writes s, y and z) against
-   its plain version at the training recipe's shapes (b = 20, 100 frames,
-   hops 8, 64 and 256), with phase 4's bounds;
+8. Kernel B-SR (K4, the training block, which also writes s, y and z) on
+   the tensor cores and on the CUDA cores against its plain version at the
+   training recipe's shapes (b = 20, 100 frames, hops 8, 64 and 256), with
+   phase 4's bounds on out, s, y and z; the three raced in turns (the
+   kernels by CUDA-graph replay), with the tensor cores' share of each
+   hop's bound;
 9. gradients on the card at the hop-256 recipe shape, bf16: the
    saved-residual block (``LVCBlockSR``), the recompute block
    (``LVCBlockRecompute``) and the trainable head (``TaugHead``) against
@@ -55,7 +60,8 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     train and 4 valid items of 120-200 frames, written to a temporary
     directory): 6 updates at the recipe's batch with validation and a
     checkpoint every 3, then a second ``fit`` to 8 that resumes from step
-    6; every train step launches Kernel A and Kernel B-SR exactly 3 times;
+    6; every train step launches Kernel A and the tensor-core Kernel B-SR
+    exactly 3 times, the CUDA-core Kernel B-SR never;
 12. K7 (the NWC route's row-major head GEMM, the same kernel) against its
     plain version at 256 and 864 x 192 @ 192 x 24,832, as phase 3;
 13. K6 (the NWC LVC block) on the tensor cores and on the CUDA cores,
@@ -63,9 +69,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     at b = 2 x 100 frames of hop 64 (a multi-tile edge case), with phase
     4's bounds; the three raced in turns (the kernels by CUDA-graph
     replay), with the tensor cores' share of the bound;
-14. K8 (the fused down path) against its plain version at 221,184 samples
-    (b = 1) and at two 2,048-sample halo units (b = 2), each output within
-    4 bf16 ulps of its largest value;
+14. K8 (the fused down path, two launches) against its plain version at
+    221,184 samples (b = 1) and at two 2,048-sample halo units (b = 2), each
+    output within 4 bf16 ulps of its largest value, timed by CUDA-graph
+    replay in turns with the plain version, with its share of the bound;
 15. the NWC route (``use_pallas_block: true``, ``use_pallas_down: true``):
     a full-width bf16 denoiser forward, kernels against plain (relative L2
     <= 5e-2); the N=4 sampler at 864 frames, kernel and plain paths timed
@@ -110,9 +117,9 @@ version's, the least time the card could take for the same work
 (``bound_ms``: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, whichever is
 larger, ``bound_by`` says which) and the time of one PyTorch call that
 computes the same function where there is one (``library_ms``, else null);
-the five tensor-core block kernels (K1, K2, K5, K5 final, K6) also carry
-``cuda_core_ms``, the CUDA-core kernel of the same function raced beside
-them. The last line is ``{"ok": true, "device": {...}}``.
+the six tensor-core block kernels (K1, K2, K4, K5, K5 final, K6) also
+carry ``cuda_core_ms``, the CUDA-core kernel of the same function raced
+beside them. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import io
@@ -128,7 +135,7 @@ import wave
 
 import numpy as np
 
-from fastdiff_tpu_torch.utils.timing import cuda_ms, race, race_graph
+from fastdiff_tpu_torch.utils.timing import cuda_ms, graph_ms, race_graph
 
 AUDIO_SECONDS_PER_SAMPLE = 1.0 / 22050
 FRAMES_10S = 864                 # 864 * 256 = 221,184 samples, ~10.03 s
@@ -372,10 +379,12 @@ def head_gemm_cases(n_phase, label, torch, fn, plain, randn, k, n, rows):
 
 
 def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
-                    dev):
-    """Kernel B-SR against its plain version at the recipe's shapes."""
+                    dev, smi_line):
+    """Kernel B-SR on the tensor cores and on the CUDA cores against its
+    plain version at the recipe's shapes (phase 4's bounds on out, s, y, z),
+    the three raced in turns (the kernels by CUDA-graph replay)."""
     wstack_t = randn(layers, c, rows, scale=0.1)
-    worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
+    worst, ms_k, ms_p, ms_c, works = 0.0, 0.0, 0.0, 0.0, []
     for hop in (8, 64, 256):
         length = TRAIN_FRAMES * hop
         x = randn(TRAIN_BATCH, c, length)
@@ -388,25 +397,44 @@ def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
         def run_k():
             return lvc_block_ncl.lvc_block_ncl_sr(x, skip, kern, wstack_t, hop)
 
+        def run_cc():
+            return lvc_block_ncl.lvc_block_ncl_sr_cc(x, skip, kern, wstack_t,
+                                                     hop)
+
         def run_p():
             return lvc_block_ncl.lvc_block_ncl_sr_plain(x, skip, kern,
                                                         wstack_t, hop)
 
-        got, ref = run_k(), run_p()
+        got, got_cc, ref = run_k(), run_cc(), run_p()
         torch.cuda.synchronize()
-        errs = check_pairs(list(zip(got, ref)), f"Kernel B-SR (hop {hop})")
-        k, p = race(run_p, run_k, 5)
+        errs = check_pairs(list(zip(got, ref)),
+                           f"Kernel B-SR tensor cores (hop {hop})")
+        errs_cc = check_pairs(list(zip(got_cc, ref)),
+                              f"Kernel B-SR CUDA cores (hop {hop})")
+        del got, got_cc, ref
+        ms_p1 = cuda_ms(run_p, 2)
+        k, cc = race_graph(run_cc, run_k, 5)
+        p = (ms_p1 + cuda_ms(run_p, 2)) / 2
+        work = block_work(TRAIN_BATCH, c, length, 2.0 * kern.numel(),
+                          save=True)
+        b_ms, by = bound([work])
         phase(8, f"Kernel B-SR hop {hop}, b {TRAIN_BATCH} x {TRAIN_FRAMES} "
-                 "frames: " + ", ".join(
+                 "frames: tensor cores " + ", ".join(
                      f"{n} max_abs_err {e:.3e} rel_l2 {r:.3e}" for n, (e, r)
                      in zip(("out", "s", "y", "z"), errs))
-                 + f"; kernel {k:.4f} ms, plain {p:.4f} ms")
+                 + "; CUDA cores " + ", ".join(
+                     f"{n} {e:.3e} / {r:.3e}" for n, (e, r)
+                     in zip(("out", "s", "y", "z"), errs_cc))
+                 + f"; raced: tensor cores {k:.4f} ms, CUDA cores {cc:.4f} "
+                 f"ms ({cc / k:.2f}x), plain {p:.4f} ms; bound {b_ms:.4f} ms "
+                 f"({by}), tensor cores at {b_ms / k:.1%} of it [{smi_line}]")
         worst = max([worst] + [e for e, _ in errs])
         ms_k += k
         ms_p += p
-        works.append(block_work(TRAIN_BATCH, c, length, 2.0 * kern.numel(),
-                                save=True))
-    return entry(worst, ms_k, ms_p, works)
+        ms_c += cc
+        works.append(work)
+        del x, skip, kern
+    return dict(entry(worst, ms_k, ms_p, works), cuda_core_ms=ms_c)
 
 
 def phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
@@ -564,13 +592,15 @@ def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
             train_step = task.train_step
 
             def counted(state, batch, generator=None, **kw):
+                keys = ("lvc_block_ncl_sr", "lvc_block_ncl_sr_cc")
                 before = (counters[0]["taug_head"],
-                          counters[1]["lvc_block_ncl_sr"])
+                          *(counters[1][k] for k in keys))
                 out = train_step(state, batch, generator, **kw)
                 steps.append(dict(
                     {k: float(v) for k, v in out.items()},
                     a=counters[0]["taug_head"] - before[0],
-                    sr=counters[1]["lvc_block_ncl_sr"] - before[1]))
+                    sr=counters[1][keys[0]] - before[1],
+                    sr_cc=counters[1][keys[1]] - before[2]))
                 return out
             task.train_step = counted
             return task
@@ -596,7 +626,8 @@ def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
                   + ", ".join(f"{s['grad_norm']:.3f}" for s in steps)
                   + f"; val {result['val']}; {changed} parameter tensors "
                   f"changed; files {files}; launches per step A "
-                  f"{[s['a'] for s in steps]} B-SR {[s['sr'] for s in steps]}")
+                  f"{[s['a'] for s in steps]} B-SR {[s['sr'] for s in steps]}"
+                  f" (CUDA-core B-SR {[s['sr_cc'] for s in steps]})")
         if result["step"] != 6 or len(steps) != 6:
             fail(f"fit ran {len(steps)} steps to step {result['step']}")
         if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
@@ -604,9 +635,10 @@ def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
             fail("fit: a loss or gradient norm is not finite")
         if changed == 0:
             fail("fit: no parameter changed")
-        if any(s["a"] != 3 or s["sr"] != 3 for s in steps):
-            fail("fit: a train step did not launch Kernel A and Kernel B-SR "
-                 "exactly 3 times")
+        if any(s["a"] != 3 or s["sr"] != 3 or s["sr_cc"] for s in steps):
+            fail("fit: a train step did not launch Kernel A and the "
+                 "tensor-core Kernel B-SR exactly 3 times (and the CUDA-core "
+                 "one never)")
         if not {"model_ckpt_steps_6.ckpt", "model_ckpt_best.pt"} <= set(
                 files) or "model_ckpt_steps_3.ckpt" in files or any(
                 f.endswith(".part") for f in files):
@@ -690,13 +722,15 @@ def phase13_nwc_block(torch, nwc_ops, randn, c, layers, smi_line):
     return dict(entry(worst, ms_k, ms_p, works), cuda_core_ms=ms_c)
 
 
-def phase14_downpath(torch, down_ops, model, dev):
+def phase14_downpath(torch, down_ops, model, dev, smi_line):
     """K8 against its plain version at 10 s (b = 1) and at two halo units
     (b = 2), with the model's packed weights; each output within 4 bf16
-    ulps of its largest value."""
+    ulps of its largest value. Timed by CUDA-graph replay (device time of
+    both launches) in turns with the plain version."""
     gen = torch.Generator(device=dev).manual_seed(14)
     factors = tuple(model.cfg.upsample_ratios[::-1])
     packs = (model.down_first, model.down_res, model.down_conv)
+    c = model.cfg.inner_channels
     worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
     for b, length, on_path in ((1, FRAMES_10S * HOP_SIZE, True),
                                (2, 2 * 2048, False)):
@@ -713,28 +747,36 @@ def phase14_downpath(torch, down_ops, model, dev):
         errs = []
         for i, (a, r) in enumerate(zip(got, ref)):
             e = max_abs(a, r)
-            bound = 2.0 ** -5 * float(r.float().abs().max())
+            bound_err = 2.0 ** -5 * float(r.float().abs().max())
             errs.append(e)
-            if a.shape != r.shape or not e <= bound or not bool(
+            if a.shape != r.shape or not e <= bound_err or not bool(
                     a.isfinite().all()):
                 fail(f"K8 output {i} disagrees with its plain version "
-                     f"(b {b}, {length} samples): {e:.3e} > {bound:.3e}")
-        k, p = race(run_p, run_k, 10)
+                     f"(b {b}, {length} samples): {e:.3e} > {bound_err:.3e}")
+        p1 = cuda_ms(run_p, 5)
+        k = (graph_ms(run_k, 20) + graph_ms(run_k, 20)) / 2
+        p = (p1 + cuda_ms(run_p, 5)) / 2
+        k_eager = cuda_ms(run_k, 20)
+        lengths = [length // r for r in (4, 32, 256)]
+        # first conv (7 taps, 1 -> C), then per DBlock output sample the
+        # 1x1 residual and three k=3 convs; audio in, four outputs out
+        flop = b * (2.0 * 7 * c * length + sum(
+            n * (2.0 * c * (c + 1) + 3 * 2.0 * c * (3 * c + 1))
+            for n in lengths))
+        nbytes = b * (4.0 * length + 2.0 * c * (length + sum(lengths)))
+        b_ms, by = bound([(flop, nbytes)])
+        plan = down_ops.downpath_plan(b, length)
         phase(14, f"K8 downpath b {b} x {length} samples: max_abs_err "
                   + ", ".join(f"{e:.3e}" for e in errs) + " (skip0, skip1, "
-                  f"skip2, x; bound 4 bf16 ulps of each); kernel {k:.4f} ms, "
-                  f"plain {p:.4f} ms")
+                  f"skip2, x; bound 4 bf16 ulps of each); raced: kernel "
+                  f"{k:.4f} ms (CUDA graphs, both stages; eager with its "
+                  f"wrapper {k_eager:.4f} ms), plain {p:.4f} ms; bound "
+                  f"{b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it; "
+                  f"{plan.stage1_blocks} + {plan.stage2_blocks} blocks "
+                  f"[{smi_line}]")
         worst = max([worst] + errs)
         if on_path:
             ms_k, ms_p = k, p
-            c = model.cfg.inner_channels
-            lengths = [length // r for r in (4, 32, 256)]
-            # first conv (7 taps, 1 -> C), then per DBlock output sample the
-            # 1x1 residual and three k=3 convs; audio in, four outputs out
-            flop = 2.0 * 7 * c * length + sum(
-                n * (2.0 * c * (c + 1) + 3 * 2.0 * c * (3 * c + 1))
-                for n in lengths)
-            nbytes = 4.0 * length + 2.0 * c * (length + sum(lengths))
             works = [(flop, nbytes)]
     return entry(worst, ms_k, ms_p, works)
 
@@ -1054,13 +1096,34 @@ def main():
                  f"for {plan.units} units at {FRAMES_10S} frames")
         check_no_spill(info, "the head GEMM")
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        for final, wide in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        for final, wide, save in ((0, 0, 0), (0, 1, 0), (1, 0, 0),
+                                  (1, 1, 0), (0, 0, 1), (0, 1, 1)):
             info = ptxas_entry(log.read_text(), f"lvc_block_tc_kernelILb"
-                                                f"{final}ELb{wide}E")
-            phase(2, f"{'K2' if final else 'K1'} tensor-core Kernel B "
-                     f"(lvc_block_tc_kernel<{bool(final)}, {bool(wide)}>, "
+                                                f"{final}ELb{wide}ELb{save}E")
+            name = "K4 Kernel B-SR" if save else (
+                "K2 Kernel B" if final else "K1 Kernel B")
+            phase(2, f"{name} on the tensor cores (lvc_block_tc_kernel<"
+                     f"{bool(final)}, {bool(wide)}, {bool(save)}>, "
                      f"{'hop 8' if wide else 'hops 16, 24, ...'}): {info}")
-            check_no_spill(info, "the tensor-core Kernel B")
+            check_no_spill(info, f"the tensor-core {name}")
+        for hop in (8, 64, HOP_SIZE):
+            bp = lvc_block_ncl.block_tile_plan(
+                TRAIN_BATCH, TRAIN_FRAMES * hop, sms)
+            phase(2, f"tensor-core K4 at hop {hop}, b {TRAIN_BATCH} x "
+                     f"{TRAIN_FRAMES} frames: tile {bp.tile}, {bp.blocks} "
+                     f"blocks in {bp.waves} wave(s) of "
+                     f"{lvc_block_ncl.TC_BLOCKS_PER_SM} per SM, "
+                     f"{bp.smem_bytes} bytes of dynamic shared memory")
+        for stage in ("down_stage1", "down_stage2"):
+            info = ptxas_entry(log.read_text(), stage)
+            phase(2, f"K8 {stage} on the tensor cores: {info}")
+            check_no_spill(info, f"K8's {stage}")
+        dpl = downpath_pallas.downpath_plan(1, FRAMES_10S * HOP_SIZE)
+        phase(2, f"K8 at {FRAMES_10S * HOP_SIZE} samples, b 1: stage 1 "
+                 f"{dpl.stage1_blocks} blocks ({dpl.smem1} bytes of dynamic "
+                 f"shared memory), stage 2 {dpl.stage2_blocks} blocks "
+                 f"({dpl.smem2} bytes), {downpath_pallas.THREADS} threads, "
+                 f"{downpath_pallas.BLOCKS_PER_SM} blocks per SM")
         info = ptxas_entry(log.read_text(), "lvc_stage_kernel")
         phase(2, f"K9 lvc_stage on the tensor cores (lvc_stage_kernel): "
                  f"{info}; dynamic shared memory "
@@ -1291,7 +1354,7 @@ def main():
 
     # --- phases 8-11: the training slice -----------------------------------
     report["lvc_block_ncl_sr"] = phase8_sr_block(
-        torch, lvc_block_ncl, randn, c, layers, rows, rows_p, dev)
+        torch, lvc_block_ncl, randn, c, layers, rows, rows_p, dev, smi_line)
     phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
                      rows_p, dev)
     train_report = phase10_train_step(torch, FastDiffTask, smi_line, dev)
@@ -1311,7 +1374,7 @@ def main():
         report["lvc_block_nwc"] = phase13_nwc_block(
             torch, lvc_block_pallas, randn, c, layers, smi_line)
         report["downpath"] = phase14_downpath(torch, downpath_pallas,
-                                              nwc_model, dev)
+                                              nwc_model, dev, smi_line)
         nwc_sampler = phase15_nwc_route(torch, nwc_model, sample, const, gen,
                                         dev)
     del nwc_model
@@ -1401,7 +1464,7 @@ def main():
                           "fastdiff_tpu/ops/lvc_block_ncl.py:431"),
         "lvc_block_ncl_final": ("fastdiff_tpu_torch/csrc/lvc_block_ncl_tc.cu",
                                 "fastdiff_tpu/ops/lvc_block_ncl.py:422"),
-        "lvc_block_ncl_sr": ("fastdiff_tpu_torch/csrc/lvc_block_ncl.cu",
+        "lvc_block_ncl_sr": ("fastdiff_tpu_torch/csrc/lvc_block_ncl_tc.cu",
                              "fastdiff_tpu/ops/lvc_block_ncl.py:468"),
         "lvc_block_nwc": ("fastdiff_tpu_torch/csrc/lvc_block_nwc_tc.cu",
                           "fastdiff_tpu/ops/lvc_block_pallas.py:238"),
@@ -1424,12 +1487,13 @@ def main():
     print("  kernel ms (and bound_ms, library_ms) below are per denoiser "
           "forward at 864 frames: taug_head 3 calls, lvc_block_ncl hops 8 + "
           "64, lvc_block_ncl_final hop 256, aug_head 2 calls, "
-          "lvc_block_nwc hops 64 + 256, downpath 1 call, lvc_block_ncl_fh "
-          "hops 8 + 64, lvc_block_ncl_fh_final hop 256 (the five block "
+          "lvc_block_nwc hops 64 + 256, downpath 1 call (two launches), "
+          "lvc_block_ncl_fh "
+          "hops 8 + 64, lvc_block_ncl_fh_final hop 256 (the six block "
           "kernels on the tensor cores; cuda_core_ms is the CUDA-core kernel "
           "of the same function raced beside each); lvc_block_ncl_sr per "
-          "train-step "
-          "forward at the recipe (hops 8 + 64 + 256, b 20 x 100 frames); "
+          "train-step forward at the recipe (hops 8 + 64 + 256, b 20 x 100 "
+          "frames); "
           "taug_head_variant per call at 864 rows (m_outer, m_tile 216); "
           "conv_stage (tile_s 2048) and lvc_stage (tf 1) per call at 221,184 "
           "samples; library_ms of K9/K10 raced with the kernel. "

@@ -1,5 +1,5 @@
-// K8: the fused down path, the first k=7 conv and the three DBlocks in one
-// pass, NWC.
+// K8: the fused down path, the first k=7 conv and the three DBlocks, NWC,
+// in two launches of this source.
 //
 // Replaces fastdiff_tpu/ops/downpath_pallas.py:_fused_call (its pallas_call,
 // body _kernel_body). With factors (4, 8, 8), C = 32:
@@ -17,29 +17,46 @@
 //
 // What bounds it on an H100: at 10 s of audio (L = 221,184) the traffic is
 // 0.88 MB of f32 audio in and 14.2 + 3.5 + 0.44 + 0.06 MB of bf16 out, about
-// 6 us at 3.35 TB/s; the math is 1.1 GFLOP at rate 4 (3.4 with the halo
-// recompute below) and little elsewhere, on the f32 CUDA cores. The memory
-// bound is the floor; this simple version is bound by its f32 math.
+// 6 us at 3.35 TB/s; the math is 1.1 GFLOP at rate 4 and little elsewhere,
+// ~1 us at the bf16 tensor-core peak. So the bytes bound it, skip0 most of
+// all.
 //
-// Design: one block of 512 threads per 2048 output samples at input rate.
-// The JAX kernel holds its whole tile at full rate (12,288 samples plus
-// 2 x 2048 of halo, ~1 MB at C = 32); 227 KB of shared memory cannot, so:
-//  - skip0 is written as it is computed, straight from the audio (7 taps
-//    per sample, read through L1/L2); no full-rate stage is kept;
-//  - the picks p of DBlock 1 are recomputed from the audio as well, so the
-//    rate-4 stage needs two [C][E1] bf16 buffers (ping-pong over the three
-//    convs; the last conv's residual recomputes p again), E1 = 512 center
-//    + 2 x 512 halo samples = 192 KB for both;
-//  - each later stage keeps only its own receptive field: its buffers are
-//    carved from whichever rate-4 buffer is free, E2 = 64 + 2 x 64 at
-//    rate 32, E3 = 8 + 2 x 8 at rate 256.
-// All stages share one origin, the tile's first sample minus the 2048-sample
-// halo of required_halo, so every pick is p[j] = prev[8 j] (4 j from the
-// audio). A conv reads zeros beyond its buffer; the error that makes spreads
-// 7 samples a stage and never reaches a center sample. Every thread owns
-// whole samples: 32 f32 accumulators over 3 taps x 32 channels, the layer's
-// weights staged as f32 in shared memory. Tensor cores, and fewer halo
-// recomputes at rate 4 (3x its center), come later.
+// Design:
+// - Two launches, stage 1 then stage 2, on the caller's stream. skip1, an
+//   output anyway, is their interface: stage 2 reads it back (3.5 MB, ~1 us)
+//   instead of recomputing the rate-4 stage for the deep path's 2,048-sample
+//   receptive field.
+// - Stage 1 (down_stage1): a block owns T1 = 256 rate-4 outputs (1,024
+//   input samples). It writes their skip0 rows straight from the audio (the
+//   first conv on the CUDA cores, 8 channels a thread with their weights in
+//   registers, 16-byte stores of 64-byte NWC rows), recomputes the picks
+//   p1 = x0[4 m] from the audio over the tile plus H1 = 8 rows of halo on
+//   each side (a DBlock reaches 1 + 2 + 4 = 7 samples), runs DBlock 1 over
+//   those E1 = 272 rows and writes the centre rows of skip1. The audio span
+//   the block needs is staged once, rounded to bf16, in shared memory.
+// - Stage 2 (down_stage2): a block owns T3 = 8 rate-256 outputs. DBlock 3
+//   over E3 = 24 rows (8 of halo before, 8 after the tile) needs x2 at its
+//   24 picks, each valid only 7 rows inside its buffer, so DBlock 2 runs
+//   over E2 = 208 rate-32 rows from 72 before the tile's first sample; its
+//   picks p2 = skip1[8 m] are read from device memory. The block writes its
+//   64 centre rows of skip2 and its 8 of x.
+// - Each DBlock conv, and the 1x1 residual, is a bf16 mma.sync.m16n8k16
+//   product with f32 accumulation: output channels as M (two m16 tiles),
+//   samples as N (one n8 tile per step), taps x channels as K. Activations
+//   lie sample-major in shared memory, [rows][ROW] bf16 (80-byte rows,
+//   conflict-free for ldmatrix), so a tap of dilation d is a shift of d
+//   rows in ldmatrix's row addresses; the conv's input is held already
+//   leaky'd (the conv applies leaky to its input, K1's to its output), and
+//   the raw picks p stay beside it for the residual. A warp holds one
+//   conv's A fragments (2 m16 x 6 k16) in registers across its n8 tiles.
+//   The bias initialises the accumulators; bf16 is rounded where the plain
+//   version rounds.
+// - A conv reads zero pad rows beyond its buffer; the error that makes
+//   spreads 7 rows a DBlock and never reaches a row that is stored or
+//   picked (ops/downpath_pallas.py holds the geometry; the CPU tests check
+//   it against the receptive field).
+// - 256 threads, two blocks per SM; at 10 s, b 1: 216 stage-1 blocks and
+//   108 stage-2 blocks, one wave each on 132 SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,20 +65,39 @@
 typedef __nv_bfloat16 bf16;
 
 namespace {
+namespace dp {
 
 constexpr int C = 32;
 constexpr int K0 = 7;                   // first conv taps
 constexpr int NL = 3;                   // dilated convs per DBlock
-constexpr int HALO_IN = 2048;           // required_halo((4, 8, 8))
-constexpr int TILE = 2048;              // output samples at input rate
-constexpr int THREADS = 512;
-constexpr int E1 = TILE / 4 + 2 * HALO_IN / 4;      // 1536 at rate 4
-constexpr int E2 = TILE / 32 + 2 * HALO_IN / 32;    // 192 at rate 32
-constexpr int E3 = TILE / 256 + 2 * HALO_IN / 256;  // 24 at rate 256
-constexpr int ROWS = 3 * C + 1;
-constexpr size_t SMEM_BYTES =
-    2 * C * E1 * sizeof(bf16) +
-    (3 * C * C + C + C * C + C + K0 * C + C) * sizeof(float);
+constexpr int ROWS = 3 * C + 1;         // conv operand rows: taps x C, bias
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int BLOCKS_PER_SM = 2;
+constexpr int ROW = 40;                 // bf16 per sample row (32 + 8)
+constexpr int WROW = 104;               // bf16 per staged conv weight row
+constexpr int PAD = 4;                  // zero rows around a buffer: d <= 4
+// stage 1: T1 rate-4 outputs per block, H1 rows of halo on each side
+constexpr int T1 = 256;
+constexpr int H1 = 8;
+constexpr int E1 = T1 + 2 * H1;
+constexpr int AOFF = 4 * H1 + 4;        // audio staged from 4 j0 - AOFF
+constexpr int ASPAN = 4 * E1 + 8;       // audio samples staged per block
+// stage 2: T3 rate-256 outputs per block; DBlock 3 over E3 rows from H3
+// before the tile, DBlock 2 over E2 rows from H2 before the tile's first
+// rate-32 sample 8 j0
+constexpr int T3 = 8;
+constexpr int H3 = 8;
+constexpr int E3 = 24;
+constexpr int H2 = 72;
+constexpr int E2 = 208;
+constexpr int PICK3 = H2 - 8 * H3;      // x2 row of p3 row 0
+static_assert(E1 % 8 == 0 && E2 % 8 == 0 && E3 % 8 == 0, "n8 tiles");
+static_assert(PICK3 >= 7 && PICK3 + 8 * (E3 - 1) < E2 - 7,
+              "every pick of p3 is a valid row of x2");
+static_assert(H1 >= 7 && H3 >= 7 && E3 - H3 - T3 >= 7 && H2 >= 7 &&
+                  E2 - H2 - 8 * T3 >= 7,
+              "halos cover a DBlock's reach");
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float round_bf(float v) {
@@ -72,267 +108,422 @@ __device__ __forceinline__ float leaky_bf(float v) {
   return v >= 0.0f ? v : round_bf(0.2f * v);
 }
 
-struct Weights {                        // f32 staging in shared memory
-  float* wt;                            // [3C][C] current conv layer
-  float* wb;                            // [C]
-  float* wr;                            // [C][C] current residual 1x1 conv
-  float* br;                            // [C]
-  float* w0;                            // [K0][C] first conv
-  float* b0;                            // [C]
-};
-
-// rows [0, n_rows) of a (n_rows + 1, C) bf16 operand into w, its bias row
-// into b
-__device__ void stage(const bf16* src, int n_rows, float* w, float* b) {
-  for (int idx = threadIdx.x; idx < (n_rows + 1) * C; idx += THREADS) {
-    const float v = to_f(src[idx]);
-    if (idx < n_rows * C)
-      w[idx] = v;
-    else
-      b[idx - n_rows * C] = v;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// bf16(audio[p]), zero outside [0, L)
-__device__ __forceinline__ float audio_at(const float* a, long p, int L) {
-  return (p >= 0 && p < L) ? round_bf(a[p]) : 0.0f;
+// four 8x8 b16 matrices; lane l gives row (l & 7) of matrix l >> 3
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
 }
 
-// first-conv output channel c at the sample whose 7 taps are af[]
-__device__ __forceinline__ float first_conv(const Weights& w, const float* af,
-                                            int c) {
-  float acc = w.b0[c];
-#pragma unroll
-  for (int k = 0; k < K0; ++k) acc = fmaf(w.w0[k * C + c], af[k], acc);
-  return round_bf(acc);
+// d += a . b, m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void load_taps(const float* a, long g, int L,
-                                          float* af) {
-#pragma unroll
-  for (int k = 0; k < K0; ++k) af[k] = audio_at(a, g + k - K0 / 2, L);
-}
-
-// store 32 channels of one sample as four 16-byte vectors
-__device__ __forceinline__ void store_sample(bf16* dst, const float* v) {
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  uint32_t w[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    uint4 u;
-    uint32_t* words = reinterpret_cast<uint32_t*>(&u);
+    const __nv_bfloat162 pair = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+    w[q] = *reinterpret_cast<const uint32_t*>(&pair);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// leaky_bf of 8 bf16 values packed in a 16-byte vector
+__device__ __forceinline__ uint4 leaky8(uint4 v) {
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float f[8];
 #pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const __nv_bfloat162 pair =
-          __floats2bfloat162_rn(v[8 * q + 2 * h], v[8 * q + 2 * h + 1]);
-      words[h] = *reinterpret_cast<const uint32_t*>(&pair);
+  for (int q = 0; q < 4; ++q) {
+    __nv_bfloat162 pair;
+    *reinterpret_cast<uint32_t*>(&pair) = w[q];
+    const float2 p = __bfloat1622float2(pair);
+    f[2 * q] = leaky_bf(p.x);
+    f[2 * q + 1] = leaky_bf(p.y);
+  }
+  return pack8(f);
+}
+
+// One DBlock's weights in shared memory, staged for the mma A operand:
+// conv l as ws[l][o][k C + c] (rows padded to WROW), its bias wb[l][o]; the
+// residual 1x1 conv as wr[o][c] (rows of ROW), its bias br[o].
+struct DWeights {
+  bf16 ws[NL][C * WROW];
+  bf16 wr[C * ROW];
+  float wb[NL][C];
+  float br[C];
+};
+static_assert(sizeof(DWeights) % 16 == 0, "buffers after it stay aligned");
+
+// DBlock bi of conv_aug (nb, NL, 3C+1, C) and res_aug (nb, C+1, C), both
+// with the bias in the last row, into w (transposed: outputs as rows). An
+// operand row is C bf16 = four 16-byte vectors; each thread loads whole
+// vectors, several in flight, and scatters their 8 outputs.
+__device__ void stage_dblock(const bf16* __restrict__ conv_aug,
+                             const bf16* __restrict__ res_aug, int bi,
+                             DWeights* w, int tid) {
+  const uint4* cw =
+      reinterpret_cast<const uint4*>(conv_aug + (size_t)bi * NL * ROWS * C);
+#pragma unroll 4
+  for (int idx = tid; idx < NL * ROWS * C / 8; idx += THREADS) {
+    const int l = idx / (ROWS * C / 8), r = (idx / (C / 8)) % ROWS;
+    const int o0 = 8 * (idx % (C / 8));
+    const uint4 v = __ldg(cw + idx);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (r < 3 * C)
+        w->ws[l][(o0 + j) * WROW + r] = e[j];
+      else
+        w->wb[l][o0 + j] = to_f(e[j]);
     }
-    reinterpret_cast<uint4*>(dst)[q] = u;
+  }
+  const uint4* rw =
+      reinterpret_cast<const uint4*>(res_aug + (size_t)bi * (C + 1) * C);
+#pragma unroll 4
+  for (int idx = tid; idx < (C + 1) * C / 8; idx += THREADS) {
+    const int c = idx / (C / 8), o0 = 8 * (idx % (C / 8));
+    const uint4 v = __ldg(rw + idx);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (c < C)
+        w->wr[(o0 + j) * ROW + c] = e[j];
+      else
+        w->br[o0 + j] = to_f(e[j]);
+    }
   }
 }
 
-// One dilated conv of a DBlock over a [C][E] stage buffer: dst = bf16(conv_d
-// (leaky(src))), zero where the sample lies outside [0, n). With `last`,
-// adds the block's residual bf16(br + Wr . p) in bf16, p from `pick_src`
-// (a [C][E_prev] buffer read at 8 j) or, when that is NULL, recomputed from
-// the audio at 4 j.
+// Zero the PAD rows on each side of the `rows`-row buffer at `buf`.
+__device__ __forceinline__ void zero_pads(bf16* buf, int rows, int tid) {
+  constexpr int V = PAD * ROW / 8;       // 16-byte vectors per side
+  for (int idx = tid; idx < 2 * V; idx += THREADS) {
+    bf16* side = idx < V ? buf - PAD * ROW : buf + rows * ROW;
+    reinterpret_cast<uint4*>(side)[idx % V] = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// One conv of a DBlock over rows [0, E) (row e is sample g0 + e), n8 tiles
+// j = warp, warp + WARPS, ...: acc = b_l + W_l . [src(e-d); src(e); src(e+d)]
+// with src already leaky'd; then without LAST dst = leaky_bf(bf16(acc)),
+// the next conv's input; with LAST dst = bf16(bf16(acc) + bf16(br + Wr .
+// p)), the block's output. Rows outside [0, n) are zero.
 template <bool LAST>
-__device__ void conv_layer(const bf16* src, bf16* dst, int E, int d, long g0,
-                           long n, const Weights& w, const bf16* pick_src,
-                           int e_prev, const float* audio, int L) {
-  for (int j = threadIdx.x; j < E; j += THREADS) {
-    float acc[C];
+__device__ void conv_layer(const bf16* src, bf16* dst, const bf16* p,
+                           const DWeights& w, int l, int d, long g0, int E,
+                           long n, int warp, int lane) {
+  uint32_t wa[2][6][4];
 #pragma unroll
-    for (int o = 0; o < C; ++o) acc[o] = w.wb[o];
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int ks = 0; ks < 6; ++ks)
+      ldsm_x4(wa[m][ks], w.ws[l] + (16 * m + (lane & 15)) * WROW + 16 * ks +
+                             (lane >> 4) * 8);
+  uint32_t wra[2][2][4];
+  if (LAST)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        ldsm_x4(wra[m][ks], w.wr + (16 * m + (lane & 15)) * ROW + 16 * ks +
+                                (lane >> 4) * 8);
+  const int gq = lane >> 2, tq = lane & 3;
+  float bias[2][2], rbias[2][2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bias[m][h] = w.wb[l][16 * m + gq + 8 * h];
+      rbias[m][h] = LAST ? w.br[16 * m + gq + 8 * h] : 0.0f;
+    }
+  for (int j = warp; j < E / 8; j += WARPS) {
+    const int n0 = 8 * j;
+    // two accumulator chains per m16 tile (channels 0-15 and 16-31 of each
+    // tap), summed at the end
+    float acc[2][2][4], res[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      acc[m][0][0] = acc[m][0][1] = bias[m][0];
+      acc[m][0][2] = acc[m][0][3] = bias[m][1];
+      res[m][0] = res[m][1] = rbias[m][0];
+      res[m][2] = res[m][3] = rbias[m][1];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[m][1][v] = 0.0f;
+    }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      const int sj = j + (k - 1) * d;
-      const bool in = sj >= 0 && sj < E;
-      for (int c = 0; c < C; ++c) {
-        const float a = in ? leaky_bf(to_f(src[c * E + sj])) : 0.0f;
-        const float4* wr4 =
-            reinterpret_cast<const float4*>(w.wt + (k * C + c) * C);
+      uint32_t b[4];
+      ldsm_x4(b, src + (n0 + (lane & 7) + (k - 1) * d) * ROW +
+                     (lane >> 3) * 8);
 #pragma unroll
-        for (int o4 = 0; o4 < C / 4; ++o4) {
-          const float4 w4 = wr4[o4];
-          acc[4 * o4 + 0] = fmaf(w4.x, a, acc[4 * o4 + 0]);
-          acc[4 * o4 + 1] = fmaf(w4.y, a, acc[4 * o4 + 1]);
-          acc[4 * o4 + 2] = fmaf(w4.z, a, acc[4 * o4 + 2]);
-          acc[4 * o4 + 3] = fmaf(w4.w, a, acc[4 * o4 + 3]);
-        }
+      for (int m = 0; m < 2; ++m) {
+        mma_bf16(acc[m][0], wa[m][2 * k], b[0], b[1]);
+        mma_bf16(acc[m][1], wa[m][2 * k + 1], b[2], b[3]);
       }
     }
-    const long g = g0 + j;
-    const bool valid = g >= 0 && g < n;
     if (LAST) {
-      float res[C];
+      uint32_t b[4];
+      ldsm_x4(b, p + (n0 + (lane & 7)) * ROW + (lane >> 3) * 8);
 #pragma unroll
-      for (int o = 0; o < C; ++o) res[o] = w.br[o];
-      float af[K0];
-      if (pick_src == nullptr) load_taps(audio, 4 * g, L, af);
-      for (int c = 0; c < C; ++c) {
-        float p;
-        if (pick_src != nullptr)
-          p = to_f(pick_src[c * e_prev + 8 * j]);
-        else
-          p = valid ? first_conv(w, af, c) : 0.0f;
-        const float4* wr4 = reinterpret_cast<const float4*>(w.wr + c * C);
-#pragma unroll
-        for (int o4 = 0; o4 < C / 4; ++o4) {
-          const float4 w4 = wr4[o4];
-          res[4 * o4 + 0] = fmaf(w4.x, p, res[4 * o4 + 0]);
-          res[4 * o4 + 1] = fmaf(w4.y, p, res[4 * o4 + 1]);
-          res[4 * o4 + 2] = fmaf(w4.z, p, res[4 * o4 + 2]);
-          res[4 * o4 + 3] = fmaf(w4.w, p, res[4 * o4 + 3]);
-        }
+      for (int m = 0; m < 2; ++m) {
+        mma_bf16(res[m], wra[m][0], b[0], b[1]);
+        mma_bf16(res[m], wra[m][1], b[2], b[3]);
       }
-#pragma unroll
-      for (int o = 0; o < C; ++o)
-        acc[o] = round_bf(acc[o]) + round_bf(res[o]);
     }
 #pragma unroll
-    for (int o = 0; o < C; ++o)
-      dst[o * E + j] = __float2bfloat16(valid ? acc[o] : 0.0f);
+    for (int c = 0; c < 2; ++c) {
+      const int e = n0 + 2 * tq + c;
+      const long g = g0 + e;
+      const bool valid = g >= 0 && g < n;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int v = 2 * h + c;
+          const float y = round_bf(acc[m][0][v] + acc[m][1][v]);
+          const float out =
+              LAST ? y + round_bf(res[m][v]) : leaky_bf(y);
+          dst[e * ROW + 16 * m + gq + 8 * h] =
+              __float2bfloat16(valid ? out : 0.0f);
+        }
+    }
   }
 }
 
-// The three convs of DBlock `bi` at rate `rate`: p in buffer A ([C][E]),
-// B the scratch; the block output lands in B.
-__device__ void dblock(const bf16* conv_aug, const bf16* res_aug, int bi,
-                       bf16* A, bf16* B, int E, long g0, long n,
-                       const Weights& w, const bf16* pick_src, int e_prev,
-                       const float* audio, int L) {
-  stage(res_aug + (size_t)bi * (C + 1) * C, C, w.wr, w.br);
-  for (int li = 0; li < NL; ++li) {
-    __syncthreads();  // the previous layer's output and weights are done
-    stage(conv_aug + ((size_t)bi * NL + li) * ROWS * C, 3 * C, w.wt, w.wb);
-    __syncthreads();
-    const bf16* src = (li % 2 == 0) ? A : B;
-    bf16* dst = (li % 2 == 0) ? B : A;
-    if (li == NL - 1)
-      conv_layer<true>(src, dst, E, 1 << li, g0, n, w, pick_src, e_prev,
-                       audio, L);
-    else
-      conv_layer<false>(src, dst, E, 1 << li, g0, n, w, nullptr, 0, audio,
-                        L);
-  }
+// The three convs of a DBlock over rows [0, E) of sample g0 + e: p in P,
+// leaky(p) in A (both zero outside [0, n)); A and Bb hold PAD zero rows on
+// each side. The block's output x lands in Bb; A is overwritten.
+__device__ void dblock(const bf16* P, bf16* A, bf16* Bb, const DWeights& w,
+                       long g0, int E, long n, int warp, int lane) {
+  conv_layer<false>(A, Bb, nullptr, w, 0, 1, g0, E, n, warp, lane);
+  __syncthreads();
+  conv_layer<false>(Bb, A, nullptr, w, 1, 2, g0, E, n, warp, lane);
+  __syncthreads();
+  conv_layer<true>(A, Bb, P, w, 2, 4, g0, E, n, warp, lane);
   __syncthreads();
 }
 
-// write the center samples [halo, halo + tile) of a [C][E] stage buffer to
-// out (B, n, C) at rate-r position g0 + j
-__device__ void store_center(const bf16* buf, int E, int halo, int tile,
-                             long g0, long n, bf16* out) {
-  for (int j = halo + threadIdx.x; j < halo + tile; j += THREADS) {
-    const long g = g0 + j;
-    if (g >= n) continue;
-    float v[C];
+// Rows [r0, r0 + count) of a [rows][ROW] buffer to the NWC rows pos0 + r
+// (< n) of `out`: four 16-byte stores per 64-byte sample row.
+__device__ __forceinline__ void store_rows(const bf16* buf, int r0,
+                                           int count, long pos0, long n,
+                                           bf16* __restrict__ out, int tid) {
+  for (int idx = tid; idx < 4 * count; idx += THREADS) {
+    const int r = idx >> 2, q = idx & 3;
+    const long g = pos0 + r;
+    if (g < n)
+      reinterpret_cast<uint4*>(out + g * C)[q] =
+          reinterpret_cast<const uint4*>(buf + (r0 + r) * ROW)[q];
+  }
+}
+
+// x0 channels 8q .. 8q+7 at the sample whose first tap is af[0]:
+// bf16(b0 + sum_k W0[k] af[k]), the taps in order
+__device__ __forceinline__ void first_conv8(const float* af,
+                                            const float (&w0)[K0][8],
+                                            const float (&b0)[8], float* v) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) v[c] = to_f(buf[c * E + j]);
-    store_sample(out + (size_t)g * C, v);
+  for (int j = 0; j < 8; ++j) {
+    float acc = b0[j];
+#pragma unroll
+    for (int k = 0; k < K0; ++k) acc = fmaf(w0[k][j], af[k], acc);
+    v[j] = round_bf(acc);
   }
 }
 
-// dst[c][j] = src[c][8 j], j < E_dst
-__device__ void pick(const bf16* src, int e_src, bf16* dst, int e_dst) {
-  for (int idx = threadIdx.x; idx < C * e_dst; idx += THREADS) {
-    const int c = idx / e_dst;
-    const int j = idx % e_dst;
-    dst[c * e_dst + j] = src[c * e_src + 8 * j];
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-downpath_kernel(const float* __restrict__ audio,
-                const bf16* __restrict__ first_aug,
-                const bf16* __restrict__ res_aug,
-                const bf16* __restrict__ conv_aug, bf16* __restrict__ s0,
-                bf16* __restrict__ s1, bf16* __restrict__ s2,
-                bf16* __restrict__ xf, int L) {
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+down_stage1(const float* __restrict__ audio,
+            const bf16* __restrict__ first_aug,
+            const bf16* __restrict__ res_aug,
+            const bf16* __restrict__ conv_aug, bf16* __restrict__ s0,
+            bf16* __restrict__ s1, int L) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* buf0 = reinterpret_cast<bf16*>(smem_raw);      // [C][E1]
-  bf16* buf1 = buf0 + C * E1;                           // [C][E1]
-  Weights w;
-  w.wt = reinterpret_cast<float*>(buf1 + C * E1);
-  w.wb = w.wt + 3 * C * C;
-  w.wr = w.wb + C;
-  w.br = w.wr + C * C;
-  w.w0 = w.br + C;
-  w.b0 = w.w0 + K0 * C;
+  DWeights* w = reinterpret_cast<DWeights*>(smem_raw);
+  float* af = reinterpret_cast<float*>(smem_raw + sizeof(DWeights));
+  bf16* P = reinterpret_cast<bf16*>(af + ASPAN) + PAD * ROW;  // [E1][ROW]
+  bf16* A = P + (E1 + 2 * PAD) * ROW;
+  bf16* Bb = A + (E1 + 2 * PAD) * ROW;
 
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.y;
-  const long t0 = (long)blockIdx.x * TILE;     // first center sample
+  const long n1 = L / 4;
+  const long j0 = (long)blockIdx.x * T1;   // first rate-4 output
+  const long g1 = j0 - H1;                 // sample of row 0
   const float* a = audio + (size_t)b * L;
-  stage(first_aug, K0, w.w0, w.b0);
+
+  zero_pads(A, E1, tid);
+  zero_pads(Bb, E1, tid);
+  stage_dblock(conv_aug, res_aug, 0, w, tid);
+  // af[i] = bf16(audio[4 j0 - AOFF + i]), zero outside [0, L)
+  for (int i = tid; i < ASPAN; i += THREADS) {
+    const long t = 4 * j0 - AOFF + i;
+    af[i] = (t >= 0 && t < L) ? round_bf(__ldg(a + t)) : 0.0f;
+  }
+  // the first conv's weights for this thread's channels 8q .. 8q+7 (every
+  // task below has idx & 3 == tid & 3)
+  const int q = tid & 3;
+  float w0[K0][8], b0[8];
+#pragma unroll
+  for (int k = 0; k < K0; ++k)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w0[k][j] = to_f(first_aug[k * C + 8 * q + j]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) b0[j] = to_f(first_aug[K0 * C + 8 * q + j]);
   __syncthreads();
 
-  // skip0, straight from the audio
-  for (int t = threadIdx.x; t < TILE; t += THREADS) {
-    const long g = t0 + t;
-    if (g >= L) continue;
-    float af[K0], v[C];
-    load_taps(a, g, L, af);
-#pragma unroll
-    for (int c = 0; c < C; ++c) v[c] = first_conv(w, af, c);
-    store_sample(s0 + ((size_t)b * L + g) * C, v);
+  // skip0 rows [4 j0, 4 j0 + 4 T1): a warp writes 8 whole 64-byte rows
+#pragma unroll 4
+  for (int idx = tid; idx < 4 * 4 * T1; idx += THREADS) {
+    const int s = idx >> 2;
+    const long t = 4 * j0 + s;
+    float v[8];
+    first_conv8(af + AOFF + s - K0 / 2, w0, b0, v);
+    if (t < L)
+      reinterpret_cast<uint4*>(s0 + ((size_t)b * L + t) * C)[q] = pack8(v);
   }
-
-  // DBlock 1 (rate 4): p from the audio into buf1, output in buf0
-  const long n1 = L / 4, g1 = (t0 - HALO_IN) / 4;
-  for (int idx = threadIdx.x; idx < E1; idx += THREADS) {
-    const long g = g1 + idx;
-    const bool valid = g >= 0 && g < n1;
-    float af[K0];
-    load_taps(a, 4 * g, L, af);
-    for (int c = 0; c < C; ++c)
-      buf1[c * E1 + idx] =
-          __float2bfloat16(valid ? first_conv(w, af, c) : 0.0f);
+  // picks p1[e] = x0[4 (g1 + e)], zero outside [0, n1), into P; leaky into A
+  for (int idx = tid; idx < 4 * E1; idx += THREADS) {
+    const int e = idx >> 2;
+    const long m = g1 + e;
+    float v[8];
+    first_conv8(af + 4 * e + 1, w0, b0, v);
+    const bool valid = m >= 0 && m < n1;
+    uint4 pv = make_uint4(0, 0, 0, 0);
+    if (valid) pv = pack8(v);
+    reinterpret_cast<uint4*>(P + e * ROW)[q] = pv;
+    reinterpret_cast<uint4*>(A + e * ROW)[q] = leaky8(pv);
   }
-  dblock(conv_aug, res_aug, 0, buf1, buf0, E1, g1, n1, w, nullptr, 0, a, L);
-  store_center(buf0, E1, HALO_IN / 4, TILE / 4, g1, n1,
-               s1 + (size_t)b * n1 * C);
+  __syncthreads();
 
-  // DBlock 2 (rate 32): buffers carved from buf1, picks from buf0
-  const long n2 = L / 32, g2 = (t0 - HALO_IN) / 32;
-  bf16* p2 = buf1;
-  bf16* q2 = buf1 + C * E2;
-  pick(buf0, E1, p2, E2);
-  dblock(conv_aug, res_aug, 1, p2, q2, E2, g2, n2, w, buf0, E1, a, L);
-  store_center(q2, E2, HALO_IN / 32, TILE / 32, g2, n2,
-               s2 + (size_t)b * n2 * C);
-
-  // DBlock 3 (rate 256): buffers carved from buf0, picks from q2
-  const long n3 = L / 256, g3 = (t0 - HALO_IN) / 256;
-  bf16* p3 = buf0;
-  bf16* q3 = buf0 + C * E3;
-  pick(q2, E2, p3, E3);
-  dblock(conv_aug, res_aug, 2, p3, q3, E3, g3, n3, w, q2, E2, a, L);
-  store_center(q3, E3, HALO_IN / 256, TILE / 256, g3, n3,
-               xf + (size_t)b * n3 * C);
+  dblock(P, A, Bb, *w, g1, E1, n1, warp, lane);
+  store_rows(Bb, H1, T1, j0, n1, s1 + (size_t)b * n1 * C, tid);
 }
 
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+down_stage2(const bf16* __restrict__ res_aug,
+            const bf16* __restrict__ conv_aug,
+            const bf16* __restrict__ s1, bf16* __restrict__ s2,
+            bf16* __restrict__ xf, int L) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DWeights* w2 = reinterpret_cast<DWeights*>(smem_raw);
+  DWeights* w3 = w2 + 1;
+  bf16* P = reinterpret_cast<bf16*>(w3 + 1) + PAD * ROW;    // [E2][ROW]
+  bf16* A = P + (E2 + 2 * PAD) * ROW;
+  bf16* Bb = A + (E2 + 2 * PAD) * ROW;
+  // DBlock 3's buffers, carved from P's bytes once DBlock 2 is done
+  bf16* P3 = P;                                               // [E3][ROW]
+  bf16* A3 = P3 + (E3 + 2 * PAD) * ROW;
+  bf16* B3 = A3 + (E3 + 2 * PAD) * ROW;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y;
+  const long n1 = L / 4, n2 = L / 32, n3 = L / 256;
+  const long j0 = (long)blockIdx.x * T3;    // first rate-256 output
+  const long g2 = 8 * j0 - H2;              // rate-32 sample of x2 row 0
+  const long g3 = j0 - H3;                  // rate-256 sample of p3 row 0
+
+  zero_pads(A, E2, tid);
+  zero_pads(Bb, E2, tid);
+  stage_dblock(conv_aug, res_aug, 1, w2, tid);
+  stage_dblock(conv_aug, res_aug, 2, w3, tid);
+  // picks p2[e] = skip1[8 (g2 + e)], zero outside [0, n2)
+  const bf16* s1b = s1 + (size_t)b * n1 * C;
+  for (int idx = tid; idx < 4 * E2; idx += THREADS) {
+    const int e = idx >> 2, q = idx & 3;
+    const long m = g2 + e;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (m >= 0 && m < n2)
+      v = __ldg(reinterpret_cast<const uint4*>(s1b + 8 * m * C) + q);
+    reinterpret_cast<uint4*>(P + e * ROW)[q] = v;
+    reinterpret_cast<uint4*>(A + e * ROW)[q] = leaky8(v);
+  }
+  __syncthreads();
+
+  dblock(P, A, Bb, *w2, g2, E2, n2, warp, lane);       // x2 in Bb
+  store_rows(Bb, H2, 8 * T3, 8 * j0, n2, s2 + (size_t)b * n2 * C, tid);
+  // picks p3[e] = x2[8 (g3 + e)] (row PICK3 + 8 e of Bb), zero outside
+  // [0, n3)
+  zero_pads(A3, E3, tid);
+  zero_pads(B3, E3, tid);
+  for (int idx = tid; idx < 4 * E3; idx += THREADS) {
+    const int e = idx >> 2, q = idx & 3;
+    const long m = g3 + e;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (m >= 0 && m < n3)
+      v = reinterpret_cast<const uint4*>(Bb + (PICK3 + 8 * e) * ROW)[q];
+    reinterpret_cast<uint4*>(P3 + e * ROW)[q] = v;
+    reinterpret_cast<uint4*>(A3 + e * ROW)[q] = leaky8(v);
+  }
+  __syncthreads();
+
+  dblock(P3, A3, B3, *w3, g3, E3, n3, warp, lane);     // x3 in B3
+  store_rows(B3, H3, T3, j0, n3, xf + (size_t)b * n3 * C, tid);
+}
+
+constexpr int SMEM1 =
+    sizeof(DWeights) + ASPAN * 4 + 3 * (E1 + 2 * PAD) * ROW * 2;
+constexpr int SMEM2 = 2 * sizeof(DWeights) + 3 * (E2 + 2 * PAD) * ROW * 2;
+static_assert(3 * (E3 + 2 * PAD) <= E2 + 2 * PAD,
+              "DBlock 3's buffers fit in P's bytes");
+static_assert(BLOCKS_PER_SM * (SMEM1 + 1024) <= 233472 &&
+                  BLOCKS_PER_SM * (SMEM2 + 1024) <= 233472,
+              "two blocks of either stage share an SM");
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+}  // namespace dp
 }  // namespace
 
 // audio (B, L, 1) f32; first_aug (K0+1, C), res_aug (3, C+1, C), conv_aug
 // (3, 3, 3C+1, C), all bf16 with the bias in the last row; outputs s0 (B, L,
 // C), s1 (B, L/4, C), s2 (B, L/32, C), xf (B, L/256, C) bf16. Only C = 32,
 // factors (4, 8, 8), a k=7 first conv and 3 convs per DBlock are built;
-// L must be a multiple of 256 (the Python wrapper checks). Launches on
-// `stream`; returns cudaGetLastError() (or the attribute call's error).
+// L must be a multiple of 256 (the Python wrapper checks). Launches stage 1
+// then stage 2 on `stream`; returns cudaGetLastError() (or an attribute
+// call's error).
 extern "C" int downpath_launch(const void* audio, const void* first_aug,
                                const void* res_aug, const void* conv_aug,
                                void* s0, void* s1, void* s2, void* xf, int B,
                                int L, int channels, void* stream) {
+  using namespace dp;
   if (channels != C || L % 256 != 0 || B < 1 || L < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      downpath_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+  cudaError_t err = allow_smem(down_stage1, SMEM1);
+  if (err == cudaSuccess) err = allow_smem(down_stage2, SMEM2);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + TILE - 1) / TILE, B);
-  downpath_kernel<<<grid, THREADS, SMEM_BYTES,
-                    static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long n1 = L / 4, n3 = L / 256;
+  down_stage1<<<dim3((n1 + T1 - 1) / T1, B), THREADS, SMEM1, s>>>(
       static_cast<const float*>(audio), static_cast<const bf16*>(first_aug),
       static_cast<const bf16*>(res_aug), static_cast<const bf16*>(conv_aug),
-      static_cast<bf16*>(s0), static_cast<bf16*>(s1), static_cast<bf16*>(s2),
+      static_cast<bf16*>(s0), static_cast<bf16*>(s1), L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  down_stage2<<<dim3((n3 + T3 - 1) / T3, B), THREADS, SMEM2, s>>>(
+      static_cast<const bf16*>(res_aug), static_cast<const bf16*>(conv_aug),
+      static_cast<const bf16*>(s1), static_cast<bf16*>(s2),
       static_cast<bf16*>(xf), L);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,11 @@
 // What the LVC block kernels share: the tile geometry, the bf16 helpers and
-// the CUDA-core per-layer stages. Included by lvc_block_ncl.cu (K4, and
-// K1, K2, K6 at hops that are no multiple of 8), lvc_block_ncl_fh.cu (K5 at
+// the CUDA-core per-layer stages. Included by lvc_block_ncl.cu (K1, K2, K4
+// and K6 at hops that are no multiple of 8), lvc_block_ncl_fh_cc.cu (K5 at
 // such hops) and, for its constants and helpers, lvc_block_tc.cuh (the
-// tensor-core stages of K1, K2, K5 and K6). Since K5 and K6 moved to the
-// tensor cores, only K4 and the *_cc kernels run the stages below. Every
-// stage is called by all EXT threads of a block, one thread per sample of
-// the tile's extent (TILE outputs plus a HALO on each side).
+// tensor-core stages of K1, K2, K4, K5 and K6). Only the *_cc kernels run
+// the stages below. Every stage is called by all EXT threads of a block,
+// one thread per sample of the tile's extent (TILE outputs plus a HALO on
+// each side).
 //
 // Layer i of the block, d = 3^i (see lvc_block_ncl.cu):
 //   s     = carry + skip                       (bf16, zero outside [0, L))

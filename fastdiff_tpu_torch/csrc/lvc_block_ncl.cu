@@ -1,13 +1,14 @@
 // Kernel B on the CUDA cores: the whole 4-layer time-aware LVC block, NCL
 // layout, with an optional epilogue for the model's final k=7 C->1 conv
 // (K1 and K2 for hops that are no multiple of 8; lvc_block_ncl_tc.cu runs
-// the others on the tensor cores); Kernel B-SR (K4), the same block writing
-// the per-layer residuals that the training backward reads; and K6 for hops
-// that are no multiple of 8 (lvc_block_nwc_tc.cu runs the others on the
-// tensor cores), the same block in the NWC layout (template flag NWC). Of
-// the block kernels only K4 runs these CUDA-core stages on a route's main
-// path; the others are the fallbacks for other hops and the yardsticks
-// that chip_smoke.py races the tensor-core kernels against.
+// the others on the tensor cores); Kernel B-SR (K4) for such hops, the same
+// block writing the per-layer residuals that the training backward reads
+// (lvc_block_ncl_tc.cu's SAVE runs the others); and K6 for such hops
+// (lvc_block_nwc_tc.cu runs the others on the tensor cores), the same block
+// in the NWC layout (template flag NWC). No route's main path runs these
+// CUDA-core kernels at the model's hops: they are the fallbacks for other
+// hops and the yardsticks that chip_smoke.py races the tensor-core kernels
+// against.
 //
 // Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_aug, both of its
 // pallas_call sites (_kernel_body and _kernel_body_final, through
@@ -216,16 +217,19 @@ extern "C" int lvc_block_ncl_cc_launch(const void* x, const void* skip,
                               s);
 }
 
-// Kernel B-SR: Kernel B that also writes s_all, y_all (B, layers, C, L) and
-// z_all (B, layers, 2C, L), all bf16, for the center samples of every tile
-// (so every sample once). Same operands and checks as
-// lvc_block_ncl_cc_launch.
-extern "C" int lvc_block_ncl_sr_launch(const void* x, const void* skip,
-                                       const void* kern, const void* wstack_t,
-                                       void* out, void* s_all, void* y_all,
-                                       void* z_all, int B, int channels,
-                                       int L, int F, int hop, int rows_p,
-                                       int layers, void* stream) {
+// Kernel B-SR on the CUDA cores (any hop >= 1; lvc_block_ncl_tc.cu runs
+// hops that are multiples of 8): Kernel B that also writes s_all, y_all
+// (B, layers, C, L) and z_all (B, layers, 2C, L), all bf16, for the center
+// samples of every tile (so every sample once). Same operands and checks
+// as lvc_block_ncl_cc_launch.
+extern "C" int lvc_block_ncl_sr_cc_launch(const void* x, const void* skip,
+                                          const void* kern,
+                                          const void* wstack_t, void* out,
+                                          void* s_all, void* y_all,
+                                          void* z_all, int B,
+                                          int channels, int L, int F, int hop,
+                                          int rows_p, int layers,
+                                          void* stream) {
   if (bad_shape(channels, L, F, hop, rows_p, layers))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch<false, true>(x, skip, kern, wstack_t, nullptr, out, nullptr,

@@ -56,22 +56,37 @@
 // - The final conv epilogue (448 FMAs per sample) stays on the CUDA cores
 //   and reads the sample-major carry.
 //
+// Kernel B-SR (K4, template flag SAVE; replaces fastdiff_tpu/ops/
+// lvc_block_ncl.py:lvc_block_ncl_aug_sr, pallas_call of _kernel_body_sr) is
+// the same block writing the per-layer residuals that the training backward
+// reads: s (after the skip-add, masked, before the leaky), y (the bf16 input
+// of the LVC, in channel order) and the pre-gate z (f32 sums rounded to
+// bf16), for the tile's own samples only, into s_all, y_all (B, layers, C,
+// L) and z_all (B, layers, 2C, L). The stages already hold these values, so
+// SAVE adds only 4-byte stores of sample pairs (lvc_block_tc.cuh): at the
+// training recipe (b 20 x 100 frames) 0.52 GB per hop-256 call, 0.16 ms at
+// 3.35 TB/s, of a 0.22 ms bytes bound.
+//
 // Hops that are no multiple of 8 (an n8 tile would straddle two frames)
-// run the CUDA-core kernel (lvc_block_ncl_cc_launch).
+// run the CUDA-core kernels (lvc_block_ncl_cc_launch,
+// lvc_block_ncl_sr_cc_launch).
 
 #include "lvc_block_tc.cuh"
 
 namespace {
 
-// WIDE: hop == 8 (16-byte fragment loads of K_{i,f}, y in ypos order)
-template <bool FINAL, bool WIDE>
+// WIDE: hop == 8 (16-byte fragment loads of K_{i,f}, y in ypos order);
+// SAVE: Kernel B-SR, writes s_all, y_all, z_all (never with FINAL)
+template <bool FINAL, bool WIDE, bool SAVE = false>
 __global__ void __launch_bounds__(tc::THREADS, tc::BLOCKS_PER_SM)
 lvc_block_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
                     const bf16* __restrict__ kern,
                     const bf16* __restrict__ wstack_t,
                     const bf16* __restrict__ final_wb, bf16* __restrict__ out,
                     float* __restrict__ fin, int L, int F, int hop,
-                    int rows_p, int tile) {
+                    int rows_p, int tile, bf16* __restrict__ s_all,
+                    bf16* __restrict__ y_all, bf16* __restrict__ z_all) {
+  static_assert(!(FINAL && SAVE), "Kernel B-SR has no epilogue");
   using namespace tc;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ext = tile + 2 * HALO;
@@ -99,41 +114,57 @@ lvc_block_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ skip,
 
   int d = 1;
   for (int i = 0; i < LAYERS; ++i, d *= 3) {
+    // SAVE: layer i's (C, L) planes of s and y, (2C, L) of z, batch row b
+    const size_t plane = ((size_t)b * LAYERS + i) * C * L;
+    bf16* s_i = SAVE ? s_all + plane : nullptr;
+    bf16* y_i = SAVE ? y_all + plane : nullptr;
+    bf16* z_i = SAVE ? z_all + 2 * plane : nullptr;
     __syncthreads();  // the last layer's gate is done with carry and ws
     stage_weights(wstack_t + (size_t)i * C * ROWS, ws, wb, tid);
-    skip_add(skip + brow, carry, act, g0, ext, L, tid);
+    skip_add<SAVE>(skip + brow, carry, act, g0, ext, L, tid, s_i, tile);
     __syncthreads();
-    conv_tc<WIDE>(act, ws, wb, ybuf, d, g0, ext, L, warp, lane);
+    conv_tc<WIDE, SAVE>(act, ws, wb, ybuf, d, g0, ext, L, warp, lane, y_i,
+                        tile);
     __syncthreads();
-    lvc_gate_tc<WIDE>(kern_b, i, ybuf, carry, rows_p, hop, F, g0, ext, warp,
-                      lane);
+    lvc_gate_tc<WIDE, SAVE>(kern_b, i, ybuf, carry, rows_p, hop, F, g0, ext,
+                            warp, lane, z_i, tile);
   }
   __syncthreads();
   store_rows(carry, out + brow, g0, tile, L, tid);
   if (FINAL) final_conv_rows(carry, wf, fin + (size_t)b * L, g0, tile, L, tid);
 }
 
-template <bool FINAL, bool WIDE>
+template <bool FINAL, bool WIDE, bool SAVE = false>
 int launch(const void* x, const void* skip, const void* kern,
            const void* wstack_t, const void* final_wb, void* out, void* fin,
            int B, int L, int F, int hop, int rows_p, int tile,
-           cudaStream_t stream) {
+           cudaStream_t stream, void* s_all, void* y_all, void* z_all) {
   const int smem = tc::smem_bytes(tile + 2 * HALO);
   cudaError_t err = cudaFuncSetAttribute(
-      lvc_block_tc_kernel<FINAL, WIDE>,
+      lvc_block_tc_kernel<FINAL, WIDE, SAVE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(lvc_block_tc_kernel<FINAL, WIDE>,
+  err = cudaFuncSetAttribute(lvc_block_tc_kernel<FINAL, WIDE, SAVE>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + tile - 1) / tile, B);
-  lvc_block_tc_kernel<FINAL, WIDE><<<grid, tc::THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
-      static_cast<const bf16*>(kern), static_cast<const bf16*>(wstack_t),
-      static_cast<const bf16*>(final_wb), static_cast<bf16*>(out),
-      static_cast<float*>(fin), L, F, hop, rows_p, tile);
+  lvc_block_tc_kernel<FINAL, WIDE, SAVE>
+      <<<grid, tc::THREADS, smem, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(skip),
+          static_cast<const bf16*>(kern), static_cast<const bf16*>(wstack_t),
+          static_cast<const bf16*>(final_wb), static_cast<bf16*>(out),
+          static_cast<float*>(fin), L, F, hop, rows_p, tile,
+          static_cast<bf16*>(s_all), static_cast<bf16*>(y_all),
+          static_cast<bf16*>(z_all));
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int channels, int L, int F, int hop, int rows_p, int layers,
+               int tile) {
+  return channels != C || layers != LAYERS || rows_p % 8 != 0 ||
+         rows_p < ROWS || hop < 8 || hop % 8 != 0 || (long)F * hop != L ||
+         tile < 8 || tile % 8 != 0 || tile > tc::TILE_MAX;
 }
 
 }  // namespace
@@ -150,17 +181,34 @@ extern "C" int lvc_block_ncl_launch(const void* x, const void* skip,
                                     void* fin, int B, int channels, int L,
                                     int F, int hop, int rows_p, int layers,
                                     int tile, void* stream) {
-  if (channels != C || layers != LAYERS || rows_p % 8 != 0 || rows_p < ROWS ||
-      hop < 8 || hop % 8 != 0 || (long)F * hop != L || tile < 8 ||
-      tile % 8 != 0 || tile > tc::TILE_MAX)
+  if (bad_shape(channels, L, F, hop, rows_p, layers, tile))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = hop == 8;
   if (final_wb != nullptr)
     return (wide ? launch<true, true> : launch<true, false>)(
         x, skip, kern, wstack_t, final_wb, out, fin, B, L, F, hop, rows_p,
-        tile, s);
+        tile, s, nullptr, nullptr, nullptr);
   return (wide ? launch<false, true> : launch<false, false>)(
       x, skip, kern, wstack_t, nullptr, out, nullptr, B, L, F, hop, rows_p,
-      tile, s);
+      tile, s, nullptr, nullptr, nullptr);
+}
+
+// Kernel B-SR on the tensor cores: Kernel B that also writes s_all, y_all
+// (B, layers, C, L) and z_all (B, layers, 2C, L), all bf16, for the tile's
+// own samples (so every sample once). The operands and checks of
+// lvc_block_ncl_launch, without final_wb and fin; tile from
+// ops/lvc_block_ncl.py:block_tile_plan.
+extern "C" int lvc_block_ncl_sr_launch(const void* x, const void* skip,
+                                       const void* kern, const void* wstack_t,
+                                       void* out, void* s_all, void* y_all,
+                                       void* z_all, int B, int channels,
+                                       int L, int F, int hop, int rows_p,
+                                       int layers, int tile, void* stream) {
+  if (bad_shape(channels, L, F, hop, rows_p, layers, tile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (hop == 8 ? launch<false, true, true> : launch<false, false, true>)(
+      x, skip, kern, wstack_t, nullptr, out, nullptr, B, L, F, hop, rows_p,
+      tile, s, s_all, y_all, z_all);
 }

@@ -1,10 +1,9 @@
 // Tensor-core stages of the 4-layer LVC block: both contractions of a layer
 // as bf16 mma.sync.m16n8k16 products with f32 accumulation, over
 // activations kept sample-major in shared memory. Used by
-// lvc_block_ncl_tc.cu (K1, K2), lvc_block_ncl_fh.cu (K5) and
-// lvc_block_nwc_tc.cu (K6); only K4 (and the *_cc fallbacks for hops that
-// are no multiple of 8) still run the CUDA-core stages of
-// lvc_block_common.cuh.
+// lvc_block_ncl_tc.cu (K1, K2, K4), lvc_block_ncl_fh.cu (K5) and
+// lvc_block_nwc_tc.cu (K6); only the *_cc fallbacks for hops that are no
+// multiple of 8 still run the CUDA-core stages of lvc_block_common.cuh.
 //
 // Every stage is called by all THREADS threads of a block whose extent is
 // `ext` samples (the tile's outputs plus HALO on each side), row 0 being
@@ -29,6 +28,14 @@
 // neither loop regroups registers), and kept in registers while a warp's
 // n8 tiles stay in frame f. Each m16 tile sums its two k16 steps per tap
 // in two accumulator chains, added at the end.
+//
+// Kernel B-SR (K4, lvc_block_ncl_tc.cu with SAVE) also writes what the
+// stages hold for the tile's own samples (HALO <= e < HALO + tile, g < L):
+// s from skip_add, y from conv_tc's accumulators in channel order (not
+// ybuf's ypos order) and the pre-gate z from gate_tile's accumulators, each
+// into a (rows, L) plane of one batch row and layer as 4-byte stores of two
+// consecutive samples. The stages take SAVE as a template flag that
+// defaults off, so K1, K2, K5 and K6 compile as before.
 
 #pragma once
 
@@ -231,15 +238,50 @@ __device__ __forceinline__ void stage_weights(const bf16* __restrict__ w,
   }
 }
 
+// Channels 8q .. 8q+7 of the two sample rows from `rows` (row e, row e+1 of
+// a [ext][ROW] buffer) into a (C, L) plane from `dst` (sample g): one 4-byte
+// store per channel, sample e in the low half.
+__device__ __forceinline__ void store_pair8(const bf16* rows, int q,
+                                            bf16* __restrict__ dst,
+                                            int L) {
+  const uint4 v0 = reinterpret_cast<const uint4*>(rows)[q];
+  const uint4 v1 = reinterpret_cast<const uint4*>(rows + ROW)[q];
+  const uint32_t w0[4] = {v0.x, v0.y, v0.z, v0.w};
+  const uint32_t w1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int sh = 16 * (j % 2);
+    const uint32_t pair = ((w0[j / 2] >> sh) & 0xffffu) |
+                          (((w1[j / 2] >> sh) & 0xffffu) << 16);
+    *reinterpret_cast<uint32_t*>(dst + (size_t)(8 * q + j) * L) = pair;
+  }
+}
+
+// bf16 pair (lo, hi) as one 32-bit word
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&pair);
+}
+
+// Whether extent row e (sample g = g0 + e) is one the tile outputs.
+__device__ __forceinline__ bool centre(int e, long g, int tile, int L) {
+  return e >= HALO && e < HALO + tile && g < L;
+}
+
 // s = bf16(carry + skip), zero outside [0, L), into carry; a = bf16(leaky(s))
 // into act. `sb` is the (C, L) batch row of skip; one thread per pair of
-// samples, as load_rows.
+// samples, as load_rows. With SAVE the tile's own samples also write s into
+// the (C, L) plane `s_save`.
+template <bool SAVE = false>
 __device__ __forceinline__ void skip_add(const bf16* __restrict__ sb,
                                          bf16* carry, bf16* act, long g0,
-                                         int ext, int L, int tid) {
+                                         int ext, int L, int tid,
+                                         bf16* __restrict__ s_save = nullptr,
+                                         int tile = 0) {
   for (int e = 2 * tid; e < ext; e += 2 * THREADS) {
     const long g = g0 + e;
     const bool valid = g >= 0 && g < L;
+    const bool save = SAVE && centre(e, g, tile, L);
 #pragma unroll
     for (int q = 0; q < C / 8; ++q) {
       float k0[8], k1[8];
@@ -258,6 +300,8 @@ __device__ __forceinline__ void skip_add(const bf16* __restrict__ sb,
         *crow = pack8(s);
         reinterpret_cast<uint4*>(act + (e + r) * ROW)[q] = pack8(a);
       }
+      if constexpr (SAVE)
+        if (save) store_pair8(carry + e * ROW, q, s_save + g, L);
     }
   }
 }
@@ -266,12 +310,16 @@ __device__ __forceinline__ void skip_add(const bf16* __restrict__ sb,
 // into ybuf, each row in the channel order that lvc_gate_tc<WIDE> reads
 // (ypos with WIDE). Warp w takes n8 tiles w, w + WARPS, ...; it holds
 // W_i's A fragments (2 m16 tiles x 6 k16 steps) in registers. act has APAD
-// zero rows on each side, so every tap reads inside the buffer.
-template <bool WIDE>
+// zero rows on each side, so every tap reads inside the buffer. With SAVE
+// the tile's own samples also write y, in channel order, into the (C, L)
+// plane `y_save`: a lane holds channel o at two consecutive samples.
+template <bool WIDE, bool SAVE = false>
 __device__ __forceinline__ void conv_tc(const bf16* act, const bf16* ws,
                                         const float* wb, bf16* ybuf, int d,
                                         long g0, int ext, int L, int warp,
-                                        int lane) {
+                                        int lane,
+                                        bf16* __restrict__ y_save = nullptr,
+                                        int tile = 0) {
   uint32_t wa[2][6][4];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -324,6 +372,21 @@ __device__ __forceinline__ void conv_tc(const bf16* act, const bf16* ws,
               __float2bfloat16(valid ? leaky(y) : 0.0f);
         }
     }
+    if constexpr (SAVE) {
+      const int e = n0 + 2 * tq;
+      const long g = g0 + e;
+      if (centre(e, g, tile, L)) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int o = 16 * m + gq + 8 * h;
+            *reinterpret_cast<uint32_t*>(y_save + (size_t)o * L + g) =
+                pack2(leaky(acc[m][0][2 * h] + acc[m][1][2 * h]),
+                      leaky(acc[m][0][2 * h + 1] + acc[m][1][2 * h + 1]));
+          }
+      }
+    }
   }
 }
 
@@ -338,13 +401,19 @@ __device__ __forceinline__ void conv_tc(const bf16* act, const bf16* ws,
 // - MT 1: one tile whose rows 0-7 are the sigmoid rows of channels
 //   ch0 .. ch0+7 and rows 8-15 their tanh rows (K5's slab).
 // Either way both halves of a gate sit in the same lane, so nothing is
-// exchanged.
-template <int MT>
+// exchanged. With SAVE (MT 2) and a non-null `z_save`, the pre-gate z of
+// the tile (f32 sums rounded to bf16) goes to the (2C, L) plane `z_save`,
+// offset to the tile's first sample: rows gq and gq + 8 of each m16 tile at
+// samples n0 + 2 tq and n0 + 2 tq + 1, one 4-byte store each.
+template <int MT, bool SAVE = false>
 __device__ __forceinline__ void gate_tile(const uint32_t (&ka)[MT][6][4],
                                           const float (&kb)[MT][2],
                                           const bf16* ybuf, bf16* carry,
-                                          int n0, int ch0, int lane) {
+                                          int n0, int ch0, int lane,
+                                          bf16* __restrict__ z_save = nullptr,
+                                          int L = 0) {
   static_assert(MT == 1 || MT == 2, "one or two m16 tiles");
+  static_assert(!SAVE || MT == 2, "z is saved from the sigmoid/tanh pair");
   const int gq = lane >> 2, tq = lane & 3;
   // two accumulator chains per m16 tile, as in conv_tc
   float acc[MT][2][4];
@@ -363,6 +432,19 @@ __device__ __forceinline__ void gate_tile(const uint32_t (&ka)[MT][6][4],
     for (int mm = 0; mm < MT; ++mm) {
       mma_bf16(acc[mm][0], ka[mm][2 * k], b[0], b[1]);
       mma_bf16(acc[mm][1], ka[mm][2 * k + 1], b[2], b[3]);
+    }
+  }
+  if constexpr (SAVE) {
+    if (z_save != nullptr) {
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = C * mm + ch0 + gq + 8 * h;
+          *reinterpret_cast<uint32_t*>(z_save + (size_t)row * L + 2 * tq) =
+              pack2(acc[mm][0][2 * h] + acc[mm][1][2 * h],
+                    acc[mm][0][2 * h + 1] + acc[mm][1][2 * h + 1]);
+        }
     }
   }
 #pragma unroll
@@ -389,13 +471,19 @@ __device__ __forceinline__ void gate_tile(const uint32_t (&ka)[MT][6][4],
 // memory when the run enters a new frame: with WIDE (hop 8, a new frame
 // every tile) as 16-byte loads, else as 4-byte loads straight into the
 // fragments' registers. `kern_b` is the batch row of kern_taug (F, layers,
-// 2C, rows_p).
-template <bool WIDE>
+// 2C, rows_p). With SAVE, n8 tiles of the tile's own samples write z into
+// the (2C, L) plane `z_plane` (gate_tile); a warp's run of tiles is
+// contiguous, so it fills each 32-byte sector of a z row in two
+// consecutive tiles.
+template <bool WIDE, bool SAVE = false>
 __device__ __forceinline__ void lvc_gate_tc(const bf16* __restrict__ kern_b,
                                             int layer, const bf16* ybuf,
                                             bf16* carry, int rows_p, int hop,
                                             int F, long g0, int ext,
-                                            int warp, int lane) {
+                                            int warp, int lane,
+                                            bf16* __restrict__ z_plane =
+                                                nullptr,
+                                            int tile = 0) {
   const int p = warp & 1;
   const int runs = WARPS / 2;
   const int nt = ext / 8;
@@ -458,7 +546,16 @@ __device__ __forceinline__ void lvc_gate_tc(const bf16* __restrict__ kern_b,
         kb[mm][1] = to_f(r1[3 * C]);
       }
     }
-    gate_tile<2>(ka, kb, ybuf, carry, n0, 16 * p, lane);
+    if constexpr (SAVE) {
+      // an n8 tile lies wholly inside or outside the tile's own samples
+      // (HALO, tile and L are multiples of 8)
+      const int L = F * hop;
+      const long g = g0 + n0;
+      gate_tile<2, true>(ka, kb, ybuf, carry, n0, 16 * p, lane,
+                         centre(n0, g, tile, L) ? z_plane + g : nullptr, L);
+    } else {
+      gate_tile<2>(ka, kb, ybuf, carry, n0, 16 * p, lane);
+    }
   }
 }
 
@@ -501,22 +598,7 @@ __device__ __forceinline__ void store_rows(const bf16* carry,
     const long g = g0 + e;
     if (g >= L) break;
 #pragma unroll
-    for (int q = 0; q < C / 8; ++q) {
-      const uint4 v0 = reinterpret_cast<const uint4*>(carry + e * ROW)[q];
-      const uint4 v1 =
-          reinterpret_cast<const uint4*>(carry + (e + 1) * ROW)[q];
-      const uint32_t w0[4] = {v0.x, v0.y, v0.z, v0.w};
-      const uint32_t w1[4] = {v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // channel 8q + j of samples e (low half) and e + 1 (high half)
-        const int sh = 16 * (j % 2);
-        const uint32_t pair = ((w0[j / 2] >> sh) & 0xffffu) |
-                              (((w1[j / 2] >> sh) & 0xffffu) << 16);
-        *reinterpret_cast<uint32_t*>(ob + (size_t)(8 * q + j) * L + g) =
-            pair;
-      }
-    }
+    for (int q = 0; q < C / 8; ++q) store_pair8(carry + e * ROW, q, ob + g, L);
   }
 }
 

@@ -42,9 +42,13 @@ SIGNATURES = {
     "lvc_block_ncl_cc_launch": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
     # x, skip, kern, wstack_t, out, s_all, y_all, z_all,
-    # B, C, L, F, hop, rows_p, layers, stream
+    # B, C, L, F, hop, rows_p, layers, then block_tile_plan's tile; stream
+    # (Kernel B-SR on the tensor cores, hop % 8 == 0)
     "lvc_block_ncl_sr_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the same operands but the tile: Kernel B-SR on the CUDA cores, any hop
+    "lvc_block_ncl_sr_cc_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _P],
     # tap, w_aug, b_aug, out, M, N, K, tile_m, tile_n, stages, units,
     # grid, smem, stream
     "aug_head_launch": [_P, _P, _P, _P, _I, _I, _I,

@@ -22,9 +22,18 @@ its bias, tap rows k-major.
 outputs, C = 32, factors (4, 8, 8), L a multiple of 256) or raises; on a
 CPU tensor it runs ``downpath_plain``. The route calls it where JAX does:
 bf16, three blocks and ``downpath_fusable(L)``.
+
+The kernel runs in two launches (one call, one count): stage 1 writes skip0
+and, over tiles of ``STAGE1_TILE`` rate-4 samples with ``STAGE1_HALO`` of
+halo on each side, DBlock 1's skip1; stage 2 reads skip1 back and runs
+DBlocks 2 and 3 over tiles of ``STAGE2_TILE`` rate-256 samples. The
+constants below are the source's (``namespace dp``); ``downpath_plan``
+gives the grids.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +41,8 @@ import torch.nn.functional as F
 from fastdiff_tpu_torch.ops import _build
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
-# launches of the CUDA kernel since the last reset (plain runs not counted)
+# launches of the CUDA kernel since the last reset (plain runs not counted);
+# one per call, though a call makes two launches
 LAUNCHES = {"downpath": 0}
 
 # what csrc/downpath.cu is built for
@@ -40,6 +50,42 @@ KERNEL_CHANNELS = 32
 KERNEL_FACTORS = (4, 8, 8)
 KERNEL_TAPS = 7
 KERNEL_LAYERS = 3
+
+# its geometry (csrc/downpath.cu, namespace dp), in samples of each rate
+THREADS = 256
+BLOCKS_PER_SM = 2
+ROW = 40                     # bf16 per sample row of an activation buffer
+WROW = 104                   # bf16 per staged conv weight row
+PAD = 4                      # zero rows around a buffer: the largest dilation
+STAGE1_TILE = 256            # T1: rate-4 outputs per stage-1 block
+STAGE1_HALO = 8              # H1: rate-4 rows of halo on each side
+STAGE1_EXT = STAGE1_TILE + 2 * STAGE1_HALO        # E1
+AUDIO_OFF = 4 * STAGE1_HALO + 4                   # AOFF
+AUDIO_SPAN = 4 * STAGE1_EXT + 8                   # ASPAN
+STAGE2_TILE = 8              # T3: rate-256 outputs per stage-2 block
+STAGE3_HALO = 8              # H3: p3 rows before the tile
+STAGE3_EXT = 24              # E3
+STAGE2_HALO = 72             # H2: x2 rows before the tile's first sample
+STAGE2_EXT = 208             # E2
+DWEIGHTS_BYTES = (KERNEL_LAYERS * KERNEL_CHANNELS * WROW * 2
+                  + KERNEL_CHANNELS * ROW * 2 + KERNEL_LAYERS
+                  * KERNEL_CHANNELS * 4 + KERNEL_CHANNELS * 4)
+SMEM1 = DWEIGHTS_BYTES + AUDIO_SPAN * 4 + 3 * (STAGE1_EXT + 2 * PAD) * ROW * 2
+SMEM2 = 2 * DWEIGHTS_BYTES + 3 * (STAGE2_EXT + 2 * PAD) * ROW * 2
+
+
+class DownPlan(NamedTuple):
+    stage1_blocks: int       # grid of stage 1, batch rows included
+    stage2_blocks: int
+    smem1: int               # dynamic shared memory per block
+    smem2: int
+
+
+def downpath_plan(b: int, length: int) -> DownPlan:
+    """The two launches' grids for a (b, length) call."""
+    n1, n3 = length // 4, length // 256
+    return DownPlan(b * -(-n1 // STAGE1_TILE), b * -(-n3 // STAGE2_TILE),
+                    SMEM1, SMEM2)
 
 
 @torch.no_grad()
@@ -163,7 +209,8 @@ def downpath_fused(audio: torch.Tensor, first_aug: torch.Tensor,
     C), skip1 (B, L/4, C), skip2 (B, L/32, C), x (B, L/256, C)), bf16.
 
     CPU tensors run ``downpath_plain``. CUDA tensors launch
-    ``csrc/downpath.cu`` or raise."""
+    ``csrc/downpath.cu`` (its two stages, counted as one launch) or
+    raise."""
     if audio.device.type == "cpu":
         return downpath_plain(audio, first_aug, res_aug, conv_aug, factors)
     if audio.device.type != "cuda":

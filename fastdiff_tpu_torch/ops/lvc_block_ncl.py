@@ -23,7 +23,9 @@ block of every request runs through it. On a CUDA tensor
 (``csrc/lvc_block_ncl_tc.cu``, tiles from ``block_tile_plan``) when the
 hop is a multiple of 8, and the CUDA-core kernel (``lvc_block_ncl_cc``,
 ``csrc/lvc_block_ncl.cu``) for any other hop; on a CPU tensor it runs the
-plain version, which keeps the kernels' cast points.
+plain version, which keeps the kernels' cast points. Kernel B-SR
+(``lvc_block_ncl_sr``) dispatches the same way: the tensor-core kernel's
+SAVE instantiation, or ``lvc_block_ncl_sr_cc``.
 
 K5 (``lvc_block_ncl_fh``, JAX's ``lvc_block_ncl_fh``) is Kernel B with the
 predictor head (Kernel A's GEMM) run inside the kernel: it takes the trunk
@@ -64,12 +66,13 @@ from fastdiff_tpu_torch.ops.nn import leaky_relu
 # launches of the CUDA kernels since the last reset (plain runs not counted):
 # lvc_block_ncl / _final the tensor-core Kernel B, lvc_block_ncl_cc the
 # CUDA-core one (hops that are no multiple of 8, with or without epilogue);
-# lvc_block_ncl_fh / _final the tensor-core K5, lvc_block_ncl_fh_cc the
-# CUDA-core one
+# lvc_block_ncl_sr the tensor-core Kernel B-SR, lvc_block_ncl_sr_cc the
+# CUDA-core one; lvc_block_ncl_fh / _final the tensor-core K5,
+# lvc_block_ncl_fh_cc the CUDA-core one
 LAUNCHES = {"lvc_block_ncl": 0, "lvc_block_ncl_final": 0,
             "lvc_block_ncl_cc": 0, "lvc_block_ncl_sr": 0,
-            "lvc_block_ncl_fh": 0, "lvc_block_ncl_fh_final": 0,
-            "lvc_block_ncl_fh_cc": 0}
+            "lvc_block_ncl_sr_cc": 0, "lvc_block_ncl_fh": 0,
+            "lvc_block_ncl_fh_final": 0, "lvc_block_ncl_fh_cc": 0}
 
 # what csrc/lvc_block_ncl.cu and csrc/lvc_block_ncl_fh.cu are built for
 KERNEL_CHANNELS = 32
@@ -562,10 +565,41 @@ def lvc_block_ncl_sr(x: torch.Tensor, skip: torch.Tensor,
     ``lvc_block_sr_backward`` reads.
 
     CPU tensors run ``lvc_block_ncl_sr_plain``. CUDA tensors (all bf16,
-    C = 32, 4 layers) launch ``csrc/lvc_block_ncl.cu``'s SAVE variant or
-    raise."""
+    C = 32, 4 layers) launch the tensor-core kernel's SAVE instantiation
+    (``csrc/lvc_block_ncl_tc.cu``, the tile from ``block_tile_plan``) when
+    ``tensor_core_hop(hop)``, else the CUDA-core one
+    (``lvc_block_ncl_sr_cc``), or raise."""
     if x.device.type == "cpu":
         return lvc_block_ncl_sr_plain(x, skip, kern_taug, wstack_t, hop)
+    if x.device.type != "cuda" or not tensor_core_hop(hop):
+        return lvc_block_ncl_sr_cc(x, skip, kern_taug, wstack_t, hop)
+    # (an empty call launches nothing; its plan is never read)
+    plan = block_tile_plan(max(x.shape[0], 1), max(x.shape[2], 1),
+                           _sm_count(x.device.index or 0))
+    return _launch_sr("lvc_block_ncl_sr_launch", (plan.tile,),
+                      "lvc_block_ncl_sr", x, skip, kern_taug, wstack_t, hop)
+
+
+def lvc_block_ncl_sr_cc(x: torch.Tensor, skip: torch.Tensor,
+                        kern_taug: torch.Tensor, wstack_t: torch.Tensor,
+                        hop: int) -> tuple:
+    """Kernel B-SR on the CUDA cores (``csrc/lvc_block_ncl.cu``, SAVE), any
+    hop >= 1: ``lvc_block_ncl_sr``'s operands and results.
+    ``lvc_block_ncl_sr`` runs it for hops that are no multiple of 8;
+    ``chip_smoke.py`` races it against the tensor-core kernel. CPU tensors
+    run ``lvc_block_ncl_sr_plain``."""
+    if x.device.type == "cpu":
+        return lvc_block_ncl_sr_plain(x, skip, kern_taug, wstack_t, hop)
+    return _launch_sr("lvc_block_ncl_sr_cc_launch", (),
+                      "lvc_block_ncl_sr_cc", x, skip, kern_taug, wstack_t,
+                      hop)
+
+
+def _launch_sr(entry: str, extra: tuple, key: str, x, skip, kern_taug,
+               wstack_t, hop) -> tuple:
+    """Check the operands, allocate out and the residuals and launch the
+    Kernel B-SR C entry ``entry`` (``extra`` are its arguments before the
+    stream); counts the launch under ``LAUNCHES[key]``."""
     if x.device.type != "cuda":
         raise ValueError(f"lvc_block_ncl_sr: unsupported device {x.device}")
     _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, None,
@@ -581,13 +615,13 @@ def lvc_block_ncl_sr(x: torch.Tensor, skip: torch.Tensor,
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lvc_block_ncl_sr_launch(
+        code = getattr(lib, entry)(
             x.data_ptr(), skip.data_ptr(), kern_taug.data_ptr(),
             wstack_t.data_ptr(), out.data_ptr(), s_all.data_ptr(),
             y_all.data_ptr(), z_all.data_ptr(), b, c, length, frames, hop,
-            rows_p, layers, stream)
-    _build.check(code, "lvc_block_ncl_sr_launch")
-    LAUNCHES["lvc_block_ncl_sr"] += 1
+            rows_p, layers, *extra, stream)
+    _build.check(code, entry)
+    LAUNCHES[key] += 1
     return out, s_all, y_all, z_all
 
 

@@ -37,10 +37,10 @@ from fastdiff_tpu_torch.utils.timing import graph_ms
 
 SOURCE = _build.CSRC / "lvc_block_ncl_tc.cu"
 OUT_DIR = _build.BUILD_DIR / "exp_block_tc"
-_LVC = ("    lvc_gate_tc<WIDE>(kern_b, i, ybuf, carry, rows_p, hop, F, g0, "
-        "ext, warp,\n                      lane);\n")
-_CONV = ("    conv_tc<WIDE>(act, ws, wb, ybuf, d, g0, ext, L, warp, "
-         "lane);\n")
+_LVC = ("    lvc_gate_tc<WIDE, SAVE>(kern_b, i, ybuf, carry, rows_p, hop, F, "
+        "g0, ext,\n                            warp, lane, z_i, tile);\n")
+_CONV = ("    conv_tc<WIDE, SAVE>(act, ws, wb, ybuf, d, g0, ext, L, warp, lane, "
+         "y_i,\n                        tile);\n")
 
 
 def variant_sources() -> dict:

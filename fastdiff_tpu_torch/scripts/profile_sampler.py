@@ -1,15 +1,23 @@
-"""Where the device time of the N = 4 sampler goes, per route, on the card.
+"""Where the device time of the N = 4 sampler, or of a train step, goes, per
+route, on the card.
 
     python -m fastdiff_tpu_torch.scripts.profile_sampler [ncl] [nwc] ...
-        [--frames 864] [--samples 2]
+        [--frames 864] [--samples 2] [--top 8]
+    python -m fastdiff_tpu_torch.scripts.profile_sampler --train [ncl_sr]
+        [ncl_vjp] [plain] [--samples 2] [--top 10]
 
 For each route (``ncl``, ``nwc`` with the down kernel, ``ncl_fh``,
 ``plain``), one warm-up sample of ``--frames`` mel frames (b = 1, seeded
 random weights and mel), then ``torch.profiler`` over ``--samples`` samples:
 the device's busy time per sample (the sum of its kernels' and copies'
 self device time), the number of device events per sample, the host wall
-time per sample (profiler on) and the largest device costs per sample by
-name. Prints one JSON object with the card's name beside the routes.
+time per sample (profiler on) and the ``--top`` largest device costs per
+sample by name. With ``--train`` the routes are the training routes and a sample is
+one ``FastDiffTask.train_step`` at the recipe (20 x 25,600 samples, a fixed
+seeded batch, two warm-up steps): the same profile per step, and the
+step's forward (loss), backward (gradients) and optimizer (finite check and
+AdamW) timed apart with CUDA events over 3 more steps. Prints one JSON
+object with the card's name beside the routes.
 """
 
 from __future__ import annotations
@@ -22,20 +30,103 @@ import torch
 
 from fastdiff_tpu_torch.config import ModelConfig
 from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
-from fastdiff_tpu_torch.models.fastdiff import (INFER_ROUTES, FastDiff,
-                                                checked_device)
+from fastdiff_tpu_torch.models.fastdiff import (INFER_ROUTES, TRAIN_ROUTES,
+                                                FastDiff, checked_device)
 
 HOP = 256
+TRAIN_BATCH, TRAIN_FRAMES = 20, 100     # the training recipe
+
+
+def _cuda_device(device):
+    dev = checked_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the profile reads the card's device time: it "
+                           "needs a CUDA device")
+    return dev
+
+
+def _device_profile(prof, per: int, top: int) -> dict:
+    """Busy time, event count and the largest costs per ``per`` of a
+    profile's device events."""
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {
+        "device_busy_ms": busy_us / 1e3 / per,
+        "device_events": sum(e.count for e in rows) / per,
+        "top": [{"name": e.key[:80],
+                 "ms": e.self_device_time_total / 1e3 / per,
+                 "calls": e.count / per}
+                for e in rows[:top]],
+    }
+
+
+_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
+
+
+def profile_train(route: str, steps: int = 2, split_steps: int = 3,
+                  top: int = 10, seed: int = 0, device="cuda") -> dict:
+    """Device time per train step at the recipe on a training ``route``,
+    and the step's forward / backward / optimizer split."""
+    from fastdiff_tpu_torch.training.task import FastDiffTask
+    dev = _cuda_device(device)
+    task = FastDiffTask({"use_pallas_block": route if route != "plain"
+                         else False}, device=dev)
+    state = task.build_state(seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    length = TRAIN_FRAMES * HOP
+    batch = {"wavs": (torch.randn((TRAIN_BATCH, length, 1), generator=gen,
+                                  device=dev) * 0.3).cpu().numpy(),
+             "mels": (torch.randn((TRAIN_BATCH, TRAIN_FRAMES, 80),
+                                  generator=gen, device=dev) - 4.0)
+             .cpu().numpy()}
+    ts = torch.randint(0, 1000, (TRAIN_BATCH, 1, 1), generator=gen,
+                       device=dev)
+    z = torch.randn((TRAIN_BATCH, length, 1), generator=gen, device=dev)
+    for _ in range(2):
+        task.train_step(state, batch, ts=ts, z=z)
+    torch.cuda.synchronize()
+    # forward, backward, optimizer apart: train_step's own calls
+    model, params = state.model, list(state.model.parameters())
+    split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for _ in range(split_steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = task.loss(model, batch, ts=ts, z=z)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, params)
+        ev[2].record()
+        if bool(torch.stack([torch.isfinite(loss)] + [
+                torch.isfinite(g).all() for g in grads]).all()):
+            state.optimizer.step(grads)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, key in enumerate(split):
+            split[key] += ev[i].elapsed_time(ev[i + 1]) / split_steps
+        del loss, grads
+    with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            task.train_step(state, batch, ts=ts, z=z)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    out = _device_profile(prof, steps, top)
+    return {"route": route, "steps": steps,
+            "device_busy_ms_per_step": out["device_busy_ms"],
+            "device_events_per_step": out["device_events"],
+            "wall_ms_per_step_profiled": wall,
+            "split_ms": split,
+            "top": [{"name": r["name"], "ms_per_step": r["ms"],
+                     "calls_per_step": r["calls"]} for r in out["top"]]}
 
 
 def profile_route(route: str, frames: int = 864, samples: int = 2,
                   top: int = 8, seed: int = 0, device="cuda") -> dict:
     """Device busy time and the largest device costs per sample of the
     N = 4 sampler on ``route``."""
-    dev = checked_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("the profile reads the card's device time: it "
-                           "needs a CUDA device")
+    dev = _cuda_device(device)
     cfg = ModelConfig()
     model = FastDiff(cfg, seed=seed, device=dev, infer_route=route,
                      down_kernel=route == "nwc").eval()
@@ -48,46 +139,50 @@ def profile_route(route: str, frames: int = 864, samples: int = 2,
         g = torch.Generator(device=dev).manual_seed(seed + 1)
         return sample(model, mel, const, frames * HOP, generator=g)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     with torch.inference_mode():
         run()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.profile(activities=_ACTIVITIES) as prof:
             t0 = time.perf_counter()
             for _ in range(samples):
                 run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / samples
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    out = _device_profile(prof, samples, top)
     return {
         "route": route, "frames": frames, "samples": samples,
-        "device_busy_ms_per_sample": busy_us / 1e3 / samples,
-        "device_events_per_sample": sum(e.count for e in rows) / samples,
+        "device_busy_ms_per_sample": out["device_busy_ms"],
+        "device_events_per_sample": out["device_events"],
         "wall_ms_per_sample_profiled": wall,
-        "top": [{"name": e.key[:80],
-                 "ms_per_sample": e.self_device_time_total / 1e3 / samples,
-                 "calls_per_sample": e.count / samples}
-                for e in rows[:top]],
+        "top": [{"name": r["name"], "ms_per_sample": r["ms"],
+                 "calls_per_sample": r["calls"]} for r in out["top"]],
     }
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("routes", nargs="*", default=["ncl", "nwc"])
+    parser.add_argument("routes", nargs="*")
     parser.add_argument("--frames", type=int, default=864)
     parser.add_argument("--samples", type=int, default=2)
+    parser.add_argument("--top", type=int, default=None,
+                        help="device costs listed per route (default 8, "
+                        "10 with --train)")
+    parser.add_argument("--train", action="store_true",
+                        help="profile train steps on training routes")
     args = parser.parse_args()
-    for route in args.routes:
-        if route not in INFER_ROUTES:
-            parser.error(f"route {route!r} is not one of {INFER_ROUTES}")
+    known = TRAIN_ROUTES if args.train else INFER_ROUTES
+    routes = args.routes or (["ncl_sr"] if args.train else ["ncl", "nwc"])
+    for route in routes:
+        if route not in known:
+            parser.error(f"route {route!r} is not one of {known}")
+    if args.train:
+        results = [profile_train(r, args.samples, top=args.top or 10)
+                   for r in routes]
+    else:
+        results = [profile_route(r, args.frames, args.samples,
+                                 top=args.top or 8) for r in routes]
     report = {"device": torch.cuda.get_device_name(0) if
-              torch.cuda.is_available() else None,
-              "routes": [profile_route(r, args.frames, args.samples)
-                         for r in args.routes]}
+              torch.cuda.is_available() else None, "routes": results}
     print(json.dumps(report, indent=1))
 
 

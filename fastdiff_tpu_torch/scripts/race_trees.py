@@ -1,5 +1,5 @@
-"""K5, K6, K9 ``lvc_stage``, K10, the head GEMM and Kernel B of two source
-trees raced on one card.
+"""K4, K5, K6, K8, K9 ``lvc_stage``, K10, the head GEMM and Kernel B of two
+source trees raced on one card.
 
     python -m fastdiff_tpu_torch.scripts.race_trees OTHER_TREE [--reps 20]
 
@@ -19,7 +19,10 @@ calls that tree's wrappers, whose signatures are the same in both:
   lvc_block_ncl_fh``) at hops 8 and 64 and with the final conv at hop 256,
   K6 (``lvc_block_pallas.lvc_block_nwc``) at hops 64 and 256, and K1
   (``lvc_block_ncl.lvc_block_ncl``) at hop 64, each by the kernel its
-  tree's wrapper launches for that hop.
+  tree's wrapper launches for that hop;
+- K4 (``lvc_block_ncl.lvc_block_ncl_sr``) at the training recipe, b 20 x
+  100 frames of hops 8, 64 and 256, and K8 (``downpath_pallas.
+  downpath_fused``, both of its launches) at 221,184 samples, b 1.
 
 Every call is timed by CUDA-graph replay (``utils/timing.graph_ms``:
 device time alone) on inputs made from one seed, and checked against its
@@ -129,6 +132,31 @@ with torch.inference_mode():
         ms[f"K6 hop {hop}"] = graph_ms(
             lambda: lvc_block_pallas.lvc_block_nwc(*args), reps)
         del x, skip, kern_aug, args
+
+    # K4 at the training recipe (b 20 x 100 frames), the worst of out, s,
+    # y, z; at most 5 calls per graph (each call allocates 0.56 GB at hop
+    # 256)
+    for hop in (8, 64, 256):
+        x, skip = randn(20, 32, 100 * hop), randn(20, 32, 100 * hop)
+        kern = randn(20, 100, 4, 64, 104, scale=0.05)
+        args = (x, skip, kern, wstack_t, hop)
+        errs[f"K4 hop {hop}"] = max(
+            err(g, r) for g, r in zip(ncl.lvc_block_ncl_sr(*args),
+                                      ncl.lvc_block_ncl_sr_plain(*args)))
+        ms[f"K4 hop {hop}"] = graph_ms(lambda: ncl.lvc_block_ncl_sr(*args),
+                                       min(reps, 5))
+        del x, skip, kern, args
+
+    # K8 at 10 s, b 1, on packed weights of the model's shapes
+    from fastdiff_tpu_torch.ops import downpath_pallas as down
+    audio = torch.randn((1, 221184, 1), generator=gen, device=dev)
+    packs = (randn(8, 32, scale=0.3), randn(3, 33, 32, scale=0.15),
+             randn(3, 3, 97, 32, scale=0.1))
+    errs["K8"] = max(err(g, r) for g, r in zip(
+        down.downpath_fused(audio, *packs, (4, 8, 8)),
+        down.downpath_plain(audio, *packs, (4, 8, 8))))
+    ms["K8"] = graph_ms(lambda: down.downpath_fused(audio, *packs, (4, 8, 8)),
+                        reps)
 print("RESULT " + json.dumps({"ms": ms, "max_abs_err": errs}))
 """
 

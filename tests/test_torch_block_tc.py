@@ -172,8 +172,11 @@ def test_experiment_variants_apply():
     sources = exp_block_tc.variant_sources()
     assert set(sources) == {"kernel", "no_lvc", "no_conv", "io_only"}
     assert sources["kernel"] == _source("lvc_block_ncl_tc.cu")
-    assert "lvc_gate_tc(" not in sources["no_lvc"]
-    assert "conv_tc(" not in sources["no_conv"]
-    assert "lvc_gate_tc(" not in sources["io_only"]
-    assert "conv_tc(" not in sources["io_only"]
-    assert "skip_add(" in sources["io_only"]
+    # the stage calls, with the SAVE flag of Kernel B-SR
+    lvc, conv = "lvc_gate_tc<WIDE, SAVE>(", "conv_tc<WIDE, SAVE>("
+    assert lvc in sources["kernel"] and conv in sources["kernel"]
+    assert lvc not in sources["no_lvc"]
+    assert conv not in sources["no_conv"]
+    assert lvc not in sources["io_only"]
+    assert conv not in sources["io_only"]
+    assert "skip_add<SAVE>(" in sources["io_only"]
