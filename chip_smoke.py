@@ -12,8 +12,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    prints the build time, each kernel's registers / spills, the head
    GEMM's (K3 and K7) shared memory and persistent grid at 864 frames, and
    the tensor-core Kernel B's (K1, K2) registers and spills and its tile,
-   waves and shared memory at each hop, K9 ``lvc_stage``'s tensor-core
-   kernel's registers, spills and shared memory, the tensor-core K5's two
+   waves and shared memory at each hop, K9 ``lvc_stage``'s and
+   ``conv_stage``'s tensor-core kernels' registers, spills and shared
+   memory (``conv_stage``'s also its ring stages and its grid at 221,184
+   rows), the tensor-core K5's two
    instantiations (with and without the epilogue; no cluster) and its
    tile, head frames, grid, shared memory and reckoned w_head bytes at each
    hop, the tensor-core K6's registers, tile and shared memory, the
@@ -103,9 +105,12 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     output, each raced against ``torch.addmm`` by CUDA-graph replay, with
     its share of the bound, beside Kernel A raced the same way
     (``fastdiff_tpu_torch/scripts/exp_r4b.py:exp_b``);
-19. K9 (the block's conv and LVC stages alone) at the hop-256 block's
-    shape against their plain versions (``lvc_stage`` at every ``tf``),
-    each setting raced against its library call (chained ``torch.matmul``,
+19. K9 (the block's conv and LVC stages alone, both on the tensor cores)
+    at the hop-256 block's shape against their plain versions
+    (``conv_stage`` at every ``tile_s``, ``lvc_stage`` at every ``tf``),
+    each setting's output identical to the others', ``conv_stage`` also at
+    every ``tile_s`` on a ragged b 2 x 1,000 rows against plain, each
+    setting raced against its library call (chained ``torch.matmul``,
     ``torch.bmm``) by CUDA-graph replay, with its share of the bound
     (``fastdiff_tpu_torch/scripts/bench_mosaic_micro.py:run``).
 
@@ -997,11 +1002,25 @@ def phase19_stages(micro, dev, smi_line):
     their plain versions, each setting raced against its library call; the
     JSON keeps the wrappers' default settings."""
     report = micro.run(dev)
-    defaults = {"conv_stage": ("tile_s", 2048), "lvc_stage": ("tf", 1)}
+    defaults = {"conv_stage": ("tile_s", micro.CONV_TILE_S),
+                "lvc_stage": ("tf", 1)}
     out = {}
     for name, (key, default) in defaults.items():
         stage = report[name]
         b_ms = stage["bound_ms"]
+        phase(19, f"K9 {name}: every {key}'s output identical: "
+                  f"{stage['identical']}")
+        if not stage["identical"]:
+            fail(f"K9 {name}'s output depends on {key}")
+        for row in stage.get("ragged", ()):
+            phase(19, f"K9 {name} {key}={row[key]} at (B, E) = "
+                      f"{micro.RAGGED}: max_abs_err {row['max_abs_err']:.3e} "
+                      f"(bound {row['err_bound']:.3e}) rel_l2 "
+                      f"{row['rel_l2']:.3e}")
+            if not (row["max_abs_err"] <= row["err_bound"]
+                    and row["rel_l2"] <= 1e-2):
+                fail(f"K9 {name} ({key}={row[key]}) disagrees with its plain "
+                     f"version at {micro.RAGGED}")
         for row in stage["rows"]:
             phase(19, f"K9 {name} {key}={row[key]} (L {report['length']}): "
                       f"max_abs_err {row['max_abs_err']:.3e} (bound "
@@ -1134,6 +1153,20 @@ def main():
                  f"{bench_mosaic_micro.lvc_stage_grid(1, FRAMES_10S, 1, sms)}"
                  f" persistent blocks at {FRAMES_10S} frames (tf 1)")
         check_no_spill(info, "K9 lvc_stage")
+        info = ptxas_entry(log.read_text(), "conv_stage_kernel")
+        conv_rows = FRAMES_10S * HOP_SIZE
+        phase(2, f"K9 conv_stage on the tensor cores (conv_stage_kernel): "
+                 f"{info}; dynamic shared memory "
+                 f"{bench_mosaic_micro.CONV_SMEM_BYTES} bytes, "
+                 f"{bench_mosaic_micro.CONV_STAGES} ring stages of "
+                 f"{bench_mosaic_micro.LVC_PIECE_ROWS} rows, "
+                 + ", ".join(
+                     f"{bench_mosaic_micro.conv_stage_grid(conv_rows, t, sms)}"
+                     f" persistent blocks at tile_s {t}"
+                     for t in bench_mosaic_micro.CONV_TILES)
+                 + f" ({conv_rows} rows; default tile_s "
+                   f"{bench_mosaic_micro.CONV_TILE_S})")
+        check_no_spill(info, "K9 conv_stage")
         for final in (0, 1):
             info = ptxas_entry(log.read_text(), f"lvc_block_fh_tc_kernelILb"
                                                 f"{final}E")
@@ -1495,7 +1528,8 @@ def main():
           "train-step forward at the recipe (hops 8 + 64 + 256, b 20 x 100 "
           "frames); "
           "taug_head_variant per call at 864 rows (m_outer, m_tile 216); "
-          "conv_stage (tile_s 2048) and lvc_stage (tf 1) per call at 221,184 "
+          f"conv_stage (tile_s {bench_mosaic_micro.CONV_TILE_S}) and "
+          "lvc_stage (tf 1) per call at 221,184 "
           "samples; library_ms of K9/K10 raced with the kernel. "
           "Launches from the run of each kernel's path: phase 7 (taug_head, "
           "lvc_block_ncl*), 11 (lvc_block_ncl_sr), 15 (lvc_block_nwc, "

@@ -77,8 +77,9 @@ SIGNATURES = {
     # as taug_head_launch, then lvc_head.head_gemm_walk_plan's stripe
     "taug_head_variant_launch": [_P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
-    # tap, w, out, B, E, rows, tile_s, stream
-    "conv_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # tap, w, out, B, E, rows, tile_s, then the kernel's geometry (ring
+    # stages, shared memory) and its grid; stream
+    "conv_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # tap, kern, out, B, L, F, hop, rows, tf, then the kernel's geometry
     # (padded K, ring stages, shared memory) and its grid; stream
     "lvc_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,

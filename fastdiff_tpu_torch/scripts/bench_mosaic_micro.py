@@ -7,9 +7,11 @@ Each stage is a hand-written kernel (K9, ``csrc/stage_micro.cu``) beside
 its plain PyTorch version, at L = 221,184 samples (864 frames of hop 256):
 
 - ``conv_stage``: 4 chained (E, 97) @ (97, 32) dots, each output re-fed as
-  [y, y, y, 1] (f32 sums, a bf16 store between layers); the kernel's rows
-  per block ``tile_s`` is swept over 2,048 / 4,096 / 8,192, as the
-  script's tile;
+  [y, y, y, 1] (f32 sums, a bf16 rounding between layers), on the tensor
+  cores with the layers chained in registers; the grain of its persistent
+  walk ``tile_s`` (rows per unit) swept over 256 and the script's tiles
+  2,048 / 4,096 / 8,192, every setting's output checked identical to the
+  others', and a ragged call (b 2 x 1,000 rows) against plain;
 - ``lvc_stage``: one layer's per-frame grouped GEMM, tap (L, 97) @
   kern[l // hop] (97, 64) -> (L, 64) bf16, on the tensor cores; the grain
   of its persistent walk ``tf`` (frames per unit) swept over 1 / 2 / 4 / 8
@@ -43,8 +45,10 @@ C2 = 64
 LAYERS = 4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-CONV_TILES = (2048, 4096, 8192)
+CONV_TILES = (256, 2048, 4096, 8192)
+CONV_TILE_S = 256    # the wrapper's default: the fastest of CONV_TILES
 LVC_TFS = (1, 2, 4, 8)
+RAGGED = (2, 1000)   # (B, E) of conv_stage's ragged call
 
 # lvc_stage's geometry (csrc/stage_micro.cu, which refuses any other): K = 97
 # padded to 7 k16 steps, pieces of at most 256 rows of one frame in a ring
@@ -56,6 +60,16 @@ _TAP_STAGE_BYTES, _A_ROW, _SMEM_ALIGN = 49_792, 120, 1024
 LVC_SMEM_BYTES = (_SMEM_ALIGN + LVC_STAGES * (LVC_K_PAD * C2 * 2
                                               + _TAP_STAGE_BYTES)
                   + LVC_WARPS * 32 * _A_ROW * 2 + 16 * LVC_STAGES)
+
+# conv_stage's geometry (csrc/stage_micro.cu, which refuses any other):
+# lvc_stage's pieces, warps, tap stages and repacked rows in a ring of 2
+# stages, beside the weights staged once (layer 0's 112 rows and layers
+# 1-3's rows 0..95 as rows of 40 bf16, the `1` column's 3 x 32 weights as
+# f32), mbarriers
+CONV_STAGES, _W_ROW = 2, 40
+CONV_SMEM_BYTES = ((LVC_K_PAD + (LAYERS - 1) * (ROWS - 1)) * _W_ROW * 2
+                   + (LAYERS - 1) * C * 4 + CONV_STAGES * _TAP_STAGE_BYTES
+                   + LVC_WARPS * 32 * _A_ROW * 2 + 16 * CONV_STAGES)
 
 # launches of the CUDA kernels since the last reset (plain runs not counted)
 LAUNCHES = {"conv_stage": 0, "lvc_stage": 0}
@@ -104,25 +118,39 @@ def _check(fn: str, tensors) -> None:
                              "aligned")
 
 
+def conv_stage_grid(rows: int, tile_s: int, sms: int) -> int:
+    """Persistent blocks of ``conv_stage``'s kernel: one per SM, or one per
+    unit of ``tile_s`` rows if there are fewer units."""
+    return min(sms, -(-rows // tile_s))
+
+
 def conv_stage(tap: torch.Tensor, w: torch.Tensor,
-               tile_s: int = 2048) -> torch.Tensor:
-    """K9 conv stage: ``conv_stage_plain``'s function, ``tile_s`` rows per
-    thread block. CPU tensors run the plain version; CUDA tensors (bf16,
-    97 rows, 4 layers of 32 outputs) launch ``csrc/stage_micro.cu`` or
-    raise."""
+               tile_s: int = CONV_TILE_S) -> torch.Tensor:
+    """K9 conv stage: ``conv_stage_plain``'s function on the tensor cores.
+    ``tile_s`` (>= 1) is the grain of the kernel's persistent walk: tap's
+    B * E rows go to the blocks in units of ``tile_s`` rows, unit u to
+    block u % grid, so it sets the balance over the SMs and nothing else;
+    every tile_s gives the same output. Raises on any device for shapes the
+    kernel does not take (97 rows, w (4, 97, 32), tile_s >= 1); then CPU
+    tensors run the plain version and CUDA tensors (bf16, 16-byte aligned)
+    launch ``csrc/stage_micro.cu`` or raise."""
+    if (tap.dim() != 3 or tap.shape[-1] != ROWS
+            or tuple(w.shape) != (LAYERS, ROWS, C) or tile_s < 1):
+        raise ValueError(f"conv_stage: tap {tuple(tap.shape)}, w "
+                         f"{tuple(w.shape)}, tile_s {tile_s}")
     if tap.device.type == "cpu":
         return conv_stage_plain(tap, w)
     _check("conv_stage", (tap, w))
     b, e, rows = tap.shape
-    if rows != ROWS or w.shape != (LAYERS, ROWS, C) or tile_s < 1:
-        raise ValueError(f"conv_stage: tap {tuple(tap.shape)}, w "
-                         f"{tuple(w.shape)}, tile_s {tile_s}")
     out = tap.new_empty((b, e, C))
     if out.numel() == 0:
         return out
+    grid = conv_stage_grid(b * e, tile_s, torch.cuda.get_device_properties(
+        tap.device).multi_processor_count)
     with torch.cuda.device(tap.device):
         code = _build.library().conv_stage_launch(
             tap.data_ptr(), w.data_ptr(), out.data_ptr(), b, e, rows, tile_s,
+            CONV_STAGES, CONV_SMEM_BYTES, grid,
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, "conv_stage_launch")
     LAUNCHES["conv_stage"] += 1
@@ -178,12 +206,26 @@ def _conv_library(tap, w):
     return y
 
 
+def _compare(out: torch.Tensor, ref: torch.Tensor, ulps: int) -> dict:
+    """max abs and rel L2 error of ``out`` against ``ref``, and the max abs
+    error's bound: f32 sums in another order, one bf16 ulp of the largest
+    output per rounding a flip can reach (4 for the chained conv)."""
+    diff = out.float() - ref.float()
+    return {"max_abs_err": float(diff.abs().max()),
+            "rel_l2": float(diff.norm() / ref.float().norm()),
+            "err_bound": ulps * 2.0 ** -7 * float(ref.float().abs().max())
+            + 1e-6}
+
+
 def run(device="cuda", hop: int = 256, length: int = 221184,
         reps: int = 20, seed: int = 0) -> dict:
     """Every stage at (1, length) against its plain version: per kernel
     setting its max abs error against the plain output, that error's bound
-    and the rel L2 error; on the card its ms raced against the library
-    call's (CUDA graphs) and the plain version's ms; the bound."""
+    and the rel L2 error; whether every setting's output is the same
+    (``identical``); ``conv_stage`` at each setting on a ragged (B, E) =
+    ``RAGGED`` against plain; on the card each setting's ms raced against
+    the library call's (CUDA graphs) and the plain version's ms; the
+    bound."""
     dev = checked_device(device)
     frames = length // hop
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -195,6 +237,7 @@ def run(device="cuda", hop: int = 256, length: int = 221184,
     w = randn(LAYERS, ROWS, C)
     kern = randn(1, frames, ROWS, C2)
     z = randn(1, length, C2, dtype=torch.float32)
+    tap_ragged = randn(*RAGGED, ROWS)
     timed = dev.type == "cuda"
     report = {"device": torch.cuda.get_device_name(dev) if timed else "cpu",
               "hop": hop, "length": length}
@@ -220,24 +263,24 @@ def run(device="cuda", hop: int = 256, length: int = 221184,
     for name, (params, key, kernel, plain, library, bound, ulps) in \
             stages.items():
         ref = plain()
-        top = float(ref.float().abs().max())
-        rows = []
+        rows, outs = [], []
         for p in params:
-            out = kernel(p)
-            err = float((out.float() - ref.float()).abs().max())
-            rel = float((out.float() - ref.float()).norm()
-                        / ref.float().norm())
-            row = {key: p, "max_abs_err": err, "rel_l2": rel,
-                   # f32 sums in another order: one bf16 ulp of the largest
-                   # output per rounding a flip can reach (4 chained layers)
-                   "err_bound": ulps * 2.0 ** -7 * top + 1e-6}
+            outs.append(kernel(p))
+            row = {key: p, **_compare(outs[-1], ref, ulps)}
             if timed:
                 row["ms"], row["library_ms"] = race_graph(
                     library, lambda: kernel(p), reps)
                 row["plain_ms"] = cuda_ms(plain, reps)
             rows.append(row)
         report[name] = {"rows": rows, "bound_ms": bound[0],
-                        "bound_by": bound[1]}
+                        "bound_by": bound[1],
+                        "identical": all(torch.equal(o, outs[0])
+                                         for o in outs)}
+        del outs
+    ref = conv_stage_plain(tap_ragged, w)
+    report["conv_stage"]["ragged"] = [
+        {"tile_s": p, **_compare(conv_stage(tap_ragged, w, p), ref, 4)}
+        for p in CONV_TILES]
     if timed:
         report["gate_stage_ms"] = cuda_ms(lambda: gate_stage(z), reps)
     return report

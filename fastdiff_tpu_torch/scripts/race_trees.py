@@ -1,5 +1,5 @@
-"""K4, K5, K6, K8, K9 ``lvc_stage``, K10, the head GEMM and Kernel B of two
-source trees raced on one card.
+"""K4, K5, K6, K8, K9 (``lvc_stage``, ``conv_stage``), K10, the head GEMM and
+Kernel B of two source trees raced on one card.
 
     python -m fastdiff_tpu_torch.scripts.race_trees OTHER_TREE [--reps 20]
 
@@ -10,7 +10,9 @@ turns (other, this, this, other); each builds that tree's kernels and
 calls that tree's wrappers, whose signatures are the same in both:
 
 - ``bench_mosaic_micro.lvc_stage`` at hop 256, 221,184 samples, for each
-  ``--tfs`` value, beside ``torch.bmm`` over frames;
+  ``--tfs`` value, beside ``torch.bmm`` over frames, and
+  ``bench_mosaic_micro.conv_stage`` on the same tap at each of this
+  tree's ``CONV_TILES``, beside chained ``torch.matmul``;
 - ``lvc_head.taug_head_variant`` at 864 x 192 @ 192 x 26,624 for every
   (order, M tile) of ``exp_r4b.VARIANTS``, beside Kernel A
   (``taug_head_matmul``, K3), K7 (``aug_head_matmul`` at 24,832 columns)
@@ -54,6 +56,7 @@ from fastdiff_tpu_torch.utils.timing import graph_ms
 reps, tfs = int(sys.argv[1]), [int(t) for t in sys.argv[2].split(",")]
 variants = [(o, int(t)) for o, t in
             (v.split(":") for v in sys.argv[3].split(","))]
+tiles = [int(t) for t in sys.argv[4].split(",")]
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -74,7 +77,15 @@ with torch.inference_mode():
         ms[f"lvc_stage tf {tf}"] = graph_ms(stage, reps)
     ms["torch.bmm"] = graph_ms(lambda: torch.bmm(
         tap.view(864, 256, 97), kern.view(864, 97, 64)), reps)
-    del tap, kern, ref
+    w = randn(4, 97, 32, scale=0.1)
+    ref = micro.conv_stage_plain(tap, w)
+    for tile in tiles:
+        stage = lambda: micro.conv_stage(tap, w, tile)
+        errs[f"conv_stage tile_s {tile}"] = err(stage(), ref)
+        ms[f"conv_stage tile_s {tile}"] = graph_ms(stage, reps)
+    ms["chained torch.matmul"] = graph_ms(
+        lambda: micro._conv_library(tap, w), reps)
+    del tap, kern, w, ref
     tap = randn(864, 192)
     for n, name in ((26624, "K3 taug_head"), (24832, "K7 aug_head")):
         w = randn(192, n, scale=0.05)
@@ -161,12 +172,13 @@ print("RESULT " + json.dumps({"ms": ms, "max_abs_err": errs}))
 """
 
 
-def probe(tree: pathlib.Path, reps: int, tfs, variants) -> dict:
+def probe(tree: pathlib.Path, reps: int, tfs, variants, tiles) -> dict:
     """The probe's result from a fresh process at the root of ``tree``."""
     env = dict(os.environ, PYTHONPATH=str(tree))
     proc = subprocess.run(
         [sys.executable, "-c", PROBE, str(reps), ",".join(map(str, tfs)),
-         ",".join(f"{o}:{t}" for o, t in variants)],
+         ",".join(f"{o}:{t}" for o, t in variants),
+         ",".join(map(str, tiles))],
         cwd=tree, env=env, capture_output=True, text=True, timeout=600)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
@@ -176,6 +188,7 @@ def probe(tree: pathlib.Path, reps: int, tfs, variants) -> dict:
 
 
 def run(other: pathlib.Path, reps: int = 20, tfs=(1, 8)) -> dict:
+    from fastdiff_tpu_torch.scripts.bench_mosaic_micro import CONV_TILES
     from fastdiff_tpu_torch.scripts.exp_r4b import VARIANTS
     variants = [(order, m_tile) for _, order, m_tile in VARIANTS]
     smi = subprocess.run(
@@ -184,7 +197,8 @@ def run(other: pathlib.Path, reps: int = 20, tfs=(1, 8)) -> dict:
     trees = {"other": other.resolve(), "this": HERE}
     runs = {"other": [], "this": []}
     for name in ("other", "this", "this", "other"):
-        runs[name].append(probe(trees[name], reps, tfs, variants))
+        runs[name].append(probe(trees[name], reps, tfs, variants,
+                                CONV_TILES))
     report = {"card": smi.stdout.strip(), "trees": {
         k: str(v) for k, v in trees.items()}}
     for name, results in runs.items():
