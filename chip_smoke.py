@@ -37,12 +37,16 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
 5. a full-width bf16 denoiser forward at 864 frames, kernel path against
    plain path, bounded by a relative L2 error;
 6. the N=4 sampler on 10 s of audio (864 frames, 221,184 samples, b = 1),
-   kernel and plain paths timed with CUDA events after warm-up;
-7. the port's HTTP server on 127.0.0.1 (the NCL route): three mels of
-   100, 256 and 864 frames, each answered with a WAV of frames * 256
-   finite samples, each raising Kernel A's launch count by exactly 3
-   blocks x 4 steps, the tensor-core K1's by 8, K2's by 4 and the
-   CUDA-core Kernel B's by 0;
+   kernel and plain paths, each as a CUDA graph (``make_sampler``) raced
+   in turns against the eager loop with CUDA events;
+7. the port's HTTP server on 127.0.0.1 (the NCL route): three mels of 100,
+   256 and 864 frames, each sent three times (the frame count's first
+   request runs eagerly, the second captures its CUDA graph, the third
+   replays it), each answered with a WAV of frames * 256 finite samples,
+   each raising Kernel A's launch count by exactly 3 blocks x 4 steps, the
+   tensor-core K1's by 8, K2's by 4 and the CUDA-core Kernel B's by 0 (a
+   replay adds the launches its graph holds, which phase 20 holds against
+   a profile of a replay);
 8. Kernel B-SR (K4, the training block, which also writes s, y and z) on
    the tensor cores and on the CUDA cores against its plain version at the
    training recipe's shapes (b = 20, 100 frames, hops 8, 64 and 256), with
@@ -77,8 +81,9 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     replay in turns with the plain version, with its share of the bound;
 15. the NWC route (``use_pallas_block: true``, ``use_pallas_down: true``):
     a full-width bf16 denoiser forward, kernels against plain (relative L2
-    <= 5e-2); the N=4 sampler at 864 frames, kernel and plain paths timed
-    with CUDA events; the HTTP server built from those hparams answering
+    <= 5e-2); the N=4 sampler at 864 frames, kernel and plain paths as
+    CUDA graphs raced against the eager loop; the HTTP server built from
+    those hparams answering
     100, 256 and 864 frames, each request raising K6 and K7 by exactly 8,
     K8 by 4 (256 and 864 frames) or 0 (100 frames: not a multiple of
     2,048 samples, so the plain down path runs, as in JAX), K1 and K3 by 0.
@@ -92,7 +97,8 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
 17. the fused-head route (``use_pallas_block: ncl_fh``): a full-width bf16
     denoiser forward, kernels against plain (relative L2 <= 5e-2) and
     against the NCL route; the N=4 sampler at 864 frames, b = 1 and b = 4,
-    raced against the NCL route (``scripts/exp_r4b.py``'s experiment D);
+    raced against the NCL route as CUDA graphs, the eager loop beside them
+    (``scripts/exp_r4b.py``'s experiment D);
     the HTTP server built from ``{"N": 4, "use_pallas_block": "ncl_fh"}``
     answering 100, 256 and 864 frames, each request raising K5 by 8 and K5
     final by 4 at 256 and 864 frames, K1 and K3 by 0; at 100 frames the
@@ -112,7 +118,28 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     every ``tile_s`` on a ragged b 2 x 1,000 rows against plain, each
     setting raced against its library call (chained ``torch.matmul``,
     ``torch.bmm``) by CUDA-graph replay, with its share of the bound
-    (``fastdiff_tpu_torch/scripts/bench_mosaic_micro.py:run``).
+    (``fastdiff_tpu_torch/scripts/bench_mosaic_micro.py:run``);
+20. the graph sampler (``diffusion/sampler.py:make_sampler``) at full width,
+    N = 4, 864 frames, b = 1: on each route (``ncl``, ``nwc`` with the down
+    kernel, ``ncl_fh``, ``plain``) the graph against the eager loop with a
+    generator of the same seed and with injected noise (relative L2 <=
+    1e-6, and whether the bits agree), raced in turns (eager, graph, graph,
+    eager) with CUDA events, and one replay profiled (``torch.profiler``):
+    the hand-written kernels it ran, counted by name, must equal the
+    launches the sampler adds to the counters per replay; the ``ncl`` line
+    again at torch's default settings (cuDNN TF32 on, as the vocoder
+    runs); a ``load_state_dict`` after capture replayed against the eager
+    loop on the new weights with no recapture and every parameter's and
+    buffer's storage kept, then ``assign=True``, which must drop the graph
+    and capture once more and match again; the chunked vocoder on 3,000
+    frames (34.8 s) in chunks of 256 frames (all 14 in one call, so one
+    graph of batch 14), with its wall ms per call (first: eager; second:
+    capture; third: replay) and ``memory_reserved`` around the capture;
+    ``max_graphs`` + 2 frame counts, each sent twice, of which the cache
+    keeps ``max_graphs`` with no growth of ``memory_reserved`` past the
+    first ``max_graphs``; and a capture that reads the device from the
+    host, which must raise and leave nothing cached, followed on the same
+    sampler by a good capture whose replay matches the eager loop.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each of the twelve kernels' launches (from the run of its path: phase
@@ -231,6 +258,27 @@ def check_pairs(pairs, what: str):
     return errs
 
 
+def race_sampler(run_graph, run_eager, reps: int = 3) -> dict:
+    """The graph sampler against the eager one, raced in turns (eager,
+    graph, graph, eager) by CUDA events: ms per call of each (the mean of
+    its two turns) and every turn. Two graph calls come first: a shape's
+    first call runs eagerly and its second captures."""
+    run_graph()
+    run_graph()
+    runs = {"eager": [cuda_ms(run_eager, reps)]}
+    runs["graph"] = [cuda_ms(run_graph, reps), cuda_ms(run_graph, reps)]
+    runs["eager"].append(cuda_ms(run_eager, reps))
+    return {k: dict(ms=sum(v) / len(v), runs=v) for k, v in runs.items()}
+
+
+def sampler_line(label: str, race: dict, audio_s: float) -> str:
+    """'graph X ms (Y x realtime), eager ...' of one ``race_sampler``."""
+    return f"{label}: " + ", ".join(
+        f"{k} {r['ms']:.3f} ms per utterance ({audio_s / (r['ms'] / 1e3):.1f}"
+        f" x realtime; runs {', '.join(f'{v:.3f}' for v in r['runs'])})"
+        for k, r in race.items())
+
+
 def grad_errors(torch, fn, plain, args, gout):
     """Relative L2 of fn's input gradients against autograd through plain,
     for the same output gradient."""
@@ -240,14 +288,50 @@ def grad_errors(torch, fn, plain, args, gout):
     return [rel_l2(a, b) for a, b in zip(grads(fn), grads(plain))]
 
 
+def request_and_count(n, port, frames, body, rises, turn, counts, finite):
+    """POST one .npy mel of ``frames`` frames to /vocode on ``port``: the
+    answer must be a WAV of frames * 256 finite samples, and each label of
+    ``rises`` ({label: (counter keys, rise)}) must raise its counters by
+    exactly its rise."""
+    import http.client
+    before = counts()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", "/vocode", body=body)
+    resp = conn.getresponse()
+    answer = resp.read()
+    conn.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    if resp.status != 200:
+        fail(f"/vocode {frames} frames: HTTP {resp.status} {answer[:200]!r}")
+    with wave.open(io.BytesIO(answer)) as w:
+        n_samples = w.getnframes()
+    after = counts()
+    got = {label: sum(after[k] - before[k] for k in keys)
+           for label, (keys, _) in rises.items()}
+    print(f"  [phase {n}] /vocode {frames} frames ({turn}): HTTP 200, "
+          f"{n_samples} samples, {ms:.1f} ms wall, launches "
+          + " ".join(f"{label} +{v}" for label, v in got.items()),
+          flush=True)
+    if n_samples != frames * HOP_SIZE:
+        fail(f"WAV has {n_samples} samples, expected {frames * HOP_SIZE}")
+    if not finite or not finite[-1]:
+        fail("vocoded waveform is not finite")
+    want = {label: rise for label, (_, rise) in rises.items()}
+    if got != want:
+        fail(f"kernel launches rose by {got}; expected {want}")
+
+
 def serve_and_count(n, service, start_server, counters, expected,
                     cond_channels):
     """The port's HTTP server on 127.0.0.1 with ``service``: after a
     16-frame warm-up, every counter in ``counters`` is set to 0 and one mel
     per entry of ``expected`` ({frames: {label: (counter keys, rise)}}) is
-    POSTed to /vocode. Each answer must be a WAV of frames * 256 finite
-    samples, and each label's counters must rise by exactly its rise.
-    Returns the counts after the requests."""
+    POSTed to /vocode three times: the frame count's first request runs
+    eagerly, the second captures its graph (one capture more) and the
+    third replays it. Each answer must be a WAV of frames * 256 finite
+    samples, and each label's counters must rise by exactly its rise on
+    each request. Returns the counts after the requests."""
     import http.client
     finite = []
     spec2wav = service.vocoder.spec2wav
@@ -273,39 +357,19 @@ def serve_and_count(n, service, start_server, counters, expected,
             for key in counter:
                 counter[key] = 0
         rng = np.random.default_rng(0)
+        sampler = service.vocoder.sampler
         for frames, rises in expected.items():
-            before = counts()
             mel_np = (rng.normal(size=(frames, cond_channels)) - 4.0
                       ).astype(np.float32)
             buf = io.BytesIO()
             np.save(buf, mel_np)
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-            t0 = time.perf_counter()
-            conn.request("POST", "/vocode", body=buf.getvalue())
-            resp = conn.getresponse()
-            body = resp.read()
-            conn.close()
-            ms = (time.perf_counter() - t0) * 1e3
-            if resp.status != 200:
-                fail(f"/vocode {frames} frames: HTTP {resp.status} "
-                     f"{body[:200]!r}")
-            with wave.open(io.BytesIO(body)) as w:
-                n_samples = w.getnframes()
-            after = counts()
-            got = {label: sum(after[k] - before[k] for k in keys)
-                   for label, (keys, _) in rises.items()}
-            print(f"  [phase {n}] /vocode {frames} frames: HTTP 200, "
-                  f"{n_samples} samples, {ms:.1f} ms wall, launches "
-                  + " ".join(f"{label} +{v}" for label, v in got.items()),
-                  flush=True)
-            if n_samples != frames * HOP_SIZE:
-                fail(f"WAV has {n_samples} samples, expected "
-                     f"{frames * HOP_SIZE}")
-            if not finite or not finite[-1]:
-                fail("vocoded waveform is not finite")
-            want = {label: rise for label, (_, rise) in rises.items()}
-            if got != want:
-                fail(f"kernel launches rose by {got}; expected {want}")
+            for turn in ("first request, eager", "capture", "replay"):
+                captures = sampler.captures
+                request_and_count(n, port, frames, buf.getvalue(), rises,
+                                  turn, counts, finite)
+                if sampler.captures != captures + (turn == "capture"):
+                    fail(f"/vocode {frames} frames ({turn}): captures "
+                         f"{captures} -> {sampler.captures}")
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         conn.request("GET", "/healthz")
         health = conn.getresponse()
@@ -786,9 +850,11 @@ def phase14_downpath(torch, down_ops, model, dev, smi_line):
     return entry(worst, ms_k, ms_p, works)
 
 
-def phase15_nwc_route(torch, model, sample, const, gen, dev):
+def phase15_nwc_route(torch, model, sample, make_sampler, const, gen, dev,
+                      smi_line):
     """The NWC route's full-width forward, kernels against plain, and its
-    N = 4 sampler at 864 frames, kernel and plain paths timed."""
+    N = 4 sampler at 864 frames, kernel and plain paths, each as a CUDA
+    graph raced against the eager loop."""
     cfg = model.cfg
     length = FRAMES_10S * HOP_SIZE
     audio = torch.randn((1, length, 1), generator=gen, device=dev)
@@ -808,32 +874,37 @@ def phase15_nwc_route(torch, model, sample, const, gen, dev):
         fail("NWC denoiser output has the wrong shape or is not finite")
     if not err <= 5e-2:
         fail("NWC denoiser kernel path disagrees with the plain path")
-    times, wavs = {}, {}
-    for use in (False, True, True, False):
+    run = make_sampler(model, const)
+    races, wavs = {}, {}
+    for use, label in ((True, "kernel"), (False, "plain")):
         model.use_kernels = use
-        g = torch.Generator(device=dev).manual_seed(1)
 
-        def run():
+        def graph():
+            g = torch.Generator(device=dev).manual_seed(1)
+            return run(g, mel, length)
+
+        def eager():
+            g = torch.Generator(device=dev).manual_seed(1)
             return sample(model, mel, const, length, generator=g)
 
-        times.setdefault(use, []).append(cuda_ms(run, 3))
-        wavs[use] = run()
+        races[label] = race_sampler(graph, eager)
+        wavs[label] = graph()
     model.use_kernels = True
     audio_s = length * AUDIO_SECONDS_PER_SAMPLE
-    out = {}
-    for use, label in ((True, "kernel"), (False, "plain")):
-        ms = sum(times[use]) / len(times[use])
-        out[label] = ms
-        print(f"  [phase 15] NWC sampler {label}: {ms:.3f} ms per utterance, "
-              f"{audio_s / (ms / 1e3):.1f} x realtime (runs "
-              f"{', '.join(f'{v:.3f}' for v in times[use])} ms)", flush=True)
+    for label, race in races.items():
+        line = sampler_line("NWC sampler " + label, race, audio_s)
+        print(f"  [phase 15] {line}", flush=True)
     for wav in wavs.values():
         if wav.shape != (1, length, 1) or not torch.isfinite(wav).all():
             fail("NWC sampler output has the wrong shape or is not finite")
-    phase(15, f"NWC N=4 sampler, {FRAMES_10S} frames ({audio_s:.2f} s): "
-              f"kernel {out['kernel']:.3f} ms, plain {out['plain']:.3f} ms; "
-              f"kernel vs plain waveform rel_l2 "
-              f"{rel_l2(wavs[True], wavs[False]):.3e}")
+    out = {label: race["graph"]["ms"] for label, race in races.items()}
+    out.update({f"{label}_eager": race["eager"]["ms"]
+                for label, race in races.items()})
+    phase(15, f"NWC N=4 sampler, {FRAMES_10S} frames ({audio_s:.2f} s), CUDA "
+              f"graph (eager beside it): kernel {out['kernel']:.3f} ms "
+              f"({out['kernel_eager']:.3f}), plain {out['plain']:.3f} ms "
+              f"({out['plain_eager']:.3f}); kernel vs plain waveform rel_l2 "
+              f"{rel_l2(wavs['kernel'], wavs['plain']):.3e} [{smi_line}]")
     return out
 
 
@@ -954,11 +1025,12 @@ def phase17_fh_route(torch, FastDiff, exp_r4b, cfg, gen, dev):
     del eps
     report = exp_r4b.exp_d(dev, batches=(1, 4))
     for batch, row in report["batches"].items():
-        phase(17, f"N=4 sampler, b {batch} x {FRAMES_10S} frames, raced in "
-                  "turns: " + ", ".join(
+        phase(17, f"N=4 sampler, b {batch} x {FRAMES_10S} frames, CUDA "
+                  "graphs raced in turns (eager beside them): " + ", ".join(
                       f"{r} {row[r]['ms']:.3f} ms ({row[r]['ms_per_item']:.3f}"
                       f" per item, {row[r]['x_realtime']:.1f} x realtime; "
-                      f"runs {', '.join(f'{v:.3f}' for v in row[r]['runs'])})"
+                      f"runs {', '.join(f'{v:.3f}' for v in row[r]['runs'])};"
+                      f" eager {row[r]['eager_ms']:.3f} ms)"
                       for r in ("ncl", "ncl_fh"))
                   + f"; max |ncl - ncl_fh| {row['max_abs_diff']:.3e}")
         if not np.isfinite(row["max_abs_diff"]):
@@ -1044,6 +1116,262 @@ def phase19_stages(micro, dev, smi_line):
     return out
 
 
+# the hand-written kernels a denoiser forward can reach, by the name the
+# profiler gives them, and the launch counters that count them (downpath's
+# one count launches both of its stage kernels)
+KERNEL_COUNTERS = {
+    "head_gemm_kernel": ("taug_head", "aug_head", "taug_head_variant"),
+    "lvc_block_tc_kernel": ("lvc_block_ncl", "lvc_block_ncl_final",
+                            "lvc_block_ncl_sr"),
+    "lvc_block_kernel": ("lvc_block_ncl_cc", "lvc_block_ncl_sr_cc",
+                         "lvc_block_nwc_cc"),
+    "lvc_block_fh_tc_kernel": ("lvc_block_ncl_fh", "lvc_block_ncl_fh_final"),
+    "lvc_block_fh_kernel": ("lvc_block_ncl_fh_cc",),
+    "lvc_block_nwc_tc_kernel": ("lvc_block_nwc",),
+    "down_stage1": ("downpath",),
+    "down_stage2": ("downpath",),
+}
+
+
+def replayed_kernels(torch, call, per_replay: dict, what: str) -> dict:
+    """Profile one ``call`` (one replay of a captured graph) and count the
+    hand-written kernels it ran by name; fail unless each count equals
+    what the launch counters gain per replay (``per_replay``, {counter
+    key: launches}, as the sampler recorded it at capture)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        fail(f"{what}: the profile of a replay holds no device event")
+    seen = {kernel: sum(bool(re.search(rf"(?<![A-Za-z_]){kernel}", name))
+                        for name in names)
+            for kernel in KERNEL_COUNTERS}
+    want = {kernel: sum(per_replay.get(key, 0) for key in keys)
+            for kernel, keys in KERNEL_COUNTERS.items()}
+    if seen != want:
+        fail(f"{what}: a replay ran kernels {seen}; the counters add {want}")
+    return {k: v for k, v in seen.items() if v}
+
+
+def phase20_graph_sampler(torch, FastDiff, sampler_mod, FastDiffVocoder,
+                          cfg, dev, smi_line) -> dict:
+    """The graph sampler at full width, N = 4, 864 frames, b = 1: (a) graph
+    against eager per route (seeded generator and injected noise, rel L2
+    <= 1e-6), raced in turns, and one replay's kernels, profiled, against
+    the launches it adds to the counters; (b) a reload after capture
+    follows the new weights with no recapture, and ``assign=True`` drops
+    the graph and captures again; (c) the NCL line again at torch's
+    default settings (cuDNN TF32 on); (d) the chunked vocoder on 3,000
+    frames through one graph; (e) the cache bound of ``max_graphs``; (f)
+    a capture that syncs with the host raises, and the same sampler then
+    captures and replays a good one."""
+    const = sampler_mod.constants_for_hparams({"N": 4})
+    length = FRAMES_10S * HOP_SIZE
+    audio_s = length * AUDIO_SECONDS_PER_SAMPLE
+    mel = torch.randn((1, FRAMES_10S, cfg.cond_channels),
+                      generator=torch.Generator(device=dev).manual_seed(20),
+                      device=dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def make(route, seed=0):
+        return FastDiff(cfg, seed=seed, device=dev, infer_route=route,
+                        down_kernel=route == "nwc").eval()
+
+    def eager(model, **kw):
+        with torch.inference_mode():
+            return sampler_mod.sample(model, mel, const, length, **kw)
+
+    def checked(what, got, want):
+        torch.cuda.synchronize()
+        if got.shape != (1, length, 1) or not torch.isfinite(got).all():
+            fail(f"{what}: graph output has the wrong shape or is not finite")
+        err = rel_l2(got, want)
+        if not err <= 1e-6:
+            fail(f"{what}: graph vs eager rel_l2 {err:.3e} > 1e-6")
+        return f"rel_l2 {err:.3e} (bound 1e-6), bit-identical " \
+               f"{bool(torch.equal(got, want))}"
+
+    x_t = torch.randn((1, length, 1), generator=gen(2), device=dev)
+    zs = [torch.randn((1, length, 1), generator=gen(3 + i), device=dev)
+          for i in range(const.n_steps)]
+    out = {}
+
+    def against_eager(route, settings):
+        model = make(route)
+        run = sampler_mod.make_sampler(model, const)
+        want = eager(model, generator=gen(1))
+        first = checked(f"{route} first call (eager warm-up)",
+                        run(gen(1), mel, length), want)
+        seeded = checked(f"{route} seeded", run(gen(1), mel, length), want)
+        injected = checked(f"{route} injected noise",
+                           run(None, mel, length, noise=(x_t, zs)),
+                           eager(model, noise=(x_t, zs)))
+        race = race_sampler(lambda: run(gen(1), mel, length),
+                            lambda: eager(model, generator=gen(1)))
+        if run.captures != 1 or run.warmups != 1:
+            fail(f"{route}: {run.warmups} warm-ups and {run.captures} "
+                 "captures at one shape")
+        kernels = replayed_kernels(
+            torch, lambda: run(gen(1), mel, length),
+            run.replay_launches(mel, length), f"{route} replay")
+        phase(20, f"{route} [{settings}]: first call {first}; graph seeded "
+                  f"{seeded}; injected noise {injected}; one replay ran "
+                  f"{kernels or 'no hand-written kernel'}, as the counters "
+                  "add; " + sampler_line("raced", race, audio_s)
+                  + f" [{smi_line}]")
+        return {k: r["ms"] for k, r in race.items()}
+
+    script = "chip_smoke settings: TF32 off in matmuls and cuDNN"
+    for route in ("ncl", "nwc", "ncl_fh", "plain"):
+        out[route] = against_eager(route, script)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        out["ncl_torch_defaults"] = against_eager(
+            "ncl", "torch defaults, as the vocoder runs: cuDNN TF32 on, "
+            "matmul TF32 off")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+    # (b) a reload after capture
+    model = make("ncl")
+    prun = sampler_mod.make_param_sampler(model, const)
+    for _ in range(2):
+        prun(None, gen(1), mel, length)
+    ptrs = [t.data_ptr() for t in list(model.parameters())
+            + list(model.buffers())]
+    in_place = checked("reload seed 1",
+                       prun(make("ncl", 1).state_dict(), gen(1), mel, length),
+                       eager(make("ncl", 1), generator=gen(1)))
+    kept = ptrs == [t.data_ptr() for t in list(model.parameters())
+                    + list(model.buffers())]
+    if prun.captures != 1 or not kept:
+        fail(f"a reload recaptured ({prun.captures} captures) or moved "
+             f"storage (kept: {kept})")
+    model.load_state_dict({k: v.clone() for k, v in
+                           make("ncl", 2).state_dict().items()}, assign=True)
+    want = eager(make("ncl", 2), generator=gen(1))
+    checked("assign=True seed 2, first call", prun(None, gen(1), mel, length),
+            want)
+    if prun.recaptures != 1 or prun.graphs_cached != 0:
+        fail(f"assign=True: {prun.recaptures} drops, {prun.graphs_cached} "
+             "graphs held; expected 1 and 0")
+    assigned = checked("assign=True seed 2", prun(None, gen(1), mel, length),
+                       want)
+    if prun.captures != 2:
+        fail(f"assign=True: {prun.captures} captures; expected 2")
+    phase(20, f"reload after capture (seed 1, in place): {in_place}, every "
+              "storage kept, captures 1; load_state_dict(assign=True) "
+              f"(seed 2): graph dropped ({prun.recaptures}), first call "
+              f"eager, second captured: {assigned}, captures {prun.captures}")
+    del model, prun
+
+    # (d) the chunked vocoder on a long utterance
+    voc = FastDiffVocoder({"N": 4, "chunked_infer_frames": 256}, device=dev)
+    frames = 3000
+    long_mel = (np.random.default_rng(20).normal(
+        size=(frames, cfg.cond_channels)) - 4.0).astype(np.float32)
+    walls, reserved = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+        t0 = time.perf_counter()
+        wav = voc.spec2wav(long_mel)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if wav.shape != (frames * HOP_SIZE,) or not np.isfinite(wav).all():
+            fail("chunked vocoder output has the wrong shape or is not "
+                 "finite")
+    if voc.sampler.captures != 1 or voc.sampler.warmups != 1:
+        fail(f"the chunked vocoder warmed {voc.sampler.warmups} and "
+             f"captured {voc.sampler.captures} graphs")
+    core = voc.chunked.chunk - 2 * voc.chunked.halo
+    long_s = frames * HOP_SIZE * AUDIO_SECONDS_PER_SAMPLE
+    phase(20, f"chunked vocoder, {frames} frames ({long_s:.2f} s), chunks "
+              f"of 256 frames (halo 16): {-(-frames // core)} chunks in one "
+              f"call, one graph ({voc.sampler.captures} capture); wall per "
+              f"call: first (eager) {walls[0]:.1f} ms, second (capture) "
+              f"{walls[1]:.1f} ms, third (replay) {walls[2]:.1f} ms "
+              f"({long_s / (walls[2] / 1e3):.1f} x realtime); "
+              f"memory_reserved around the capture {reserved[1] / 2**20:.0f}"
+              f" -> {reserved[2] / 2**20:.0f} MiB "
+              f"(+{(reserved[2] - reserved[1]) / 2**20:.0f}) [{smi_line}]")
+    out["chunked_3000_ms"] = walls[2]
+    del voc, wav
+
+    # (e) the cache bound
+    voc = FastDiffVocoder({"N": 4}, device=dev)
+    cap = voc.sampler.max_graphs
+    counts = [FRAMES_10S - 8 * i for i in range(cap + 2)]
+    reserved = []
+    for n in counts:
+        for _ in range(2):
+            voc.spec2wav(long_mel[:n])
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    if voc.sampler.graphs_cached != cap or voc.sampler.captures != cap + 2:
+        fail(f"cache holds {voc.sampler.graphs_cached} graphs after "
+             f"{voc.sampler.captures} captures; expected {cap} of {cap + 2}")
+    if max(reserved[cap:]) > reserved[cap - 1]:
+        fail(f"memory_reserved grew past the first {cap} graphs: "
+             f"{reserved[cap - 1]} -> {max(reserved[cap:])}")
+    phase(20, f"cache bound: {cap + 2} frame counts ({counts[0]} down to "
+              f"{counts[-1]}), each twice -> {voc.sampler.graphs_cached} "
+              f"graphs kept, {voc.sampler.captures} captures; "
+              "memory_reserved after each (MiB) "
+              + ", ".join(f"{r / 2**20:.0f}" for r in reserved))
+    del voc
+
+    # (f) a failed capture raises; nothing falls back to the eager loop, and
+    # the same sampler captures again on a new stream and pool
+    class HostSync(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner, self.sync = inner, True
+
+        def forward(self, x, m, t):
+            if self.sync:                     # a host read: not capturable
+                x = x * float(x.abs().max() >= 0)
+            return self.inner(x, m, t)
+
+    model = HostSync(make("ncl"))
+    run = sampler_mod.make_sampler(model, const)
+    want = eager(model.inner, generator=gen(1))
+    checked("host-syncing model, first call", run(gen(1), mel, length), want)
+    try:
+        run(gen(1), mel, length)
+    except RuntimeError as e:
+        raised = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    else:
+        fail("a capture that reads the device from the host did not raise")
+    if run.graphs_cached or run.captures:
+        fail("a failed capture left a graph in the cache")
+    if torch.cuda.current_stream(dev) != torch.cuda.default_stream(dev):
+        fail("a failed capture left its stream current")
+    torch.cuda.synchronize()
+    model.sync = False
+    checked("after the failed capture, first call", run(gen(1), mel, length),
+            want)
+    recovered = checked("after the failed capture, graph",
+                        run(gen(1), mel, length), want)
+    if run.captures != 1 or run.graphs_cached != 1:
+        fail(f"after a failed capture: {run.captures} captures, "
+             f"{run.graphs_cached} graphs held; expected 1 and 1")
+    phase(20, f"a capture that reads the device from the host raised "
+              f"({raised}); nothing cached, the default stream current; "
+              "then the same sampler warmed, "
+              f"captured and replayed the NCL model: {recovered}")
+    return out
+
+
 def check_no_jax():
     """Fail if jax or any module of the JAX package was imported."""
     bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
@@ -1063,8 +1391,9 @@ def main():
     sys.path.insert(0, repo)
     try:
         from fastdiff_tpu_torch.config import ModelConfig
+        from fastdiff_tpu_torch.diffusion import sampler as sampler_mod
         from fastdiff_tpu_torch.diffusion.sampler import (
-            constants_for_hparams, sample)
+            constants_for_hparams, make_sampler, sample)
         from fastdiff_tpu_torch.models.fastdiff import FastDiff
         from fastdiff_tpu_torch.ops import (_build, downpath_pallas,
                                             lvc_block_ncl, lvc_block_pallas,
@@ -1074,6 +1403,8 @@ def main():
                                                        start_server)
         from fastdiff_tpu_torch.training.task import FastDiffTask
         from fastdiff_tpu_torch.training.trainer import Trainer
+        from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import \
+            FastDiffVocoder
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout of the repo): {e}")
     check_no_jax()
@@ -1327,42 +1658,40 @@ def main():
 
         # --- phase 6: N=4 sampler, 10 s, b=1 --------------------------------
         const = constants_for_hparams({"N": 4})
-        times = {}
-        wavs = {}
-        for use in (False, True, True, False):
+        run = make_sampler(model, const)
+        races, wavs = {}, {}
+        for use, label in ((True, "kernel"), (False, "plain")):
             model.use_kernels = use
-            g = torch.Generator(device=dev).manual_seed(1)
 
-            def run():
+            def graph():
+                g = torch.Generator(device=dev).manual_seed(1)
+                return run(g, mel, length)
+
+            def eager():
+                g = torch.Generator(device=dev).manual_seed(1)
                 return sample(model, mel, const, length, generator=g)
 
-            run()                                  # warm-up
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            reps = 3
-            start.record()
-            for _ in range(reps):
-                wav = run()
-            end.record()
-            torch.cuda.synchronize()
-            times.setdefault(use, []).append(start.elapsed_time(end) / reps)
-            wavs[use] = wav
+            races[label] = race_sampler(graph, eager)
+            wavs[label] = graph()
+        model.use_kernels = True
         audio_s = length * AUDIO_SECONDS_PER_SAMPLE
-        for use, label in ((True, "kernel"), (False, "plain")):
-            ms = sum(times[use]) / len(times[use])
-            report[f"sampler_{label}_ms"] = ms
-            print(f"  sampler {label}: {ms:.3f} ms per utterance, "
-                  f"{audio_s / (ms / 1e3):.1f} x realtime "
-                  f"(runs {', '.join(f'{v:.3f}' for v in times[use])} ms)",
+        for label, race in races.items():
+            report[f"sampler_{label}_ms"] = race["graph"]["ms"]
+            report[f"sampler_{label}_eager_ms"] = race["eager"]["ms"]
+            print(f"  {sampler_line('sampler ' + label, race, audio_s)}",
                   flush=True)
         for wav in wavs.values():
             if wav.shape != (1, length, 1) or not torch.isfinite(wav).all():
                 fail("sampler output has the wrong shape or is not finite")
-        phase(6, f"N=4 sampler, {FRAMES_10S} frames ({audio_s:.2f} s): "
-                 f"kernel {report['sampler_kernel_ms']:.3f} ms, plain "
-                 f"{report['sampler_plain_ms']:.3f} ms; kernel vs plain "
-                 f"waveform rel_l2 {rel_l2(wavs[True], wavs[False]):.3e}")
-        del model, eps_k, eps_p, wavs
+        phase(6, f"N=4 sampler, {FRAMES_10S} frames ({audio_s:.2f} s), CUDA "
+                 f"graph (eager beside it): kernel "
+                 f"{report['sampler_kernel_ms']:.3f} ms "
+                 f"({report['sampler_kernel_eager_ms']:.3f}), plain "
+                 f"{report['sampler_plain_ms']:.3f} ms "
+                 f"({report['sampler_plain_eager_ms']:.3f}); {run.captures} "
+                 f"graphs captured; kernel vs plain waveform rel_l2 "
+                 f"{rel_l2(wavs['kernel'], wavs['plain']):.3e} [{smi_line}]")
+        del model, run, eps_k, eps_p, wavs
 
     # --- phase 7: HTTP server, main path -----------------------------------
     counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES)
@@ -1408,8 +1737,9 @@ def main():
             torch, lvc_block_pallas, randn, c, layers, smi_line)
         report["downpath"] = phase14_downpath(torch, downpath_pallas,
                                               nwc_model, dev, smi_line)
-        nwc_sampler = phase15_nwc_route(torch, nwc_model, sample, const, gen,
-                                        dev)
+        nwc_sampler = phase15_nwc_route(torch, nwc_model, sample,
+                                        make_sampler, const, gen, dev,
+                                        smi_line)
     del nwc_model
     steps = const.n_steps
     # per request: K6 and K7 on the hop-64 and hop-256 blocks of every step;
@@ -1488,6 +1818,10 @@ def main():
     if any(launches[k] == 0 for k in ("taug_head_variant", "conv_stage",
                                       "lvc_stage")):
         fail("a kernel of the experiment scripts was never launched")
+
+    # --- phase 20: the graph sampler ----------------------------------------
+    graph_report = phase20_graph_sampler(torch, FastDiff, sampler_mod,
+                                         FastDiffVocoder, cfg, dev, smi_line)
     check_no_jax()
 
     sources = {
@@ -1541,13 +1875,18 @@ def main():
     fh = fh_sampler["batches"]
     print(json.dumps({"kernels": kernels,
                       "sampler_ms": report["sampler_kernel_ms"],
+                      "sampler_eager_ms": report["sampler_kernel_eager_ms"],
                       "sampler_plain_ms": report["sampler_plain_ms"],
+                      "sampler_plain_eager_ms":
+                          report["sampler_plain_eager_ms"],
                       "nwc_sampler_ms": nwc_sampler["kernel"],
+                      "nwc_sampler_eager_ms": nwc_sampler["kernel_eager"],
                       "nwc_sampler_plain_ms": nwc_sampler["plain"],
                       "fh_sampler_ms": {b: row["ncl_fh"]["ms"]
                                         for b, row in fh.items()},
                       "fh_race_ncl_ms": {b: row["ncl"]["ms"]
                                          for b, row in fh.items()},
+                      "graph_vs_eager_ms": graph_report,
                       "train_step": train_report, "fit_s": fit_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

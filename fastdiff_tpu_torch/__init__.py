@@ -1,7 +1,8 @@
 """FastDiff in PyTorch for NVIDIA Hopper: the port of ``fastdiff_tpu``.
 
 The mel -> waveform serving path (N-step reverse diffusion around the
-FastDiff denoiser, served over HTTP) on every inference route, and the
+FastDiff denoiser, replayed as one CUDA graph per shape, served over HTTP,
+chunked, streamed or batched) on every inference route, and the
 trainer, written as PyTorch modules. Every kernel the JAX package wrote in
 Pallas (the LVC blocks, the predictor heads, the down path and the two
 experiment scripts' kernels) is hand-written CUDA C++ for ``sm_90a``
@@ -25,6 +26,16 @@ def __getattr__(name):
         "params_from_jax": ("fastdiff_tpu_torch.models.bridge",
                             "params_from_jax"),
         "sample": ("fastdiff_tpu_torch.diffusion.sampler", "sample"),
+        "make_sampler": ("fastdiff_tpu_torch.diffusion.sampler",
+                         "make_sampler"),
+        "make_param_sampler": ("fastdiff_tpu_torch.diffusion.sampler",
+                               "make_param_sampler"),
+        "ChunkedVocoder": ("fastdiff_tpu_torch.serving.chunked_vocoder",
+                           "ChunkedVocoder"),
+        "StreamingVocoder": ("fastdiff_tpu_torch.serving.streaming_vocoder",
+                             "StreamingVocoder"),
+        "BatchedVocoder": ("fastdiff_tpu_torch.serving.batch_vocoder",
+                           "BatchedVocoder"),
         "FastDiffVocoder": ("fastdiff_tpu_torch.vocoders.fastdiff_vocoder",
                             "FastDiffVocoder"),
         "VocoderService": ("fastdiff_tpu_torch.serving.server",

@@ -35,7 +35,10 @@ Parameter names mirror the JAX tree from ``init_fastdiff``; weights are the
 weight-norm-fused ones (``bridge.py`` converts a JAX tree). The kernels'
 constant operands (merged head weights, stacked conv weights, final-conv
 taps, down-path packs) are packed once, by ``pack``, for the model's route
-when weights are set.
+when weights are set. A repack copies into the buffers it made the first
+time, so ``load_state_dict`` keeps the storage of every parameter and
+buffer, and a CUDA graph captured before it replays the new weights
+(``diffusion/sampler.py:make_param_sampler``).
 
 ``use_kernels`` picks the implementation of every kernel of the route (the
 LVC heads and blocks, and the down path): True calls the kernel wrappers
@@ -142,6 +145,19 @@ def resolve_train_route(hp: dict, device) -> str:
     if low in ("auto", ""):
         return "ncl_sr" if torch.device(device).type == "cuda" else "plain"
     return "plain"
+
+
+def set_operand(module: nn.Module, name: str, value: torch.Tensor):
+    """Set the packed operand ``name`` of ``module``: copied into the buffer
+    already there when its shape, dtype and device match, so a reload keeps
+    the storage that a captured CUDA graph (and a TMA map cached by
+    pointer) reads; registered as a new non-persistent buffer otherwise."""
+    old = module._buffers.get(name)
+    if (old is not None and old.shape == value.shape
+            and old.dtype == value.dtype and old.device == value.device):
+        old.copy_(value)
+    else:
+        module.register_buffer(name, value, persistent=False)
 
 
 class WNConv(nn.Module):
@@ -282,7 +298,7 @@ class LVCBlock(nn.Module):
                            (("w_aug", "b_aug", "wstack"),
                             self.nwc_operands(dtype)))
         for name, t in zip(names, operands):
-            self.register_buffer(name, t, persistent=False)
+            set_operand(self, name, t)
 
     def _trunk(self, mel, emb, dtype):
         """Predictor trunk (B, hid, F) over mel (B, n_mels, F) plus the
@@ -487,15 +503,13 @@ class FastDiff(nn.Module):
         for block in self.lvc_blocks:
             block.pack(self.dtype, self.infer_route)
         if self.infer_route in ("ncl", "ncl_fh"):
-            self.register_buffer(
-                "final_wb", block_ops.final_conv_wb(
-                    self.final_conv.weight, self.final_conv.bias, self.dtype),
-                persistent=False)
+            set_operand(self, "final_wb", block_ops.final_conv_wb(
+                self.final_conv.weight, self.final_conv.bias, self.dtype))
         elif self.down_kernel:
             for name, t in zip(("down_first", "down_res", "down_conv"),
                                down_ops.pack_downpath_weights(
                                    self.first_audio_conv, self.downsample)):
-                self.register_buffer(name, t, persistent=False)
+                set_operand(self, name, t)
 
     def load_state_dict(self, state_dict, strict: bool = True, assign=False):
         result = super().load_state_dict(state_dict, strict=strict,

@@ -16,8 +16,9 @@
 - D: the fused-head route against the NCL route. The N = 4 sampler at 864
   frames (10 s) on ``FastDiff(infer_route="ncl")`` and ``"ncl_fh"`` with
   the same seeded weights and noise, at b = 1 and b = 4, raced in turns
-  (ncl, ncl_fh, ncl_fh, ncl) with CUDA events; the max |ncl - ncl_fh| of
-  the waveforms.
+  (ncl, ncl_fh, ncl_fh, ncl) with CUDA events, as CUDA graphs
+  (``make_sampler``) and as the eager loop; the max |ncl - ncl_fh| of the
+  waveforms.
 
 Experiments A and C (the sampler state's layout, the NCL downsample as a
 selection matmul) test TPU layouts and are not ported. Runs on the card
@@ -32,7 +33,8 @@ import json
 import torch
 
 from fastdiff_tpu_torch.config import ModelConfig
-from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
+from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
+                                                  make_sampler, sample)
 from fastdiff_tpu_torch.models.fastdiff import FastDiff, checked_device
 from fastdiff_tpu_torch.ops import lvc_head
 from fastdiff_tpu_torch.utils.timing import cuda_ms, race_graph
@@ -95,8 +97,9 @@ def exp_b(device="cuda", reps: int = 20, seed: int = 0,
 def exp_d(device="cuda", batches=(1, 4), reps: int = 3,
           seed: int = 0) -> dict:
     """The N = 4 sampler on the ``ncl`` and ``ncl_fh`` routes at 10 s per
-    item, raced in turns: ms per batch and per item, x realtime, and the
-    max |ncl - ncl_fh| of the waveforms drawn from the same noise."""
+    item, raced in turns, as CUDA graphs and eagerly: ms per batch and per
+    item, x realtime, and the max |ncl - ncl_fh| of the waveforms drawn
+    from the same noise."""
     dev = checked_device(device)
     if dev.type != "cuda":
         raise RuntimeError("experiment D times the card: it needs a CUDA "
@@ -105,6 +108,7 @@ def exp_d(device="cuda", batches=(1, 4), reps: int = 3,
     const = constants_for_hparams({"N": 4})
     models = {r: FastDiff(cfg, seed=seed, device=dev, infer_route=r).eval()
               for r in ("ncl", "ncl_fh")}
+    runs = {r: make_sampler(m, const) for r, m in models.items()}
     length = FRAMES * HOP
     report = {"device": torch.cuda.get_device_name(dev), "frames": FRAMES,
               "batches": {}}
@@ -114,21 +118,29 @@ def exp_d(device="cuda", batches=(1, 4), reps: int = 3,
                               generator=torch.Generator(device=dev)
                               .manual_seed(seed), device=dev)
 
-            def run(route, mel=mel):
+            def graph(route, mel=mel):
+                g = torch.Generator(device=dev).manual_seed(seed + 1)
+                return runs[route](g, mel, length)
+
+            def eager(route, mel=mel):
                 g = torch.Generator(device=dev).manual_seed(seed + 1)
                 return sample(models[route], mel, const, length, generator=g)
 
-            wavs = {r: run(r) for r in models}
-            times = {r: [] for r in models}
-            for r in ("ncl", "ncl_fh", "ncl_fh", "ncl"):
-                times[r].append(cuda_ms(lambda: run(r), reps))
+            wavs = {r: graph(r) for r in models}
+            times = {(r, how): [] for r in models
+                     for how in ("graph", "eager")}
+            for how, fn in (("graph", graph), ("eager", eager)):
+                for r in ("ncl", "ncl_fh", "ncl_fh", "ncl"):
+                    times[r, how].append(cuda_ms(lambda: fn(r), reps))
             row = {"max_abs_diff": float(
                 (wavs["ncl"] - wavs["ncl_fh"]).abs().max())}
-            for r, ts in times.items():
-                ms = sum(ts) / len(ts)
+            for r in models:
+                ms, eager_ms = (sum(times[r, how]) / 2
+                                for how in ("graph", "eager"))
                 row[r] = {"ms": ms, "ms_per_item": ms / batch,
                           "x_realtime": batch * SECONDS / (ms / 1e3),
-                          "runs": ts}
+                          "runs": times[r, "graph"], "eager_ms": eager_ms,
+                          "eager_runs": times[r, "eager"]}
             report["batches"][batch] = row
     return report
 

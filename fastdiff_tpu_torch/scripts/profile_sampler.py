@@ -2,17 +2,24 @@
 route, on the card.
 
     python -m fastdiff_tpu_torch.scripts.profile_sampler [ncl] [nwc] ...
-        [--frames 864] [--samples 2] [--top 8]
+        [--frames 864] [--samples 2] [--top 8] [--graph]
     python -m fastdiff_tpu_torch.scripts.profile_sampler --train [ncl_sr]
         [ncl_vjp] [plain] [--samples 2] [--top 10]
 
 For each route (``ncl``, ``nwc`` with the down kernel, ``ncl_fh``,
-``plain``), one warm-up sample of ``--frames`` mel frames (b = 1, seeded
+``plain``), two warm-up samples of ``--frames`` mel frames (b = 1, seeded
 random weights and mel), then ``torch.profiler`` over ``--samples`` samples:
 the device's busy time per sample (the sum of its kernels' and copies'
 self device time), the number of device events per sample, the host wall
-time per sample (profiler on) and the ``--top`` largest device costs per
-sample by name. With ``--train`` the routes are the training routes and a sample is
+time per sample (profiler on), the device's idle gaps inside the profiled
+window (the span from the first device event's start to the last one's
+end, less the union of the events' intervals: idle ms and share, the
+idle ms in gaps of at most 5 us, the number of longer gaps and the
+largest) and the ``--top`` largest
+device costs per sample by name. With ``--graph`` each sample is a replay
+of the sampler's CUDA graph (``diffusion/sampler.py:make_sampler``; the
+shape's eager first call and its capture come before the profile), with
+the eager loop's profile beside it. With ``--train`` the routes are the training routes and a sample is
 one ``FastDiffTask.train_step`` at the recipe (20 x 25,600 samples, a fixed
 seeded batch, two warm-up steps): the same profile per step, and the
 step's forward (loss), backward (gradients) and optimizer (finite check and
@@ -29,7 +36,8 @@ import time
 import torch
 
 from fastdiff_tpu_torch.config import ModelConfig
-from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
+from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
+                                                  make_sampler, sample)
 from fastdiff_tpu_torch.models.fastdiff import (INFER_ROUTES, TRAIN_ROUTES,
                                                 FastDiff, checked_device)
 
@@ -45,14 +53,42 @@ def _cuda_device(device):
     return dev
 
 
+def _gaps(prof, per: int) -> dict:
+    """The device's idle time inside the profiled window: its span (first
+    device event's start to the last one's end) less the union of the
+    events' intervals, per ``per``; the idle time in gaps of at most 5 us
+    (kernel to kernel), the number of longer gaps and the largest."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {"span_ms": 0.0, "idle_ms": 0.0, "idle_share": None,
+                "idle_in_short_gaps_ms": 0.0, "gaps_over_5us": 0,
+                "largest_gap_us": 0.0}
+    busy, gaps, end = 0.0, [], spans[0][0]
+    for lo, hi in spans:
+        if lo > end:
+            gaps.append(lo - end)
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    span = end - spans[0][0]
+    return {"span_ms": span / 1e3 / per, "idle_ms": (span - busy) / 1e3 / per,
+            "idle_share": (span - busy) / span if span else None,
+            "idle_in_short_gaps_ms": sum(g for g in gaps if g <= 5) / 1e3
+            / per,
+            "gaps_over_5us": sum(g > 5 for g in gaps) / per,
+            "largest_gap_us": max(gaps, default=0.0)}
+
+
 def _device_profile(prof, per: int, top: int) -> dict:
-    """Busy time, event count and the largest costs per ``per`` of a
-    profile's device events."""
+    """Busy time, event count, idle gaps and the largest costs per ``per``
+    of a profile's device events."""
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in rows)
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     return {
+        "gaps": _gaps(prof, per),
         "device_busy_ms": busy_us / 1e3 / per,
         "device_events": sum(e.count for e in rows) / per,
         "top": [{"name": e.key[:80],
@@ -123,9 +159,11 @@ def profile_train(route: str, steps: int = 2, split_steps: int = 3,
 
 
 def profile_route(route: str, frames: int = 864, samples: int = 2,
-                  top: int = 8, seed: int = 0, device="cuda") -> dict:
-    """Device busy time and the largest device costs per sample of the
-    N = 4 sampler on ``route``."""
+                  top: int = 8, seed: int = 0, device="cuda",
+                  graph: bool = False) -> dict:
+    """Device busy time, idle gaps and the largest device costs per sample
+    of the N = 4 sampler on ``route``: the eager loop, or with ``graph``
+    replays of its CUDA graph."""
     dev = _cuda_device(device)
     cfg = ModelConfig()
     model = FastDiff(cfg, seed=seed, device=dev, infer_route=route,
@@ -134,13 +172,17 @@ def profile_route(route: str, frames: int = 864, samples: int = 2,
     mel = torch.randn((1, frames, cfg.cond_channels),
                       generator=torch.Generator(device=dev).manual_seed(seed),
                       device=dev)
+    runner = make_sampler(model, const) if graph else None
 
     def run():
         g = torch.Generator(device=dev).manual_seed(seed + 1)
+        if graph:
+            return runner(g, mel, frames * HOP)
         return sample(model, mel, const, frames * HOP, generator=g)
 
     with torch.inference_mode():
-        run()
+        for _ in range(2):              # a graph's shape: warm-up, capture
+            run()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=_ACTIVITIES) as prof:
             t0 = time.perf_counter()
@@ -151,9 +193,11 @@ def profile_route(route: str, frames: int = 864, samples: int = 2,
     out = _device_profile(prof, samples, top)
     return {
         "route": route, "frames": frames, "samples": samples,
+        "graph": graph,
         "device_busy_ms_per_sample": out["device_busy_ms"],
         "device_events_per_sample": out["device_events"],
         "wall_ms_per_sample_profiled": wall,
+        "gaps": out["gaps"],
         "top": [{"name": r["name"], "ms_per_sample": r["ms"],
                  "calls_per_sample": r["calls"]} for r in out["top"]],
     }
@@ -169,6 +213,9 @@ def main():
                         "10 with --train)")
     parser.add_argument("--train", action="store_true",
                         help="profile train steps on training routes")
+    parser.add_argument("--graph", action="store_true",
+                        help="profile replays of the sampler's CUDA graph, "
+                        "with the eager loop beside them")
     args = parser.parse_args()
     known = TRAIN_ROUTES if args.train else INFER_ROUTES
     routes = args.routes or (["ncl_sr"] if args.train else ["ncl", "nwc"])
@@ -180,7 +227,9 @@ def main():
                    for r in routes]
     else:
         results = [profile_route(r, args.frames, args.samples,
-                                 top=args.top or 8) for r in routes]
+                                 top=args.top or 8, graph=graph)
+                   for r in routes
+                   for graph in ((True, False) if args.graph else (False,))]
     report = {"device": torch.cuda.get_device_name(0) if
               torch.cuda.is_available() else None, "routes": results}
     print(json.dumps(report, indent=1))

@@ -12,12 +12,18 @@ vocode.
 
 ``use_pallas_block`` in the hparams picks the route (``ncl_fh``, true for
 the NWC route with ``use_pallas_down``, false for the plain route); see
-``vocoders/fastdiff_vocoder.py``.
+``vocoders/fastdiff_vocoder.py``. The vocoder runs a mel frame count's
+first request eagerly, captures one CUDA graph of the sampler on its
+second and replays it from then on; ``--max_graphs`` bounds how many frame
+counts are kept (least recently used evicted), and warm-up runs the
+warm-up shape twice, so that it is captured.
 
 Endpoints:
     POST /vocode    body: .npy mel -> audio/wav (503 while cold or full)
     GET  /healthz   200 once the model is warm
-    GET  /metrics   JSON: request counts, queue depth, RTF, audio seconds
+    GET  /metrics   JSON: request counts, queue depth, RTF, audio seconds,
+                    graphs_cached, graph_captures and graph_warmups
+                    (counts)
 """
 
 from __future__ import annotations
@@ -40,16 +46,19 @@ class VocoderService:
     CUDA card unless the caller names another; no card raises).
 
     ``max_queue`` bounds how many vocode requests may wait on the device
-    lock; an over-limit request raises ``Busy`` (mapped to 503)."""
+    lock; an over-limit request raises ``Busy`` (mapped to 503).
+    ``max_graphs`` bounds the sampler's cache of CUDA graphs."""
 
     class Busy(RuntimeError):
         pass
 
-    def __init__(self, hparams: dict, device="cuda", max_queue: int = 4):
+    def __init__(self, hparams: dict, device="cuda", max_queue: int = 4,
+                 max_graphs: int = 8):
         self.hparams = hparams
         self.sample_rate = int(hparams.get("audio_sample_rate", 22050))
         self.num_mels = int(hparams.get("audio_num_mel_bins", 80))
-        self.vocoder = get_vocoder_cls(hparams)(hparams, device=device)
+        self.vocoder = get_vocoder_cls(hparams)(hparams, device=device,
+                                                max_graphs=max_graphs)
         self.max_queue = max_queue
         self._lock = threading.Lock()
         self._depth_lock = threading.Lock()
@@ -62,7 +71,10 @@ class VocoderService:
         self.audio_seconds = 0.0
 
     def warmup(self, frames: int = 128):
-        self._vocode_locked(np.zeros((frames, self.num_mels), np.float32))
+        """Vocode ``frames`` of silence twice: the first run builds the
+        kernels, the second captures the shape's graph."""
+        for _ in range(2):
+            self._vocode_locked(np.zeros((frames, self.num_mels), np.float32))
         self.warm = True
 
     def vocode(self, mel: np.ndarray) -> np.ndarray:
@@ -105,6 +117,9 @@ class VocoderService:
             "audio_seconds": round(self.audio_seconds, 3),
             "gen_seconds": round(gen, 3),
             "x_realtime": round(self.audio_seconds / gen, 2) if gen else None,
+            "graphs_cached": self.vocoder.sampler.graphs_cached,
+            "graph_captures": self.vocoder.sampler.captures,
+            "graph_warmups": self.vocoder.sampler.warmups,
         }
 
 
@@ -186,8 +201,10 @@ def start_server(service: VocoderService, host: str = "127.0.0.1",
 
 
 def serve(hparams: dict, device="cuda", host: str = "0.0.0.0",
-          port: int = 8300, warmup_frames: int = 128, max_queue: int = 4):
-    service = VocoderService(hparams, device=device, max_queue=max_queue)
+          port: int = 8300, warmup_frames: int = 128, max_queue: int = 4,
+          max_graphs: int = 8):
+    service = VocoderService(hparams, device=device, max_queue=max_queue,
+                             max_graphs=max_graphs)
     # listen before warmup so /healthz answers 503 while the kernels build
     httpd, thread = start_server(service, host, port)
     print(f"| vocoder server on {host}:{port} ({device}); warming up...")
@@ -204,9 +221,13 @@ def main():
     parser.add_argument("--host", type=str, default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8300)
     parser.add_argument("--max_queue", type=int, default=4)
+    parser.add_argument("--max_graphs", type=int, default=8,
+                        help="mel frame counts whose sampler runner (and "
+                        "CUDA graph) is kept")
     args = parser.parse_args()
     serve(json.loads(args.hparams), device=args.device, host=args.host,
-          port=args.port, max_queue=args.max_queue)
+          port=args.port, max_queue=args.max_queue,
+          max_graphs=args.max_graphs)
 
 
 if __name__ == "__main__":

@@ -7,8 +7,14 @@ caller names another (no card raises). ``vocoder_ckpt`` names a
 ``models/bridge.py:params_from_jax``) or a checkpoint of the port's
 ``Trainer``, whose weight norm is fused on load; without one, or when the
 path does not exist, the model runs with the seed-0 random weights, as the
-JAX vocoder does. A non-zero ``chunked_infer_frames`` raises until the
-chunked vocoder is ported (ROADMAP item 8). ``use_pallas_block`` and
+JAX vocoder does. ``spec2wav`` runs the graph sampler
+(``diffusion/sampler.py:make_param_sampler``: a frame count's first request
+runs eagerly, its second captures a CUDA graph that later ones replay, at
+most ``max_graphs`` frame counts kept) with the vocoder's generator, seeded
+from ``seed``; a non-zero ``chunked_infer_frames`` vocodes through
+``serving/chunked_vocoder.py:ChunkedVocoder`` around that sampler, all
+chunks of an utterance in one call, so the graph key is the chunk count.
+``use_pallas_block`` and
 ``use_pallas_down`` pick the route as the JAX vocoder's
 ``inference_model_config`` does (``models/fastdiff.py:resolve_infer_route``
 and ``resolve_down_kernel``): "auto" / "ncl" run the NCL route (K3, K1),
@@ -25,11 +31,14 @@ import numpy as np
 import torch
 
 from fastdiff_tpu_torch.config import ModelConfig
-from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams, sample
+from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
+                                                  inference_generator,
+                                                  make_param_sampler)
 from fastdiff_tpu_torch.models import bridge
 from fastdiff_tpu_torch.models.fastdiff import (FastDiff, checked_device,
                                                 resolve_down_kernel,
                                                 resolve_infer_route)
+from fastdiff_tpu_torch.serving.chunked_vocoder import ChunkedVocoder
 
 def model_config_from_hparams(hp: dict) -> ModelConfig:
     """ModelConfig from the hparams' architecture fields (the routes are
@@ -57,7 +66,8 @@ def inference_state_dict(saved: dict, cfg: ModelConfig) -> dict:
 
 
 class FastDiffVocoder:
-    def __init__(self, hparams: dict | None = None, device="cuda"):
+    def __init__(self, hparams: dict | None = None, device="cuda",
+                 max_graphs: int = 8):
         hp = dict(hparams or {})
         self.hparams = hp
         self.device = checked_device(device)
@@ -67,10 +77,6 @@ class FastDiffVocoder:
         self.route = resolve_infer_route(hp)
         route = dict(infer_route=self.route,
                      down_kernel=resolve_down_kernel(hp))
-        if int(hp.get("chunked_infer_frames", 0) or 0):
-            raise ValueError("chunked_infer_frames is not supported by the "
-                             "port yet: the chunked vocoder comes with "
-                             "ROADMAP item 8; set it to 0")
         ckpt = hp.get("vocoder_ckpt", "")
         if ckpt and os.path.exists(ckpt):
             model = FastDiff(self.model_cfg, seed=None, **route)
@@ -82,16 +88,29 @@ class FastDiffVocoder:
                   "with random weights.")
             model = FastDiff(self.model_cfg, seed=0, **route)
         self.model = model.to(self.device).eval()
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            int(hp.get("seed", 1234)))
+        self.sampler = make_param_sampler(self.model, self.constants,
+                                          max_graphs=max_graphs)
+        self.generator = inference_generator(int(hp.get("seed", 1234)),
+                                             self.device)
+        chunk = int(hp.get("chunked_infer_frames", 0) or 0)
+        self.chunked = None
+        if chunk:
+            self.chunked = ChunkedVocoder(self.sample, hop_size=self.hop,
+                                          chunk_frames=chunk)
 
-    @torch.inference_mode()
+    def sample(self, generator, mel: torch.Tensor,
+               audio_length: int) -> torch.Tensor:
+        """The graph sampler on the model's current weights:
+        ``sample(generator, mel, audio_length) -> (B, L, 1)``."""
+        return self.sampler(None, generator, mel, audio_length)
+
     def spec2wav(self, mel: np.ndarray) -> np.ndarray:
         """mel (T, n_mels) -> waveform (T * hop,) float32."""
-        mel_t = torch.as_tensor(np.asarray(mel, np.float32),
-                                device=self.device)[None]
-        wav = sample(self.model, mel_t, self.constants,
-                     mel_t.shape[1] * self.hop, generator=self.generator)
+        mel = np.asarray(mel, np.float32)
+        if self.chunked is not None:
+            return self.chunked.vocode(mel, generator=self.generator)
+        wav = self.sample(self.generator, torch.from_numpy(mel)[None],
+                          mel.shape[0] * self.hop)
         return wav[0, :, 0].cpu().numpy()
 
 

@@ -39,6 +39,11 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.diffusion.sampler\n"
             "import fastdiff_tpu_torch.vocoders.fastdiff_vocoder\n"
             "import fastdiff_tpu_torch.serving.server\n"
+            "import fastdiff_tpu_torch.serving.chunked_vocoder\n"
+            "import fastdiff_tpu_torch.serving.streaming_vocoder\n"
+            "import fastdiff_tpu_torch.serving.batch_vocoder\n"
+            "from fastdiff_tpu_torch import (BatchedVocoder, ChunkedVocoder, "
+            "StreamingVocoder, make_param_sampler, make_sampler)\n"
             "import fastdiff_tpu_torch.diffusion.losses\n"
             "import fastdiff_tpu_torch.training.optim\n"
             "import fastdiff_tpu_torch.training.checkpoint\n"

@@ -8,8 +8,10 @@
   (3e-4, the port's per-call tolerance).
 - A ``vocoder_ckpt`` path that does not exist warns and runs the seed-0
   random weights, as JAX does.
-- A non-zero ``chunked_infer_frames`` raises until the chunked vocoder is
-  ported (ROADMAP item 8), where JAX would chunk.
+- A non-zero ``chunked_infer_frames`` (cast with ``int``) vocodes through
+  ``ChunkedVocoder`` around the vocoder's sampler and generator, as JAX's
+  vocoder chunks; a chunk of no more than two 16-frame halos is refused,
+  as JAX's ``ChunkedVocoder`` refuses it.
 """
 
 import os
@@ -24,6 +26,8 @@ from fastdiff_tpu.config import ModelConfig as JaxModelConfig
 from fastdiff_tpu.models.fastdiff import fastdiff_apply, fuse_weight_norm
 from fastdiff_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
 from fastdiff_tpu_torch.models.bridge import params_to_jax
+from fastdiff_tpu_torch.serving.chunked_vocoder import (DEFAULT_HALO_FRAMES,
+                                                        ChunkedVocoder)
 from fastdiff_tpu_torch.training import checkpoint as ckpt
 from fastdiff_tpu_torch.training.task import FastDiffTask
 from fastdiff_tpu_torch.training.trainer import Trainer
@@ -144,7 +148,30 @@ def test_missing_checkpoint_warns_and_runs_seeded_weights(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("frames", [64, "32"])
-def test_chunked_infer_frames_raises(frames):
-    with pytest.raises(ValueError, match="chunked_infer_frames.*item 8"):
-        FastDiffVocoder(dict(ARCH, chunked_infer_frames=frames), device="cpu")
-    FastDiffVocoder(dict(ARCH, chunked_infer_frames=0), device="cpu")
+def test_chunked_infer_frames_runs_the_chunked_vocoder(frames):
+    """The vocoder with ``chunked_infer_frames`` equals ChunkedVocoder
+    (default halo) around the same sampler and a generator of the same
+    seed, bit for bit, through one sampler entry (warmed on the first
+    call, captured on the second); 32 frames are not more
+    than two halos, which ChunkedVocoder refuses (JAX's asserts)."""
+    chunk = int(frames)
+    hp = dict(ARCH, seed=7, chunked_infer_frames=frames)
+    if chunk <= 2 * DEFAULT_HALO_FRAMES:
+        with pytest.raises(ValueError, match="twice halo_frames"):
+            ChunkedVocoder(None, HOP, chunk_frames=chunk)
+        with pytest.raises(ValueError, match="twice halo_frames"):
+            FastDiffVocoder(hp, device="cpu")
+        return
+    mel = (np.random.default_rng(3).normal(size=(100, N_MELS)) - 4.0
+           ).astype(np.float32)
+    voc = FastDiffVocoder(hp, device="cpu")
+    got = voc.spec2wav(mel)
+    plain = FastDiffVocoder(dict(ARCH, seed=7), device="cpu")
+    assert plain.chunked is None
+    want = ChunkedVocoder(plain.sample, HOP, chunk_frames=chunk).vocode(
+        mel, generator=torch.Generator().manual_seed(7))
+    assert got.shape == (100 * HOP,)
+    np.testing.assert_array_equal(got, want)
+    assert voc.sampler.warmups == 1 and voc.sampler.graphs_cached == 0
+    assert np.isfinite(voc.spec2wav(mel)).all()
+    assert voc.sampler.warmups == 1 and voc.sampler.graphs_cached == 1
