@@ -139,7 +139,22 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     keeps ``max_graphs`` with no growth of ``memory_reserved`` past the
     first ``max_graphs``; and a capture that reads the device from the
     host, which must raise and leave nothing cached, followed on the same
-    sampler by a good capture whose replay matches the eager loop.
+    sampler by a good capture whose replay matches the eager loop;
+21. the entry path, in a temporary work dir, at the full width of
+    ``fastdiff_tpu/configs/ljspeech.yaml`` (N = 4): four synthesized wavs
+    of 1.2, 3.0, 3.3 and 10 s (104, 259, 285 and 862 frames; the 3.0 and
+    3.3 s files share the 384-frame bucket) and their ``.npy`` mels through
+    ``fastdiff_tpu_torch.run.main([... '--infer'])``: every ``_pred.wav``
+    of frames * 256 finite samples, K3 +12, K1 +8, K2 +4 and the CUDA-core
+    Kernel B +0 per utterance, one capture for the shared bucket, each
+    utterance's RTF and the mean; ``use_pallas_block=false`` against
+    ``auto`` on the same seed (written wavs, rel L2 <= 5e-2, no kernel
+    launched); ``--infer`` on the work dir of a 2-step ``fit`` with an EMA
+    (``micro_lj.yaml``, its saved ``config.yaml`` read back); the CLI,
+    ``python -m fastdiff_tpu_torch.run``, as a subprocess; no PyYAML
+    imported; ``vocoder: GLMel`` on the card against the CPU (3 iterations
+    from one phase within 1e-4 rel L2, 60 iterations' spectral
+    convergence within 5 %); ``scripts/vocode.py`` on the mel dir.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each of the twelve kernels' launches (from the run of its path: phase
@@ -151,7 +166,8 @@ larger, ``bound_by`` says which) and the time of one PyTorch call that
 computes the same function where there is one (``library_ms``, else null);
 the six tensor-core block kernels (K1, K2, K4, K5, K5 final, K6) also
 carry ``cuda_core_ms``, the CUDA-core kernel of the same function raced
-beside them. The last line is ``{"ok": true, "device": {...}}``.
+beside them; ``entry`` holds phase 21's RTF per utterance and GLMel's
+wall. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import io
@@ -1372,6 +1388,237 @@ def phase20_graph_sampler(torch, FastDiff, sampler_mod, FastDiffVocoder,
     return out
 
 
+def synth_wav(seconds: float, seed: int) -> np.ndarray:
+    """A swept sine with two harmonics, vibrato and noise at 22.05 kHz (the
+    repository holds no audio)."""
+    rng = np.random.default_rng(seed)
+    sr = int(round(1 / AUDIO_SECONDS_PER_SAMPLE))
+    t = np.arange(int(round(seconds * sr))) / sr
+    f0 = 110 + 60 * seed + 80 * t / seconds + 6 * np.sin(2 * np.pi * 5 * t)
+    ph = 2 * np.pi * np.cumsum(f0) / sr
+    wav = 0.35 * np.sin(ph) + 0.12 * np.sin(2 * ph) + 0.06 * np.sin(3 * ph)
+    return (wav + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def phase21_entry(torch, counters, dev, smi_line) -> dict:
+    """The port's entry path at full width (``fastdiff_tpu/configs/
+    ljspeech.yaml``, N = 4): ``run.main([... '--infer'])`` on a wav dir and
+    on a mel dir (K3 +12, K1 +8, K2 +4 per utterance, the CUDA-core
+    Kernel B +0; the two utterances of the 384-frame bucket add one
+    capture), ``use_pallas_block=false`` against ``auto`` (rel L2 <= 5e-2),
+    ``--infer`` on the work dir of a 2-step ``fit`` with an EMA, the CLI as
+    a subprocess, ``vocoder: GLMel`` on the card against the CPU, and
+    ``scripts/vocode.py``."""
+    from fastdiff_tpu_torch import run
+    from fastdiff_tpu_torch.config import AudioConfig
+    from fastdiff_tpu_torch.ops import dsp
+    from fastdiff_tpu_torch.scripts import vocode
+    from fastdiff_tpu_torch.utils import audio_io
+    from fastdiff_tpu_torch.vocoders.base import get_vocoder_cls
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "fastdiff_tpu", "configs", "ljspeech.yaml")
+    yaml_before = "yaml" in sys.modules
+    root = tempfile.mkdtemp(prefix="fastdiff_entry_")
+    cwd = os.getcwd()
+    report = {}
+    try:
+        os.chdir(root)
+        wav_dir, mel_dir = os.path.join(root, "wavs"), os.path.join(root,
+                                                                    "mels")
+        os.makedirs(wav_dir)
+        os.makedirs(mel_dir)
+        cfg = AudioConfig()
+        frames = {}
+        for i, sec in enumerate((1.2, 3.0, 3.3, 10.0)):
+            wav = synth_wav(sec, i)
+            name = f"utt{i}_{sec:g}s"
+            audio_io.save_wav(wav, os.path.join(wav_dir, f"{name}.wav"),
+                              cfg.sample_rate)
+            mel = dsp.wav2mel_np(wav, cfg)[1].T
+            np.save(os.path.join(mel_dir, f"{name}.npy"), mel)
+            frames[name] = mel.shape[0]
+        per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
+               "lvc_block_ncl_cc": 0}
+
+        def infer(exp, source, path, extra="", rise=per):
+            for counter in counters:
+                for key in counter:
+                    counter[key] = 0
+            t0 = time.perf_counter()
+            results = run.main(["--config", config, "--exp_name", exp,
+                                "--infer", "--hparams",
+                                f"{source}={path},N=4{extra}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for counter in counters
+                        for k, v in counter.items() if k in per}
+            gen = os.path.join(root, "checkpoints", exp)
+            (gen,) = [os.path.join(gen, d) for d in os.listdir(gen)
+                      if d.startswith("generated_")]
+            wavs = {}
+            for r in results:
+                key = r["item_name"].rsplit(".", 1)[0]
+                wav, _ = audio_io.load_wav(os.path.join(
+                    gen, f"{r['item_name']}_pred.wav"))
+                if len(wav) != frames[key] * HOP_SIZE or r["frames"] != \
+                        frames[key] or not np.isfinite(wav).all():
+                    fail(f"{exp}: {r['item_name']} wrote {len(wav)} "
+                         f"samples for {frames[key]} frames, or non-finite")
+                wavs[key] = wav
+            if sorted(wavs) != sorted(frames):
+                fail(f"{exp}: wrote {sorted(wavs)}, expected {sorted(frames)}")
+            want = {k: v * len(results) for k, v in rise.items()}
+            if launches != want:
+                fail(f"{exp}: launches {launches}, expected {want}")
+            phase(21, f"{exp} ({source}): " + ", ".join(
+                f"{r['item_name']} {r['frames']} -> {r['padded_frames']} "
+                f"frames rtf {r['rtf']:.5f}" for r in results)
+                + f"; mean RTF (excl. first) "
+                f"{np.mean([r['rtf'] for r in results[1:]]):.5f}; captures "
+                f"{[r['captures'] for r in results]}; launches {launches}; "
+                f"wall {wall:.2f} s [{smi_line}]")
+            return results, wavs, os.path.basename(gen)
+
+        for source, path in (("test_input_dir", wav_dir),
+                             ("test_mel_dir", mel_dir)):
+            exp = "wavs" if source == "test_input_dir" else "mels"
+            results, wavs, _ = infer(exp, source, path)
+            # utt1 (259 frames) and utt2 (285) share the 384-frame bucket:
+            # the first warms, the second captures; the others warm alone
+            if [r["captures"] for r in results] != [0, 0, 1, 1]:
+                fail(f"{exp}: captures {[r['captures'] for r in results]}, "
+                     "expected one capture for the 384-frame bucket")
+            report[exp] = [dict(item=r["item_name"], frames=r["frames"],
+                                rtf=r["rtf"]) for r in results]
+            if source == "test_mel_dir":
+                auto_wavs = wavs
+        _, plain_wavs, _ = infer("mels_plain", "test_mel_dir", mel_dir,
+                                 ",use_pallas_block=False",
+                                 rise={k: 0 for k in per})
+        errs = {k: rel_l2(torch.from_numpy(plain_wavs[k]),
+                          torch.from_numpy(auto_wavs[k])) for k in frames}
+        phase(21, "use_pallas_block=False vs auto, same seed, written "
+                  "wavs: rel_l2 " + ", ".join(f"{k} {v:.3e}"
+                                              for k, v in errs.items())
+                  + " (bound 5e-2)")
+        if not max(errs.values()) <= 5e-2:
+            fail("the plain route's wavs disagree with the kernel route's")
+
+        # a 2-step fit with an EMA, then --infer on its work dir, which
+        # reads the config.yaml the fit saved
+        binary = os.path.join(root, "binary")
+        os.makedirs(binary)
+        write_synthetic_dataset(binary)
+        micro = os.path.join(repo, "fastdiff_tpu", "configs", "micro_lj.yaml")
+        fit = run.main(["--config", micro, "--exp_name", "trained", "--reset",
+                        "--hparams", f"binary_data_dir={binary},max_updates=2,"
+                        "val_check_interval=2,num_sanity_val_steps=0,"
+                        "tb_log_interval=1,eval_max_batches=1"])
+        if fit["step"] != 2 or not np.isfinite(fit["val"]["loss"]):
+            fail(f"fit ended at step {fit['step']}, val {fit['val']}")
+        for counter in counters:
+            for key in counter:
+                counter[key] = 0
+        results = run.main(["--exp_name", "trained", "--infer", "--hparams",
+                            f"test_mel_dir={mel_dir},N=4"])
+        gens = os.listdir(os.path.join(root, "checkpoints", "trained"))
+        launches = {k: v for counter in counters for k, v in counter.items()
+                    if k in per}
+        phase(21, f"trained: fit 2 steps (ema_decay 0.999), loss "
+                  f"{fit['val']['loss']:.4f}; --infer on its work dir (saved "
+                  f"config.yaml) wrote {len(results)} items into "
+                  f"{[g for g in gens if g.startswith('generated_')]}, "
+                  f"launches {launches}")
+        if "generated_2_" not in gens or len(results) != len(frames) or \
+                launches != {k: v * len(frames) for k, v in per.items()}:
+            fail("--infer on the trained work dir did not restore step 2 "
+                 "or launch the kernels of its path")
+        if "yaml" in sys.modules and not yaml_before:
+            fail("set_hparams imported PyYAML")
+
+        # the real CLI in its own process
+        env = dict(os.environ, PYTHONPATH=repo)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fastdiff_tpu_torch.run", "--config",
+             config, "--exp_name", "cli", "--infer", "--hparams",
+             f"test_mel_dir={mel_dir},N=4"], cwd=root, env=env,
+            capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        cli_dir = os.path.join(root, "checkpoints", "cli", "generated_0_")
+        written = sorted(os.listdir(cli_dir)) if os.path.isdir(cli_dir) \
+            else []
+        phase(21, f"python -m fastdiff_tpu_torch.run (subprocess): exit "
+                  f"{proc.returncode} in {cli_s:.1f} s, wrote {written}; "
+                  f"{[ln for ln in proc.stdout.splitlines() if 'RTF' in ln]}")
+        if proc.returncode != 0 or len(written) != len(frames):
+            fail(f"the CLI failed: {proc.stderr[-2000:]}")
+
+        # vocoder: GLMel on the card against the CPU
+        hp = {"vocoder": "GLMel"}
+        mel = np.load(os.path.join(mel_dir, "utt0_1.2s.npy"))
+        gl_gpu = get_vocoder_cls(hp)(hp, device=dev)
+        gl_cpu = get_vocoder_cls(hp)(hp, device="cpu")
+        gl_gpu.spec2wav(mel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_gpu = gl_gpu.spec2wav(mel)
+        gl_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        y_cpu = gl_cpu.spec2wav(mel)
+        gl_cpu_ms = (time.perf_counter() - t0) * 1e3
+        linear = torch.from_numpy(dsp.mel_to_linear_np(mel.T, cfg))[None]
+        phase0 = (torch.rand(linear.shape,
+                             generator=torch.Generator().manual_seed(0))
+                  * 2 - 1) * np.pi
+        short = [dsp.griffin_lim(linear.to(d), cfg, n_iters=3,
+                                 phase=phase0).cpu() for d in (dev, "cpu")]
+        short_err = rel_l2(short[0], short[1])
+
+        def convergence(y):
+            spec = dsp.stft_magnitude_np(y, cfg.fft_size, cfg.hop_size,
+                                         cfg.win_size)
+            n = min(spec.shape[1], linear.shape[2])
+            want = linear[0, :, :n].numpy()
+            return float(np.linalg.norm(spec[:, :n] - want)
+                         / np.linalg.norm(want))
+        sc_gpu, sc_cpu = convergence(y_gpu), convergence(y_cpu)
+        phase(21, f"GLMel, {mel.shape[0]} frames, 60 iterations: card "
+                  f"{gl_ms:.1f} ms wall, CPU {gl_cpu_ms:.1f} ms; spectral "
+                  f"convergence card {sc_gpu:.4f} vs CPU {sc_cpu:.4f} "
+                  f"(bound: within 5 %); 3 iterations from one phase, card "
+                  f"vs CPU rel_l2 {short_err:.3e} (bound 1e-4); 60: rel_l2 "
+                  f"{rel_l2(torch.from_numpy(y_gpu), torch.from_numpy(y_cpu)):.3e} "
+                  f"[{smi_line}]")
+        if y_gpu.shape != (mel.shape[0] * HOP_SIZE,) or \
+                not np.isfinite(y_gpu).all():
+            fail("GLMel on the card: wrong shape or not finite")
+        if not (short_err <= 1e-4 and sc_gpu <= 1.05 * sc_cpu):
+            fail("GLMel on the card disagrees with the CPU")
+        report["glmel_ms"] = gl_ms
+
+        # scripts/vocode.py on the mel dir
+        t0 = time.perf_counter()
+        code = vocode.main(["--config", config, "--input", mel_dir, "--out",
+                            os.path.join(root, "vocoded"), "--hparams",
+                            "N=4", "--batch", "1"])
+        voc_s = time.perf_counter() - t0
+        out = sorted(os.listdir(os.path.join(root, "vocoded")))
+        for name in out:
+            wav, _ = audio_io.load_wav(os.path.join(root, "vocoded", name))
+            if len(wav) != frames[name[:-4]] * HOP_SIZE:
+                fail(f"vocode.py wrote {len(wav)} samples for {name}")
+        phase(21, f"scripts/vocode.py: exit {code}, wrote {out} in "
+                  f"{voc_s:.2f} s")
+        if code != 0 or len(out) != len(frames):
+            fail("scripts/vocode.py failed")
+        return report
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def check_no_jax():
     """Fail if jax or any module of the JAX package was imported."""
     bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
@@ -1822,6 +2069,11 @@ def main():
     # --- phase 20: the graph sampler ----------------------------------------
     graph_report = phase20_graph_sampler(torch, FastDiff, sampler_mod,
                                          FastDiffVocoder, cfg, dev, smi_line)
+
+    # --- phase 21: the entry path (run.py --infer) ------------------------
+    t0 = time.perf_counter()
+    entry_report = phase21_entry(torch, counters, dev, smi_line)
+    phase(21, f"done in {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     sources = {
@@ -1887,7 +2139,8 @@ def main():
                       "fh_race_ncl_ms": {b: row["ncl"]["ms"]
                                          for b, row in fh.items()},
                       "graph_vs_eager_ms": graph_report,
-                      "train_step": train_report, "fit_s": fit_s}),
+                      "train_step": train_report, "fit_s": fit_s,
+                      "entry": entry_report}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

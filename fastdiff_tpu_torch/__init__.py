@@ -1,19 +1,24 @@
 """FastDiff in PyTorch for NVIDIA Hopper: the port of ``fastdiff_tpu``.
 
-The mel -> waveform serving path (N-step reverse diffusion around the
-FastDiff denoiser, replayed as one CUDA graph per shape, served over HTTP,
-chunked, streamed or batched) on every inference route, and the
-trainer, written as PyTorch modules. Every kernel the JAX package wrote in
-Pallas (the LVC blocks, the predictor heads, the down path and the two
-experiment scripts' kernels) is hand-written CUDA C++ for ``sm_90a``
-(``csrc/``), built with ``nvcc`` on first use; every other op is plain
-PyTorch. Entry points run on the CUDA card unless the caller asks for the
-CPU; on CPU tensors each kernel wrapper runs its plain PyTorch version.
+The entry point (``run.py``: the YAML config cascade, ``--infer`` through
+``Trainer.test``, training and validation), the mel -> waveform serving
+path (N-step reverse diffusion around the FastDiff denoiser, replayed as
+one CUDA graph per shape, served over HTTP, chunked, streamed or batched)
+on every inference route, the trainer, the wav / mel front end, the
+binarizer and the vocoder registry with the Griffin-Lim vocoders, written
+as PyTorch modules. Every kernel the JAX package wrote in Pallas (the LVC
+blocks, the predictor heads, the down path and the two experiment
+scripts' kernels) is hand-written CUDA C++ for ``sm_90a`` (``csrc/``),
+built with ``nvcc`` on first use; every other op is plain PyTorch. Entry
+points run on the CUDA card unless the caller asks for the CPU; on CPU
+tensors each kernel wrapper runs its plain PyTorch version.
 
 Module names follow ``fastdiff_tpu`` so each port module sits beside its
-JAX counterpart. The package imports neither jax nor ``fastdiff_tpu``: it
-keeps its own copies of the jax-free modules it needs (``config``,
-``diffusion/schedules``, ``data``, ``utils/logging_utils``).
+JAX counterpart. The package imports neither jax nor ``fastdiff_tpu`` nor
+PyYAML: it keeps its own copies of the jax-free modules it needs
+(``config``, ``diffusion/schedules``, ``data``, ``ops/loudness``, the
+numpy half of ``ops/dsp``, ``utils/{audio_io,multiprocess,
+logging_utils}``) and reads its YAML configs itself.
 """
 
 __version__ = "0.1.0"

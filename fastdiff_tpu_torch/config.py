@@ -1,13 +1,13 @@
 """The configuration dataclasses of ``fastdiff_tpu/config.py``, copied.
 
-``DiffusionConfig``, ``AudioConfig`` and ``TrainConfig`` with the same
-fields, defaults and ``from_hparams`` readers; ``ModelConfig`` with the
-architecture fields and the compute dtype (built from hparams by
-``vocoders/fastdiff_vocoder.py:model_config_from_hparams``). The route
-fields (``use_pallas_block``, ``use_pallas_down``) and JAX's ``conv_impl``
-are left out with the JAX package's resolvers: the port reads the routes
-from the hparams with ``resolve_infer_route``, ``resolve_down_kernel`` and
-``resolve_train_route`` in ``models/fastdiff.py``.
+``ModelConfig``, ``DiffusionConfig``, ``AudioConfig`` and ``TrainConfig``
+with the same fields, defaults and ``from_hparams`` readers, which cast
+every value as JAX's do (a config's ``lr: 2e-4`` is the string ``'2e-4'``
+until ``float`` reads it). ``ModelConfig`` leaves out the route fields
+(``use_pallas_block``, ``use_pallas_down``) and JAX's ``conv_impl`` with the
+JAX package's resolvers: the port reads the routes from the hparams with
+``resolve_infer_route``, ``resolve_down_kernel`` and ``resolve_train_route``
+in ``models/fastdiff.py``.
 """
 
 from __future__ import annotations
@@ -50,6 +50,29 @@ class ModelConfig:
         for r in self.upsample_ratios:
             hop *= r
         return hop
+
+    @classmethod
+    def from_hparams(cls, hp: dict) -> "ModelConfig":
+        return cls(
+            audio_channels=int(hp.get("audio_channels", 1)),
+            inner_channels=int(hp.get("inner_channels", 32)),
+            cond_channels=int(hp.get("cond_channels", 80)),
+            upsample_ratios=tuple(int(r) for r in
+                                  hp.get("upsample_ratios", (8, 8, 4))),
+            lvc_layers_each_block=int(hp.get("lvc_layers_each_block", 4)),
+            lvc_kernel_size=int(hp.get("lvc_kernel_size", 3)),
+            kpnet_hidden_channels=int(hp.get("kpnet_hidden_channels", 64)),
+            kpnet_conv_size=int(hp.get("kpnet_conv_size", 3)),
+            dropout=float(hp.get("dropout", 0.0)),
+            diffusion_step_embed_dim_in=int(
+                hp.get("diffusion_step_embed_dim_in", 128)),
+            diffusion_step_embed_dim_mid=int(
+                hp.get("diffusion_step_embed_dim_mid", 512)),
+            diffusion_step_embed_dim_out=int(
+                hp.get("diffusion_step_embed_dim_out", 512)),
+            use_weight_norm=bool(hp.get("use_weight_norm", True)),
+            compute_dtype=str(hp.get("compute_dtype", "bfloat16")),
+        )
 
 
 @dataclasses.dataclass(frozen=True)

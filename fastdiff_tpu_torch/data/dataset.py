@@ -1,5 +1,5 @@
-"""Vocoder dataset and host-side batch pipeline for training, a copy of the
-parts of ``fastdiff_tpu/data/dataset.py`` that the trainer reads.
+"""Vocoder dataset and host-side batch pipeline, a copy of
+``fastdiff_tpu/data/dataset.py`` without its C++ loader.
 
 - train/valid items shorter than the crop window are filtered out using
   ``<prefix>_lengths.npy`` (reference: tasks/vocoder/dataset_utils.py:66-72);
@@ -8,16 +8,28 @@ parts of ``fastdiff_tpu/data/dataset.py`` that the trainer reads.
 - the endless sampler is an epoch-seeded shuffled index stream sharded by
   (shard_id, num_shards), the host-side replacement for
   ``EndlessDistributedSampler``'s rank-strided indices
-  (dataset_utils.py:31-40).
+  (dataset_utils.py:31-40);
+- inference loads full utterances one at a time, or featurizes raw
+  ``test_input_dir`` wavs / ``test_mel_dir`` ``.npy`` mels with the
+  binarizer's ``process_item`` / ``process_mel_item``
+  (dataset_utils.py:167-204).
 
 Items are read from the pickle shards (``data/indexed_dataset.py``). The
-JAX package's C++ mmap loader (``fastdiff_tpu/data/native_io.py``) and the
-featurization of raw ``test_input_dir`` / ``test_mel_dir`` inputs are not
+JAX package's C++ mmap loader (``fastdiff_tpu/data/native_io.py``) is not
 ported; the crops and their order are the pickle path's.
+
+``resolve_class`` imports a class from its dotted path. The configs name
+the JAX package's classes (``task_cls: fastdiff_tpu.training.task.
+FastDiffTask``); a ``fastdiff_tpu.`` path resolves to the port's module of
+the same name, and one the port lacks raises ``NotImplementedError``
+without importing the JAX package.
 """
 
 from __future__ import annotations
 
+import glob
+import importlib
+import importlib.util
 import os
 from typing import Iterator, List, Optional
 
@@ -26,13 +38,26 @@ import numpy as np
 from fastdiff_tpu_torch.data.indexed_dataset import IndexedDataset
 
 
+def resolve_class(dotted_path: str):
+    """Import ``pkg.mod.Cls`` from its dotted path (the reference's importlib
+    dispatch, tasks/run.py:7-11). ``fastdiff_tpu.x.Cls`` names the port's
+    ``fastdiff_tpu_torch.x.Cls``; a module or class the port does not have
+    raises ``NotImplementedError``."""
+    pkg, cls_name = dotted_path.rsplit(".", 1)
+    if pkg == "fastdiff_tpu" or pkg.startswith("fastdiff_tpu."):
+        port = "fastdiff_tpu_torch" + pkg[len("fastdiff_tpu"):]
+        if importlib.util.find_spec(port) is None or not hasattr(
+                importlib.import_module(port), cls_name):
+            raise NotImplementedError(
+                f"{dotted_path} is not ported to fastdiff_tpu_torch (the "
+                "model zoo, its tasks and the TTS front end are ROADMAP.md "
+                "queue 1 item 11)")
+        pkg = port
+    return getattr(importlib.import_module(pkg), cls_name)
+
+
 class VocoderDataset:
     def __init__(self, hparams: dict, prefix: str, shuffle: bool = False):
-        if prefix == "test" and (hparams.get("test_input_dir")
-                                 or hparams.get("test_mel_dir")):
-            raise NotImplementedError(
-                "featurizing test_input_dir / test_mel_dir is not ported; "
-                "the port reads binarized splits only")
         self.hparams = hparams
         self.prefix = prefix
         self.shuffle = shuffle
@@ -42,22 +67,67 @@ class VocoderDataset:
         self.batch_max_frames = (0 if self.is_infer
                                  else int(hparams["max_samples"]) // self.hop_size)
         self.indexed_ds: Optional[IndexedDataset] = None
-        sizes = np.load(os.path.join(self.data_dir, f"{prefix}_lengths.npy"))
-        self.avail_idxs = [i for i, s in enumerate(sizes)
-                           if s > self.batch_max_frames]
-        skipped = len(sizes) - len(self.avail_idxs)
-        if skipped:
-            print(f"| {skipped} short items skipped in {prefix} set.")
-        self.sizes = [int(sizes[i]) for i in self.avail_idxs]
+        self._memory_items = None
+
+        if self.is_infer and hparams.get("test_input_dir"):
+            self._memory_items, self.sizes = self._load_test_inputs(
+                hparams["test_input_dir"])
+            self.avail_idxs = list(range(len(self.sizes)))
+        elif self.is_infer and hparams.get("test_mel_dir"):
+            self._memory_items, self.sizes = self._load_mel_inputs(
+                hparams["test_mel_dir"])
+            self.avail_idxs = list(range(len(self.sizes)))
+        else:
+            sizes = np.load(os.path.join(self.data_dir, f"{prefix}_lengths.npy"))
+            self.avail_idxs = [i for i, s in enumerate(sizes)
+                               if s > self.batch_max_frames]
+            skipped = len(sizes) - len(self.avail_idxs)
+            if skipped:
+                print(f"| {skipped} short items skipped in {prefix} set.")
+            self.sizes = [int(sizes[i]) for i in self.avail_idxs]
 
     def __len__(self) -> int:
         return len(self.avail_idxs)
 
     def __getitem__(self, index: int) -> dict:
+        if self._memory_items is not None:
+            return self._memory_items[index]
         if self.indexed_ds is None:
             self.indexed_ds = IndexedDataset(
                 os.path.join(self.data_dir, self.prefix))
         return self.indexed_ds[self.avail_idxs[index]]
+
+    # -- inference featurization ------------------------------------------
+    def _binarizer_cls(self):
+        return resolve_class(self.hparams.get(
+            "binarizer_cls", "fastdiff_tpu.data.binarizer.VocoderBinarizer"))
+
+    def _load_test_inputs(self, test_input_dir: str):
+        paths = sorted(glob.glob(f"{test_input_dir}/*.wav")
+                       + glob.glob(f"{test_input_dir}/**/*.wav"))
+        binarizer = self._binarizer_cls()
+        items, sizes = [], []
+        for wav_fn in paths:
+            item_name = os.path.relpath(wav_fn, test_input_dir).replace("/", "_")
+            item = binarizer.process_item(
+                item_name, wav_fn, self.hparams.get("binarization_args", {}),
+                hparams=self.hparams)
+            items.append(item)
+            sizes.append(item["len"])
+        return items, sizes
+
+    def _load_mel_inputs(self, test_mel_dir: str):
+        paths = sorted(glob.glob(f"{test_mel_dir}/*.npy"))
+        binarizer = self._binarizer_cls()
+        items, sizes = [], []
+        for mel_fn in paths:
+            mel = np.load(mel_fn)
+            item_name = os.path.relpath(mel_fn, test_mel_dir).replace("/", "_")
+            item = binarizer.process_mel_item(
+                item_name, mel, None, self.hparams.get("binarization_args", {}))
+            items.append(item)
+            sizes.append(item["len"])
+        return items, sizes
 
 
 def crop_batch(items: List[dict], max_frames: int, hop_size: int,
@@ -128,3 +198,16 @@ def train_batch_iterator(dataset: VocoderDataset, batch_size: int,
         for i in range(0, len(order) - batch_size + 1, batch_size):
             items = [dataset[int(j)] for j in order[i: i + batch_size]]
             yield crop_batch(items, max_frames, hop, rng)
+
+
+def infer_item_iterator(dataset: VocoderDataset) -> Iterator[dict]:
+    """Yield full-utterance inference items: mel (1, T, n_mels) f32,
+    optional ground-truth wav (1, L, 1)."""
+    for i in range(len(dataset)):
+        item = dataset[i]
+        mel = np.asarray(item["mel"], dtype=np.float32)[None, ...]
+        wav = np.asarray(item.get("wav", np.zeros(0)), dtype=np.float32)
+        out = {"item_name": item["item_name"], "mels": mel}
+        if wav.ndim == 1 and wav.size > 0:
+            out["wavs"] = wav[None, :, None]
+        yield out

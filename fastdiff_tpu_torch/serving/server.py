@@ -8,7 +8,13 @@ are handled on threads, so health and metrics probes answer during a long
 vocode.
 
     python -m fastdiff_tpu_torch.serving.server --device cuda --port 8300 \
-        --hparams '{"N": 4}'
+        --config fastdiff_tpu/configs/ljspeech.yaml --hparams 'N=4'
+    python -m fastdiff_tpu_torch.serving.server --hparams '{"N": 4}'
+
+With ``--config`` (or ``--exp_name``) the hparams come from the YAML cascade
+(``utils/hparams.py:set_hparams``, as JAX's server reads them) and
+``--hparams`` holds ``a=1,b=2`` overrides; without either, ``--hparams`` is
+the whole hparams dict as a JSON object.
 
 ``use_pallas_block`` in the hparams picks the route (``ncl_fh``, true for
 the NWC route with ``use_pallas_down``, false for the plain route); see
@@ -38,7 +44,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import get_vocoder_cls
+from fastdiff_tpu_torch.utils.hparams import set_hparams
+from fastdiff_tpu_torch.vocoders.base import get_vocoder_cls
 
 
 class VocoderService:
@@ -213,10 +220,13 @@ def serve(hparams: dict, device="cuda", host: str = "0.0.0.0",
     thread.join()
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--hparams", type=str, default="{}",
-                        help="hparams as a JSON object")
+    parser.add_argument("--config", type=str, default="")
+    parser.add_argument("--exp_name", type=str, default="")
+    parser.add_argument("--hparams", type=str, default="",
+                        help="with --config / --exp_name: 'a=1,b=2' "
+                        "overrides; without: hparams as a JSON object")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--host", type=str, default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8300)
@@ -224,8 +234,13 @@ def main():
     parser.add_argument("--max_graphs", type=int, default=8,
                         help="mel frame counts whose sampler runner (and "
                         "CUDA graph) is kept")
-    args = parser.parse_args()
-    serve(json.loads(args.hparams), device=args.device, host=args.host,
+    args = parser.parse_args(argv)
+    if args.config or args.exp_name:
+        hp = set_hparams(config=args.config, exp_name=args.exp_name,
+                         hparams_str=args.hparams)
+    else:
+        hp = json.loads(args.hparams or "{}")
+    serve(hp, device=args.device, host=args.host,
           port=args.port, max_queue=args.max_queue,
           max_graphs=args.max_graphs)
 

@@ -3,12 +3,24 @@ fastdiff denoiser.
 
 ``build_state`` makes the trainable model (``FastDiff(cfg, train_route=...)``
 on the task's device, weight norm as parameters), its optimizer and the
-step counter; ``train_step`` runs the loss (``diffusion/losses.py``), its
-gradients and one optimizer update; ``val_step`` the loss alone. As in the
-JAX task, a step whose loss or any gradient is not finite changes neither
-the parameters nor the optimizer state, and the step counter still
-advances. The route of the LVC blocks comes from ``use_pallas_block``
+step counter; ``load_ckpt`` loads a released checkpoint of the reference
+(``utils/ckpt_import.py``) or a checkpoint of the port's ``Trainer`` into
+it. ``train_step`` runs the loss (``diffusion/losses.py``), its gradients
+and one optimizer update; ``val_step`` the loss alone. As in the JAX task,
+a step whose loss or any gradient is not finite changes neither the
+parameters nor the optimizer state, and the step counter still advances.
+The route of the LVC blocks comes from ``use_pallas_block``
 (``models/fastdiff.py:resolve_train_route``).
+
+Inference (``Trainer.test``): ``test_dataloader`` yields the test split, or
+the wavs of ``test_input_dir`` / the ``.npy`` mels of ``test_mel_dir``
+featurized by the binarizer; ``make_test_sampler`` loads fused inference
+weights into a ``FastDiff`` on the route ``resolve_infer_route`` picks and
+returns ``make_param_sampler`` over it, one CUDA graph per padded length;
+``test_step`` edge-pads the mel to a multiple of ``infer_frame_bucket``
+frames (128), so utterances of one bucket replay one graph, trims the
+waveform back to frames * hop, peak-normalizes it, writes
+``<item>_pred.wav`` (and ``_gt.wav``) and reports the real-time factor.
 
 The data pipeline is ``data/dataset.py``, plain numpy copied from the JAX
 package (binarized ``<split>`` files and ``<split>_lengths.npy`` under
@@ -18,22 +30,31 @@ package (binarized ``<split>`` files and ``<split>_lengths.npy`` under
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import os
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from fastdiff_tpu_torch.config import AudioConfig, DiffusionConfig, TrainConfig
-from fastdiff_tpu_torch.data.dataset import VocoderDataset, train_batch_iterator
+from fastdiff_tpu_torch.config import (AudioConfig, DiffusionConfig,
+                                       ModelConfig, TrainConfig)
+from fastdiff_tpu_torch.data.dataset import (VocoderDataset,
+                                             infer_item_iterator,
+                                             train_batch_iterator)
 from fastdiff_tpu_torch.diffusion import schedules
 from fastdiff_tpu_torch.diffusion.losses import theta_timestep_loss
+from fastdiff_tpu_torch.diffusion.sampler import (ParamGraphSampler,
+                                                  constants_for_hparams,
+                                                  make_param_sampler)
 from fastdiff_tpu_torch.models.fastdiff import (FastDiff, checked_device,
                                                 num_params,
+                                                resolve_down_kernel,
+                                                resolve_infer_route,
                                                 resolve_train_route)
 from fastdiff_tpu_torch.training.checkpoint import load_checkpoint
 from fastdiff_tpu_torch.training.optim import AdamW, global_norm
-from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import \
-    model_config_from_hparams
+from fastdiff_tpu_torch.utils import audio_io, ckpt_import
 
 
 @dataclasses.dataclass
@@ -60,7 +81,7 @@ class FastDiffTask:
         self.diff_cfg = DiffusionConfig.from_hparams(hparams)
         self.audio_cfg = AudioConfig.from_hparams(hparams)
         self.train_cfg = TrainConfig.from_hparams(hparams)
-        self.model_cfg = model_config_from_hparams(hparams)
+        self.model_cfg = ModelConfig.from_hparams(hparams)
         self.route = resolve_train_route(hparams, self.device)
         hyper = schedules.compute_hyperparams_given_schedule(
             schedules.linear_beta_schedule(self.diff_cfg))
@@ -78,14 +99,24 @@ class FastDiffTask:
               f"(route {self.route})")
         load_ckpt = self.hparams.get("load_ckpt", "")
         if load_ckpt:
-            model.load_state_dict(load_checkpoint(
-                load_ckpt, map_location=self.device)["params"])
-            print(f"| loaded checkpoint: {load_ckpt}")
+            model.load_state_dict(self._load_external_params(load_ckpt))
         state = TrainState(model, AdamW(model.parameters(), self.train_cfg))
         if self.ema_decay > 0:
             state.ema = {k: p.detach().clone()
                          for k, p in model.named_parameters()}
         return state
+
+    def _load_external_params(self, path: str) -> dict:
+        """The trainable state_dict in ``load_ckpt``: a released checkpoint
+        of the reference (weight norm kept) or the ``params`` of a port
+        ``Trainer`` checkpoint."""
+        saved = load_checkpoint(path, map_location=self.device)
+        released = ckpt_import.released_state_dict(saved)
+        if released is not None:
+            print(f"| loaded released checkpoint: {path}")
+            return ckpt_import.trainable_state_dict(released, self.model_cfg)
+        print(f"| loaded checkpoint: {path}")
+        return saved["params"]
 
     # -- train/val ---------------------------------------------------------
     def _batch(self, batch: dict) -> tuple:
@@ -146,3 +177,66 @@ class FastDiffTask:
         return train_batch_iterator(
             self._val_ds, max(1, self.train_cfg.max_valid_sentences),
             self._max_frames(), seed=self.train_cfg.seed, endless=False)
+
+    def test_dataloader(self):
+        ds = VocoderDataset(self.hparams,
+                            self.hparams.get("test_set_name", "test"))
+        return infer_item_iterator(ds)
+
+    # -- inference ---------------------------------------------------------
+    def sampler_constants(self) -> schedules.SamplerConstants:
+        return constants_for_hparams(self.hparams)
+
+    def make_test_sampler(self, state_dict: dict,
+                          constants: schedules.SamplerConstants
+                          ) -> ParamGraphSampler:
+        """The graph sampler over an inference ``FastDiff`` on the task's
+        device, on the route ``use_pallas_block`` picks, holding the fused
+        weights ``state_dict``: ``sampler(None, generator, mel,
+        audio_length, *, noise=None)``."""
+        model = FastDiff(self.model_cfg, seed=None,
+                         infer_route=resolve_infer_route(self.hparams),
+                         down_kernel=resolve_down_kernel(self.hparams))
+        model.load_state_dict(state_dict)
+        return make_param_sampler(model.to(self.device).eval(), constants)
+
+    def test_step(self, sample: Dict, sampler: ParamGraphSampler,
+                  gen_dir: str, generator: torch.Generator,
+                  noise: Optional[Callable] = None) -> Dict:
+        """Generate one utterance and write its wavs (FastDiff.py:60-119).
+
+        The mel is edge-padded to a multiple of ``infer_frame_bucket``
+        frames, so the sampler keeps one graph per bucket, and the waveform
+        is trimmed back to frames * hop. ``noise(audio_length)``, when
+        given, returns the draws to inject in place of ``generator``'s."""
+        mel_np = np.asarray(sample["mels"])
+        frames = mel_np.shape[1]
+        bucket = int(self.hparams.get("infer_frame_bucket", 128))
+        padded = ((frames + bucket - 1) // bucket) * bucket
+        if padded != frames:
+            mel_np = np.pad(mel_np, ((0, 0), (0, padded - frames), (0, 0)),
+                            mode="edge")
+        mel = torch.from_numpy(mel_np).to(self.device)
+        hop = int(self.hparams["hop_size"])
+        length = padded * hop
+        t0 = time.perf_counter()
+        wav = sampler(None, generator, mel, length,
+                      noise=None if noise is None else noise(length))
+        wav = wav[0, : frames * hop, 0].cpu().numpy()
+        gen_time = time.perf_counter() - t0
+
+        os.makedirs(gen_dir, exist_ok=True)
+        item_name = sample["item_name"]
+        sr = self.audio_cfg.sample_rate
+        wav_out = wav / max(1e-9, np.abs(wav).max())
+        audio_io.save_wav(wav_out,
+                          os.path.join(gen_dir, f"{item_name}_pred.wav"), sr)
+        if "wavs" in sample and self.hparams.get("save_gt", True):
+            gt = np.asarray(sample["wavs"])[0, :, 0]
+            gt = gt / max(1e-9, np.abs(gt).max())
+            audio_io.save_wav(gt, os.path.join(gen_dir,
+                                               f"{item_name}_gt.wav"), sr)
+        rtf = gen_time * sr / len(wav)
+        return {"item_name": item_name, "rtf": rtf, "gen_seconds": gen_time,
+                "audio_seconds": len(wav) / sr, "frames": frames,
+                "padded_frames": padded, "captures": sampler.captures}

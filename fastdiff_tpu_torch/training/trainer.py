@@ -10,14 +10,20 @@
   tracked (``training/checkpoint.py``);
 - ``restore`` resumes from the newest checkpoint in ``work_dir`` (or the
   step ``resume_from_checkpoint`` pins): parameters, optimizer state, step,
-  best score and EMA.
+  best score and EMA;
+- ``test`` restores the newest checkpoint (or runs the task's seed weights
+  when there is none), prefers the EMA weights, fuses weight norm and
+  vocodes the task's test items, one utterance at a time, into
+  ``generated_<step>_<gen_dir_name>``, printing each one's real-time
+  factor and their mean.
 
 Random draws come from a ``torch.Generator`` on the task's device, seeded
-from ``seed`` and the step the run starts at.
+from ``seed`` and the step the run starts at (in ``test``, from ``seed``).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import sys
@@ -27,8 +33,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fastdiff_tpu_torch.utils.logging_utils import MeterBank, ScalarLogger
+from fastdiff_tpu_torch.diffusion.sampler import inference_generator
 from fastdiff_tpu_torch.training import checkpoint as ckpt
+from fastdiff_tpu_torch.utils.logging_utils import MeterBank, ScalarLogger
+from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import inference_state_dict
 
 
 class Trainer:
@@ -148,3 +156,37 @@ class Trainer:
         val = self.evaluate(state, self.cfg.eval_max_batches)
         self._maybe_save(state, step, val)
         return {"state": state, "step": step, "val": val}
+
+    # -- inference ---------------------------------------------------------
+    def test(self, state=None, noise=None) -> list:
+        """Vocode the task's test items (``fastdiff_tpu/training/
+        trainer.py:test``); returns each item's ``test_step`` result.
+
+        The sampler's draws come from one generator on the task's device,
+        seeded from ``seed``; ``noise(index, audio_length)``, when given,
+        returns the draws of the index-th utterance to inject instead."""
+        task = self.task
+        if state is None:
+            state = task.build_state()
+        state, step = self.restore(state)
+        trained = (state.ema if state.ema is not None
+                   else state.model.state_dict())
+        sampler = task.make_test_sampler(
+            inference_state_dict(trained, task.model_cfg),
+            task.sampler_constants())
+        gen_dir = os.path.join(
+            self.work_dir,
+            f"generated_{step}_{task.hparams.get('gen_dir_name', '')}")
+        generator = inference_generator(self.cfg.seed, task.device)
+        results = []
+        for i, sample in enumerate(task.test_dataloader()):
+            draws = None if noise is None else functools.partial(noise, i)
+            res = task.test_step(sample, sampler, gen_dir, generator, draws)
+            print(f"| generated {res['item_name']}: rtf={res['rtf']:.4f}")
+            results.append(res)
+        if results:
+            rtf = float(np.mean([r["rtf"] for r in results[1:]] or
+                                [results[0]["rtf"]]))
+            print(f"| mean RTF (excl. first/compile): {rtf:.4f} "
+                  f"({1.0 / max(rtf, 1e-9):.1f}x realtime)")
+        return results

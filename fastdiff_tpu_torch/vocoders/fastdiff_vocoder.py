@@ -1,17 +1,21 @@
 """FastDiff as a vocoder: mel -> waveform through the N-step sampler
-(``fastdiff_tpu/vocoders/fastdiff_vocoder.py``).
+(``fastdiff_tpu/vocoders/fastdiff_vocoder.py``), registered as ``fastdiff``
+in ``vocoders/base.py``'s registry (``FastDiff`` is its JAX name, so a
+dotted ``vocoder`` path to JAX's class resolves to it).
 
-Built from a plain hparams dict on ``device``, the CUDA card unless the
-caller names another (no card raises). ``vocoder_ckpt`` names a
-``FastDiff`` state_dict saved with ``torch.save`` (a JAX tree converts with
-``models/bridge.py:params_from_jax``) or a checkpoint of the port's
-``Trainer``, whose weight norm is fused on load; without one, or when the
-path does not exist, the model runs with the seed-0 random weights, as the
-JAX vocoder does. ``spec2wav`` runs the graph sampler
-(``diffusion/sampler.py:make_param_sampler``: a frame count's first request
-runs eagerly, its second captures a CUDA graph that later ones replay, at
-most ``max_graphs`` frame counts kept) with the vocoder's generator, seeded
-from ``seed``; a non-zero ``chunked_infer_frames`` vocodes through
+Built from a plain hparams dict (cast by ``ModelConfig.from_hparams``) on
+``device``, the CUDA card unless the caller names another (no card raises).
+``vocoder_ckpt`` names a released checkpoint of the reference
+(``utils/ckpt_import.py``), a ``FastDiff`` state_dict saved with
+``torch.save`` (a JAX tree converts with ``models/bridge.py:
+params_from_jax``) or a checkpoint of the port's ``Trainer``; weight norm is
+fused on load. Without one, or when the path does not exist, the model runs
+with the seed-0 random weights, as the JAX vocoder does. ``spec2wav`` runs
+the graph sampler (``diffusion/sampler.py:make_param_sampler``: a frame
+count's first request runs eagerly, its second captures a CUDA graph that
+later ones replay, at most ``max_graphs`` frame counts kept) with the
+vocoder's generator, seeded from ``seed``; a non-zero
+``chunked_infer_frames`` vocodes through
 ``serving/chunked_vocoder.py:ChunkedVocoder`` around that sampler, all
 chunks of an utterance in one call, so the graph key is the chunk count.
 ``use_pallas_block`` and
@@ -24,7 +28,6 @@ and ``resolve_down_kernel``): "auto" / "ncl" run the NCL route (K3, K1),
 
 from __future__ import annotations
 
-import dataclasses
 import os
 
 import numpy as np
@@ -35,43 +38,36 @@ from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
                                                   inference_generator,
                                                   make_param_sampler)
 from fastdiff_tpu_torch.models import bridge
-from fastdiff_tpu_torch.models.fastdiff import (FastDiff, checked_device,
-                                                resolve_down_kernel,
+from fastdiff_tpu_torch.models.fastdiff import FastDiff as FastDiffModel
+from fastdiff_tpu_torch.models.fastdiff import (resolve_down_kernel,
                                                 resolve_infer_route)
 from fastdiff_tpu_torch.serving.chunked_vocoder import ChunkedVocoder
-
-def model_config_from_hparams(hp: dict) -> ModelConfig:
-    """ModelConfig from the hparams' architecture fields (the routes are
-    resolved by resolve_infer_route / resolve_down_kernel)."""
-    kwargs = {}
-    for field in dataclasses.fields(ModelConfig):
-        if field.name in hp:
-            kwargs[field.name] = hp[field.name]
-    if "upsample_ratios" in kwargs:
-        kwargs["upsample_ratios"] = tuple(int(r) for r in
-                                          kwargs["upsample_ratios"])
-    return ModelConfig(**kwargs)
+from fastdiff_tpu_torch.utils import ckpt_import
+from fastdiff_tpu_torch.vocoders.base import BaseVocoder, register_vocoder
 
 
 def inference_state_dict(saved: dict, cfg: ModelConfig) -> dict:
-    """The inference ``FastDiff`` state_dict in a loaded ``vocoder_ckpt``:
+    """The inference ``FastDiff`` state_dict in a loaded checkpoint: a
+    released checkpoint of the reference through ``utils/ckpt_import.py``,
     a bare state_dict as it is, or the ``params`` of a ``Trainer``
-    checkpoint (the trainable model's v / g / bias) with weight norm fused
-    as the JAX vocoder fuses it (``bridge.params_to_jax`` then
-    ``params_from_jax``)."""
+    checkpoint (the trainable model's v / g / bias, or anything keyed like
+    it, such as its EMA) with weight norm fused as the JAX vocoder fuses it
+    (``bridge.params_to_jax`` then ``params_from_jax``)."""
+    released = ckpt_import.released_state_dict(saved)
+    if released is not None:
+        return ckpt_import.inference_state_dict(released, cfg)
     state = saved.get("params", saved)
     if not any(k.endswith(".v") for k in state):
         return state
     return bridge.params_from_jax(bridge.params_to_jax(state, cfg), cfg)
 
 
-class FastDiffVocoder:
+class FastDiffVocoder(BaseVocoder):
     def __init__(self, hparams: dict | None = None, device="cuda",
                  max_graphs: int = 8):
-        hp = dict(hparams or {})
-        self.hparams = hp
-        self.device = checked_device(device)
-        self.model_cfg = model_config_from_hparams(hp)
+        super().__init__(hparams, device)
+        hp = self.hparams
+        self.model_cfg = ModelConfig.from_hparams(hp)
         self.hop = self.model_cfg.total_hop
         self.constants = constants_for_hparams(hp)
         self.route = resolve_infer_route(hp)
@@ -79,14 +75,14 @@ class FastDiffVocoder:
                      down_kernel=resolve_down_kernel(hp))
         ckpt = hp.get("vocoder_ckpt", "")
         if ckpt and os.path.exists(ckpt):
-            model = FastDiff(self.model_cfg, seed=None, **route)
+            model = FastDiffModel(self.model_cfg, seed=None, **route)
             model.load_state_dict(inference_state_dict(
                 torch.load(ckpt, map_location="cpu", weights_only=True),
                 self.model_cfg))
         else:
             print("| WARNING: no vocoder_ckpt given; FastDiff vocoder runs "
                   "with random weights.")
-            model = FastDiff(self.model_cfg, seed=0, **route)
+            model = FastDiffModel(self.model_cfg, seed=0, **route)
         self.model = model.to(self.device).eval()
         self.sampler = make_param_sampler(self.model, self.constants,
                                           max_graphs=max_graphs)
@@ -114,12 +110,5 @@ class FastDiffVocoder:
         return wav[0, :, 0].cpu().numpy()
 
 
-VOCODERS = {"fastdiff": FastDiffVocoder}
-
-
-def get_vocoder_cls(hparams: dict):
-    name = str(hparams.get("vocoder", "fastdiff")).lower()
-    if name not in VOCODERS:
-        raise ValueError(f"unknown vocoder {name!r}; the port has "
-                         f"{sorted(VOCODERS)}")
-    return VOCODERS[name]
+register_vocoder(FastDiffVocoder, "fastdiff")
+FastDiff = FastDiffVocoder

@@ -51,6 +51,24 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.training.trainer\n"
             "import fastdiff_tpu_torch.ops.lvc_block_pallas\n"
             "import fastdiff_tpu_torch.ops.downpath_pallas\n"
+            "import fastdiff_tpu_torch.run\n"
+            "import fastdiff_tpu_torch.utils.hparams\n"
+            "import fastdiff_tpu_torch.utils.audio_io\n"
+            "import fastdiff_tpu_torch.utils.multiprocess\n"
+            "import fastdiff_tpu_torch.utils.ckpt_import\n"
+            "import fastdiff_tpu_torch.ops.dsp\n"
+            "import fastdiff_tpu_torch.ops.loudness\n"
+            "import fastdiff_tpu_torch.data.binarizer\n"
+            "import fastdiff_tpu_torch.data.binarize\n"
+            "import fastdiff_tpu_torch.vocoders.base\n"
+            "import fastdiff_tpu_torch.vocoders.gl\n"
+            "import fastdiff_tpu_torch.scripts.vocode\n"
+            "from fastdiff_tpu_torch.vocoders import get_vocoder_cls\n"
+            "assert get_vocoder_cls({'vocoder': 'glmel'}).__name__ == "
+            "'GLMel'\n"
+            "from fastdiff_tpu_torch.data.dataset import resolve_class\n"
+            "assert resolve_class('fastdiff_tpu.training.task.FastDiffTask')"
+            ".__module__ == 'fastdiff_tpu_torch.training.task'\n"
             "from fastdiff_tpu_torch.models.fastdiff import (FastDiff, "
             "resolve_down_kernel, resolve_infer_route)\n"
             "assert resolve_infer_route({'use_pallas_block': True}) == "
@@ -68,9 +86,8 @@ def test_port_imports_no_jax():
             "assert voc.route == 'nwc'\n"
             "assert voc.spec2wav(np.zeros((16, 16), np.float32)).shape == "
             "(4096,)\n"
-            "from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import "
-            "model_config_from_hparams\n"
-            "model_config_from_hparams({'use_pallas_block': 'auto'})\n"
+            "from fastdiff_tpu_torch.config import ModelConfig\n"
+            "ModelConfig.from_hparams({'use_pallas_block': 'auto'})\n"
             "from fastdiff_tpu_torch.models.fastdiff import "
             "resolve_train_route\n"
             "assert resolve_train_route({'use_pallas_block': 'auto'}, "
@@ -86,6 +103,7 @@ def test_port_imports_no_jax():
             "bad = sorted(m for m in sys.modules if m == 'fastdiff_tpu' "
             "or m.startswith('fastdiff_tpu.'))\n"
             "assert not bad, bad\n"
+            "assert 'yaml' not in sys.modules\n"
             "print('no-jax-ok')\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
@@ -106,14 +124,15 @@ def _imported_modules(path: pathlib.Path) -> list:
 def test_port_sources_import_nothing_of_the_jax_side():
     """Every module of the port and chip_smoke.py, read as source: no
     import of jax, jaxlib, fastdiff_tpu or a fastdiff_tpu module, at any
-    depth (a function-level import counts too)."""
+    depth (a function-level import counts too), and no PyYAML, which the
+    card's machine lacks (the port reads its configs itself)."""
     root = pathlib.Path(REPO)
     files = sorted((root / "fastdiff_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
     assert len(files) > 20
     bad = [(str(f.relative_to(root)), name) for f in files
            for name in _imported_modules(f)
-           if name.split(".")[0] in ("jax", "jaxlib", "fastdiff_tpu")]
+           if name.split(".")[0] in ("jax", "jaxlib", "fastdiff_tpu", "yaml")]
     assert not bad, bad
 
 
@@ -129,7 +148,8 @@ def test_entry_points_default_to_the_card():
           "kpnet_hidden_channels": 8, "diffusion_step_embed_dim_in": 16,
           "diffusion_step_embed_dim_mid": 32,
           "diffusion_step_embed_dim_out": 32}
-    for make in (FastDiffVocoder, VocoderService, FastDiffTask):
+    from fastdiff_tpu_torch.vocoders.gl import GLMel
+    for make in (FastDiffVocoder, VocoderService, FastDiffTask, GLMel):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(dict(hp))
 
