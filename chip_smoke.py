@@ -154,7 +154,22 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     ``python -m fastdiff_tpu_torch.run``, as a subprocess; no PyYAML
     imported; ``vocoder: GLMel`` on the card against the CPU (3 iterations
     from one phase within 1e-4 rel L2, 60 iterations' spectral
-    convergence within 5 %); ``scripts/vocode.py`` on the mel dir.
+    convergence within 5 %); ``scripts/vocode.py`` on the mel dir;
+22. the TTS serving path at the full width of
+    ``fastdiff_tpu/configs/fs2_ljspeech.yaml`` (FastSpeech 2 seed-0
+    weights, the FastDiff vocoder's seed weights, N = 4, ``auto``), a
+    phone set written from the ``en`` processor's output on four
+    LJSpeech-style sentences (23-152 tokens): ``FastSpeech2Task.
+    infer_to_wav`` of each (predicted durations): frames, wav length, K3
+    +12, K1 +8, K2 +4 and the CUDA-core Kernel B +0 per call, warm-ups and
+    captures; teacher durations of 6 frames a phone: the card's mel
+    against the CPU's (TF32 off, rel L2 <= 1e-4), the predicted mel2ph
+    card against CPU (equal); FastSpeech 2 ms (t_mel = max_frames),
+    vocoder ms and the RTF of ``infer_to_wav`` on a replayed graph by CUDA
+    events; ``python -m fastdiff_tpu_torch.scripts.demo_tts`` as a
+    subprocess on the teacher mels against ``TTSPipeline`` with
+    ``use_pallas_block: false`` (written wavs, rel L2 <= 5e-2, no kernel
+    launched).
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each of the twelve kernels' launches (from the run of its path: phase
@@ -167,7 +182,9 @@ computes the same function where there is one (``library_ms``, else null);
 the six tensor-core block kernels (K1, K2, K4, K5, K5 final, K6) also
 carry ``cuda_core_ms``, the CUDA-core kernel of the same function raced
 beside them; ``entry`` holds phase 21's RTF per utterance and GLMel's
-wall. The last line is ``{"ok": true, "device": {...}}``.
+wall, ``tts`` phase 22's rows per utterance (frames, FastSpeech 2 ms,
+vocoder ms, RTF) and its wall. The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 import io
@@ -1619,6 +1636,258 @@ def phase21_entry(torch, counters, dev, smi_line) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# LJSpeech-style sentences (LJ001-0001 the longest); the grapheme fallback
+# of the ``en`` processor (no g2p_en) gives 23 to 152 tokens
+TTS_SENTENCES = (
+    "Good morning, everyone.",
+    "The examination and testimony of the experts enabled the commission "
+    "to conclude.",
+    "He likewise indicated he was disenchanted with Russia and that he "
+    "wanted to go back to the United States.",
+    "Printing, in the only sense with which we are at present concerned, "
+    "differs from most if not from all the arts and crafts represented in "
+    "the Exhibition.")
+TEACHER_FRAMES_PER_PHONE = 6     # about LJSpeech's mean phone at hop 256
+
+
+def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
+    """The TTS serving path at the full width of ``fastdiff_tpu/configs/
+    fs2_ljspeech.yaml`` (FastSpeech 2 seed-0 weights; the FastDiff vocoder
+    at ``ljspeech.yaml``'s settings, seed weights, N = 4, ``auto`` ->
+    ``ncl``), with a phone set written from the ``en`` processor's output
+    on the sentences, as the binarizer would: (a) ``FastSpeech2Task.
+    infer_to_wav`` of each sentence (predicted durations): frames, wav
+    length, K3 +12 / K1 +8 / K2 +4 / CUDA-core Kernel B +0 per call, the
+    graph sampler's warm-ups and captures; (b) teacher durations of 6
+    frames a phone: the card's mel against the CPU's (TF32 off, rel L2 <=
+    1e-4), the predicted mel2ph card against CPU (equal), the written wavs
+    of ``use_pallas_block: false`` against ``auto`` (rel L2 <= 5e-2, no
+    kernel under false); (c) FastSpeech 2 ms (t_mel = max_frames), vocoder
+    ms and the RTF of ``infer_to_wav`` by CUDA events; (d) ``python -m
+    fastdiff_tpu_torch.scripts.demo_tts`` as a subprocess on the teacher
+    mels, and no jax, ``fastdiff_tpu`` or PyYAML imported."""
+    from torch.func import functional_call
+
+    from fastdiff_tpu_torch.models.fastspeech2 import (FastSpeech2,
+                                                       dur_to_mel2ph,
+                                                       mel2ph_to_dur)
+    from fastdiff_tpu_torch.text.encoder import build_token_encoder
+    from fastdiff_tpu_torch.text.processors import get_txt_processor_cls
+    from fastdiff_tpu_torch.training.tts_task import FastSpeech2Task
+    from fastdiff_tpu_torch.tts.infer import NpyMelSource, TTSPipeline
+    from fastdiff_tpu_torch.utils import audio_io
+    from fastdiff_tpu_torch.utils.hparams import set_hparams
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "fastdiff_tpu", "configs",
+                          "fs2_ljspeech.yaml")
+    yaml_before = "yaml" in sys.modules
+    root = tempfile.mkdtemp(prefix="fastdiff_tts_")
+    per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
+           "lvc_block_ncl_cc": 0}
+
+    def zero():
+        for counter in all_counters:
+            for key in counter:
+                counter[key] = 0
+
+    def read():
+        return {k: v for counter in counters for k, v in counter.items()
+                if k in per}
+
+    try:
+        en = get_txt_processor_cls("en")
+        phones = [en.process(text)[0] for text in TTS_SENTENCES]
+        binary = os.path.join(root, "binary")
+        os.makedirs(binary)
+        with open(os.path.join(binary, "phone_set.json"), "w") as f:
+            json.dump(sorted({p for ph in phones for p in ph}), f)
+        hp = set_hparams(config=config, hparams_str=f"binary_data_dir="
+                         f"{binary},N=4", print_hparams=False,
+                         global_hparams=False)
+        encoder = build_token_encoder(os.path.join(binary, "phone_set.json"))
+        tokens = [np.asarray(encoder.encode(" ".join(ph))) for ph in phones]
+        task = FastSpeech2Task(hp, device=dev)
+        state = task.build_state(seed=0)
+        params = state["params"]
+        cfg = task.model_cfg
+        n_params = sum(p.numel() for p in params.values())
+        tf32 = (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+                f"cuDNN {torch.backends.cudnn.allow_tf32}")
+        phase(22, f"fs2_ljspeech.yaml: FastSpeech 2 hidden {cfg.hidden}, "
+                  f"{cfg.enc_layers} + {cfg.dec_layers} layers, "
+                  f"{cfg.num_heads} heads, FFN {cfg.ffn_hidden} k "
+                  f"{cfg.ffn_kernel}, vocab {cfg.vocab_size}, max_frames "
+                  f"{cfg.max_len}, {n_params / 1e6:.2f} M params (seed 0); "
+                  f"vocoder fastdiff, use_pallas_block "
+                  f"{hp.get('use_pallas_block')}, N = 4; {tf32} (chip_smoke "
+                  f"settings, as the served path below runs)")
+
+        def forward(tok, **kw):
+            t = torch.as_tensor(tok, device=dev)[None]
+            return functional_call(task.model, params, (t,), kw)
+
+        # (a) predicted durations, through infer_to_wav
+        rows = []
+        sampler = None
+        for i, tok in enumerate(tokens):
+            zero()
+            t0 = time.perf_counter()
+            wav = task.infer_to_wav(state, tok, os.path.join(
+                root, f"pred_{i}.wav"))
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = read()
+            sampler = task.vocoder.sampler
+            with torch.no_grad():
+                out = forward(tok)
+            frames = int(out["mel_mask"].sum())
+            dur = mel2ph_to_dur(out["mel2ph"], len(tok))[0]
+            x = torch.exp(out["dur_pred"][0]) - 1.0
+            ties = int(((x - torch.floor(x) - 0.5).abs() < 1e-4).sum())
+            audio_s = frames * HOP_SIZE * AUDIO_SECONDS_PER_SAMPLE
+            if len(wav) != frames * HOP_SIZE or not np.isfinite(wav).all():
+                fail(f"utterance {i}: {len(wav)} samples for {frames} "
+                     "frames, or not finite")
+            if launches != per:
+                fail(f"utterance {i}: launches {launches}, expected {per}")
+            rows.append(dict(words=len(TTS_SENTENCES[i].split()),
+                             tokens=len(tok), frames=frames,
+                             frames_gt_1=int((dur > 1).sum()), ties=ties,
+                             first_s=first_s, first_rtf=first_s / audio_s,
+                             warmups=sampler.warmups,
+                             captures=sampler.captures))
+        phase(22, "(a) infer_to_wav, predicted durations: " + "; ".join(
+            f"{r['words']} words, {r['tokens']} tokens -> {r['frames']} "
+            f"frames ({r['frames_gt_1']} phones longer than 1 frame, "
+            f"{r['ties']} durations within 1e-4 of a rounding tie), first "
+            f"call {r['first_s'] * 1e3:.1f} ms (RTF {r['first_rtf']:.4f}), "
+            f"warm-ups {r['warmups']}, captures {r['captures']}"
+            for r in rows) + f"; launches per utterance {per}. Seed "
+            f"weights: {sum(r['frames_gt_1'] for r in rows)} of "
+            f"{sum(r['tokens'] for r in rows)} phones get more than one "
+            "frame (exp(dur_pred) - 1 rounds to about 0), so the mels are "
+            "short; each new frame count is a new graph shape (its first "
+            "call eager, none captured: JAX's infer_to_wav pads no mel) "
+            f"[{smi_line}]")
+
+        # (b) teacher durations; the card against the CPU, TF32 off
+        cpu_model = FastSpeech2(cfg).eval()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in params.items()})
+        mel_dir = os.path.join(root, "mels")
+        os.makedirs(mel_dir)
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for i, (tok, row) in enumerate(zip(tokens, rows)):
+                dur = torch.full((1, len(tok)), float(
+                    TEACHER_FRAMES_PER_PHONE))
+                mel2ph = dur_to_mel2ph(dur, TEACHER_FRAMES_PER_PHONE
+                                       * len(tok))
+                t = torch.as_tensor(tok)[None]
+                with torch.no_grad():
+                    card = forward(tok, mel2ph=mel2ph.to(dev))
+                    cpu = cpu_model(t, mel2ph=mel2ph)
+                    pred_card = forward(tok)["mel2ph"].cpu()
+                    pred_cpu = cpu_model(t)["mel2ph"]
+                row["teacher_frames"] = mel2ph.shape[1]
+                row["teacher_rel_l2"] = rel_l2(card["mel"].cpu(), cpu["mel"])
+                row["mel2ph_equal"] = bool(torch.equal(pred_card, pred_cpu))
+                np.save(os.path.join(mel_dir, f"utt{i}.npy"),
+                        card["mel"][0].cpu().numpy())
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+        phase(22, f"(b) teacher durations ({TEACHER_FRAMES_PER_PHONE} frames "
+                  "a phone), TF32 off: " + "; ".join(
+                      f"{r['teacher_frames']} frames: card vs CPU mel rel_l2 "
+                      f"{r['teacher_rel_l2']:.3e}, predicted mel2ph equal "
+                      f"{r['mel2ph_equal']}" for r in rows)
+                  + " (bounds 1e-4, equal)")
+        if not all(r["teacher_rel_l2"] <= 1e-4 and r["mel2ph_equal"]
+                   for r in rows):
+            fail("FastSpeech 2 on the card disagrees with the CPU")
+
+        # (c) times on the replayed shape, by CUDA events
+        for tok, row in zip(tokens, rows):
+            zero()
+            row["infer_ms"] = cuda_ms(
+                lambda: task.infer_to_wav(state, tok, ""), 2)
+            if read() != {k: 3 * v for k, v in per.items()}:
+                fail(f"steady-state infer_to_wav launched {read()}")
+            row["captures_after"] = sampler.captures
+            with torch.no_grad():
+                row["fs2_ms"] = cuda_ms(lambda: forward(tok), 3)
+                mel = task.infer_mel(state, tok)
+            row["vocoder_ms"] = cuda_ms(lambda: task.vocoder.spec2wav(mel),
+                                        2)
+            audio_ms = row["frames"] * HOP_SIZE * AUDIO_SECONDS_PER_SAMPLE \
+                * 1e3
+            row["rtf"] = row["infer_ms"] / audio_ms
+        phase(22, "(c) per utterance, replayed graph: " + "; ".join(
+            f"{r['frames']} frames: FastSpeech 2 forward (t_mel "
+            f"{cfg.max_len}) {r['fs2_ms']:.3f} ms, vocoder {r['vocoder_ms']:.3f}"
+            f" ms, infer_to_wav {r['infer_ms']:.3f} ms, RTF {r['rtf']:.5f}"
+            for r in rows) + f"; captures {[r['captures_after'] for r in rows]}"
+            f"; {tf32} [{smi_line}]")
+
+        # (d) demo_tts in its own process on the teacher mels (auto), and
+        # the plain route (use_pallas_block: false) in this one
+        env = dict(os.environ, PYTHONPATH=repo)
+        demo_out = os.path.join(root, "demo")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fastdiff_tpu_torch.scripts.demo_tts",
+             "--config", config, "--mel_dir", mel_dir, "--out_dir", demo_out,
+             "--hparams", "N=4"], cwd=root, env=env, capture_output=True,
+            text=True, timeout=300)
+        demo_s = time.perf_counter() - t0
+        written = sorted(os.listdir(demo_out)) if os.path.isdir(demo_out) \
+            else []
+        phase(22, f"python -m fastdiff_tpu_torch.scripts.demo_tts "
+                  f"(subprocess, auto): exit {proc.returncode} in "
+                  f"{demo_s:.1f} s, wrote {written}")
+        if proc.returncode != 0 or len(written) != len(tokens):
+            fail(f"demo_tts failed: {proc.stderr[-2000:]}")
+        zero()
+        plain_hp = dict(hp, use_pallas_block=False)
+        pipeline = TTSPipeline(plain_hp, NpyMelSource(plain_hp, mel_dir),
+                               device=dev)
+        plain_dir = os.path.join(root, "plain")
+        errs = []
+        for i, row in enumerate(rows):
+            name = f"utt{i}.wav"
+            pipeline.synthesize("", out_wav=os.path.join(plain_dir, name))
+            plain, _ = audio_io.load_wav(os.path.join(plain_dir, name))
+            auto, _ = audio_io.load_wav(os.path.join(demo_out, name))
+            if len(auto) != row["teacher_frames"] * HOP_SIZE or \
+                    len(plain) != len(auto):
+                fail(f"{name}: {len(auto)} / {len(plain)} samples for "
+                     f"{row['teacher_frames']} frames")
+            row["false_vs_auto"] = rel_l2(torch.from_numpy(plain),
+                                          torch.from_numpy(auto))
+            errs.append(row["false_vs_auto"])
+        launched = {k: v for counter in all_counters
+                    for k, v in counter.items() if v}
+        phase(22, "use_pallas_block=False (TTSPipeline) vs auto (demo_tts), "
+                  "same seed, written wavs of the teacher mels: rel_l2 "
+                  + ", ".join(f"{e:.3e}" for e in errs)
+                  + f" (bound 5e-2); kernels launched under false: "
+                  f"{launched or 'none'}")
+        if launched or not max(errs) <= 5e-2:
+            fail("the plain route launched a kernel or disagrees with auto")
+        if "yaml" in sys.modules and not yaml_before:
+            fail("set_hparams imported PyYAML")
+        return {"sentences": len(rows), "rows": rows,
+                "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32},
+                "device": smi_line}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def check_no_jax():
     """Fail if jax or any module of the JAX package was imported."""
     bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
@@ -2076,6 +2345,13 @@ def main():
     phase(21, f"done in {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
+    # --- phase 22: the TTS serving path -------------------------------------
+    t0 = time.perf_counter()
+    tts_report = phase22_tts(torch, counters, all_counters, dev, smi_line)
+    tts_report["wall_s"] = time.perf_counter() - t0
+    phase(22, f"done in {tts_report['wall_s']:.1f} s")
+    check_no_jax()
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -2140,7 +2416,7 @@ def main():
                                          for b, row in fh.items()},
                       "graph_vs_eager_ms": graph_report,
                       "train_step": train_report, "fit_s": fit_s,
-                      "entry": entry_report}),
+                      "entry": entry_report, "tts": tts_report}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,8 +5,10 @@ The entry point (``run.py``: the YAML config cascade, ``--infer`` through
 path (N-step reverse diffusion around the FastDiff denoiser, replayed as
 one CUDA graph per shape, served over HTTP, chunked, streamed or batched)
 on every inference route, the trainer, the wav / mel front end, the
-binarizer and the vocoder registry with the Griffin-Lim vocoders, written
-as PyTorch modules. Every kernel the JAX package wrote in Pallas (the LVC
+binarizer, the vocoder registry with the Griffin-Lim vocoders, and the TTS
+serving path (the text front end, FastSpeech 2 and
+``FastSpeech2Task.infer_to_wav`` into the vocoder), written as PyTorch
+modules. Every kernel the JAX package wrote in Pallas (the LVC
 blocks, the predictor heads, the down path and the two experiment
 scripts' kernels) is hand-written CUDA C++ for ``sm_90a`` (``csrc/``),
 built with ``nvcc`` on first use; every other op is plain PyTorch. Entry
@@ -16,9 +18,9 @@ tensors each kernel wrapper runs its plain PyTorch version.
 Module names follow ``fastdiff_tpu`` so each port module sits beside its
 JAX counterpart. The package imports neither jax nor ``fastdiff_tpu`` nor
 PyYAML: it keeps its own copies of the jax-free modules it needs
-(``config``, ``diffusion/schedules``, ``data``, ``ops/loudness``, the
-numpy half of ``ops/dsp``, ``utils/{audio_io,multiprocess,
-logging_utils}``) and reads its YAML configs itself.
+(``config``, ``diffusion/schedules``, ``data``, ``text``,
+``ops/loudness``, the numpy halves of ``ops/{dsp,pitch,cwt}``,
+``utils/{audio_io,multiprocess,logging_utils}``) and reads its YAML configs itself.
 """
 
 __version__ = "0.1.0"
@@ -45,6 +47,11 @@ def __getattr__(name):
                             "FastDiffVocoder"),
         "VocoderService": ("fastdiff_tpu_torch.serving.server",
                            "VocoderService"),
+        "FastSpeech2": ("fastdiff_tpu_torch.models.fastspeech2",
+                        "FastSpeech2"),
+        "FastSpeech2Task": ("fastdiff_tpu_torch.training.tts_task",
+                            "FastSpeech2Task"),
+        "TTSPipeline": ("fastdiff_tpu_torch.tts.infer", "TTSPipeline"),
     }
     if name in lazy:
         import importlib

@@ -49,9 +49,10 @@ def resolve_class(dotted_path: str):
         if importlib.util.find_spec(port) is None or not hasattr(
                 importlib.import_module(port), cls_name):
             raise NotImplementedError(
-                f"{dotted_path} is not ported to fastdiff_tpu_torch (the "
-                "model zoo, its tasks and the TTS front end are ROADMAP.md "
-                "queue 1 item 11)")
+                f"{dotted_path} is not ported to fastdiff_tpu_torch (still "
+                "to port: the PWG, WaveNet and speaker-encoder models and "
+                "their tasks, and the TTS binarizers, ROADMAP.md queue 1 "
+                "item 11)")
         pkg = port
     return getattr(importlib.import_module(pkg), cls_name)
 

@@ -163,3 +163,67 @@ def params_to_jax(state: dict, cfg: ModelConfig) -> dict:
         p["b"] = get("bias")
         _set(tree, path, p)
     return tree
+
+
+def _fs2_leaves(tree, path=()):
+    """(path, kind, leaf) of every layer of a JAX FastSpeech 2 tree; kind
+    is 'ln', 'conv', 'dense' or 'embed'."""
+    if isinstance(tree, dict):
+        if "scale" in tree:
+            yield path, "ln", tree
+        elif "w" in tree:
+            yield path, "conv" if np.ndim(tree["w"]) == 3 else "dense", tree
+        else:
+            for key, sub in tree.items():
+                yield from _fs2_leaves(sub, path + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _fs2_leaves(sub, path + (i,))
+    else:
+        yield path, "embed", tree
+
+
+def _check_fs2_depth(n_enc: int, n_dec: int, cfg) -> None:
+    if (n_enc, n_dec) != (cfg.enc_layers, cfg.dec_layers):
+        raise ValueError(f"the tree has {n_enc} + {n_dec} layers, the config "
+                         f"{cfg.enc_layers} + {cfg.dec_layers}")
+
+
+def fs2_params_from_jax(tree: dict, cfg) -> dict:
+    """JAX FastSpeech 2 tree (numpy leaves) -> ``FastSpeech2(cfg)``
+    state_dict."""
+    _check_fs2_depth(len(tree["encoder"]), len(tree["decoder"]), cfg)
+    state = {}
+    for path, kind, p in _fs2_leaves(tree):
+        name = ".".join(map(str, path))
+        if kind == "embed":
+            state[f"{name}.weight"] = _tensor(p)
+            continue
+        w = p["scale"] if kind == "ln" else _to_torch(_f32(p["w"]), kind)
+        state[f"{name}.weight"] = _tensor(w)
+        state[f"{name}.bias"] = _tensor(p["bias" if kind == "ln" else "b"])
+    return state
+
+
+def fs2_params_to_jax(state: dict, cfg) -> dict:
+    """A ``FastSpeech2(cfg)`` state_dict -> the JAX tree, numpy float32
+    leaves in JAX's layouts."""
+    tree: dict = {}
+    for key in state:
+        name, leaf = key.rsplit(".", 1)
+        if leaf != "weight":
+            continue
+        w = state[key].detach().cpu().float().numpy()
+        path = tuple(int(k) if k.isdigit() else k for k in name.split("."))
+        if f"{name}.bias" not in state:
+            _set(tree, path, w)
+            continue
+        b = state[f"{name}.bias"].detach().cpu().float().numpy()
+        if w.ndim == 1:
+            _set(tree, path, {"scale": w, "bias": b})
+        else:
+            kind = "conv" if w.ndim == 3 else "dense"
+            _set(tree, path, {"w": np.ascontiguousarray(_from_torch(w, kind)),
+                              "b": b})
+    _check_fs2_depth(len(tree["encoder"]), len(tree["decoder"]), cfg)
+    return tree

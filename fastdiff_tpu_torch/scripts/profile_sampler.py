@@ -5,6 +5,8 @@ route, on the card.
         [--frames 864] [--samples 2] [--top 8] [--graph]
     python -m fastdiff_tpu_torch.scripts.profile_sampler --train [ncl_sr]
         [ncl_vjp] [plain] [--samples 2] [--top 10]
+    python -m fastdiff_tpu_torch.scripts.profile_sampler --tts
+        [--tokens 23 152] [--samples 2] [--top 10]
 
 For each route (``ncl``, ``nwc`` with the down kernel, ``ncl_fh``,
 ``plain``), two warm-up samples of ``--frames`` mel frames (b = 1, seeded
@@ -23,14 +25,22 @@ the eager loop's profile beside it. With ``--train`` the routes are the training
 one ``FastDiffTask.train_step`` at the recipe (20 x 25,600 samples, a fixed
 seeded batch, two warm-up steps): the same profile per step, and the
 step's forward (loss), backward (gradients) and optimizer (finite check and
-AdamW) timed apart with CUDA events over 3 more steps. Prints one JSON
-object with the card's name beside the routes.
+AdamW) timed apart with CUDA events over 3 more steps. With ``--tts`` a
+sample is one FastSpeech 2 forward at the full width of
+``fastdiff_tpu/configs/fs2_ljspeech.yaml`` (seed-0 weights, inference mode
+at t_mel = ``max_frames``, as ``FastSpeech2Task.infer_mel`` runs it) on
+``--tokens`` random phone ids, with TF32 off and with cuDNN TF32 on
+(torch's default): the same profile, and the forward's ms by CUDA events
+through ``torch.func.functional_call`` (as the task calls it) and through
+the module's own parameters. Prints one JSON object with the card's name
+beside the routes.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
@@ -42,6 +52,9 @@ from fastdiff_tpu_torch.models.fastdiff import (INFER_ROUTES, TRAIN_ROUTES,
                                                 FastDiff, checked_device)
 
 HOP = 256
+FS2_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "fastdiff_tpu", "configs", "fs2_ljspeech.yaml")
 TRAIN_BATCH, TRAIN_FRAMES = 20, 100     # the training recipe
 
 
@@ -203,6 +216,63 @@ def profile_route(route: str, frames: int = 864, samples: int = 2,
     }
 
 
+def profile_tts(tokens: int, samples: int = 2, top: int = 10,
+                cudnn_tf32: bool = False, seed: int = 0,
+                device="cuda") -> dict:
+    """Device busy time, idle gaps and the largest device costs per
+    FastSpeech 2 forward (inference mode, t_mel = max_frames) on ``tokens``
+    phone ids, at full width, matmul TF32 off and cuDNN TF32 as given."""
+    from torch.func import functional_call
+
+    from fastdiff_tpu_torch.training.tts_task import FastSpeech2Task
+    from fastdiff_tpu_torch.utils.hparams import set_hparams
+    from fastdiff_tpu_torch.utils.timing import cuda_ms
+    dev = _cuda_device(device)
+    hp = set_hparams(config=FS2_CONFIG, hparams_str="vocab_size=64",
+                     print_hparams=False, global_hparams=False)
+    task = FastSpeech2Task(hp, device=dev)
+    params = task.build_state(seed=seed)["params"]
+    ids = torch.randint(3, 64, (1, tokens), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 1))
+
+    def run():
+        return functional_call(task.model, params, (ids,))
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    try:
+        with torch.inference_mode():
+            call_ms = cuda_ms(run, 5)
+            module_ms = cuda_ms(lambda: task.model(ids), 5)
+            frames = int(run()["mel_mask"].sum())
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+                t0 = time.perf_counter()
+                for _ in range(samples):
+                    run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / samples
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    out = _device_profile(prof, samples, top)
+    return {
+        "route": "fastspeech2", "tokens": tokens, "frames": frames,
+        "t_mel": task.model_cfg.max_len, "cudnn_tf32": cudnn_tf32,
+        "samples": samples, "functional_call_ms": call_ms,
+        "module_ms": module_ms,
+        "device_busy_ms_per_sample": out["device_busy_ms"],
+        "device_events_per_sample": out["device_events"],
+        "wall_ms_per_sample_profiled": wall,
+        "gaps": out["gaps"],
+        "top": [{"name": r["name"], "ms_per_sample": r["ms"],
+                 "calls_per_sample": r["calls"]} for r in out["top"]],
+    }
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("routes", nargs="*")
@@ -216,13 +286,20 @@ def main():
     parser.add_argument("--graph", action="store_true",
                         help="profile replays of the sampler's CUDA graph, "
                         "with the eager loop beside them")
+    parser.add_argument("--tts", action="store_true",
+                        help="profile the FastSpeech 2 forward")
+    parser.add_argument("--tokens", type=int, nargs="+", default=[23, 152])
     args = parser.parse_args()
     known = TRAIN_ROUTES if args.train else INFER_ROUTES
     routes = args.routes or (["ncl_sr"] if args.train else ["ncl", "nwc"])
     for route in routes:
         if route not in known:
             parser.error(f"route {route!r} is not one of {known}")
-    if args.train:
+    if args.tts:
+        results = [profile_tts(n, args.samples, top=args.top or 10,
+                               cudnn_tf32=tf32)
+                   for n in args.tokens for tf32 in (False, True)]
+    elif args.train:
         results = [profile_train(r, args.samples, top=args.top or 10)
                    for r in routes]
     else:

@@ -38,8 +38,9 @@ def get_vocoder_cls(hparams: dict):
         return VOCODERS[name.lower()]
     if "." not in name:
         raise ValueError(f"unknown vocoder {name!r}: the port registers "
-                         f"{sorted(VOCODERS)} (PWG is ROADMAP.md queue 1 "
-                         "item 11); other names are dotted class paths")
+                         f"{sorted(VOCODERS)} (the PWG vocoder is still to "
+                         "port: ROADMAP.md queue 1 item 11); other names are "
+                         "dotted class paths")
     from fastdiff_tpu_torch.data.dataset import resolve_class
     return resolve_class(name)
 

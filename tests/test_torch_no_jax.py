@@ -63,12 +63,32 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.vocoders.base\n"
             "import fastdiff_tpu_torch.vocoders.gl\n"
             "import fastdiff_tpu_torch.scripts.vocode\n"
+            "import fastdiff_tpu_torch.text.normalize\n"
+            "import fastdiff_tpu_torch.text.syllabify\n"
+            "import fastdiff_tpu_torch.text.zh_norm\n"
+            "import fastdiff_tpu_torch.text.zh_g2p\n"
+            "import fastdiff_tpu_torch.text.processors\n"
+            "import fastdiff_tpu_torch.text.encoder\n"
+            "import fastdiff_tpu_torch.ops.pitch\n"
+            "import fastdiff_tpu_torch.ops.cwt\n"
+            "import fastdiff_tpu_torch.models.transformer\n"
+            "import fastdiff_tpu_torch.models.fastspeech2\n"
+            "import fastdiff_tpu_torch.training.tts_task\n"
+            "import fastdiff_tpu_torch.tts.infer\n"
+            "import fastdiff_tpu_torch.scripts.demo_tts\n"
+            "from fastdiff_tpu_torch import FastSpeech2Task, TTSPipeline\n"
+            "from fastdiff_tpu_torch.text.processors import "
+            "get_txt_processor_cls\n"
+            "for name in ('en', 'zh'):\n"
+            "    assert get_txt_processor_cls(name).process('Hi 12')[0]\n"
             "from fastdiff_tpu_torch.vocoders import get_vocoder_cls\n"
             "assert get_vocoder_cls({'vocoder': 'glmel'}).__name__ == "
             "'GLMel'\n"
             "from fastdiff_tpu_torch.data.dataset import resolve_class\n"
             "assert resolve_class('fastdiff_tpu.training.task.FastDiffTask')"
             ".__module__ == 'fastdiff_tpu_torch.training.task'\n"
+            "assert resolve_class('fastdiff_tpu.training.tts_task."
+            "FastSpeech2Task') is FastSpeech2Task\n"
             "from fastdiff_tpu_torch.models.fastdiff import (FastDiff, "
             "resolve_down_kernel, resolve_infer_route)\n"
             "assert resolve_infer_route({'use_pallas_block': True}) == "
@@ -137,7 +157,7 @@ def test_port_sources_import_nothing_of_the_jax_side():
 
 
 def test_entry_points_default_to_the_card():
-    """Without a device the vocoder, the server and the task ask for the
+    """Without a device the vocoder, the server and the tasks ask for the
     CUDA card; with no card they raise and never fall back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
@@ -149,7 +169,9 @@ def test_entry_points_default_to_the_card():
           "diffusion_step_embed_dim_mid": 32,
           "diffusion_step_embed_dim_out": 32}
     from fastdiff_tpu_torch.vocoders.gl import GLMel
-    for make in (FastDiffVocoder, VocoderService, FastDiffTask, GLMel):
+    from fastdiff_tpu_torch.training.tts_task import FastSpeech2Task
+    for make in (FastDiffVocoder, VocoderService, FastDiffTask, GLMel,
+                 FastSpeech2Task):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(dict(hp))
 
