@@ -169,7 +169,30 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     events; ``python -m fastdiff_tpu_torch.scripts.demo_tts`` as a
     subprocess on the teacher mels against ``TTSPipeline`` with
     ``use_pallas_block: false`` (written wavs, rel L2 <= 5e-2, no kernel
-    launched).
+    launched);
+23. BDDM and the evaluation tools at the full width of
+    ``fastdiff_tpu/configs/ljspeech.yaml`` (seed-0 weights, weight norm
+    fused, ``auto`` -> NCL and ``false`` -> plain through
+    ``FastDiffTask.inference_model``) on phase 11's synthetic dataset:
+    (a) 20 Adam(1e-4) steps of the phi noise predictor at the recipe
+    batch (20 x 25,600 samples): ms per step by CUDA events, loss and
+    every phi gradient finite, K3 +3, K1 +2, K2 +1 and the CUDA-core
+    Kernel B +0 per step; on one batch with injected t and z the kernel
+    route against the plain route (loss rel 1e-2, phi gradients rel L2
+    5e-2) and the plain route on the card (TF32 off) against the CPU (loss
+    rel 1e-4); (b) the reverse search for N = 8, 6, 4 and 3 at 864 frames,
+    b 1, from one injected x on both routes: each schedule, its length,
+    steps and wall, K3 +3 / K1 +2 / K2 +1 per step (plain: no launch),
+    the first reverse step's x (rel L2 5e-2) and the first predicted beta
+    (rel 5e-2) kernel against plain; (c) every searched and every
+    published schedule through ``make_param_sampler`` at 864 frames: ms per
+    sample by graph replay (one capture each), K3 3N / K1 2N / K2 N per
+    replay, MCD, MR-STFT and PESQ against the synthetic wav (seed weights,
+    not quality); (d) ``python -m fastdiff_tpu_torch.scripts.demo_vocoder``
+    then ``evaluate`` on a 2 s wav, and beside them ``bddm_search
+    --phi_steps 5`` on the synthetic dataset, as subprocesses: exit 0,
+    their files written (the search's under its work dir) and
+    ``docs/BDDM.md`` unchanged.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each of the twelve kernels' launches (from the run of its path: phase
@@ -183,7 +206,9 @@ the six tensor-core block kernels (K1, K2, K4, K5, K5 final, K6) also
 carry ``cuda_core_ms``, the CUDA-core kernel of the same function raced
 beside them; ``entry`` holds phase 21's RTF per utterance and GLMel's
 wall, ``tts`` phase 22's rows per utterance (frames, FastSpeech 2 ms,
-vocoder ms, RTF) and its wall. The last line is ``{"ok": true, "device":
+vocoder ms, RTF) and its wall, ``bddm`` phase 23's (phi step ms and
+launches, the route checks, each search and each schedule's sample ms and
+metrics, the CLIs' walls). The last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -1888,6 +1913,362 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+BDDM_N = (8, 6, 4, 3)            # the published schedules' step counts
+PHI_STEPS = 20
+
+
+def event_ms(torch, fn) -> tuple:
+    """(fn's result, its ms by CUDA events around it, synchronized)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
+    """BDDM and the evaluation tools at the full width of ``fastdiff_tpu/
+    configs/ljspeech.yaml`` (seed-0 weights fused by
+    ``inference_state_dict``; ``auto`` -> ``ncl`` and ``false`` -> ``plain``
+    through ``FastDiffTask.inference_model``) on the synthetic binarized
+    dataset: (a) 20 Adam steps of the phi predictor at the recipe batch
+    (20 x 25,600 samples): ms per step by CUDA events, loss and every phi
+    gradient finite, K3 +3 / K1 +2 / K2 +1 / CUDA-core Kernel B +0 per
+    step; on one batch with injected t and z the kernel route against the
+    plain route (loss rel 1e-2, gradients rel L2 5e-2) and the plain route
+    on the card (TF32 off) against the CPU (loss 1e-4); (b) the reverse
+    search for N = 8, 6, 4, 3 at 864 frames, b 1, from one injected x on
+    both routes: schedules, steps, wall, launches per step, the first
+    reverse step's x (rel L2 5e-2) and first predicted beta (rel 5e-2)
+    kernel against plain; (c) every non-empty searched and every
+    published schedule through ``make_param_sampler`` at 864 frames: ms
+    per sample by graph replay (one capture each), launches 3N / 2N / N,
+    MCD, MR-STFT and PESQ against the synthetic wav (seed weights, not
+    quality); (d) ``demo_vocoder`` then ``evaluate`` as subprocesses on a
+    2 s wav, beside them ``bddm_search --phi_steps 5`` on the synthetic
+    dataset (its JSON under the work dir, ``docs/BDDM.md`` unchanged; its
+    wall is read when the other two are done)."""
+    import hashlib
+
+    from fastdiff_tpu_torch.config import AudioConfig
+    from fastdiff_tpu_torch.diffusion import schedules
+    from fastdiff_tpu_torch.diffusion.noise_predictor import (
+        NoisePredictor, phi_loss, phi_train_step, search_noise_schedule)
+    from fastdiff_tpu_torch.diffusion.sampler import (inference_generator,
+                                                      make_param_sampler)
+    from fastdiff_tpu_torch.ops import dsp
+    from fastdiff_tpu_torch.scripts.bddm_search import PUBLISHED
+    from fastdiff_tpu_torch.training.task import FastDiffTask
+    from fastdiff_tpu_torch.utils import audio_io, metrics
+    from fastdiff_tpu_torch.utils.hparams import set_hparams
+    from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import \
+        inference_state_dict
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "fastdiff_tpu", "configs", "ljspeech.yaml")
+    bddm_doc = os.path.join(repo, "docs", "BDDM.md")
+    root = tempfile.mkdtemp(prefix="fastdiff_bddm_")
+    per = {"taug_head": 3, "lvc_block_ncl": 2, "lvc_block_ncl_final": 1,
+           "lvc_block_ncl_cc": 0}
+
+    def zero():
+        for counter in all_counters:
+            for key in counter:
+                counter[key] = 0
+
+    def read():
+        return {k: v for counter in counters for k, v in counter.items()
+                if k in per}
+
+    def times(n):
+        return {k: v * n for k, v in per.items()}
+
+    def launched():
+        return {k: v for counter in all_counters for k, v in counter.items()
+                if v}
+
+    try:
+        binary = os.path.join(root, "binary")
+        os.makedirs(binary)
+        write_synthetic_dataset(binary)
+        hp = set_hparams(config=config, hparams_str=f"binary_data_dir="
+                         f"{binary}", print_hparams=False,
+                         global_hparams=False)
+        task = FastDiffTask(hp, device=dev)
+        plain_hp = dict(hp, use_pallas_block=False)
+        fused = inference_state_dict(
+            task.build_state(seed=0).model.state_dict(), task.model_cfg)
+        score = task.inference_model(fused)
+        plain = FastDiffTask(plain_hp, device=dev).inference_model(fused)
+        cfg = task.model_cfg
+        if (score.infer_route, plain.infer_route) != ("ncl", "plain"):
+            fail(f"routes {score.infer_route} / {plain.infer_route}, "
+                 "expected ncl / plain")
+        n_params = sum(p.numel() for p in score.parameters())
+        phase(23, f"ljspeech.yaml: C {cfg.inner_channels}, ratios "
+                  f"{cfg.upsample_ratios}, {n_params / 1e6:.2f} M params "
+                  f"(seed 0, weight norm fused), {cfg.compute_dtype}; "
+                  "use_pallas_block auto -> ncl, false -> plain; TF32 "
+                  f"matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+                  f"{torch.backends.cudnn.allow_tf32}")
+
+        # (a) phi training at the recipe batch
+        phi = NoisePredictor(seed=0, device=dev)
+        opt = torch.optim.Adam(phi.parameters(), lr=1e-4)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batches = []
+        for i, batch in enumerate(task.train_dataloader()):
+            if i == PHI_STEPS:
+                break
+            batches.append(tuple(torch.as_tensor(
+                np.asarray(batch[k]), dtype=torch.float32, device=dev)
+                for k in ("mels", "wavs")))
+        shapes = {tuple(t.shape) for b in batches for t in b}
+        if shapes != {(TRAIN_BATCH, TRAIN_FRAMES, 80),
+                      (TRAIN_BATCH, TRAIN_FRAMES * HOP_SIZE, 1)}:
+            fail(f"phi batches {shapes}")
+        step_ms, losses = [], []
+        for mels, wavs in batches:
+            zero()
+            loss, ms = event_ms(torch, lambda: phi_train_step(
+                phi, opt, score, mels, wavs, task.alpha, generator=gen))
+            if read() != per:
+                fail(f"phi step launched {read()}, expected {per}")
+            if not (bool(torch.isfinite(loss)) and all(
+                    bool(torch.isfinite(p.grad).all())
+                    for p in phi.parameters())):
+                fail("phi step: loss or a phi gradient is not finite")
+            step_ms.append(ms)
+            losses.append(float(loss))
+        steady = float(np.median(step_ms[1:]))
+        phase(23, f"(a) phi training, {PHI_STEPS} Adam(1e-4) steps at "
+                  f"{TRAIN_BATCH} x {TRAIN_FRAMES * HOP_SIZE} samples "
+                  f"(auto -> ncl, denoiser under no_grad): first step "
+                  f"{step_ms[0]:.3f} ms, then median {steady:.3f} ms "
+                  f"(min {min(step_ms[1:]):.3f}, max {max(step_ms[1:]):.3f})"
+                  f"; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches per "
+                  f"step {per} [{smi_line}]")
+
+        mels, wavs = batches[0]
+        draw = torch.Generator().manual_seed(3)
+        ts = torch.randint(200, 800, (TRAIN_BATCH,), generator=draw)
+        z = torch.randn(tuple(wavs.shape), generator=draw)
+
+        def loss_grads(model, denoiser, mels, wavs, alpha):
+            loss = phi_loss(model, denoiser, mels, wavs, alpha, ts=ts, z=z)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            return loss.item(), [g.detach().float().cpu() for g in grads]
+
+        k_loss, k_grads = loss_grads(phi, score, mels, wavs, task.alpha)
+        zero()
+        p_loss, p_grads = loss_grads(phi, plain, mels, wavs, task.alpha)
+        if launched():
+            fail(f"the plain route launched {launched()}")
+        cpu_task = FastDiffTask(plain_hp, device="cpu")
+        cpu_phi = NoisePredictor(seed=None)
+        cpu_phi.load_state_dict({k: v.cpu()
+                                 for k, v in phi.state_dict().items()})
+        c_loss, c_grads = loss_grads(cpu_phi, cpu_task.inference_model(
+            {k: v.cpu() for k, v in fused.items()}), mels.cpu(),
+            wavs.cpu(), cpu_task.alpha)
+        kp_grad = max(rel_l2(a, b) for a, b in zip(k_grads, p_grads))
+        pc_grad = max(rel_l2(a, b) for a, b in zip(p_grads, c_grads))
+        kp_loss = abs(k_loss - p_loss) / abs(p_loss)
+        pc_loss = abs(p_loss - c_loss) / abs(c_loss)
+        phase(23, f"(a) one batch, injected t and z: loss kernel "
+                  f"{k_loss:.6f}, plain {p_loss:.6f}, CPU plain "
+                  f"{c_loss:.6f}; kernel vs plain loss rel {kp_loss:.3e} "
+                  f"(bound 1e-2), worst phi gradient rel L2 {kp_grad:.3e} "
+                  f"(bound 5e-2); plain card vs CPU loss rel {pc_loss:.3e} "
+                  f"(bound 1e-4), worst gradient rel L2 {pc_grad:.3e}")
+        if not (kp_loss <= 1e-2 and kp_grad <= 5e-2 and pc_loss <= 1e-4):
+            fail("phi loss / gradients disagree between routes or devices")
+
+        # (b) the reverse search at 864 frames, b 1, from one x
+        acfg = AudioConfig()
+        gt, mel_np = dsp.wav2mel_np(synth_wav(
+            (FRAMES_10S - 1) * HOP_SIZE * AUDIO_SECONDS_PER_SAMPLE, 5), acfg)
+        if mel_np.shape[1] != FRAMES_10S:
+            fail(f"the 10 s wav gave {mel_np.shape[1]} frames")
+        mel = torch.from_numpy(np.ascontiguousarray(mel_np.T))[None].to(dev)
+        length = FRAMES_10S * HOP_SIZE
+        x0 = torch.randn((1, length, 1), generator=torch.Generator()
+                         .manual_seed(4)).to(dev)
+        hyper = schedules.compute_hyperparams_given_schedule(
+            schedules.linear_beta_schedule(task.diff_cfg))
+        search = {}
+        for n in BDDM_N:
+            rows = {}
+            for name, model in (("kernel", score), ("plain", plain)):
+                seen = []
+
+                def denoiser(x, m, t, model=model, seen=seen):
+                    seen.append(x)
+                    return model(x, m, t)
+
+                zero()
+                t0 = time.perf_counter()
+                sched = search_noise_schedule(
+                    phi, denoiser, mel, hyper, length, max_steps=n,
+                    beta_start=PUBLISHED[n][-1], alpha_start=0.3, rho=1e-9,
+                    x=x0)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                want = times(len(seen)) if name == "kernel" else {}
+                got = read() if name == "kernel" else launched()
+                if got != want:
+                    fail(f"search N={n} on {name}: launches {got}, "
+                         f"expected {want} for {len(seen)} steps")
+                if len(sched) < 2 or len(seen) < 2:
+                    fail(f"search N={n} on {name} stopped after "
+                         f"{len(seen)} steps: {sched}")
+                rows[name] = dict(schedule=[float(b) for b in sched],
+                                  length=len(sched), steps=len(seen),
+                                  wall_ms=wall, x1=seen[1])
+            k, p = rows["kernel"], rows["plain"]
+            x1_err = rel_l2(k.pop("x1"), p.pop("x1"))
+            beta_err = abs(k["schedule"][-2] - p["schedule"][-2]) / \
+                abs(p["schedule"][-2])
+            search[n] = dict(kernel=k, plain=p, x1_rel_l2=x1_err,
+                             beta1_rel=beta_err)
+            phase(23, f"(b) search N={n} from beta {PUBLISHED[n][-1]:.4g}: "
+                      f"kernel {k['length']} betas "
+                      f"{[f'{b:.3e}' for b in k['schedule']]} in "
+                      f"{k['steps']} steps, {k['wall_ms']:.1f} ms "
+                      f"({k['wall_ms'] / k['steps']:.2f} ms a step); plain "
+                      f"{p['length']} betas "
+                      f"{[f'{b:.3e}' for b in p['schedule']]} in "
+                      f"{p['steps']} steps, {p['wall_ms']:.1f} ms; lengths "
+                      f"{'equal' if k['length'] == p['length'] else 'DIFFER'}"
+                      f"; first step's x rel L2 {x1_err:.3e}, first predicted"
+                      f" beta rel {beta_err:.3e} (bounds 5e-2); launches "
+                      f"per step {per} [{smi_line}]")
+            if not (x1_err <= 5e-2 and beta_err <= 5e-2):
+                fail(f"search N={n}: kernel and plain routes disagree")
+
+        # (c) each schedule through the graph sampler
+        evals = []
+        for n in BDDM_N:
+            for kind, sched in (("searched", search[n]["kernel"]["schedule"]),
+                                ("published", PUBLISHED[n])):
+                steps = len(sched)
+                const = schedules.sampler_constants_for_schedule(
+                    np.asarray(sched, np.float64), hyper)
+                sampler = make_param_sampler(score, const)
+                g = inference_generator(7, dev)
+                for _ in range(2):              # eager, then the capture
+                    sampler(None, g, mel, length)
+                zero()
+                wav = sampler(None, g, mel, length)
+                if read() != times(steps):
+                    fail(f"{kind} N={n}: a replay launched {read()}, "
+                         f"expected {times(steps)}")
+                ms = cuda_ms(lambda: sampler(None, g, mel, length), 3)
+                wav = wav[0, :, 0].cpu().numpy()
+                if len(wav) != length or not np.isfinite(wav).all() or \
+                        sampler.captures != 1:
+                    fail(f"{kind} N={n}: {len(wav)} samples, finite "
+                         f"{np.isfinite(wav).all()}, captures "
+                         f"{sampler.captures}")
+                evals.append(dict(
+                    n=n, kind=kind, steps=steps, ms=ms,
+                    mcd=metrics.mcd(wav, gt, acfg),
+                    mrstft=metrics.multi_resolution_stft_distance(wav, gt),
+                    pesq=metrics.pesq_mos(gt, wav, acfg.sample_rate)))
+                del sampler
+        phase(23, "(c) graph sampler per schedule, 864 frames, b 1 (one "
+                  "capture each; launches per replay K3 3N, K1 2N, K2 N): "
+                  + "; ".join(
+                      f"N={r['n']} {r['kind']} ({r['steps']} steps) "
+                      f"{r['ms']:.3f} ms, MCD {r['mcd']:.2f} dB, MR-STFT "
+                      f"{r['mrstft']:.3f}, PESQ {r['pesq']:.2f}"
+                      for r in evals)
+                  + f" (seed weights, not quality) [{smi_line}]")
+
+        # (d) the CLIs as subprocesses: bddm_search beside demo_vocoder
+        # and then evaluate (most of each is its process's start)
+        env = dict(os.environ, PYTHONPATH=repo)
+        doc_hash = hashlib.sha256(open(bddm_doc, "rb").read()).hexdigest()
+        demo_in = os.path.join(root, "demo_in.wav")
+        audio_io.save_wav(synth_wav(2.0, 6), demo_in, acfg.sample_rate)
+        demo_out = os.path.join(root, "demo_out")
+
+        def cli(name, *args):
+            return [sys.executable, "-m",
+                    f"fastdiff_tpu_torch.scripts.{name}", *args]
+
+        def report_cli(name, rc, wall, stdout, stderr):
+            clis[name] = dict(rc=rc, wall_s=wall)
+            if rc != 0:
+                fail(f"{name} exited {rc}: {stderr[-2000:]}")
+            tail = [line for line in stdout.splitlines() if line]
+            phase(23, f"(d) python -m fastdiff_tpu_torch.scripts.{name}: "
+                      f"exit 0 in {wall:.1f} s; " + " | ".join(tail[-3:]))
+
+        clis = {}
+        t_search = time.perf_counter()
+        with open(os.path.join(root, "bddm.out"), "w+") as out, \
+                open(os.path.join(root, "bddm.err"), "w+") as err:
+            search_proc = subprocess.Popen(
+                cli("bddm_search", "--config", config, "--exp_name", "bddm",
+                    "--hparams", f"binary_data_dir={binary}",
+                    "--phi_steps", "5"),
+                cwd=root, env=env, stdout=out, stderr=err, text=True)
+            try:
+                for name, args in (("demo_vocoder", ["--wav", demo_in, "--N",
+                                                     "4", "--out", demo_out]),
+                                   ("evaluate", [demo_out])):
+                    t0 = time.perf_counter()
+                    proc = subprocess.run(cli(name, *args), cwd=root,
+                                          env=env, capture_output=True,
+                                          text=True, timeout=600)
+                    report_cli(name, proc.returncode,
+                               time.perf_counter() - t0, proc.stdout,
+                               proc.stderr)
+                rc = search_proc.wait(timeout=600)
+            finally:
+                if search_proc.poll() is None:
+                    search_proc.kill()
+                    search_proc.wait()
+            out.seek(0)
+            err.seek(0)
+            report_cli("bddm_search", rc, time.perf_counter() - t_search,
+                       out.read(), err.read())
+        pred, _ = audio_io.load_wav(os.path.join(demo_out,
+                                                 "demo_in_pred.wav"))
+        gt2, _ = audio_io.load_wav(os.path.join(demo_out, "demo_in_gt.wav"))
+        if len(pred) != len(gt2) or len(pred) % HOP_SIZE or \
+                not np.isfinite(pred).all():
+            fail(f"demo_vocoder wrote {len(pred)} / {len(gt2)} samples")
+        work = os.path.join(root, "checkpoints", "bddm")
+        with open(os.path.join(work, "bddm_schedules.json")) as f:
+            written = json.load(f)
+        if sorted(written, key=int) != [str(n) for n in sorted(BDDM_N)] or \
+                not os.path.exists(os.path.join(work, "bddm_report.md")):
+            fail(f"bddm_search wrote {sorted(written)} under {work}")
+        if hashlib.sha256(open(bddm_doc, "rb").read()).hexdigest() != \
+                doc_hash:
+            fail("bddm_search changed docs/BDDM.md")
+        phase(23, f"(d) demo_vocoder wrote {len(pred)} samples; "
+                  f"bddm_search wrote bddm_schedules.json (N "
+                  f"{sorted(written, key=int)}) and bddm_report.md under "
+                  "its work dir; docs/BDDM.md unchanged")
+        return {"phi_step_ms": steady, "phi_first_step_ms": step_ms[0],
+                "phi_step_ms_all": step_ms, "phi_losses": losses,
+                "launches_per_phi_step": per,
+                "route_check": dict(kernel_loss=k_loss, plain_loss=p_loss,
+                                    cpu_loss=c_loss, kernel_vs_plain=kp_loss,
+                                    kernel_vs_plain_grad=kp_grad,
+                                    card_vs_cpu=pc_loss,
+                                    card_vs_cpu_grad=pc_grad),
+                "search": search, "eval": evals, "clis": clis,
+                "device": smi_line}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def check_no_jax():
     """Fail if jax or any module of the JAX package was imported."""
     bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
@@ -2352,6 +2733,13 @@ def main():
     phase(22, f"done in {tts_report['wall_s']:.1f} s")
     check_no_jax()
 
+    # --- phase 23: BDDM and evaluation --------------------------------------
+    t0 = time.perf_counter()
+    bddm_report = phase23_bddm(torch, counters, all_counters, dev, smi_line)
+    bddm_report["wall_s"] = time.perf_counter() - t0
+    phase(23, f"done in {bddm_report['wall_s']:.1f} s")
+    check_no_jax()
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -2416,7 +2804,8 @@ def main():
                                          for b, row in fh.items()},
                       "graph_vs_eager_ms": graph_report,
                       "train_step": train_report, "fit_s": fit_s,
-                      "entry": entry_report, "tts": tts_report}),
+                      "entry": entry_report, "tts": tts_report,
+                      "bddm": bddm_report}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

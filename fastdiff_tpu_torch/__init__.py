@@ -7,20 +7,23 @@ one CUDA graph per shape, served over HTTP, chunked, streamed or batched)
 on every inference route, the trainer, the wav / mel front end, the
 binarizer, the vocoder registry with the Griffin-Lim vocoders, and the TTS
 serving path (the text front end, FastSpeech 2 and
-``FastSpeech2Task.infer_to_wav`` into the vocoder), written as PyTorch
-modules. Every kernel the JAX package wrote in Pallas (the LVC
-blocks, the predictor heads, the down path and the two experiment
-scripts' kernels) is hand-written CUDA C++ for ``sm_90a`` (``csrc/``),
-built with ``nvcc`` on first use; every other op is plain PyTorch. Entry
-points run on the CUDA card unless the caller asks for the CPU; on CPU
-tensors each kernel wrapper runs its plain PyTorch version.
+``FastSpeech2Task.infer_to_wav`` into the vocoder), BDDM's noise-schedule
+search (the phi predictor, its training and the reverse search) and the
+objective metrics (MCD, MR-STFT, PESQ; ``evaluate``, ``demo_vocoder``),
+written as PyTorch modules. Every kernel the JAX package wrote in Pallas
+(the LVC blocks, the predictor heads, the down path and the two
+experiment scripts' kernels) is hand-written CUDA C++ for ``sm_90a``
+(``csrc/``), built with ``nvcc`` on first use; every other op is plain
+PyTorch. Entry points run on the CUDA card unless the caller asks for the
+CPU; on CPU tensors each kernel wrapper runs its plain PyTorch version.
 
 Module names follow ``fastdiff_tpu`` so each port module sits beside its
 JAX counterpart. The package imports neither jax nor ``fastdiff_tpu`` nor
 PyYAML: it keeps its own copies of the jax-free modules it needs
 (``config``, ``diffusion/schedules``, ``data``, ``text``,
 ``ops/loudness``, the numpy halves of ``ops/{dsp,pitch,cwt}``,
-``utils/{audio_io,multiprocess,logging_utils}``) and reads its YAML configs itself.
+``utils/{audio_io,multiprocess,logging_utils,metrics,pesq}``) and reads
+its YAML configs itself.
 """
 
 __version__ = "0.1.0"
@@ -52,6 +55,14 @@ def __getattr__(name):
         "FastSpeech2Task": ("fastdiff_tpu_torch.training.tts_task",
                             "FastSpeech2Task"),
         "TTSPipeline": ("fastdiff_tpu_torch.tts.infer", "TTSPipeline"),
+        "NoisePredictor": ("fastdiff_tpu_torch.diffusion.noise_predictor",
+                           "NoisePredictor"),
+        "phi_loss": ("fastdiff_tpu_torch.diffusion.noise_predictor",
+                     "phi_loss"),
+        "search_noise_schedule": (
+            "fastdiff_tpu_torch.diffusion.noise_predictor",
+            "search_noise_schedule"),
+        "denoise": ("fastdiff_tpu_torch.vocoders.denoise", "denoise"),
     }
     if name in lazy:
         import importlib

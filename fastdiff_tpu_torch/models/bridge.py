@@ -26,6 +26,10 @@ Three directions:
   such as its gradients) back to the JAX tree, numpy leaves in JAX's
   layouts. It inverts ``trainable_params_from_jax`` exactly: every step is
   a transpose or a flip.
+
+FastSpeech 2 (``fs2_params_from_jax`` / ``fs2_params_to_jax``) and the BDDM
+noise predictor (``phi_params_from_jax`` / ``phi_params_to_jax``) convert
+both ways in the same layouts.
 """
 
 from __future__ import annotations
@@ -227,3 +231,30 @@ def fs2_params_to_jax(state: dict, cfg) -> dict:
                               "b": b})
     _check_fs2_depth(len(tree["encoder"]), len(tree["decoder"]), cfg)
     return tree
+
+
+def phi_params_from_jax(tree: dict) -> dict:
+    """JAX noise-predictor tree (``init_noise_predictor``: ``convs``, a list
+    of (K, I, O) convs, and dense ``fc1``, ``fc2``) -> ``NoisePredictor``
+    state_dict: conv weights (O, I, K), dense (O, I)."""
+    layers = [(f"convs.{i}", p, "conv") for i, p in enumerate(tree["convs"])]
+    layers += [(name, tree[name], "dense") for name in ("fc1", "fc2")]
+    state = {}
+    for name, p, kind in layers:
+        state[f"{name}.weight"] = _tensor(_to_torch(_f32(p["w"]), kind))
+        state[f"{name}.bias"] = _tensor(p["b"])
+    return state
+
+
+def phi_params_to_jax(state: dict) -> dict:
+    """A ``NoisePredictor`` state_dict (or anything keyed like it, such as
+    its gradients) -> JAX's tree, numpy float32 leaves in JAX's layouts;
+    the inverse of ``phi_params_from_jax``."""
+    def layer(name: str, kind: str) -> dict:
+        w = state[f"{name}.weight"].detach().cpu().float().numpy()
+        return {"w": np.ascontiguousarray(_from_torch(w, kind)),
+                "b": state[f"{name}.bias"].detach().cpu().float().numpy()}
+
+    n_convs = len({k.split(".")[1] for k in state if k.startswith("convs.")})
+    return {"convs": [layer(f"convs.{i}", "conv") for i in range(n_convs)],
+            "fc1": layer("fc1", "dense"), "fc2": layer("fc2", "dense")}

@@ -14,9 +14,10 @@ The route of the LVC blocks comes from ``use_pallas_block``
 
 Inference (``Trainer.test``): ``test_dataloader`` yields the test split, or
 the wavs of ``test_input_dir`` / the ``.npy`` mels of ``test_mel_dir``
-featurized by the binarizer; ``make_test_sampler`` loads fused inference
-weights into a ``FastDiff`` on the route ``resolve_infer_route`` picks and
-returns ``make_param_sampler`` over it, one CUDA graph per padded length;
+featurized by the binarizer; ``inference_model`` loads fused inference
+weights into a ``FastDiff`` on the route ``resolve_infer_route`` picks (the
+score network of the BDDM search too), and ``make_test_sampler`` returns
+``make_param_sampler`` over it, one CUDA graph per padded length;
 ``test_step`` edge-pads the mel to a multiple of ``infer_frame_bucket``
 frames (128), so utterances of one bucket replay one graph, trims the
 waveform back to frames * hop, peak-normalizes it, writes
@@ -187,18 +188,25 @@ class FastDiffTask:
     def sampler_constants(self) -> schedules.SamplerConstants:
         return constants_for_hparams(self.hparams)
 
-    def make_test_sampler(self, state_dict: dict,
-                          constants: schedules.SamplerConstants
-                          ) -> ParamGraphSampler:
-        """The graph sampler over an inference ``FastDiff`` on the task's
-        device, on the route ``use_pallas_block`` picks, holding the fused
-        weights ``state_dict``: ``sampler(None, generator, mel,
-        audio_length, *, noise=None)``."""
+    def inference_model(self, state_dict: dict) -> FastDiff:
+        """The inference ``FastDiff`` on the route ``use_pallas_block`` picks
+        (``resolve_infer_route``, ``resolve_down_kernel``), on the task's
+        device, in eval mode, holding the fused weights ``state_dict``: the
+        counterpart of JAX's ``param_apply_fn``, called as ``model(x, mel,
+        t)``."""
         model = FastDiff(self.model_cfg, seed=None,
                          infer_route=resolve_infer_route(self.hparams),
                          down_kernel=resolve_down_kernel(self.hparams))
         model.load_state_dict(state_dict)
-        return make_param_sampler(model.to(self.device).eval(), constants)
+        return model.to(self.device).eval()
+
+    def make_test_sampler(self, state_dict: dict,
+                          constants: schedules.SamplerConstants
+                          ) -> ParamGraphSampler:
+        """The graph sampler over ``inference_model(state_dict)``:
+        ``sampler(None, generator, mel, audio_length, *, noise=None)``."""
+        return make_param_sampler(self.inference_model(state_dict),
+                                  constants)
 
     def test_step(self, sample: Dict, sampler: ParamGraphSampler,
                   gen_dir: str, generator: torch.Generator,

@@ -77,6 +77,18 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.tts.infer\n"
             "import fastdiff_tpu_torch.scripts.demo_tts\n"
             "from fastdiff_tpu_torch import FastSpeech2Task, TTSPipeline\n"
+            "import fastdiff_tpu_torch.utils.pesq\n"
+            "import fastdiff_tpu_torch.utils.metrics\n"
+            "import fastdiff_tpu_torch.vocoders.denoise\n"
+            "import fastdiff_tpu_torch.diffusion.noise_predictor\n"
+            "import fastdiff_tpu_torch.scripts.bddm_search\n"
+            "import fastdiff_tpu_torch.scripts.evaluate\n"
+            "import fastdiff_tpu_torch.scripts.demo_vocoder\n"
+            "from fastdiff_tpu_torch import (NoisePredictor, "
+            "search_noise_schedule)\n"
+            "from fastdiff_tpu_torch.utils.metrics import mcd\n"
+            "import numpy\n"
+            "assert mcd(numpy.full(4096, 0.1), numpy.full(4096, 0.1)) == 0.0\n"
             "from fastdiff_tpu_torch.text.processors import "
             "get_txt_processor_cls\n"
             "for name in ('en', 'zh'):\n"
