@@ -192,7 +192,21 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     then ``evaluate`` on a 2 s wav, and beside them ``bddm_search
     --phi_steps 5`` on the synthetic dataset, as subprocesses: exit 0,
     their files written (the search's under its work dir) and
-    ``docs/BDDM.md`` unchanged.
+    ``docs/BDDM.md`` unchanged;
+24. FastSpeech 2 training at the full width of
+    ``fastdiff_tpu/configs/fs2_ljspeech.yaml`` (hidden 256, 4 + 4 layers,
+    FFN 1024 k 9, ``max_sentences`` 48), TF32 off but for the vocoder:
+    (a) 56 synthesized utterances of 1-6 s with ``.txt`` sidecars through
+    ``pre_align_cli`` (``TTSPreAlign``, ``en``), an MFA-style TextGrid each
+    and the ``binarize`` CLI (alignment, f0): items per split, aligned
+    records, walls; (b) one ``train_step`` on the card against one on the
+    CPU (same weights and batch: loss terms rel 1e-5, gradients rel L2
+    1e-4); (c) ``run.main`` fit for 30 updates (ms per step by CUDA events,
+    peak memory, the last learning rate, checkpoints, validation losses,
+    figures or the trainer's warning), then 20 steps on one batch at lr
+    2e-4 lower the loss; (d) a fresh task restores the newest checkpoint
+    (state equal) and ``infer_to_wav`` vocodes two sentences on ``auto``
+    -> ncl with K3 +12 / K1 +8 / K2 +4 per utterance.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each of the twelve kernels' launches (from the run of its path: phase
@@ -208,7 +222,11 @@ beside them; ``entry`` holds phase 21's RTF per utterance and GLMel's
 wall, ``tts`` phase 22's rows per utterance (frames, FastSpeech 2 ms,
 vocoder ms, RTF) and its wall, ``bddm`` phase 23's (phi step ms and
 launches, the route checks, each search and each schedule's sample ms and
-metrics, the CLIs' walls). The last line is ``{"ok": true, "device":
+metrics, the CLIs' walls), ``fs2_train`` phase 24's (pipeline counts and
+walls, card vs CPU errors, fit ms per step, peak memory, losses, launches
+per utterance), and each kernel carries
+``fs2_infer_launches_per_utterance``, its launches per ``infer_to_wav`` of
+the trained FastSpeech 2 in phase 24. The last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -1691,8 +1709,6 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
     ms and the RTF of ``infer_to_wav`` by CUDA events; (d) ``python -m
     fastdiff_tpu_torch.scripts.demo_tts`` as a subprocess on the teacher
     mels, and no jax, ``fastdiff_tpu`` or PyYAML imported."""
-    from torch.func import functional_call
-
     from fastdiff_tpu_torch.models.fastspeech2 import (FastSpeech2,
                                                        dur_to_mel2ph,
                                                        mel2ph_to_dur)
@@ -1734,9 +1750,9 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
         tokens = [np.asarray(encoder.encode(" ".join(ph))) for ph in phones]
         task = FastSpeech2Task(hp, device=dev)
         state = task.build_state(seed=0)
-        params = state["params"]
+        model = state.model.eval()
         cfg = task.model_cfg
-        n_params = sum(p.numel() for p in params.values())
+        n_params = sum(p.numel() for p in model.parameters())
         tf32 = (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
                 f"cuDNN {torch.backends.cudnn.allow_tf32}")
         phase(22, f"fs2_ljspeech.yaml: FastSpeech 2 hidden {cfg.hidden}, "
@@ -1750,7 +1766,7 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
 
         def forward(tok, **kw):
             t = torch.as_tensor(tok, device=dev)[None]
-            return functional_call(task.model, params, (t,), kw)
+            return model(t, **kw)
 
         # (a) predicted durations, through infer_to_wav
         rows = []
@@ -1798,7 +1814,8 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
 
         # (b) teacher durations; the card against the CPU, TF32 off
         cpu_model = FastSpeech2(cfg).eval()
-        cpu_model.load_state_dict({k: v.cpu() for k, v in params.items()})
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
         mel_dir = os.path.join(root, "mels")
         os.makedirs(mel_dir)
         saved = (torch.backends.cuda.matmul.allow_tf32,
@@ -1910,6 +1927,701 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
                          "cudnn": torch.backends.cudnn.allow_tf32},
                 "device": smi_line}
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 24: 48 training utterances (one batch of fs2_ljspeech.yaml's
+# max_sentences) and 8 for validation (test_num), of 1-6 s
+FS2_TRAIN, FS2_VALID = 48, 8
+FS2_SENTENCES = TTS_SENTENCES + (
+    "It was a bright cold day in April.",
+    "The birch canoe slid on the smooth planks.",
+    "Glue the sheet to the dark blue background.",
+    "These days a chicken leg is a rare dish.",
+    "The commission also found that the procedures were not adequate.",
+    "A large crowd gathered near the old stone bridge at noon.",
+    "Rice is often served in round bowls.",
+    "He wrote a long letter to the editor of the local paper, asking "
+    "for an apology.")
+FS2_STEPS, FS2_VAL_EVERY, FS2_FIXED_STEPS = 30, 15, 20
+# per-tensor gradient bound of the card-vs-CPU step: a few ReLU inputs of
+# the 154 M land across 0 from float64 in float32 (on the card 4 of the
+# 7.5 M in encoder.1's FFN), each switching its unit's gradient on or off;
+# the LayerNorm before that FFN then takes ~2e-4 of error into its scale's
+# gradient, while every op alone errs < 1e-6 (phase 24(b) prints both)
+FS2_TENSOR_BOUND = 1e-3
+
+
+def synth_voice(seconds: float, rng) -> np.ndarray:
+    """A voiced tone at 22.05 kHz with a wandering f0 (90-240 Hz, jitter
+    and a slow contour), five harmonics, unvoiced gaps of breath noise and
+    background noise (the repository holds no audio)."""
+    sr = int(round(1 / AUDIO_SECONDS_PER_SAMPLE))
+    n = int(round(seconds * sr))
+    t = np.arange(n) / sr
+    knots = rng.normal(0.0, 0.1, int(seconds * 4) + 2)
+    contour = np.interp(t, np.linspace(0, seconds, len(knots)), knots)
+    f0 = rng.uniform(90, 240) * np.exp(contour) \
+        * (1 + 0.01 * rng.standard_normal(n))
+    ph = 2 * np.pi * np.cumsum(f0) / sr
+    voiced = sum(0.3 / k * np.sin(k * ph + rng.uniform(0, 6.28))
+                 for k in range(1, 6))
+    gate = np.ones(n)
+    for _ in range(int(seconds * 2)):
+        a = rng.integers(0, n)
+        gate[a: a + int(rng.uniform(0.04, 0.12) * sr)] = 0.0
+    gate = np.convolve(gate, np.ones(256) / 256, mode="same")
+    noise = rng.standard_normal(n)
+    wav = voiced * gate + noise * (0.005 + 0.05 * (1 - gate))
+    return (0.8 * wav / np.abs(wav).max()).astype(np.float32)
+
+
+def fs2_stations(cfg) -> list:
+    """Where phase 24(b) reads FastSpeech 2's gradient, from the loss back
+    to the embeddings: (label, module path, what: "out" or "in", the
+    gradient of its output or of its first input, which is that tensor's
+    whole gradient; "value" or "arg", its output or its first input
+    itself; "frames" or "phones": the axis of its rows). ``frames`` is the
+    length regulator's output, ``phones`` the encoder's."""
+    frames = ("pitch_predictor" if cfg.use_pitch else "energy_predictor"
+              if cfg.use_energy else None)
+    regulator = ([("frames value", frames, "arg", "frames"),
+                  (f"{frames} value", frames, "value", "frames"),
+                  (f"{frames} out", frames, "out", "frames"),
+                  ("frames", frames, "in", "frames")] if frames else [])
+    return ([("mel_out", "mel_out", "out", "frames"),
+             ("dec_ln", "dec_ln", "out", "frames")]
+            + [(f"decoder.{i}", f"decoder.{i}", "out", "frames")
+               for i in reversed(range(cfg.dec_layers))]
+            + [("decoder.0 in", "decoder.0", "in", "frames")] + regulator
+            + [("dur_predictor out", "dur_predictor", "out", "phones"),
+               ("phones", "dur_predictor", "in", "phones"),
+               ("enc_ln", "enc_ln", "out", "phones")]
+            + [(f"encoder.{i}", f"encoder.{i}", "out", "phones")
+               for i in reversed(range(cfg.enc_layers))]
+            + [("encoder.0 in", "encoder.0", "in", "phones")])
+
+
+def relu_inputs(model) -> list:
+    """The paths of FastSpeech 2's convolutions whose outputs go through a
+    ReLU: each FFN's first, both of each variance predictor's."""
+    return [name for name, _ in model.named_modules()
+            if name.endswith("ffn.conv1") or "_predictor.conv" in name]
+
+
+def catch_values(model, paths) -> tuple:
+    """({path: output}, hook handles): forward hooks that keep each output
+    of ``model``'s modules at ``paths``."""
+    values = {}
+    handles = [model.get_submodule(path).register_forward_hook(
+        lambda m, a, out, path=path: values.__setitem__(path, out.detach()))
+        for path in paths]
+    return values, handles
+
+
+def catch_grads(torch, model, paths, keep_args: bool = False) -> tuple:
+    """({path: {"out": grad, "in": grad, "value": output, "arg": first
+    input, "args": inputs}}, hook handles): forward hooks on ``model``'s
+    modules at ``paths`` that keep each one's output and first input, the
+    gradients of both once the backward reaches them, and with
+    ``keep_args`` all its inputs."""
+    caught = {path: {} for path in paths}
+
+    def hook(module, args, out, got):
+        got["value"], got["arg"] = out.detach(), args[0].detach()
+        if keep_args:
+            got["args"] = [a.detach() if torch.is_tensor(a) else a
+                           for a in args]
+        out.register_hook(lambda g: got.__setitem__("out", g.detach()))
+        if torch.is_tensor(args[0]) and args[0].requires_grad:
+            args[0].register_hook(lambda g: got.__setitem__("in",
+                                                            g.detach()))
+    handles = [model.get_submodule(path).register_forward_hook(
+        lambda m, a, o, got=caught[path]: hook(m, a, o, got))
+        for path in paths]
+    return caught, handles
+
+
+def module_alone(torch, module, got, dtype, device,
+                 params: bool = True) -> tuple:
+    """(input gradient, {parameter name: gradient}) of ``module``'s
+    backward alone, a copy of it in ``dtype`` on ``device``, fed ``got``'s
+    inputs and output gradient (``catch_grads`` with ``keep_args``); no
+    parameter gradients unless ``params``."""
+    import copy
+    module = copy.deepcopy(module).to(device, dtype)
+    args = [a.to(device, dtype if a.is_floating_point() else a.dtype)
+            if torch.is_tensor(a) else a for a in got["args"]]
+    x = args[0].requires_grad_()
+    params = dict(module.named_parameters()) if params else {}
+    out = torch.autograd.grad(module(x, *args[1:]),
+                              [x] + list(params.values()),
+                              got["out"].to(device, dtype))
+    return out[0], dict(zip(params, out[1:]))
+
+
+def regulator_path(torch, model64, mel2ph, caught64, frames: str,
+                   dev) -> dict:
+    """The backward at the encoder's output, op by op: the length
+    regulator's gather (its backward sums each frame's gradient, the
+    ``frames`` station's, into its phone) and the duration and pitch
+    predictors' input gradients, each alone in float32 on the card and on
+    the CPU, fed the float64 pass's tensors (``caught64``), against the
+    same backward in float64."""
+    f32, f64 = torch.float32, torch.float64
+    phones = caught64["dur_predictor"]["args"][0].shape[1]
+
+    def gather(dtype, device):
+        gy = caught64[frames]["in"].to(device, dtype)
+        b, _, h = gy.shape
+        padded = torch.zeros((b, phones + 1, h), dtype=dtype, device=device,
+                             requires_grad=True)
+        idx = mel2ph.to(device)[..., None].expand(-1, -1, h)
+        return torch.autograd.grad(torch.gather(padded, 1, idx), padded,
+                                   gy)[0][:, 1:]
+
+    ops = {"gather": gather}
+    for path in ("dur_predictor", frames):
+        if path != "decoder.0":
+            ops[path] = (lambda dtype, device, path=path: module_alone(
+                torch, model64.get_submodule(path), caught64[path], dtype,
+                device, params=False)[0])
+    report = {}
+    for name, op in ops.items():
+        ref = op(f64, dev)
+        report[name] = {side: rel_l2(op(f32, d).to(dev), ref)
+                        for side, d in (("card", dev), ("cpu", "cpu"))}
+    return report
+
+
+def fs2_layer_parts(cfg) -> list:
+    """Each transformer layer's LayerNorms and the modules they feed."""
+    return [f"{stack}.{i}.{part}"
+            for stack, n in (("encoder", cfg.enc_layers),
+                             ("decoder", cfg.dec_layers))
+            for i in range(n) for part in ("ln1", "attn", "ln2", "ffn")]
+
+
+def grad_error_path(torch, model64, caught, caught64, name: str,
+                    dev) -> dict:
+    """Where the card's float32 error in the gradient of parameter
+    ``name`` comes from, when the module that owns it (``owner``, a
+    transformer layer's LayerNorm, say) was hooked in the card's float32
+    pass (``caught``) and the float64 pass (``caught64``), both with
+    ``keep_args``. ``owner_alone``: the owner's backward alone in float32,
+    on the card and on the CPU, fed the float64 pass's inputs and output
+    gradient, against the same backward in float64 (the error the op
+    itself makes). ``carried``: the owner's float64 backward fed the
+    card's own float32 inputs and output gradient (the error that reaches
+    it); ``dy_vs_f64``: that output gradient's error. For a layer's
+    ``ln1`` / ``ln2``, the same for the module its output feeds (``attn``
+    / ``ffn``), whose input gradient is the owner's output gradient."""
+    f32, f64 = torch.float32, torch.float64
+    sides = (("card", dev), ("cpu", "cpu"))
+    owner, key = name.rsplit(".", 1)
+    report = {"name": name, "owner": owner, "owner_type": type(
+        model64.get_submodule(owner)).__name__, "hooked": owner in caught64}
+    if not report["hooked"]:
+        return report
+
+    def alone(path, got, dtype, device, params=True):
+        return module_alone(torch, model64.get_submodule(path), got, dtype,
+                            device, params)
+
+    ref = alone(owner, caught64[owner], f64, dev)[1][key]
+    report.update(
+        owner_alone={side: rel_l2(alone(owner, caught64[owner], f32, d)[1][
+            key].to(dev), ref) for side, d in sides},
+        carried=rel_l2(alone(owner, caught[owner], f64, dev)[1][key], ref),
+        dy_vs_f64=rel_l2(caught[owner]["out"], caught64[owner]["out"]))
+    parent, _, leaf = owner.rpartition(".")
+    feeds = {"ln1": "attn", "ln2": "ffn"}.get(leaf)
+    consumer = f"{parent}.{feeds}"
+    if feeds and consumer in caught64:
+        ref = alone(consumer, caught64[consumer], f64, dev, False)[0]
+        report.update(
+            consumer=consumer,
+            consumer_alone={side: rel_l2(alone(
+                consumer, caught64[consumer], f32, d, False)[0].to(dev), ref)
+                for side, d in sides},
+            consumer_dy_vs_f64=rel_l2(caught[consumer]["out"],
+                                      caught64[consumer]["out"]))
+    return report
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase24_fs2_train(torch, all_counters, dev, smi_line) -> dict:
+    """FastSpeech 2 training at ``fastdiff_tpu/configs/fs2_ljspeech.yaml``'s
+    full width (hidden 256, 4 + 4 layers, 2 heads, FFN 1024 k 9,
+    ``max_sentences`` 48), from raw audio to a vocoded wav, TF32 off but
+    for the vocoder (torch's defaults): (a) 56 synthesized utterances of
+    1-6 s with ``.txt`` sidecars -> ``pre_align_cli`` (``TTSPreAlign``, the
+    ``en`` processor) -> an MFA-style TextGrid per utterance from its
+    phones -> ``python -m fastdiff_tpu_torch.data.binarize`` (``with_align``,
+    ``with_f0``), both as subprocesses: items per split, records with a
+    TextGrid ``mel2ph``, each stage's wall; (b) one ``train_step`` on the
+    card and one on the CPU from the same seed-0 weights and first batch:
+    the loss and each term (rel <= 1e-5) and the gradients (global rel L2 <=
+    1e-4; each tensor's, card against CPU and each against float64 on the
+    card, <= ``FS2_TENSOR_BOUND``); (c) ``run.main`` (``--device cuda``)
+    for 30 updates, validating every 15: ms per ``train_step`` by CUDA
+    events (median of steps 4-30) with each batch's padded shape, peak
+    memory, the last update's learning rate against
+    ``optim.learning_rate``, the checkpoints, the validation losses and
+    whether the figures were written or the trainer warned; then 20 steps
+    on one batch at ``scheduler: none`` (lr 2e-4) must lower the total
+    loss; (d) a fresh task restores the newest checkpoint (equal to the
+    fit's state) and ``infer_to_wav`` vocodes two sentences through the
+    FastDiff vocoder on ``auto`` -> ``ncl``: K3 +12 / K1 +8 / K2 +4 / the
+    CUDA-core Kernel B +0 per utterance, finite wavs of frames * 256
+    samples."""
+    import contextlib
+    import csv
+    import importlib.util
+
+    from fastdiff_tpu_torch import run
+    from fastdiff_tpu_torch.data.align import mfa_textgrid
+    from fastdiff_tpu_torch.data.indexed_dataset import IndexedDataset
+    from fastdiff_tpu_torch.data.pre_align import TTSPreAlign
+    from fastdiff_tpu_torch.text.encoder import build_token_encoder
+    from fastdiff_tpu_torch.text.processors import get_txt_processor_cls
+    from fastdiff_tpu_torch.training import checkpoint as ckpt
+    from fastdiff_tpu_torch.training.optim import learning_rate
+    from fastdiff_tpu_torch.training.trainer import Trainer
+    from fastdiff_tpu_torch.training.tts_task import FastSpeech2Task
+    from fastdiff_tpu_torch.utils import audio_io
+    from fastdiff_tpu_torch.utils.hparams import set_hparams
+    from fastdiff_tpu_torch.vocoders import get_vocoder_cls
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "fastdiff_tpu", "configs",
+                          "fs2_ljspeech.yaml")
+    root = tempfile.mkdtemp(prefix="fastdiff_fs2_")
+    cwd = os.getcwd()
+    per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
+           "lvc_block_ncl_cc": 0}
+    report = {"device": smi_line}
+    walls = report["walls_s"] = {}
+
+    @contextlib.contextmanager
+    def tf32(matmul: bool, cudnn: bool):
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+
+    def cli(module, hparams):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", module, "--config", config, "--hparams",
+             hparams], cwd=root, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        return time.perf_counter() - t0
+
+    try:
+        os.chdir(root)
+        # (a) raw wavs -> pre-align -> TextGrids -> binarize
+        raw, processed, binary = (os.path.join(root, d) for d in
+                                  ("raw", "processed", "binary"))
+        os.makedirs(raw)
+        rng = np.random.default_rng(24)
+        en = get_txt_processor_cls("en")
+        t0 = time.perf_counter()
+        seconds = []
+        for i in range(FS2_TRAIN + FS2_VALID):
+            text = FS2_SENTENCES[i % len(FS2_SENTENCES)]
+            n_ph = len(TTSPreAlign.process_text(en, text, {})[0].split())
+            sec = float(np.clip(n_ph / 14 * rng.uniform(0.8, 1.2), 1, 6))
+            seconds.append(sec)
+            audio_io.save_wav(synth_voice(sec, rng),
+                              os.path.join(raw, f"utt{i:02d}.wav"), 22050)
+            with open(os.path.join(raw, f"utt{i:02d}.txt"), "w") as f:
+                f.write(text)
+        walls["synthesize"] = time.perf_counter() - t0
+        paths = (f"raw_data_dir={raw},processed_data_dir={processed},"
+                 f"binary_data_dir={binary},test_num={FS2_VALID}")
+        walls["pre_align"] = cli(
+            "fastdiff_tpu_torch.data.pre_align_cli",
+            paths + ",pre_align_cls=fastdiff_tpu.data.pre_align.TTSPreAlign")
+        t0 = time.perf_counter()
+        meta_fn = os.path.join(processed, "metadata_phone.csv")
+        with open(meta_fn, newline="") as f:
+            rows = list(csv.DictReader(f))
+        for r in rows:
+            wav, sr = audio_io.load_wav(r["wav_fn"])
+            r["tg_fn"] = os.path.splitext(r["wav_fn"])[0] + ".TextGrid"
+            with open(r["tg_fn"], "w") as f:
+                f.write(mfa_textgrid(r["ph"].split(), len(wav) / sr, rng))
+        with open(meta_fn, "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+            writer.writeheader()
+            writer.writerows(rows)
+        walls["textgrids"] = time.perf_counter() - t0
+        walls["binarize"] = cli("fastdiff_tpu_torch.data.binarize", paths)
+        splits, aligned, frames = {}, 0, []
+        for prefix in ("train", "valid", "test"):
+            ds = IndexedDataset(os.path.join(binary, prefix))
+            items = [ds[i] for i in range(len(ds))]
+            splits[prefix] = len(items)
+            aligned += sum("mel2ph" in it and int(it["dur"].sum()) == it["len"]
+                           for it in items if prefix != "test")
+            frames += [it["len"] for it in items]
+        report.update(splits=splits, aligned=aligned,
+                      seconds=[min(seconds), max(seconds)],
+                      frames=[min(frames), max(frames)])
+        phase(24, f"(a) {len(rows)} utterances of {min(seconds):.2f}-"
+                  f"{max(seconds):.2f} s ({min(frames)}-{max(frames)} "
+                  f"frames) -> pre_align_cli (TTSPreAlign, en) -> TextGrids "
+                  f"-> binarize: items per split {splits}, {aligned} records "
+                  f"with a TextGrid mel2ph; walls " + ", ".join(
+                      f"{k} {v:.2f} s" for k, v in walls.items()))
+        if splits != {"train": FS2_TRAIN, "valid": FS2_VALID,
+                      "test": FS2_VALID} or aligned != FS2_TRAIN + FS2_VALID:
+            fail(f"binarized {splits}, {aligned} aligned")
+
+        hp = set_hparams(config=config, hparams_str=paths, print_hparams=False,
+                         global_hparams=False)
+        with tf32(False, False):
+            # (b) one step on the card and one on the CPU
+            t0 = time.perf_counter()
+            steps = {}
+            for name, device in (("card", dev), ("cpu", "cpu")):
+                task = FastSpeech2Task(hp, device=device)
+                state = task.build_state(seed=0)
+                batch = next(task.train_dataloader())
+                grads = []
+                state.optimizer.step = lambda g, update=state.optimizer.step: (
+                    grads.append([x.detach().cpu() for x in g]), update(g))
+                at = fs2_stations(task.model_cfg)
+                hooked = sorted({module for _, module, _, _ in at}
+                                | set(fs2_layer_parts(task.model_cfg)))
+                caught, handles = catch_grads(torch, state.model, hooked,
+                                              keep_args=name == "card")
+                pre_relu, more = catch_values(state.model,
+                                              relu_inputs(state.model))
+                handles += more
+                t1 = time.perf_counter()
+                losses = task.train_step(state, batch)
+                steps[name] = dict(losses=losses, grads=grads[0],
+                                   s=time.perf_counter() - t1,
+                                   names=[n for n, _ in
+                                          state.model.named_parameters()],
+                                   stations=caught, pre_relu=pre_relu)
+                for h in handles:
+                    h.remove()
+            # the same gradients in float64 on the card: how far each
+            # device's float32 lies from them
+            task = FastSpeech2Task(hp, device=dev)
+            model64 = task.build_state(seed=0).model.double()
+            batch64 = {k: v.double() if v.is_floating_point() else v
+                       for k, v in task._to_device(batch).items()}
+            caught64, handles = catch_grads(torch, model64, hooked,
+                                            keep_args=True)
+            pre_relu64, more = catch_values(model64, relu_inputs(model64))
+            handles += more
+            grads64 = [g.cpu() for g in torch.autograd.grad(
+                task.loss(model64, batch64)["total"],
+                list(model64.parameters()))]
+            for h in handles:
+                h.remove()
+            # each station's gradient against float64, card and CPU, over
+            # all rows and over the rows that are not padding
+            valid = {"frames": torch.as_tensor(batch["mel2ph"]) > 0,
+                     "phones": torch.as_tensor(batch["tokens"]) > 0}
+            stations = {}
+            for label, module, end, axis in at:
+                ref = caught64[module][end]
+                rows = valid[axis].to(dev)
+                stations[label] = {
+                    side + suffix: rel_l2(got[rows], ref[rows]) if suffix
+                    else rel_l2(got, ref)
+                    for side in ("card", "cpu")
+                    for got in [steps[side]["stations"][module][end].to(dev)]
+                    for suffix in ("", "_valid")}
+            t1 = time.perf_counter()
+            # ReLU units on the other side of 0 from float64: each turns
+            # its unit's gradient on or off
+            flips = {side: {path: int(((v.to(dev) > 0) != (
+                pre_relu64[path] > 0)).sum()) for path, v in
+                steps[side]["pre_relu"].items()} for side in ("card", "cpu")}
+            units = sum(v.numel() for v in pre_relu64.values())
+            regulator = regulator_path(
+                torch, model64, torch.as_tensor(batch["mel2ph"]), caught64,
+                {label: module for label, module, _, _ in at}.get(
+                    "frames", "decoder.0"), dev)
+            del pre_relu64
+            cfg = task.model_cfg
+            card, cpu = steps["card"], steps["cpu"]
+            loss_err = {k: abs(card["losses"][k] - v) / max(abs(v), 1e-30)
+                        for k, v in cpu["losses"].items()}
+
+            def flat(grads):
+                return torch.cat([g.double().flatten() for g in grads])
+
+            grad_err = rel_l2(flat(card["grads"]), flat(cpu["grads"]))
+            errs = {side: {n: rel_l2(a.double(), b.double()) for n, a, b in
+                           zip(card["names"], card[ga], other)}
+                    for side, ga, other in (
+                        ("card_cpu", "grads", cpu["grads"]),
+                        ("card_f64", "grads", grads64))}
+            errs["cpu_f64"] = {n: rel_l2(a.double(), b) for n, a, b in zip(
+                card["names"], cpu["grads"], grads64)}
+            worst = {side: max(e, key=e.get) for side, e in errs.items()}
+            path = grad_error_path(torch, model64, steps["card"]["stations"],
+                                   caught64, worst["card_f64"], dev)
+            del model64, batch64, caught64
+            for side in ("card", "cpu"):
+                del steps[side]["stations"], steps[side]["pre_relu"]
+            walls["error_path"] = time.perf_counter() - t1
+            n_params = sum(g.numel() for g in card["grads"])
+            vs_f64 = {"card": rel_l2(flat(card["grads"]), flat(grads64)),
+                      "cpu": rel_l2(flat(cpu["grads"]), flat(grads64))}
+            report["card_vs_cpu"] = dict(
+                loss_rel=loss_err, grad_rel_l2=grad_err,
+                grad_rel_l2_vs_f64=vs_f64,
+                worst={side: [n, errs[side][n]] for side, n in worst.items()},
+                worst_path=path, stations_vs_f64=stations,
+                regulator_vs_f64=regulator, relu_flips=flips,
+                relu_units=units,
+                batch=[list(batch["tokens"].shape),
+                       list(batch["mels"].shape)],
+                card_s=card["s"], cpu_s=cpu["s"])
+            walls["card_vs_cpu"] = time.perf_counter() - t0
+            phase(24, f"(b) fs2_ljspeech.yaml: hidden {cfg.hidden}, "
+                      f"{cfg.enc_layers} + {cfg.dec_layers} layers, "
+                      f"{cfg.num_heads} heads, FFN {cfg.ffn_hidden} k "
+                      f"{cfg.ffn_kernel}, vocab {cfg.vocab_size}, "
+                      f"{n_params / 1e6:.2f} M params (seed 0), TF32 off; "
+                      f"first batch tokens {tuple(batch['tokens'].shape)} "
+                      f"mels {tuple(batch['mels'].shape)}: card vs CPU "
+                      "train_step, loss terms rel " + ", ".join(
+                          f"{k} {v:.2e}" for k, v in loss_err.items())
+                      + f" (bound 1e-5); gradients global rel L2 "
+                      f"{grad_err:.2e} (bound 1e-4), against float64 on the "
+                      f"card: card {vs_f64['card']:.2e}, CPU "
+                      f"{vs_f64['cpu']:.2e}"
+                      "; worst tensor " + ", ".join(
+                          f"{side} {n} {errs[side][n]:.2e}"
+                          for side, n in worst.items())
+                      + f" (bound {FS2_TENSOR_BOUND:g}); step wall card "
+                      f"{card['s']:.2f} s (first, with cuDNN's plans), CPU "
+                      f"{cpu['s']:.2f} s")
+            phase(24, "(b) along the backward, against float64, card / "
+                      "CPU, all rows (rows that are not padding), each a "
+                      "gradient but the values: " + ", ".join(
+                          f"{k} {v['card']:.1e} ({v['card_valid']:.1e}) / "
+                          f"{v['cpu']:.1e} ({v['cpu_valid']:.1e})"
+                          for k, v in stations.items())
+                      + "; at the encoder's output, each backward alone in "
+                      "float32 fed float64's tensors, card / CPU: "
+                      + ", ".join(f"{k} {v['card']:.1e} / {v['cpu']:.1e}"
+                                  for k, v in regulator.items())
+                      + f"; ReLU inputs on the other side of 0 from "
+                      f"float64, of {units}: " + "; ".join(
+                          f"{side} {sum(f.values())} (" + ", ".join(
+                              f"{k} {v}" for k, v in f.items() if v) + ")"
+                          for side, f in flips.items()))
+            phase(24, f"(b) where the card's error in {path['name']} "
+                      f"({path['owner_type']}; the CPU's "
+                      f"{errs['cpu_f64'][path['name']]:.2e}) comes from, "
+                      "each against float64: " + (
+                          f"{path['owner']}'s backward alone, fed float64's "
+                          f"inputs: card {path['owner_alone']['card']:.2e}, "
+                          f"CPU {path['owner_alone']['cpu']:.2e}; float64's "
+                          "backward fed the card's float32 inputs "
+                          f"{path['carried']:.2e} (its output gradient off "
+                          f"by {path['dy_vs_f64']:.2e})"
+                          if path["hooked"] else
+                          f"{path['owner']} was not hooked")
+                      + (f"; that gradient is {path['consumer']}'s input "
+                         f"gradient: its backward alone, card "
+                         f"{path['consumer_alone']['card']:.2e}, CPU "
+                         f"{path['consumer_alone']['cpu']:.2e} (its own "
+                         f"output gradient off by "
+                         f"{path['consumer_dy_vs_f64']:.2e})"
+                         if "consumer" in path else ""))
+            if max(loss_err.values()) > 1e-5 or grad_err > 1e-4 or \
+                    max(errs[side][n] for side, n in worst.items()) > \
+                    FS2_TENSOR_BOUND:
+                fail("FastSpeech 2's train step on the card disagrees with "
+                     "the CPU")
+
+            # (c) run.py fit, each train_step timed by CUDA events
+            t0 = time.perf_counter()
+            timed, original = [], FastSpeech2Task.train_step
+
+            def train_step(self, state, batch, generator=None):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = original(self, state, batch, generator)
+                end.record()
+                end.synchronize()
+                timed.append((start.elapsed_time(end),
+                              tuple(batch["tokens"].shape[1:]) +
+                              tuple(batch["mels"].shape[1:2])))
+                return out
+
+            FastSpeech2Task.train_step = train_step
+            torch.cuda.reset_peak_memory_stats()
+            tee = _Tee(sys.stdout)
+            try:
+                with contextlib.redirect_stdout(tee):
+                    fit = run.main([
+                        "--config", config, "--exp_name", "fs2", "--reset",
+                        "--device", "cuda", "--hparams", paths +
+                        f",max_updates={FS2_STEPS},val_check_interval="
+                        f"{FS2_VAL_EVERY},num_sanity_val_steps=1,"
+                        "tb_log_interval=5"])
+            finally:
+                FastSpeech2Task.train_step = original
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            walls["fit"] = time.perf_counter() - t0
+            work = os.path.join(root, "checkpoints", "fs2")
+            state = fit["state"]
+            opt = state.optimizer
+            last_lr = learning_rate(opt.cfg, opt.count - 1,
+                                    opt.warmup_updates, opt.hidden_size)
+            s = max(opt.count - 1, 1)
+            formula = max(2e-4 * min(s / 8000, 1) * max(8000, s) ** -0.5
+                          * 256 ** -0.5, 1e-7)
+            ms = [t for t, _ in timed[3:]]
+            shapes = sorted({shape for _, shape in timed})
+            ckpts = sorted(f for f in os.listdir(work) if f.endswith(".ckpt"))
+            with open(os.path.join(work, "tb_logs", "metrics.jsonl")) as f:
+                logged = [json.loads(line) for line in f]
+            val = {r["step"]: r["val/loss"] for r in logged
+                   if "val/loss" in r}
+            fig_dir = os.path.join(work, "tb_logs", "figures")
+            pngs = sorted(os.listdir(fig_dir)) if os.path.isdir(fig_dir) \
+                else []
+            warned = "WARNING: val_figures failed" in tee.copy.getvalue()
+            has_mpl = importlib.util.find_spec("matplotlib") is not None
+            report["fit"] = dict(
+                steps=fit["step"], ms_median=float(np.median(ms)),
+                ms_min=float(np.min(ms)), ms_max=float(np.max(ms)),
+                shapes=shapes, peak_gib=peak, last_lr=last_lr,
+                checkpoints=ckpts, val_loss=val, pngs=pngs, warned=warned,
+                final_val=fit["val"]["loss"])
+            phase(24, f"(c) run.main fit --device cuda: {fit['step']} "
+                      f"updates, train_step {np.median(ms):.2f} ms median of "
+                      f"steps 4-{len(timed)} (min {np.min(ms):.2f}, max "
+                      f"{np.max(ms):.2f}) by CUDA events, padded (tokens, "
+                      f"frames) {shapes} x {hp['max_sentences']}; peak "
+                      f"memory {peak:.2f} GiB; last update's lr {last_lr:.3e}"
+                      f" (optim.learning_rate; the formula gives "
+                      f"{formula:.3e}, warm-up {opt.warmup_updates}, hidden "
+                      f"{opt.hidden_size}); checkpoints {ckpts}; val loss "
+                      f"{val}; figures: " + (f"{len(pngs)} PNGs {pngs}"
+                                             if pngs else
+                                             "none, the trainer warned "
+                                             "'val_figures failed'"
+                                             f" (matplotlib importable: "
+                                             f"{has_mpl})")
+                      + f"; wall {walls['fit']:.1f} s [{smi_line}]")
+            if fit["step"] != FS2_STEPS or len(timed) != FS2_STEPS or \
+                    abs(last_lr - formula) > 1e-6 * formula or \
+                    not all(np.isfinite(v) for v in val.values()) or \
+                    sorted(val) != [FS2_VAL_EVERY, FS2_STEPS] or \
+                    ckpts[-1] != f"model_ckpt_steps_{FS2_STEPS}.ckpt" or \
+                    (not pngs) != warned or (not pngs and has_mpl):
+                fail("the FastSpeech 2 fit did not run as configured")
+
+            t0 = time.perf_counter()
+            task = FastSpeech2Task(dict(hp, scheduler="none"), device=dev)
+            fixed = task.build_state(seed=0)
+            batch = next(task.train_dataloader())
+            curve = [task.train_step(fixed, batch)["total"]
+                     for _ in range(FS2_FIXED_STEPS)]
+            walls["fixed_batch"] = time.perf_counter() - t0
+            report["fixed_batch_total"] = curve
+            phase(24, f"{FS2_FIXED_STEPS} steps on one batch at lr "
+                      f"{task.train_cfg.lr:g} (scheduler none): total loss "
+                      f"{curve[0]:.4f} -> {curve[-1]:.4f} (each step's "
+                      f"{[round(c, 4) for c in curve]})")
+            if not curve[-1] < curve[0]:
+                fail("the total loss did not fall on a fixed batch")
+
+        # (d) restore the newest checkpoint and vocode two sentences
+        t0 = time.perf_counter()
+        task = FastSpeech2Task(hp, device=dev)
+        restored, step = Trainer(task, work).restore(task.build_state(seed=7))
+        saved = ckpt.load_checkpoint(os.path.join(work, ckpts[-1]))
+        trained = state.model.state_dict()
+        equal = all(torch.equal(v, saved["params"][k]) and
+                    torch.equal(v, trained[k])
+                    for k, v in restored.model.state_dict().items())
+        vocoder = get_vocoder_cls(hp)(hp, device=dev)
+
+        class DefaultFlags:
+            """The vocoder at torch's default TF32 flags."""
+
+            def spec2wav(self, mel):
+                with tf32(False, True):
+                    return vocoder.spec2wav(mel)
+
+        encoder = build_token_encoder(os.path.join(binary, "phone_set.json"))
+        utts = []
+        with tf32(False, False):
+            for i, text in enumerate(FS2_SENTENCES[:2]):
+                ph = TTSPreAlign.process_text(en, text, {})[0]
+                tokens = np.asarray(encoder.encode(ph))
+                for counter in all_counters:
+                    for key in counter:
+                        counter[key] = 0
+                wav = task.infer_to_wav(restored, tokens, os.path.join(
+                    root, f"fs2_{i}.wav"), vocoder=DefaultFlags())
+                torch.cuda.synchronize()
+                # every kernel's count, so that a stray launch of a kernel
+                # off this route (NWC, down path, fused head, ...) shows
+                launches = {k: v for counter in all_counters
+                            for k, v in counter.items()}
+                expected = {k: per.get(k, 0) for k in launches}
+                n_frames = len(wav) // HOP_SIZE
+                utts.append(dict(tokens=len(tokens), frames=n_frames,
+                                 launches=launches, launched={
+                                     k: v for k, v in launches.items() if v}))
+                if launches != expected or \
+                        len(wav) != n_frames * HOP_SIZE or \
+                        not np.isfinite(wav).all() or n_frames < len(tokens):
+                    fail(f"infer_to_wav of sentence {i}: {len(wav)} samples, "
+                         f"launches {launches}, expected {expected}")
+        walls["restore_vocode"] = time.perf_counter() - t0
+        report.update(restored_step=step, restored_equal=equal, utts=utts,
+                      launches_per_utterance=utts[-1]["launches"])
+        phase(24, f"(d) restored {ckpts[-1]} (step {step}) into a fresh "
+                  f"task: state equal to the saved and the trained "
+                  f"{equal}; infer_to_wav (auto -> ncl, vocoder at cuDNN "
+                  "TF32 on): " + "; ".join(
+                      f"{u['tokens']} tokens -> {u['frames']} frames, "
+                      f"launches {u['launched']} (every other kernel 0)"
+                      for u in utts)
+                  + f"; wall {walls['restore_vocode']:.1f} s")
+        if step != FS2_STEPS or not equal:
+            fail("the restored FastSpeech 2 state differs from the saved one")
+        return report
+    finally:
+        os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2740,6 +3452,13 @@ def main():
     phase(23, f"done in {bddm_report['wall_s']:.1f} s")
     check_no_jax()
 
+    # --- phase 24: FastSpeech 2 training, raw audio to a vocoded wav --------
+    t0 = time.perf_counter()
+    fs2_report = phase24_fs2_train(torch, all_counters, dev, smi_line)
+    fs2_report["wall_s"] = time.perf_counter() - t0
+    phase(24, f"done in {fs2_report['wall_s']:.1f} s")
+    check_no_jax()
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -2784,9 +3503,14 @@ def main():
           "Launches from the run of each kernel's path: phase 7 (taug_head, "
           "lvc_block_ncl*), 11 (lvc_block_ncl_sr), 15 (lvc_block_nwc, "
           "aug_head, downpath), 17 (lvc_block_ncl_fh*), 18 "
-          "(taug_head_variant), 19 (conv_stage, lvc_stage)", flush=True)
+          "(taug_head_variant), 19 (conv_stage, lvc_stage); "
+          "fs2_infer_launches_per_utterance from phase 24's infer_to_wav of "
+          "the trained FastSpeech 2", flush=True)
+    fs2_launches = fs2_report["launches_per_utterance"]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **report[name])
+                    launches=launches[name],
+                    fs2_infer_launches_per_utterance=fs2_launches[name],
+                    **report[name])
                for name, (src, rep) in sources.items()]
     fh = fh_sampler["batches"]
     print(json.dumps({"kernels": kernels,
@@ -2805,7 +3529,7 @@ def main():
                       "graph_vs_eager_ms": graph_report,
                       "train_step": train_report, "fit_s": fit_s,
                       "entry": entry_report, "tts": tts_report,
-                      "bddm": bddm_report}),
+                      "bddm": bddm_report, "fs2_train": fs2_report}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -51,8 +51,7 @@ def resolve_class(dotted_path: str):
             raise NotImplementedError(
                 f"{dotted_path} is not ported to fastdiff_tpu_torch (still "
                 "to port: the PWG, WaveNet and speaker-encoder models and "
-                "their tasks, and the TTS binarizers, ROADMAP.md queue 1 "
-                "item 11)")
+                "their tasks, ROADMAP.md queue 1 item 11)")
         pkg = port
     return getattr(importlib.import_module(pkg), cls_name)
 

@@ -16,7 +16,12 @@ same output dict. Durations at inference are ``clip(round(exp(dur_pred) -
 1), 1)``; ``torch.round`` rounds half to even, as ``jnp.round``. Weights
 come from JAX through ``models/bridge.py:fs2_params_from_jax``; ``seed``
 draws them from a ``torch.Generator`` with JAX's initializers'
-distributions (not its values). The training losses are not ported yet.
+distributions (not its values).
+
+The training losses (``fastspeech2_loss``: the mel losses of
+``ops/mel_losses.py``, the phone / word / sentence duration terms, the
+pitch terms of each ``pitch_type`` and the energy term) and ``mel_energy``
+are JAX's, term for term.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from fastdiff_tpu_torch.models.transformer import (LN_EPS, SelfAttention,
                                                    TransformerStack,
                                                    sinusoidal_positions)
 from fastdiff_tpu_torch.ops.cwt import N_SCALES, cwt_to_f0_t
+from fastdiff_tpu_torch.ops.mel_losses import mel_loss as mel_loss_fns
 from fastdiff_tpu_torch.ops.pitch import F0_BIN, denorm_f0_t, f0_to_coarse_t
 
 ENERGY_MAX = 4.0     # quantization range for the energy embedding
@@ -335,3 +341,134 @@ class FastSpeech2(nn.Module):
         y = self.dec_ln(y) * mel_mask[..., None]
         out["mel"] = self.mel_out(y) * mel_mask[..., None]
         return out
+
+
+# ---------------------------------------------------------------------------
+# losses (fastdiff_tpu/models/fastspeech2.py:350-483; tasks/tts/fs2.py:118-172
+# and tts_base.py:182-223 semantics)
+# ---------------------------------------------------------------------------
+
+DEFAULT_LAMBDAS = {
+    "lambda_ph_dur": 1.0, "lambda_word_dur": 0.0, "lambda_sent_dur": 0.0,
+    "lambda_f0": 1.0, "lambda_uv": 1.0, "lambda_energy": 0.1,
+    "lambda_cwt": 1.0, "lambda_cwt_stats": 0.1,
+}
+
+
+def duration_losses(dur_pred: torch.Tensor, dur_gt: torch.Tensor,
+                    src_mask: torch.Tensor, lambdas: dict,
+                    is_sil: Optional[torch.Tensor] = None) -> dict:
+    """Phone-level log-MSE, and the word and sentence terms in the linear
+    domain when their lambdas are > 0. ``is_sil`` (B, T_ph) marks silence
+    phones, the word boundaries (word id = cumsum(is_sil) on the other
+    tokens)."""
+    losses = {}
+    dur_gt = dur_gt.float()
+    dur_target = torch.log(dur_gt + 1.0)
+    denom = torch.clamp(src_mask.sum(), min=1.0)
+    pdur = (((dur_pred - dur_target) ** 2) * src_mask).sum() / denom
+    losses["pdur"] = pdur * lambdas["lambda_ph_dur"]
+
+    dur_pred_lin = torch.clamp(torch.exp(dur_pred) - 1.0, min=0.0) * src_mask
+    if lambdas.get("lambda_word_dur", 0.0) > 0 and is_sil is not None:
+        word_id = (torch.cumsum(is_sil, dim=-1) * (1 - is_sil)).long()
+        oh = F.one_hot(word_id, src_mask.shape[1] + 1).float()
+        wdur_p = torch.einsum("bt,btw->bw", dur_pred_lin, oh)[:, 1:]
+        wdur_g = torch.einsum("bt,btw->bw", dur_gt * src_mask, oh)[:, 1:]
+        wmask = (wdur_g > 0).float()
+        wdur = ((torch.log(wdur_p + 1.0) - torch.log(wdur_g + 1.0)) ** 2
+                * wmask).sum() / torch.clamp(wmask.sum(), min=1.0)
+        losses["wdur"] = wdur * lambdas["lambda_word_dur"]
+    if lambdas.get("lambda_sent_dur", 0.0) > 0:
+        sdur_p = dur_pred_lin.sum(-1)
+        sdur_g = (dur_gt * src_mask).sum(-1)
+        sdur = torch.mean((torch.log(sdur_p + 1.0)
+                           - torch.log(sdur_g + 1.0)) ** 2)
+        losses["sdur"] = sdur * lambdas["lambda_sent_dur"]
+    return losses
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary cross entropy with logits in JAX's stable form,
+    max(x, 0) - x * y + log1p(exp(-|x|))."""
+    return torch.clamp(logits, min=0) - logits * labels + torch.log1p(
+        torch.exp(-logits.abs()))
+
+
+def _masked_frames(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def pitch_losses(out: dict, batch: dict, cfg: FS2Config, lambdas: dict,
+                 pitch_loss: str = "l1") -> dict:
+    """The pitch terms of ``cfg.pitch_type`` (fs2.py add_pitch_loss /
+    add_f0_loss)."""
+    losses = {}
+    mel_mask = out["mel_mask"]
+    if cfg.pitch_type == "coarse":
+        if out.get("pitch_pred") is None or batch.get("pitch") is None:
+            return losses
+        diff = (out["pitch_pred"] - batch["pitch"].float()) / F0_BIN
+        losses["pitch"] = _masked_frames(diff ** 2, mel_mask)
+        return losses
+
+    if cfg.pitch_type == "cwt":
+        denom = torch.clamp(mel_mask.sum() * N_SCALES, min=1.0)
+        cwt_l = ((out["cwt_pred"] - batch["cwt_spec"]).abs()
+                 * mel_mask[..., None]).sum() / denom
+        losses["cwt"] = cwt_l * lambdas["lambda_cwt"]
+        stats = ((out["cwt_mean_pred"] - batch["cwt_mean"]) ** 2
+                 + (out["cwt_std_pred"] - batch["cwt_std"]) ** 2).mean()
+        losses["cwt_stats"] = stats * lambdas["lambda_cwt_stats"]
+        if cfg.use_uv and "uv" in batch:
+            bce = sigmoid_bce(out["uv_pred"], batch["uv"])
+            losses["uv"] = _masked_frames(bce, mel_mask) * lambdas["lambda_uv"]
+        return losses
+
+    # frame mode: uv BCE, then f0 on the voiced frames
+    f0_gt, uv_gt = batch["f0"], batch.get("uv")
+    nonpadding = mel_mask
+    if cfg.use_uv and uv_gt is not None:
+        bce = sigmoid_bce(out["uv_pred"], uv_gt)
+        losses["uv"] = _masked_frames(bce, nonpadding) * lambdas["lambda_uv"]
+        nonpadding = nonpadding * (uv_gt == 0).float()
+    diff = out["f0_pred"] - f0_gt
+    err = diff.abs() if pitch_loss == "l1" else diff ** 2
+    losses["f0"] = _masked_frames(err, nonpadding) * lambdas["lambda_f0"]
+    return losses
+
+
+def fastspeech2_loss(out: dict, batch: dict, cfg: FS2Config,
+                     mel_loss_and_lambda: Optional[dict] = None,
+                     lambdas: Optional[dict] = None,
+                     pitch_loss: str = "l1") -> dict:
+    """The training loss dict of a teacher-mode forward ``out``. ``batch``
+    holds tensors (per config): mels (B, T, M), dur and tokens (B, T_ph),
+    f0 / uv / pitch / energy (B, T), cwt_spec / cwt_mean / cwt_std, is_sil
+    (B, T_ph). ``total`` sums the terms; ``mel`` sums the mel terms."""
+    lambdas = {**DEFAULT_LAMBDAS, **(lambdas or {})}
+    mel_cfg = mel_loss_and_lambda or {"l1": 1.0}
+    src_mask = (batch["tokens"] > 0).float()
+
+    mel_gt = batch["mels"] * out["mel_mask"][..., None]
+    mel_components = mel_loss_fns(out["mel"], mel_gt, mel_cfg)
+    losses = dict(mel_components)
+    losses.update(duration_losses(out["dur_pred"], batch["dur"], src_mask,
+                                  lambdas, is_sil=batch.get("is_sil")))
+    if cfg.use_pitch:
+        losses.update(pitch_losses(out, batch, cfg, lambdas, pitch_loss))
+    if cfg.use_energy and out.get("energy_pred") is not None \
+            and batch.get("energy") is not None:
+        e = _masked_frames((out["energy_pred"] - batch["energy"]) ** 2,
+                           out["mel_mask"])
+        losses["energy"] = e * lambdas["lambda_energy"]
+    losses["total"] = sum(losses.values())
+    losses["mel"] = sum(mel_components.values())
+    return losses
+
+
+def mel_energy(mel: torch.Tensor, log_base: str = "10") -> torch.Tensor:
+    """Frame energy of a log mel, log10(1 + ||linear mel||) so that the
+    ``energy_bins`` quantization over [0, ENERGY_MAX] covers it."""
+    lin = torch.pow(10.0, mel) if log_base == "10" else torch.exp(mel)
+    return torch.log10(1.0 + torch.sqrt((lin ** 2).sum(-1)))

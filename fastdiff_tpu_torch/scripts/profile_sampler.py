@@ -7,6 +7,8 @@ route, on the card.
         [ncl_vjp] [plain] [--samples 2] [--top 10]
     python -m fastdiff_tpu_torch.scripts.profile_sampler --tts
         [--tokens 23 152] [--samples 2] [--top 10]
+    python -m fastdiff_tpu_torch.scripts.profile_sampler --tts_train
+        [--frames 517] [--samples 2] [--top 10]
 
 For each route (``ncl``, ``nwc`` with the down kernel, ``ncl_fh``,
 ``plain``), two warm-up samples of ``--frames`` mel frames (b = 1, seeded
@@ -31,8 +33,13 @@ sample is one FastSpeech 2 forward at the full width of
 at t_mel = ``max_frames``, as ``FastSpeech2Task.infer_mel`` runs it) on
 ``--tokens`` random phone ids, with TF32 off and with cuDNN TF32 on
 (torch's default): the same profile, and the forward's ms by CUDA events
-through ``torch.func.functional_call`` (as the task calls it) and through
-the module's own parameters. Prints one JSON object with the card's name
+(the module called as ``infer_mel`` calls it). With ``--tts_train`` a sample is one
+``FastSpeech2Task.train_step`` at ``fs2_ljspeech.yaml``'s full width and
+batch (48 utterances of ``--frames`` / 4 to ``--frames`` frames, 0.29
+phones a frame, as the ``en`` processor's graphemes give on chip_smoke's
+phase 24 corpus; seeded records through ``collate_tts``), TF32 off: the same
+profile per step and the step's forward, backward and optimizer apart by
+CUDA events over 3 more steps. Prints one JSON object with the card's name
 beside the routes.
 """
 
@@ -222,8 +229,6 @@ def profile_tts(tokens: int, samples: int = 2, top: int = 10,
     """Device busy time, idle gaps and the largest device costs per
     FastSpeech 2 forward (inference mode, t_mel = max_frames) on ``tokens``
     phone ids, at full width, matmul TF32 off and cuDNN TF32 as given."""
-    from torch.func import functional_call
-
     from fastdiff_tpu_torch.training.tts_task import FastSpeech2Task
     from fastdiff_tpu_torch.utils.hparams import set_hparams
     from fastdiff_tpu_torch.utils.timing import cuda_ms
@@ -231,13 +236,13 @@ def profile_tts(tokens: int, samples: int = 2, top: int = 10,
     hp = set_hparams(config=FS2_CONFIG, hparams_str="vocab_size=64",
                      print_hparams=False, global_hparams=False)
     task = FastSpeech2Task(hp, device=dev)
-    params = task.build_state(seed=seed)["params"]
+    model = task.build_state(seed=seed).model
     ids = torch.randint(3, 64, (1, tokens), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(
                             seed + 1))
 
     def run():
-        return functional_call(task.model, params, (ids,))
+        return model(ids)
 
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
@@ -245,8 +250,7 @@ def profile_tts(tokens: int, samples: int = 2, top: int = 10,
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
     try:
         with torch.inference_mode():
-            call_ms = cuda_ms(run, 5)
-            module_ms = cuda_ms(lambda: task.model(ids), 5)
+            module_ms = cuda_ms(run, 5)
             frames = int(run()["mel_mask"].sum())
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=_ACTIVITIES) as prof:
@@ -262,8 +266,7 @@ def profile_tts(tokens: int, samples: int = 2, top: int = 10,
     return {
         "route": "fastspeech2", "tokens": tokens, "frames": frames,
         "t_mel": task.model_cfg.max_len, "cudnn_tf32": cudnn_tf32,
-        "samples": samples, "functional_call_ms": call_ms,
-        "module_ms": module_ms,
+        "samples": samples, "module_ms": module_ms,
         "device_busy_ms_per_sample": out["device_busy_ms"],
         "device_events_per_sample": out["device_events"],
         "wall_ms_per_sample_profiled": wall,
@@ -273,10 +276,85 @@ def profile_tts(tokens: int, samples: int = 2, top: int = 10,
     }
 
 
+def profile_tts_train(frames: int = 517, samples: int = 2, top: int = 10,
+                      seed: int = 0, device="cuda") -> dict:
+    """Device time per FastSpeech 2 train step at the recipe's width and
+    batch, TF32 off, and the step's forward / backward / optimizer split."""
+    import numpy as np
+
+    from fastdiff_tpu_torch.training.tts_task import (FastSpeech2Task,
+                                                      collate_tts)
+    from fastdiff_tpu_torch.utils.hparams import set_hparams
+    dev = _cuda_device(device)
+    hp = set_hparams(config=FS2_CONFIG, hparams_str="vocab_size=64",
+                     print_hparams=False, global_hparams=False)
+    task = FastSpeech2Task(hp, device=dev)
+    state = task.build_state(seed=seed)
+    rng = np.random.default_rng(seed)
+    items = []
+    for _ in range(int(hp["max_sentences"])):
+        t_mel = int(rng.integers(frames // 4, frames + 1))
+        t_ph = max(2, round(0.29 * t_mel))
+        f0 = rng.uniform(90, 240, t_mel)
+        f0[rng.uniform(size=t_mel) < 0.2] = 0.0
+        items.append({"phone": rng.integers(3, 64, t_ph),
+                      "mel": rng.uniform(-5, 1, (t_mel, 80)),
+                      "f0": f0, "mel2ph": np.sort(
+                          rng.integers(1, t_ph + 1, t_mel))})
+    pad = (max(len(i["phone"]) for i in items) + 7) // 8 * 8
+    frame_pad = (max(len(i["mel"]) for i in items) + 31) // 32 * 32
+    batch = collate_tts(items, pad, frame_pad, 80)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for _ in range(2):
+            task.train_step(state, batch)
+        torch.cuda.synchronize()
+        model, params = state.model, list(state.model.parameters())
+        split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = task.loss(model, task._to_device(batch))["total"]
+            ev[1].record()
+            grads = torch.autograd.grad(loss, params)
+            ev[2].record()
+            state.optimizer.step(grads)
+            ev[3].record()
+            torch.cuda.synchronize()
+            for i, key in enumerate(split):
+                split[key] += ev[i].elapsed_time(ev[i + 1]) / 3
+            del loss, grads
+        with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+            t0 = time.perf_counter()
+            for _ in range(samples):
+                task.train_step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / samples
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    out = _device_profile(prof, samples, top)
+    return {"route": "fastspeech2_train",
+            "batch": [list(batch["tokens"].shape), list(batch["mels"].shape)],
+            "real_frames": int((batch["mel2ph"] > 0).sum()),
+            "steps": samples, "split_ms": split,
+            "device_busy_ms_per_step": out["device_busy_ms"],
+            "device_events_per_step": out["device_events"],
+            "wall_ms_per_step_profiled": wall,
+            "gaps": out["gaps"],
+            "top": [{"name": r["name"], "ms_per_step": r["ms"],
+                     "calls_per_step": r["calls"]} for r in out["top"]]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("routes", nargs="*")
-    parser.add_argument("--frames", type=int, default=864)
+    parser.add_argument("--frames", type=int, default=None,
+                        help="mel frames per sample (default 864), or with "
+                        "--tts_train the longest utterance (default 517)")
     parser.add_argument("--samples", type=int, default=2)
     parser.add_argument("--top", type=int, default=None,
                         help="device costs listed per route (default 8, "
@@ -289,13 +367,18 @@ def main():
     parser.add_argument("--tts", action="store_true",
                         help="profile the FastSpeech 2 forward")
     parser.add_argument("--tokens", type=int, nargs="+", default=[23, 152])
+    parser.add_argument("--tts_train", action="store_true",
+                        help="profile the FastSpeech 2 train step")
     args = parser.parse_args()
     known = TRAIN_ROUTES if args.train else INFER_ROUTES
     routes = args.routes or (["ncl_sr"] if args.train else ["ncl", "nwc"])
     for route in routes:
         if route not in known:
             parser.error(f"route {route!r} is not one of {known}")
-    if args.tts:
+    if args.tts_train:
+        results = [profile_tts_train(args.frames or 517, args.samples,
+                                     top=args.top or 10)]
+    elif args.tts:
         results = [profile_tts(n, args.samples, top=args.top or 10,
                                cudnn_tf32=tf32)
                    for n in args.tokens for tf32 in (False, True)]
@@ -303,7 +386,7 @@ def main():
         results = [profile_train(r, args.samples, top=args.top or 10)
                    for r in routes]
     else:
-        results = [profile_route(r, args.frames, args.samples,
+        results = [profile_route(r, args.frames or 864, args.samples,
                                  top=args.top or 8, graph=graph)
                    for r in routes
                    for graph in ((True, False) if args.graph else (False,))]

@@ -60,9 +60,10 @@ from fastdiff_tpu_torch.utils import audio_io, ckpt_import
 
 @dataclasses.dataclass
 class TrainState:
-    """What a training run carries from step to step; ``ema`` maps each
-    parameter name to its moving average when ``ema_decay`` > 0."""
-    model: FastDiff
+    """What a training run carries from step to step (the FastDiff and the
+    FastSpeech 2 tasks); ``ema`` maps each parameter name to its moving
+    average when ``ema_decay`` > 0."""
+    model: torch.nn.Module
     optimizer: AdamW
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = None

@@ -7,7 +7,10 @@
   TensorBoard when it is installed);
 - validation and a checkpoint every ``val_check_interval`` updates and at
   the end, the newest ``num_ckpt_keep`` kept and the best validation loss
-  tracked (``training/checkpoint.py``);
+  tracked (``training/checkpoint.py``); after each validation within the
+  loop, the figures of a task that has ``val_figures`` (FastSpeech 2's
+  GT-vs-predicted mels) go to ``tb_logs/figures/`` as PNGs, and a failure
+  to draw them prints a warning and training goes on;
 - ``restore`` resumes from the newest checkpoint in ``work_dir`` (or the
   step ``resume_from_checkpoint`` pins): parameters, optimizer state, step,
   best score and EMA;
@@ -69,18 +72,32 @@ class Trainer:
         return state, state.step
 
     # -- validation --------------------------------------------------------
-    def evaluate(self, state, max_batches: Optional[int] = None) -> dict:
+    def evaluate(self, state, max_batches: Optional[int] = None,
+                 step: Optional[int] = None) -> dict:
+        """Average the task's ``val_step`` over the validation batches.
+        With ``step`` (not the sanity pass) the figures of the first batch
+        are logged too, when the task draws any."""
         meters = MeterBank()
         gen = self._generator(self.cfg.seed + 777)
         loader = self.task.val_dataloader()
         if max_batches is not None and max_batches >= 0:
             loader = itertools.islice(loader, max_batches)
-        n = 0
+        n, first_batch = 0, None
         for batch in loader:
             out = self.task.val_step(state, batch, gen)
             meters.update({k: float(v) for k, v in out.items()},
                           n=batch["mels"].shape[0])
+            if first_batch is None:
+                first_batch = batch
             n += 1
+        if (step is not None and first_batch is not None
+                and hasattr(self.task, "val_figures")):
+            try:
+                for tag, fig in self.task.val_figures(
+                        state, first_batch).items():
+                    self.logger.log_figure(tag, fig, step)
+            except Exception as e:   # figures must never kill training
+                print(f"| WARNING: val_figures failed: {e}")
         return meters.averages() if n else {"loss": float("nan")}
 
     def _maybe_save(self, state, step: int, val_metrics: dict):
@@ -144,7 +161,8 @@ class Trainer:
                     sys.stdout.flush()
 
                 if step % self.cfg.val_check_interval == 0:
-                    val = self.evaluate(state, self.cfg.eval_max_batches)
+                    val = self.evaluate(state, self.cfg.eval_max_batches,
+                                        step=step)
                     self.logger.log(val, step, prefix="val/")
                     print(f"| validation @ {step}: {val}")
                     self._maybe_save(state, step, val)

@@ -2,7 +2,8 @@
 ``fastdiff_tpu/utils/logging_utils.py`` (``ScalarLogger``, ``MeterBank``).
 
 Scalars go to TensorBoard when ``torch.utils.tensorboard`` is importable
-and always to a ``metrics.jsonl`` file, so runs are inspectable without TB.
+and always to a ``metrics.jsonl`` file, so runs are inspectable without TB;
+figures (``log_figure``) to PNGs under ``<log_dir>/figures/``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,24 @@ class ScalarLogger:
         if self._tb is not None:
             for k, v in flat.items():
                 self._tb.add_scalar(k, v, step)
+
+    def log_figure(self, tag: str, fig, step: int) -> None:
+        """Log a matplotlib figure: TB ``add_figure`` when available, and
+        always a PNG under ``<log_dir>/figures/`` (the reference logs
+        validation spectrograms this way, tasks/tts/tts_base.py:224-245)."""
+        if not self.enabled:
+            return
+        fig_dir = os.path.join(self.log_dir, "figures")
+        os.makedirs(fig_dir, exist_ok=True)
+        safe = tag.replace("/", "_")
+        fig.savefig(os.path.join(fig_dir, f"{safe}_{step}.png"))
+        if self._tb is not None:
+            try:
+                self._tb.add_figure(tag, fig, step)
+            except Exception:
+                pass
+        import matplotlib.pyplot as plt
+        plt.close(fig)
 
     def close(self) -> None:
         if self._jsonl:

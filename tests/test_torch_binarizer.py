@@ -166,5 +166,8 @@ def test_resolve_class_maps_the_jax_names():
     assert pds.resolve_class(
         "fastdiff_tpu.data.binarizer.TacotronVocoderBinarizer") is \
         pbin.TacotronVocoderBinarizer
+    from fastdiff_tpu_torch.data.tts_binarizer import TTSBinarizer
+    assert pds.resolve_class(
+        "fastdiff_tpu.data.tts_binarizer.TTSBinarizer") is TTSBinarizer
     with pytest.raises(NotImplementedError, match="item 11"):
-        pds.resolve_class("fastdiff_tpu.data.tts_binarizer.TTSBinarizer")
+        pds.resolve_class("fastdiff_tpu.models.spk_encoder.SpeakerEncoder")

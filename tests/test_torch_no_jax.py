@@ -77,6 +77,13 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.tts.infer\n"
             "import fastdiff_tpu_torch.scripts.demo_tts\n"
             "from fastdiff_tpu_torch import FastSpeech2Task, TTSPipeline\n"
+            "import fastdiff_tpu_torch.ops.mel_losses\n"
+            "import fastdiff_tpu_torch.utils.plot\n"
+            "import fastdiff_tpu_torch.data.align\n"
+            "import fastdiff_tpu_torch.data.tts_binarizer\n"
+            "import fastdiff_tpu_torch.data.zh_binarizer\n"
+            "import fastdiff_tpu_torch.data.pre_align\n"
+            "import fastdiff_tpu_torch.data.pre_align_cli\n"
             "import fastdiff_tpu_torch.utils.pesq\n"
             "import fastdiff_tpu_torch.utils.metrics\n"
             "import fastdiff_tpu_torch.vocoders.denoise\n"
@@ -101,6 +108,12 @@ def test_port_imports_no_jax():
             ".__module__ == 'fastdiff_tpu_torch.training.task'\n"
             "assert resolve_class('fastdiff_tpu.training.tts_task."
             "FastSpeech2Task') is FastSpeech2Task\n"
+            "for path in ('data.tts_binarizer.TTSBinarizer', "
+            "'data.zh_binarizer.ZhBinarizer', 'data.pre_align.TTSPreAlign', "
+            "'data.pre_align.LJPreAlign'):\n"
+            "    assert resolve_class('fastdiff_tpu.' + path).__module__ == "
+            "'fastdiff_tpu_torch.' + path.rsplit('.', 1)[0]\n"
+            "assert 'matplotlib' not in sys.modules\n"
             "from fastdiff_tpu_torch.models.fastdiff import (FastDiff, "
             "resolve_down_kernel, resolve_infer_route)\n"
             "assert resolve_infer_route({'use_pallas_block': True}) == "

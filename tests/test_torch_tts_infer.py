@@ -14,7 +14,8 @@ JAX a compile of its initializers for every shape. Also: the task builds its voc
 from the registry once and keeps it, the ``demo_tts`` script
 (``TTSPipeline`` with ``NpyMelSource``) writes peak-normalized wavs of
 frames * hop samples, the text
-front end gives JAX's token ids, and training refuses.
+front end gives JAX's token ids, and what the TTS path still refuses
+(speaker embeddings) raises.
 """
 
 import dataclasses
@@ -35,6 +36,7 @@ from fastdiff_tpu.utils import hparams as jax_hparams
 from fastdiff_tpu.vocoders.fastdiff_vocoder import FastDiff as JaxFastDiff
 from fastdiff_tpu_torch.config import ModelConfig
 from fastdiff_tpu_torch.data.dataset import resolve_class
+from fastdiff_tpu_torch.data.tts_binarizer import TTSBinarizer
 from fastdiff_tpu_torch.models.bridge import (fs2_params_from_jax,
                                               params_from_jax)
 from fastdiff_tpu_torch.scripts import demo_tts
@@ -162,8 +164,9 @@ def test_infer_to_wav_matches_jax(setup, jax_wav):
     jwav, jpath, jax_voc = jax_wav
     hp = setup["hp"]
     task = FastSpeech2Task(hp, device="cpu")
-    state = {"params": fs2_params_from_jax(setup["tree"], task.model_cfg),
-             "step": 0}
+    state = task.build_state(seed=0)
+    state.model.load_state_dict(fs2_params_from_jax(setup["tree"],
+                                                    task.model_cfg))
     ckpt = str(setup["root"] / "vocoder.pt")
     torch.save(params_from_jax(jax_voc.vocoder.params,
                                ModelConfig.from_hparams(hp)), ckpt)
@@ -195,7 +198,7 @@ def test_infer_to_wav_matches_jax(setup, jax_wav):
 def test_infer_to_wav_builds_its_vocoder_once(setup, tmp_path):
     task = FastSpeech2Task(setup["hp"], device="cpu")
     state = task.build_state(seed=0)
-    assert state["step"] == 0
+    assert state.step == 0
     vocoders = []
     tokens = setup["tokens"][1]
     for i in range(2):
@@ -234,11 +237,13 @@ def test_pipeline_and_demo_write_wavs(setup, tmp_path):
         assert np.abs(wav).max() == pytest.approx(1, abs=1e-3)
 
 
-def test_training_refuses(setup):
-    task = FastSpeech2Task(setup["hp"], device="cpu")
-    for call in (lambda: task.train_step({}, {}),
-                 lambda: task.val_step({}, {}),
-                 lambda: task.val_figures({}, {}),
-                 task.train_dataloader, task.val_dataloader):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+def test_training_refuses(setup, tmp_path):
+    """What the TTS path still refuses: speaker embeddings in the binarizer
+    and the speaker encoder itself."""
+    hp = dict(setup["hp"], processed_data_dir=str(tmp_path),
+              binary_data_dir=str(tmp_path / "binary"),
+              binarization_args={"with_spk_embed": True})
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TTSBinarizer(hp)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        resolve_class("fastdiff_tpu.models.spk_encoder.SpeakerEncoder")
