@@ -206,7 +206,33 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     figures or the trainer's warning), then 20 steps on one batch at lr
     2e-4 lower the loss; (d) a fresh task restores the newest checkpoint
     (state equal) and ``infer_to_wav`` vocodes two sentences on ``auto``
-    -> ncl with K3 +12 / K1 +8 / K2 +4 per utterance.
+    -> ncl with K3 +12 / K1 +8 / K2 +4 per utterance;
+25. the speaker encoder (seed weights): 16 ``synth_voice`` mels embedded
+    on the card and on the CPU (TF32 off, max abs <= 1e-5), ms per
+    ``embed``; ``train_spk_encoder`` for 100 steps at 8 speakers x 4
+    utterances x 80 frames (the loss must fall), ms per step and the
+    verification EER (all pairs and held-out transforms) trained against
+    the seed weights; phase 24's corpus through the ``binarize`` CLI with
+    ``with_spk_embed``: every record's ``spk_embed`` a 256-d unit vector;
+26. the diffusion zoo at the configs' full widths through
+    ``FastDiffTask``: the diffusion PWG of ``micro_lj_pwg.yaml`` and the
+    WaveNet of ``micro_lj.yaml`` + ``denoiser: wavenet, multiband: false``,
+    seed weights but WaveNet's zero output conv drawn: 5 ``train_step``s at
+    20 x 25,600 in bf16 by CUDA events with the peak memory; one step card
+    vs CPU at 2 x 2,560 in f32 (loss rel 1e-5, gradients rel L2 1e-4; the
+    loss must move off a zero output's and most gradient leaves outside the
+    output conv must be non-zero); the N = 4 graph sampler at 864 frames, its
+    warm-up, capture and replay bit-equal to the eager loop, ms per
+    utterance; the PWG vocoder's ``spec2wav`` at 864 frames; every kernel
+    counter still 0 (the zoo launches none of K1-K10);
+27. the MoL WaveNet at ``micro_lj_armol.yaml``'s full width: a 20-update
+    ``run.main`` fit at 8 x 12,800 (ms per step by CUDA events, peak
+    memory; the loss must fall); one step card vs CPU in f32 (1e-5 /
+    1e-4); ``wavenet_incremental_logits`` (the CUDA-graph loop) against the
+    teacher-forced forward (1e-5); the generation loop for 2,048 steps with
+    injected draws, CUDA graph equal to the eager loop; ``wavenet_generate``
+    of an 864-frame mel (17 folds of 12,800 + 2 x 512): wall, samples / s,
+    RTF; no kernel launched.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each of the twelve kernels' launches (from the run of its path: phase
@@ -226,8 +252,9 @@ metrics, the CLIs' walls), ``fs2_train`` phase 24's (pipeline counts and
 walls, card vs CPU errors, fit ms per step, peak memory, losses, launches
 per utterance), and each kernel carries
 ``fs2_infer_launches_per_utterance``, its launches per ``infer_to_wav`` of
-the trained FastSpeech 2 in phase 24. The last line is ``{"ok": true, "device":
-{...}}``.
+the trained FastSpeech 2 in phase 24; ``zoo`` holds phases 25-27's rows
+(``spk``, ``diffusion``, ``mol``). The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import io
@@ -2163,7 +2190,78 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def phase24_fs2_train(torch, all_counters, dev, smi_line) -> dict:
+FS2_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "fastdiff_tpu", "configs", "fs2_ljspeech.yaml")
+
+
+def run_cli(module: str, config: str, cwd: str, hparams: str,
+            *extra) -> float:
+    """``python -m module --config config --hparams hparams [extra]`` in
+    ``cwd``, the repo on the path; fails on a non-zero exit; its wall s."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", module, "--config", config, "--hparams",
+         hparams, *extra], cwd=cwd, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def make_tts_corpus(root: str, n_items: int, n_valid: int, rng,
+                    walls: dict) -> tuple:
+    """``n_items`` synthesized utterances of 1-6 s with ``.txt`` sidecars
+    under ``root/raw`` -> ``pre_align_cli`` (``TTSPreAlign``, ``en``) ->
+    an MFA-style TextGrid each (a ``tg_fn`` column): the corpus the
+    ``binarize`` CLI reads. Returns (the paths' hparams, seconds, rows);
+    each stage's wall goes to ``walls``."""
+    import csv
+
+    from fastdiff_tpu_torch.data.align import mfa_textgrid
+    from fastdiff_tpu_torch.data.pre_align import TTSPreAlign
+    from fastdiff_tpu_torch.text.processors import get_txt_processor_cls
+    from fastdiff_tpu_torch.utils import audio_io
+
+    raw, processed, binary = (os.path.join(root, d) for d in
+                              ("raw", "processed", "binary"))
+    os.makedirs(raw)
+    en = get_txt_processor_cls("en")
+    t0 = time.perf_counter()
+    seconds = []
+    for i in range(n_items):
+        text = FS2_SENTENCES[i % len(FS2_SENTENCES)]
+        n_ph = len(TTSPreAlign.process_text(en, text, {})[0].split())
+        sec = float(np.clip(n_ph / 14 * rng.uniform(0.8, 1.2), 1, 6))
+        seconds.append(sec)
+        audio_io.save_wav(synth_voice(sec, rng),
+                          os.path.join(raw, f"utt{i:02d}.wav"), 22050)
+        with open(os.path.join(raw, f"utt{i:02d}.txt"), "w") as f:
+            f.write(text)
+    walls["synthesize"] = time.perf_counter() - t0
+    paths = (f"raw_data_dir={raw},processed_data_dir={processed},"
+             f"binary_data_dir={binary},test_num={n_valid}")
+    walls["pre_align"] = run_cli(
+        "fastdiff_tpu_torch.data.pre_align_cli", FS2_CONFIG, root,
+        paths + ",pre_align_cls=fastdiff_tpu.data.pre_align.TTSPreAlign")
+    t0 = time.perf_counter()
+    meta_fn = os.path.join(processed, "metadata_phone.csv")
+    with open(meta_fn, newline="") as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        wav, sr = audio_io.load_wav(r["wav_fn"])
+        r["tg_fn"] = os.path.splitext(r["wav_fn"])[0] + ".TextGrid"
+        with open(r["tg_fn"], "w") as f:
+            f.write(mfa_textgrid(r["ph"].split(), len(wav) / sr, rng))
+    with open(meta_fn, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    walls["textgrids"] = time.perf_counter() - t0
+    return paths, seconds, rows
+
+
+def phase24_fs2_train(torch, all_counters, dev, smi_line, root) -> dict:
     """FastSpeech 2 training at ``fastdiff_tpu/configs/fs2_ljspeech.yaml``'s
     full width (hidden 256, 4 + 4 layers, 2 heads, FFN 1024 k 9,
     ``max_sentences`` 48), from raw audio to a vocoded wav, TF32 off but
@@ -2189,11 +2287,9 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line) -> dict:
     CUDA-core Kernel B +0 per utterance, finite wavs of frames * 256
     samples."""
     import contextlib
-    import csv
     import importlib.util
 
     from fastdiff_tpu_torch import run
-    from fastdiff_tpu_torch.data.align import mfa_textgrid
     from fastdiff_tpu_torch.data.indexed_dataset import IndexedDataset
     from fastdiff_tpu_torch.data.pre_align import TTSPreAlign
     from fastdiff_tpu_torch.text.encoder import build_token_encoder
@@ -2202,14 +2298,10 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line) -> dict:
     from fastdiff_tpu_torch.training.optim import learning_rate
     from fastdiff_tpu_torch.training.trainer import Trainer
     from fastdiff_tpu_torch.training.tts_task import FastSpeech2Task
-    from fastdiff_tpu_torch.utils import audio_io
     from fastdiff_tpu_torch.utils.hparams import set_hparams
     from fastdiff_tpu_torch.vocoders import get_vocoder_cls
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    config = os.path.join(repo, "fastdiff_tpu", "configs",
-                          "fs2_ljspeech.yaml")
-    root = tempfile.mkdtemp(prefix="fastdiff_fs2_")
+    config = FS2_CONFIG
     cwd = os.getcwd()
     per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
            "lvc_block_ncl_cc": 0}
@@ -2228,56 +2320,16 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line) -> dict:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = saved
 
-    def cli(module, hparams):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", module, "--config", config, "--hparams",
-             hparams], cwd=root, env=dict(os.environ, PYTHONPATH=repo),
-            capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            fail(f"{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
-        return time.perf_counter() - t0
-
     try:
         os.chdir(root)
         # (a) raw wavs -> pre-align -> TextGrids -> binarize
-        raw, processed, binary = (os.path.join(root, d) for d in
-                                  ("raw", "processed", "binary"))
-        os.makedirs(raw)
         rng = np.random.default_rng(24)
         en = get_txt_processor_cls("en")
-        t0 = time.perf_counter()
-        seconds = []
-        for i in range(FS2_TRAIN + FS2_VALID):
-            text = FS2_SENTENCES[i % len(FS2_SENTENCES)]
-            n_ph = len(TTSPreAlign.process_text(en, text, {})[0].split())
-            sec = float(np.clip(n_ph / 14 * rng.uniform(0.8, 1.2), 1, 6))
-            seconds.append(sec)
-            audio_io.save_wav(synth_voice(sec, rng),
-                              os.path.join(raw, f"utt{i:02d}.wav"), 22050)
-            with open(os.path.join(raw, f"utt{i:02d}.txt"), "w") as f:
-                f.write(text)
-        walls["synthesize"] = time.perf_counter() - t0
-        paths = (f"raw_data_dir={raw},processed_data_dir={processed},"
-                 f"binary_data_dir={binary},test_num={FS2_VALID}")
-        walls["pre_align"] = cli(
-            "fastdiff_tpu_torch.data.pre_align_cli",
-            paths + ",pre_align_cls=fastdiff_tpu.data.pre_align.TTSPreAlign")
-        t0 = time.perf_counter()
-        meta_fn = os.path.join(processed, "metadata_phone.csv")
-        with open(meta_fn, newline="") as f:
-            rows = list(csv.DictReader(f))
-        for r in rows:
-            wav, sr = audio_io.load_wav(r["wav_fn"])
-            r["tg_fn"] = os.path.splitext(r["wav_fn"])[0] + ".TextGrid"
-            with open(r["tg_fn"], "w") as f:
-                f.write(mfa_textgrid(r["ph"].split(), len(wav) / sr, rng))
-        with open(meta_fn, "w", newline="") as f:
-            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
-            writer.writeheader()
-            writer.writerows(rows)
-        walls["textgrids"] = time.perf_counter() - t0
-        walls["binarize"] = cli("fastdiff_tpu_torch.data.binarize", paths)
+        paths, seconds, rows = make_tts_corpus(root, FS2_TRAIN + FS2_VALID,
+                                               FS2_VALID, rng, walls)
+        binary = os.path.join(root, "binary")
+        walls["binarize"] = run_cli("fastdiff_tpu_torch.data.binarize",
+                                    FS2_CONFIG, root, paths)
         splits, aligned, frames = {}, 0, []
         for prefix in ("train", "valid", "test"):
             ds = IndexedDataset(os.path.join(binary, prefix))
@@ -2286,7 +2338,7 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line) -> dict:
             aligned += sum("mel2ph" in it and int(it["dur"].sum()) == it["len"]
                            for it in items if prefix != "test")
             frames += [it["len"] for it in items]
-        report.update(splits=splits, aligned=aligned,
+        report.update(paths=paths, splits=splits, aligned=aligned,
                       seconds=[min(seconds), max(seconds)],
                       frames=[min(frames), max(frames)])
         phase(24, f"(a) {len(rows)} utterances of {min(seconds):.2f}-"
@@ -2622,7 +2674,6 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line) -> dict:
         return report
     finally:
         os.chdir(cwd)
-        shutil.rmtree(root, ignore_errors=True)
 
 
 BDDM_N = (8, 6, 4, 3)            # the published schedules' step counts
@@ -2981,6 +3032,516 @@ def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+ZOO_FRAMES = 864                 # 10 s at hop 256: the sampler's and AR cells
+SPK_STEPS = 100
+
+
+def zero_counters(all_counters) -> None:
+    for counter in all_counters:
+        for key in counter:
+            counter[key] = 0
+
+
+def launched(all_counters) -> dict:
+    return {k: v for counter in all_counters for k, v in counter.items()
+            if v}
+
+
+def phase25_spk(torch, all_counters, dev, smi_line, root: str,
+                paths: str) -> dict:
+    """The speaker encoder (``models/spk_encoder.py``, seed weights): (a)
+    16 ``synth_voice`` mels of 1-3 s embedded on the card and on the CPU
+    (TF32 off, max abs <= 1e-5), ms per ``embed``; (b) ``train_spk_encoder``
+    for 100 steps at n_spk 8 x n_utt 4 x crop 80 on those mels (the loss
+    must fall: mean of the last 10 below the first 10), ms per step, the
+    verification EER on held-out transforms, trained against the seed
+    weights; (c) phase 24's corpus through the ``binarize`` CLI with
+    ``binarization_args.with_spk_embed`` (on the card): every record's
+    ``spk_embed`` a 256-d unit vector."""
+    from fastdiff_tpu_torch.config import AudioConfig
+    from fastdiff_tpu_torch.data.indexed_dataset import IndexedDataset
+    from fastdiff_tpu_torch.models.spk_encoder import EMBED_DIM, SpeakerEncoder
+    from fastdiff_tpu_torch.ops.dsp import wav2mel_np
+    from fastdiff_tpu_torch.training import spk_task
+
+    zero_counters(all_counters)
+    report = {"device": smi_line}
+    rng = np.random.default_rng(25)
+    audio = AudioConfig()
+    mels = [wav2mel_np(synth_voice(float(rng.uniform(1, 3)), rng), audio)[1].T
+            for _ in range(16)]
+    card, cpu = SpeakerEncoder(device=dev), SpeakerEncoder(device="cpu")
+    card.eval()
+    cpu.eval()
+    emb_card = np.stack([card.embed(m) for m in mels])
+    emb_cpu = np.stack([cpu.embed(m) for m in mels])
+    err = float(np.abs(emb_card - emb_cpu).max())
+    _, ms = event_ms(torch, lambda: [card.embed(m) for m in mels])
+    embed_ms = ms / len(mels)
+    frames = [m.shape[0] for m in mels]
+    report["embed"] = dict(max_abs_err=err, ms_per_embed=embed_ms,
+                           frames=[min(frames), max(frames)])
+    phase(25, f"(a) SpeakerEncoder (seed weights) on {len(mels)} synth_voice "
+              f"mels of {min(frames)}-{max(frames)} frames: card vs CPU max "
+              f"abs {err:.2e} (bound 1e-5, TF32 off); embed "
+              f"{embed_ms:.3f} ms per mel (CUDA events, host included) "
+              f"[{smi_line}]")
+    if not err <= 1e-5 or emb_card.shape != (len(mels), EMBED_DIM):
+        fail("speaker embeddings: card and CPU disagree")
+
+    t0 = time.perf_counter()
+    model, history = spk_task.train_spk_encoder(
+        mels, steps=SPK_STEPS, n_spk=8, n_utt=4, crop=80, seed=0, device=dev)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / SPK_STEPS
+    eers = {name: {holdout: spk_task.verification_eer(m, mels,
+                                                     holdout=holdout)
+                   for holdout in (False, True)}
+            for name, m in (("trained", model.eval()),
+                            ("seed", SpeakerEncoder(device=dev).eval()))}
+    first, last = float(np.mean(history[:10])), float(np.mean(history[-10:]))
+    report["train"] = dict(steps=SPK_STEPS, ms_per_step=step_ms,
+                           loss_first10=first, loss_last10=last,
+                           eer=eers)
+    phase(25, f"(b) train_spk_encoder {SPK_STEPS} steps (8 speakers x 4 "
+              f"utterances x 80 frames, Adam 1e-3): {step_ms:.2f} ms per "
+              f"step (host wall, a loss read back each step); loss mean of "
+              f"the first 10 {first:.4f} -> last 10 {last:.4f}; "
+              f"verification EER trained {eers['trained'][False]:.4f} / "
+              f"held-out transforms {eers['trained'][True]:.4f}, seed "
+              f"weights {eers['seed'][False]:.4f} / {eers['seed'][True]:.4f}"
+              f" [{smi_line}]")
+    if not last < first:
+        fail("speaker-encoder training did not lower the loss")
+
+    binary = os.path.join(root, "binary_spk")
+    spk_paths = re.sub(r"binary_data_dir=[^,]*", f"binary_data_dir={binary}",
+                       paths) + ",binarization_args.with_spk_embed=True"
+    wall = run_cli("fastdiff_tpu_torch.data.binarize", FS2_CONFIG, root,
+                   spk_paths, "--device", dev.type)
+    norms = []
+    for prefix in ("train", "valid", "test"):
+        ds = IndexedDataset(os.path.join(binary, prefix))
+        for i in range(len(ds)):
+            e = ds[i].get("spk_embed")
+            if e is None or e.shape != (EMBED_DIM,) or e.dtype != np.float32:
+                fail(f"binarized record {prefix}/{i} has no 256-d spk_embed")
+            norms.append(float(np.linalg.norm(e)))
+    norm_err = float(np.max(np.abs(np.asarray(norms) - 1.0)))
+    report["binarize"] = dict(records=len(norms), wall_s=wall,
+                              norm_err=norm_err)
+    phase(25, f"(c) binarize --device {dev.type} with_spk_embed on the TTS "
+              f"corpus: {len(norms)} records, each spk_embed (256,) float32, "
+              f"max |norm - 1| {norm_err:.2e}; wall {wall:.2f} s")
+    if not norm_err <= 1e-5:
+        fail("binarized speaker embeddings are not unit vectors")
+    report["launched"] = launched(all_counters)
+    if report["launched"]:
+        fail(f"the speaker encoder launched kernels: {report['launched']}")
+    return report
+
+
+def zoo_configs() -> dict:
+    """The two diffusion-zoo configurations at their configs' full width:
+    ``micro_lj_pwg.yaml`` and ``micro_lj.yaml`` with ``denoiser: wavenet,
+    multiband: false`` (WaveNetConfig's defaults)."""
+    from fastdiff_tpu_torch.utils.hparams import set_hparams
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fastdiff_tpu", "configs")
+
+    def load(name):
+        return set_hparams(config=os.path.join(configs, name),
+                           print_hparams=False, global_hparams=False)
+    return {"pwg": load("micro_lj_pwg.yaml"),
+            "wavenet": dict(load("micro_lj.yaml"), denoiser="wavenet",
+                            multiband=False)}
+
+
+def grad_report(torch, names, card, cpu) -> tuple:
+    """(global rel L2 of the card's gradients against the CPU's, (worst
+    tensor's rel L2, its name))."""
+    flat = [torch.cat([g.double().flatten().cpu() for g in gs])
+            for gs in (card, cpu)]
+    worst = max((rel_l2(a.cpu().double(), b.double()), n)
+                for n, a, b in zip(names, card, cpu)
+                if float(b.double().norm()) > 0)
+    return rel_l2(flat[0], flat[1]), worst
+
+
+def draw_out_conv(torch, model, seed: int = 26) -> None:
+    """WaveNet's seed weights zero its output conv, which makes its output,
+    and every gradient but that conv's, 0. Draw the conv U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) from a CPU generator instead: the same values on the
+    card and on the CPU. A model with no ``out_conv`` (PWG) is left as
+    drawn."""
+    conv = getattr(model, "out_conv", None)
+    if conv is None:
+        return
+    gen = torch.Generator().manual_seed(seed)
+    bound = conv.weight[0].numel() ** -0.5
+    with torch.no_grad():
+        for p in (conv.weight, conv.bias):
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                                  generator=gen))
+
+
+def phase26_zoo(torch, all_counters, dev, smi_line) -> dict:
+    """The diffusion zoo at the configs' full widths (diffusion PWG of
+    ``micro_lj_pwg.yaml``: 30 layers, 3 stacks, 64 / 128 / 64, scales 4^4;
+    WaveNet: 30 layers, 64 channels, 512-d embedding, x256) through
+    ``FastDiffTask``, seed weights with WaveNet's output conv drawn
+    (``draw_out_conv``): (a) 5 ``train_step``s at 20 x 25,600 (bf16, the
+    configs' EMA) by CUDA events after one warm-up, with the peak memory;
+    (b) one step card vs CPU at 2 x 2,560 in f32 with the same draws (loss
+    rel 1e-5, gradients global rel L2 1e-4); the loss must differ from a
+    zero output's, mean(z^2), by more than 1e-4 relative, and more than
+    half of the gradient leaves outside ``out_conv`` must be non-zero on
+    both sides; (c) the N = 4
+    graph sampler at 864 frames (``make_test_sampler``): the third call (a
+    replay) bit-equal to the eager ``sample`` with the same injected noise,
+    ms per utterance by CUDA events; (d) the PWG vocoder's ``spec2wav`` at
+    864 frames; every kernel counter 0 across all of it."""
+    from fastdiff_tpu_torch.diffusion.sampler import sample
+    from fastdiff_tpu_torch.training.task import FastDiffTask
+    from fastdiff_tpu_torch.vocoders import get_vocoder_cls
+
+    zero_counters(all_counters)
+    report = {"device": smi_line}
+    length = TRAIN_FRAMES * HOP_SIZE
+    for name, hp in zoo_configs().items():
+        row = report[name] = {}
+        gen = torch.Generator(device=dev).manual_seed(26)
+        batch = {"wavs": torch.randn((TRAIN_BATCH, length, 1), generator=gen,
+                                     device=dev).mul_(0.3).cpu().numpy(),
+                 "mels": torch.randn((TRAIN_BATCH, TRAIN_FRAMES, 80),
+                                     generator=gen, device=dev).sub_(4.0)
+                 .cpu().numpy()}
+        ts = torch.randint(0, 1000, (TRAIN_BATCH, 1, 1), generator=gen,
+                           device=dev)
+        z = torch.randn((TRAIN_BATCH, length, 1), generator=gen, device=dev)
+        task = FastDiffTask(hp, device=dev)
+        state = task.build_state(seed=0)
+        draw_out_conv(torch, state.model)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        metrics = task.train_step(state, batch, ts=ts, z=z)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(5):
+            metrics, ms = event_ms(torch, lambda: task.train_step(
+                state, batch, ts=ts, z=z))
+            times.append(ms)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        loss = float(metrics["loss"])
+        row["train"] = dict(ms=times, ms_mean=float(np.mean(times)),
+                            peak_gib=peak, loss=loss,
+                            params=n_params, dtype=task.model_cfg.compute_dtype)
+        phase(26, f"{name} ({n_params / 1e6:.3f} M params, "
+                  f"{task.model_cfg.compute_dtype}, EMA "
+                  f"{task.ema_decay}): train_step at {TRAIN_BATCH} x "
+                  f"{length} {np.mean(times):.2f} ms (steps "
+                  + ", ".join(f"{t:.2f}" for t in times) + f"), peak memory "
+                  f"{peak:.2f} GiB, loss {loss:.5f} [{smi_line}]")
+        if not np.isfinite(loss) or float(metrics["nonfinite"]):
+            fail(f"{name}: the train step is not finite")
+        del state, task, batch, z
+
+        # (b) card vs CPU, f32
+        f32 = dict(hp, compute_dtype="float32")
+        gen = torch.Generator().manual_seed(27)
+        small = {"wavs": (torch.randn((2, 2560, 1), generator=gen) * 0.3)
+                 .numpy(), "mels": (torch.randn((2, 10, 80), generator=gen)
+                                    - 4.0).numpy()}
+        ts = torch.randint(0, 1000, (2, 1, 1), generator=gen)
+        z = torch.randn((2, 2560, 1), generator=gen)
+        sides = {}
+        for side, device in (("card", dev), ("cpu", "cpu")):
+            t = FastDiffTask(f32, device=device)
+            model = t.build_state(seed=0).model
+            draw_out_conv(torch, model)
+            names, params = zip(*model.named_parameters())
+            value = t.loss(model, small, ts=ts.to(device), z=z.to(device))
+            grads = torch.autograd.grad(value, params,
+                                        materialize_grads=True)
+            sides[side] = (float(value.detach()), grads)
+        loss_rel = abs(sides["card"][0] - sides["cpu"][0]) / abs(
+            sides["cpu"][0])
+        g_rel, (w_rel, w_name) = grad_report(torch, names, sides["card"][1],
+                                             sides["cpu"][1])
+        # a network whose output is 0 has the loss mean(z^2) and gradients
+        # only in its output conv
+        zero_loss = float(z.double().pow(2).mean())
+        from_zero = abs(sides["cpu"][0] - zero_loss) / zero_loss
+        inner = [bool(a.any()) and bool(b.any()) for n, a, b in
+                 zip(names, sides["card"][1], sides["cpu"][1])
+                 if not n.startswith("out_conv.")]
+        live = sum(inner)
+        row["card_vs_cpu"] = dict(loss_rel=loss_rel, grad_rel_l2=g_rel,
+                                  worst=[w_name, w_rel],
+                                  loss_rel_to_zero_output=from_zero,
+                                  live_leaves=[live, len(inner)])
+        phase(26, f"{name} f32 one step card vs CPU at 2 x 2,560: loss rel "
+                  f"{loss_rel:.2e} (bound 1e-5), gradients global rel L2 "
+                  f"{g_rel:.2e} (bound 1e-4; worst tensor {w_name} "
+                  f"{w_rel:.2e}); loss {sides['cpu'][0]:.5f} against a zero "
+                  f"output's {zero_loss:.5f} (rel {from_zero:.2e}), "
+                  f"{live} / {len(inner)} gradient leaves outside out_conv "
+                  f"non-zero on both sides")
+        if not (loss_rel <= 1e-5 and g_rel <= 1e-4):
+            fail(f"{name}: the card's step disagrees with the CPU's")
+        if not (from_zero > 1e-4 and 2 * live > len(inner)):
+            fail(f"{name}: the loss does not depend on the network")
+        del sides
+
+        # (c) the N = 4 graph sampler
+        task = FastDiffTask(hp, device=dev)
+        model = task.build_state(seed=0).model
+        draw_out_conv(torch, model)
+        state_dict = task.inference_state_dict(model.state_dict())
+        const = task.sampler_constants()
+        sampler = task.make_test_sampler(state_dict, const)
+        frames = ZOO_FRAMES
+        audio_len = frames * HOP_SIZE
+        gen = torch.Generator(device=dev).manual_seed(28)
+        mel = torch.randn((1, frames, 80), generator=gen, device=dev) - 4.0
+        noise = (torch.randn((1, audio_len, 1), generator=gen, device=dev),
+                 [torch.randn((1, audio_len, 1), generator=gen, device=dev)
+                  for _ in range(const.n_steps)])
+        outs = [sampler(None, None, mel, audio_len, noise=noise)
+                for _ in range(3)]            # warm-up, capture, replay
+        with torch.inference_mode():
+            eager = sample(sampler.model, mel, const, audio_len, noise=noise)
+        equal = [bool(torch.equal(o, eager)) for o in outs]
+        ms = cuda_ms(lambda: sampler(None, None, mel, audio_len,
+                                     noise=noise), 3)
+        audio_s = audio_len * AUDIO_SECONDS_PER_SAMPLE
+        row["sampler"] = dict(ms=ms, rtf=ms / 1e3 / audio_s,
+                              bit_equal=equal, captures=sampler.captures,
+                              max_abs_err=max_abs(outs[-1], eager))
+        phase(26, f"{name} N = {const.n_steps} graph sampler at {frames} "
+                  f"frames ({audio_s:.2f} s): {ms:.2f} ms per utterance by "
+                  f"CUDA events (RTF {ms / 1e3 / audio_s:.4f}), captures "
+                  f"{sampler.captures}; warm-up / capture / replay bit-equal "
+                  f"to the eager loop {equal} [{smi_line}]")
+        if not all(equal) or sampler.captures != 1 or \
+                not bool(outs[-1].isfinite().all()):
+            fail(f"{name}: the graph sampler differs from the eager loop")
+        del sampler, task, model, outs, eager, noise
+
+    # (d) the PWG vocoder
+    voc = get_vocoder_cls({"vocoder": "pwg"})({}, device=dev)
+    mel = np.random.default_rng(29).standard_normal(
+        (ZOO_FRAMES, 80)).astype(np.float32) - 4.0
+    wav = voc.spec2wav(mel)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        wav = voc.spec2wav(mel)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    report["pwg_vocoder"] = dict(ms=walls, samples=len(wav),
+                                 dtype=voc.cfg.compute_dtype)
+    phase(26, f"PWG vocoder (seed-0 weights, {voc.cfg.compute_dtype}) "
+              f"spec2wav at {ZOO_FRAMES} frames: {len(wav)} samples, "
+              + ", ".join(f"{t:.2f}" for t in walls) + " ms (host wall, "
+              f"read back included) [{smi_line}]")
+    if len(wav) != ZOO_FRAMES * HOP_SIZE or not np.isfinite(wav).all():
+        fail("the PWG vocoder's waveform is wrong")
+    report["launched"] = launched(all_counters)
+    phase(26, f"kernel launches across the zoo paths: "
+              f"{report['launched'] or 'none of K1-K10'}")
+    if report["launched"]:
+        fail(f"the zoo paths launched kernels: {report['launched']}")
+    return report
+
+
+MOL_STEPS = 20
+
+
+def phase27_mol(torch, all_counters, dev, smi_line) -> dict:
+    """The MoL WaveNet at ``micro_lj_armol.yaml``'s full width (18 layers,
+    3 stacks, 64 / 128 / 64, 30 outputs, scales 4 x 8 x 8, f32): (a)
+    ``run.main`` fits 20 updates at 8 x 12,800 on phase 11's synthetic
+    dataset (ms per ``train_step`` by CUDA events, peak memory; the loss
+    must fall); (b) one step card vs CPU at 2 x 12,800 (loss rel 1e-5,
+    gradients global rel L2 1e-4); (c) on the card
+    ``wavenet_incremental_logits`` (the CUDA-graph loop) against the
+    teacher-forced forward (1e-5); (d) the generation loop for 2,048 steps
+    at 4 streams with injected draws, CUDA graph against eager (equal);
+    (e) ``wavenet_generate`` of an 864-frame mel with the trained weights
+    (folds 12,800 / 512): wall s, samples / s, RTF; no kernel launched."""
+    from fastdiff_tpu_torch import run
+    from fastdiff_tpu_torch.models import wavenet_mol as mol
+    from fastdiff_tpu_torch.training.armol_task import MoLWaveNetTask
+    from fastdiff_tpu_torch.utils.hparams import set_hparams
+
+    zero_counters(all_counters)
+    report = {"device": smi_line}
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "fastdiff_tpu", "configs", "micro_lj_armol.yaml")
+    root = tempfile.mkdtemp(prefix="fastdiff_mol_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        os.makedirs(os.path.join(root, "binary"))
+        write_synthetic_dataset(os.path.join(root, "binary"), seed=27)
+        overrides = (f"binary_data_dir={os.path.join(root, 'binary')},"
+                     f"max_updates={MOL_STEPS},val_check_interval="
+                     f"{MOL_STEPS},num_sanity_val_steps=0,tb_log_interval=1")
+        timed = []
+        original = MoLWaveNetTask.train_step
+
+        def train_step(self, state, batch, generator=None):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = original(self, state, batch, generator)
+            end.record()
+            end.synchronize()
+            timed.append(start.elapsed_time(end))
+            return out
+
+        MoLWaveNetTask.train_step = train_step
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        try:
+            fit = run.main(["--config", config, "--exp_name", "mol",
+                            "--device", dev.type, "--hparams", overrides])
+        finally:
+            MoLWaveNetTask.train_step = original
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        with open(os.path.join("checkpoints", "mol", "tb_logs",
+                               "metrics.jsonl")) as f:
+            losses = [r["tr/loss"] for r in map(json.loads, f)
+                      if "tr/loss" in r]
+        model = fit["state"].model
+        cfg = model.cfg
+        hp = set_hparams(config=config, hparams_str=overrides,
+                         print_hparams=False, global_hparams=False)
+        ms = timed[1:]
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        report["fit"] = dict(steps=fit["step"], ms=timed,
+                             ms_median=float(np.median(ms)), peak_gib=peak,
+                             losses=losses, wall_s=wall,
+                             val_loss=fit["val"]["loss"])
+        phase(27, f"(a) run.main fit on micro_lj_armol.yaml ({cfg.layers} "
+                  f"layers, {cfg.stacks} stacks, {cfg.residual_channels} / "
+                  f"{cfg.gate_channels} / {cfg.skip_channels}, "
+                  f"{cfg.out_channels} outputs, {cfg.compute_dtype}): "
+                  f"{fit['step']} updates at {hp['max_sentences']} x "
+                  f"{hp['max_samples']}, train_step {np.median(ms):.2f} ms "
+                  f"median of steps 2-{len(timed)} by CUDA events, peak "
+                  f"memory {peak:.2f} GiB; loss mean of the first 5 "
+                  f"{first:.4f} -> last 5 {last:.4f}; val "
+                  f"{fit['val']['loss']:.4f}; wall {wall:.1f} s "
+                  f"[{smi_line}]")
+        if fit["step"] != MOL_STEPS or not last < first:
+            fail("the MoL WaveNet fit did not lower the loss")
+
+        # (b) card vs CPU
+        gen = torch.Generator().manual_seed(27)
+        small = {"wavs": torch.tanh(torch.randn((2, 12800, 1), generator=gen))
+                 .numpy(), "mels": (torch.randn((2, 50, 80), generator=gen)
+                                    - 4.0).numpy()}
+        sides = {}
+        for side, device in (("card", dev), ("cpu", "cpu")):
+            task = MoLWaveNetTask(hp, device=device)
+            m = task.build_state(seed=0).model
+            names, params = zip(*m.named_parameters())
+            value = task.loss(m, small)
+            sides[side] = (float(value.detach()), torch.autograd.grad(
+                value, params, materialize_grads=True))
+        loss_rel = abs(sides["card"][0] - sides["cpu"][0]) / abs(
+            sides["cpu"][0])
+        g_rel, (w_rel, w_name) = grad_report(torch, names, sides["card"][1],
+                                             sides["cpu"][1])
+        report["card_vs_cpu"] = dict(loss_rel=loss_rel, grad_rel_l2=g_rel,
+                                     worst=[w_name, w_rel])
+        phase(27, f"(b) one step card vs CPU at 2 x 12,800 f32: loss rel "
+                  f"{loss_rel:.2e} (bound 1e-5), gradients global rel L2 "
+                  f"{g_rel:.2e} (bound 1e-4; worst tensor {w_name} "
+                  f"{w_rel:.2e})")
+        if not (loss_rel <= 1e-5 and g_rel <= 1e-4):
+            fail("the MoL WaveNet's card step disagrees with the CPU's")
+        del sides
+
+        # (c) the one-sample loop against the teacher-forced forward
+        model.eval()
+        gen = torch.Generator(device=dev).manual_seed(30)
+        x = torch.tanh(torch.randn((2, 2 * cfg.hop, 1), generator=gen,
+                                   device=dev))
+        mel = torch.randn((2, 2, 80), generator=gen, device=dev) - 4.0
+        with torch.no_grad():
+            want = model(x, mel)
+        t0 = time.perf_counter()
+        got = mol.wavenet_incremental_logits(model, x, mel)
+        torch.cuda.synchronize()
+        inc_s = time.perf_counter() - t0
+        inc_err = max_abs(got, want)
+        report["incremental"] = dict(steps=x.shape[1], max_abs_err=inc_err,
+                                     wall_s=inc_s)
+        phase(27, f"(c) wavenet_incremental_logits (CUDA graph of 64-step "
+                  f"chunks) over {x.shape[1]} steps x 2 against the "
+                  f"teacher-forced forward: max abs {inc_err:.2e} (bound "
+                  f"1e-5); wall {inc_s:.2f} s")
+        if not inc_err <= 1e-5:
+            fail("the incremental logits disagree with the forward")
+
+        # (d) the generation loop, graph against eager, injected draws
+        steps, streams = 2048, 4
+        cond = torch.randn((streams, steps, 80), generator=gen, device=dev)
+        draws = mol.make_draws(cfg, steps, streams, gen, dev)
+        runs = {}
+        for mode in ("graph", "eager"):
+            t0 = time.perf_counter()
+            runs[mode] = mol.wavenet_generate_batched(
+                model, cond, draws=draws, graph=mode == "graph")
+            torch.cuda.synchronize()
+            runs[mode + "_s"] = time.perf_counter() - t0
+        equal = bool(torch.equal(runs["graph"], runs["eager"]))
+        report["graph_vs_eager"] = dict(
+            steps=steps, streams=streams, equal=equal,
+            max_abs_err=max_abs(runs["graph"], runs["eager"]),
+            graph_s=runs["graph_s"], eager_s=runs["eager_s"])
+        phase(27, f"(d) generation loop {steps} steps x {streams} streams, "
+                  f"injected draws: CUDA graph equal to the eager loop "
+                  f"{equal}; graph {runs['graph_s']:.2f} s (capture "
+                  f"included), eager {runs['eager_s']:.2f} s "
+                  f"[{smi_line}]")
+        if not equal:
+            fail("the graphed AR loop differs from the eager loop")
+
+        # (e) wavenet_generate of 10 s
+        mel = (torch.randn((1, ZOO_FRAMES, 80), generator=gen, device=dev)
+               - 4.0)
+        t0 = time.perf_counter()
+        wav = mol.wavenet_generate(model, mel, gen, target=12800,
+                                   overlap=512)
+        gen_s = time.perf_counter() - t0
+        audio_s = len(wav) * AUDIO_SECONDS_PER_SAMPLE
+        folds = mol.fold_with_overlap(torch.zeros(1, ZOO_FRAMES * cfg.hop, 1),
+                                      12800, 512).shape[0]
+        report["generate"] = dict(frames=ZOO_FRAMES, samples=len(wav),
+                                  folds=folds, wall_s=gen_s,
+                                  samples_per_s=len(wav) / gen_s,
+                                  rtf=gen_s / audio_s)
+        phase(27, f"(e) wavenet_generate of {ZOO_FRAMES} frames ({folds} "
+                  f"folds of 12,800 + 2 x 512 as one batch, trained "
+                  f"weights): {len(wav)} samples in {gen_s:.2f} s, "
+                  f"{len(wav) / gen_s:.0f} samples/s, RTF "
+                  f"{gen_s / audio_s:.3f} [{smi_line}]")
+        if len(wav) != ZOO_FRAMES * cfg.hop or not np.isfinite(wav).all():
+            fail("wavenet_generate's waveform is wrong")
+        report["launched"] = launched(all_counters)
+        if report["launched"]:
+            fail(f"the MoL paths launched kernels: {report['launched']}")
+        return report
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def check_no_jax():
     """Fail if jax or any module of the JAX package was imported."""
     bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
@@ -3030,7 +3591,6 @@ def main():
     smi_line = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
                 and smi.stdout.strip() else "nvidia-smi: not available")
     print(smi_line, flush=True)
-
     # --- phase 2: build ----------------------------------------------------
     cfg = ModelConfig()
     c, layers = cfg.inner_channels, cfg.lvc_layers_each_block
@@ -3453,10 +4013,35 @@ def main():
     check_no_jax()
 
     # --- phase 24: FastSpeech 2 training, raw audio to a vocoded wav --------
+    # (its corpus stays for phase 25's speaker embeddings)
+    corpus = tempfile.mkdtemp(prefix="fastdiff_fs2_")
+    try:
+        t0 = time.perf_counter()
+        fs2_report = phase24_fs2_train(torch, all_counters, dev, smi_line,
+                                       corpus)
+        fs2_report["wall_s"] = time.perf_counter() - t0
+        phase(24, f"done in {fs2_report['wall_s']:.1f} s")
+        check_no_jax()
+
+        # --- phase 25: the speaker encoder ----------------------------------
+        t0 = time.perf_counter()
+        zoo_report = {"spk": phase25_spk(torch, all_counters, dev, smi_line,
+                                         corpus, fs2_report["paths"])}
+        phase(25, f"done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+    check_no_jax()
+
+    # --- phase 26: the diffusion zoo (WaveNet, PWG) -------------------------
     t0 = time.perf_counter()
-    fs2_report = phase24_fs2_train(torch, all_counters, dev, smi_line)
-    fs2_report["wall_s"] = time.perf_counter() - t0
-    phase(24, f"done in {fs2_report['wall_s']:.1f} s")
+    zoo_report["diffusion"] = phase26_zoo(torch, all_counters, dev, smi_line)
+    phase(26, f"done in {time.perf_counter() - t0:.1f} s")
+    check_no_jax()
+
+    # --- phase 27: the MoL WaveNet ------------------------------------------
+    t0 = time.perf_counter()
+    zoo_report["mol"] = phase27_mol(torch, all_counters, dev, smi_line)
+    phase(27, f"done in {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     sources = {
@@ -3529,7 +4114,8 @@ def main():
                       "graph_vs_eager_ms": graph_report,
                       "train_step": train_report, "fit_s": fit_s,
                       "entry": entry_report, "tts": tts_report,
-                      "bddm": bddm_report, "fs2_train": fs2_report}),
+                      "bddm": bddm_report, "fs2_train": fs2_report,
+                      "zoo": zoo_report}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,9 +8,11 @@ on every inference route, the trainer, the wav / mel front end, the
 binarizer, the vocoder registry with the Griffin-Lim vocoders, and the TTS
 serving path (the text front end, FastSpeech 2 and
 ``FastSpeech2Task.infer_to_wav`` into the vocoder), BDDM's noise-schedule
-search (the phi predictor, its training and the reverse search) and the
-objective metrics (MCD, MR-STFT, PESQ; ``evaluate``, ``demo_vocoder``),
-written as PyTorch modules. Every kernel the JAX package wrote in Pallas
+search (the phi predictor, its training and the reverse search), the
+objective metrics (MCD, MR-STFT, PESQ; ``evaluate``, ``demo_vocoder``)
+and the other model families (the speaker encoder and its verification
+training, the WaveNet and diffusion-PWG denoisers, the PWG vocoder, the
+autoregressive MoL WaveNet and its task), written as PyTorch modules. Every kernel the JAX package wrote in Pallas
 (the LVC blocks, the predictor heads, the down path and the two
 experiment scripts' kernels) is hand-written CUDA C++ for ``sm_90a``
 (``csrc/``), built with ``nvcc`` on first use; every other op is plain

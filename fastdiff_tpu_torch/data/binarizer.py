@@ -39,10 +39,12 @@ def read_metadata_csv(path: str) -> List[dict]:
 
 
 class VocoderBinarizer:
-    """PWG-style (log10) mel binarizer."""
+    """PWG-style (log10) mel binarizer. ``device`` is the speaker encoder's
+    for the TTS binarizers' ``with_spk_embed``; this one uses none."""
 
-    def __init__(self, hparams: dict):
+    def __init__(self, hparams: dict, device="cuda"):
         self.hparams = hparams
+        self.device = device
         self.processed_data_dirs = str(hparams["processed_data_dir"]).split(",")
         self.binarization_args = hparams.get("binarization_args", {})
         self.item2wavfn = {}

@@ -46,12 +46,16 @@ def resolve_class(dotted_path: str):
     pkg, cls_name = dotted_path.rsplit(".", 1)
     if pkg == "fastdiff_tpu" or pkg.startswith("fastdiff_tpu."):
         port = "fastdiff_tpu_torch" + pkg[len("fastdiff_tpu"):]
-        if importlib.util.find_spec(port) is None or not hasattr(
-                importlib.import_module(port), cls_name):
+        try:    # a module under a subpackage the port lacks raises here
+            spec = importlib.util.find_spec(port)
+        except ModuleNotFoundError:
+            spec = None
+        if spec is None or not hasattr(importlib.import_module(port),
+                                       cls_name):
             raise NotImplementedError(
                 f"{dotted_path} is not ported to fastdiff_tpu_torch (still "
-                "to port: the PWG, WaveNet and speaker-encoder models and "
-                "their tasks, ROADMAP.md queue 1 item 11)")
+                "to port: parallel/mesh.py, data/native_io.py and "
+                "utils/profiling.py, ROADMAP.md queue 1 items 7b, 13 and 12)")
         pkg = port
     return getattr(importlib.import_module(pkg), cls_name)
 

@@ -13,9 +13,10 @@ on the port's ``VocoderBinarizer``:
 - the records go to the pickle shards (``data/indexed_dataset.py``) with
   ``<prefix>_lengths.npy``, one item at a time in this process, as JAX's.
 
-``with_spk_embed`` needs the speaker encoder (``models/spk_encoder.py``),
-which the port does not have yet: the binarizer refuses it when it is
-built (``NotImplementedError``).
+- ``with_spk_embed``: the d-vector of the item's mel
+  (``models/spk_encoder.py:get_speaker_encoder``, ``spk_embed_ckpt``'s
+  weights or the seed ones) as ``spk_embed``, on ``device`` (the CUDA card
+  unless the caller names another; only this option uses a device).
 """
 
 from __future__ import annotations
@@ -33,19 +34,12 @@ from fastdiff_tpu_torch.ops.cwt import f0_to_cwt
 from fastdiff_tpu_torch.ops.pitch import get_pitch
 from fastdiff_tpu_torch.text.encoder import UNK, TokenTextEncoder
 
-SPK_EMBED = ("binarization_args.with_spk_embed needs the speaker encoder "
-             "(models/spk_encoder.py), which is not ported to "
-             "fastdiff_tpu_torch yet: ROADMAP.md queue 1 item 11, the "
-             "speaker encoder with training/spk_task.py")
-
 
 class TTSBinarizer(VocoderBinarizer):
     """metadata_phone.csv columns: item_name, wav_fn[, txt, ph, spk, tg_fn]."""
 
-    def __init__(self, hparams: dict):
-        super().__init__(hparams)
-        if self.binarization_args.get("with_spk_embed"):
-            raise NotImplementedError(SPK_EMBED)
+    def __init__(self, hparams: dict, device="cuda"):
+        super().__init__(hparams, device)
         self.item_meta = {}
 
     def load_meta_data(self) -> None:
@@ -147,4 +141,10 @@ class TTSBinarizer(VocoderBinarizer):
                 item["cwt_spec"] = spec
                 item["cwt_mean"] = mean
                 item["cwt_std"] = std
+        if args.get("with_spk_embed"):
+            from fastdiff_tpu_torch.models.spk_encoder import \
+                get_speaker_encoder
+            encoder = get_speaker_encoder(str(hp.get("spk_embed_ckpt", "")),
+                                          self.device)
+            item["spk_embed"] = encoder.embed(item["mel"])
         return item

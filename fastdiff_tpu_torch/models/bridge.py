@@ -258,3 +258,90 @@ def phi_params_to_jax(state: dict) -> dict:
     n_convs = len({k.split(".")[1] for k in state if k.startswith("convs.")})
     return {"convs": [layer(f"convs.{i}", "conv") for i in range(n_convs)],
             "fc1": layer("fc1", "dense"), "fc2": layer("fc2", "dense")}
+
+
+# ---------------------------------------------------------------------------
+# The other model families: speaker encoder, WaveNet, PWG, diffusion PWG and
+# MoL WaveNet. Their port modules carry the JAX trees' names (a dotted path
+# per layer), so one walk converts each: "w" -> "weight" (in PyTorch's
+# layout), "b" -> "bias", "v" and "g" kept (weight norm). By shape and
+# name: a 2-D "w" is a dense layer (transposed), but under
+# ``embed_speakers`` a lookup table (as it is); 3-D a conv; 4-D (KH, KW, I,
+# O) a Conv2d, (O, I, KH, KW), except under ``upsamplers`` (the WaveNet
+# mel upsamplers), where JAX stores a ConvTranspose2d kernel flipped in both
+# spatial axes: PyTorch's (I, O, KH, KW) is ``v[::-1, ::-1]`` transposed.
+# ---------------------------------------------------------------------------
+
+def _zoo_layers(tree, path=()):
+    """(dotted path, layer dict) of every layer of a JAX tree."""
+    if isinstance(tree, dict) and any(k in tree for k in ("w", "v")):
+        yield ".".join(map(str, path)), tree
+    elif isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _zoo_layers(sub, path + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _zoo_layers(sub, path + (i,))
+
+
+def _zoo_to_torch(name: str, a: np.ndarray) -> np.ndarray:
+    if a.ndim == 2 and "embed_speakers" not in name:
+        return a.T
+    if a.ndim == 3:
+        return a.transpose(2, 1, 0)
+    if a.ndim == 4 and "upsamplers" in name:
+        return a[::-1, ::-1].transpose(2, 3, 0, 1)
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
+    return a
+
+
+def _zoo_from_torch(name: str, a: np.ndarray) -> np.ndarray:
+    """Inverse of ``_zoo_to_torch``."""
+    if a.ndim == 2 and "embed_speakers" not in name:
+        return a.T
+    if a.ndim == 3:
+        return a.transpose(2, 1, 0)
+    if a.ndim == 4 and "upsamplers" in name:
+        return a.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if a.ndim == 4:
+        return a.transpose(2, 3, 1, 0)
+    return a
+
+
+_ZOO_LEAVES = (("w", "weight"), ("b", "bias"), ("v", "v"), ("g", "g"))
+
+
+def zoo_params_from_jax(tree: dict) -> dict:
+    """A JAX tree of the speaker encoder (``init_spk_encoder``), WaveNet
+    (``init_wavenet``, weight norm kept), PWG (``init_pwg``), diffusion PWG
+    (``init_pwg_diffusion``) or MoL WaveNet (``init_wavenet_mol``), numpy
+    leaves -> the state_dict of the port's ``SpeakerEncoder``,
+    ``WaveNet``, ``PWG``, ``PWGDiffusion`` or ``MoLWaveNet``."""
+    state = {}
+    for name, layer in _zoo_layers(tree):
+        for jax_key, key in _ZOO_LEAVES:
+            if jax_key in layer:
+                a = _f32(layer[jax_key])
+                if jax_key in ("w", "v"):
+                    a = _zoo_to_torch(name, a)
+                # np.array copies into a contiguous array and, unlike
+                # np.ascontiguousarray, keeps a 0-d g (the upsamplers') 0-d
+                state[f"{name}.{key}"] = torch.from_numpy(np.array(a))
+    return state
+
+
+def zoo_params_to_jax(state: dict) -> dict:
+    """A state_dict of one of those modules (or tensors keyed like it, such
+    as its gradients) -> the JAX tree, numpy float32 leaves; the inverse of
+    ``zoo_params_from_jax``."""
+    tree: dict = {}
+    for full, value in state.items():
+        name, key = full.rsplit(".", 1)
+        jax_key = {k: j for j, k in _ZOO_LEAVES}[key]
+        a = value.detach().cpu().float().numpy()
+        if jax_key in ("w", "v"):
+            a = _zoo_from_torch(name, a)
+        path = tuple(int(k) if k.isdigit() else k for k in name.split("."))
+        _set(tree, path + (jax_key,), np.array(a))
+    return tree

@@ -120,3 +120,18 @@ def diffusion_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
         half, dtype=torch.float32, device=t.device))
     args = t.float() * freqs[None, :]
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+@torch.no_grad()
+def uniform_init_(module: torch.nn.Module, generator: torch.Generator):
+    """PyTorch's default initialization of every ``Conv1d`` / ``Conv2d`` /
+    ``Linear`` in ``module``, drawn from ``generator``: weight and bias
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = weight[0].numel() (the
+    JAX package's ``conv1d_init`` / ``dense_init``)."""
+    for sub in module.modules():
+        if isinstance(sub, (torch.nn.Conv1d, torch.nn.Conv2d,
+                            torch.nn.Linear)):
+            bound = sub.weight[0].numel() ** -0.5
+            sub.weight.uniform_(-bound, bound, generator=generator)
+            if sub.bias is not None:
+                sub.bias.uniform_(-bound, bound, generator=generator)

@@ -1,22 +1,27 @@
-"""FastDiff vocoder training task (``fastdiff_tpu/training/task.py``), for the
-fastdiff denoiser.
+"""FastDiff vocoder training task (``fastdiff_tpu/training/task.py``).
 
-``build_state`` makes the trainable model (``FastDiff(cfg, train_route=...)``
-on the task's device, weight norm as parameters), its optimizer and the
-step counter; ``load_ckpt`` loads a released checkpoint of the reference
-(``utils/ckpt_import.py``) or a checkpoint of the port's ``Trainer`` into
-it. ``train_step`` runs the loss (``diffusion/losses.py``), its gradients
+``denoiser`` picks the epsilon network: ``fastdiff`` (the default, and
+any name but the two below, as in JAX), ``wavenet`` (``models/wavenet.py``,
+DiffWave-style) or ``pwg`` (``models/pwg.py:PWGDiffusion``). ``build_state``
+makes the trainable model (``FastDiff(cfg, train_route=...)`` on the task's
+device, weight norm as parameters; or the zoo denoiser), its optimizer and
+the step counter; ``load_ckpt`` loads a released checkpoint of the
+reference (``utils/ckpt_import.py``, the fastdiff denoiser) or a checkpoint
+of the port's ``Trainer`` into it. ``train_step`` runs the loss (``diffusion/losses.py``), its gradients
 and one optimizer update; ``val_step`` the loss alone. As in the JAX task,
 a step whose loss or any gradient is not finite changes neither the
 parameters nor the optimizer state, and the step counter still advances.
 The route of the LVC blocks comes from ``use_pallas_block``
-(``models/fastdiff.py:resolve_train_route``).
+(``models/fastdiff.py:resolve_train_route``); the zoo denoisers have no
+LVC block, resolve no route and launch no kernel (their ops are plain
+PyTorch, as JAX's are plain jnp).
 
 Inference (``Trainer.test``): ``test_dataloader`` yields the test split, or
 the wavs of ``test_input_dir`` / the ``.npy`` mels of ``test_mel_dir``
 featurized by the binarizer; ``inference_model`` loads fused inference
 weights into a ``FastDiff`` on the route ``resolve_infer_route`` picks (the
-score network of the BDDM search too), and ``make_test_sampler`` returns
+score network of the BDDM search too; a zoo denoiser as it trains, weight
+norm resolved on each call), and ``make_test_sampler`` returns
 ``make_param_sampler`` over it, one CUDA graph per padded length;
 ``test_step`` edge-pads the mel to a multiple of ``infer_frame_bucket``
 frames (128), so utterances of one bucket replay one graph, trims the
@@ -53,9 +58,16 @@ from fastdiff_tpu_torch.models.fastdiff import (FastDiff, checked_device,
                                                 resolve_down_kernel,
                                                 resolve_infer_route,
                                                 resolve_train_route)
+from fastdiff_tpu_torch.models.pwg import PWGConfig, PWGDiffusion
+from fastdiff_tpu_torch.models.wavenet import WaveNet, WaveNetConfig
 from fastdiff_tpu_torch.training.checkpoint import load_checkpoint
 from fastdiff_tpu_torch.training.optim import AdamW, global_norm
 from fastdiff_tpu_torch.utils import audio_io, ckpt_import
+from fastdiff_tpu_torch.vocoders import fastdiff_vocoder
+
+
+# the zoo denoisers: ``denoiser`` name -> (config class, module)
+ZOO = {"wavenet": (WaveNetConfig, WaveNet), "pwg": (PWGConfig, PWGDiffusion)}
 
 
 @dataclasses.dataclass
@@ -73,18 +85,19 @@ class FastDiffTask:
     """Conditional diffusion vocoder task (mel -> waveform)."""
 
     def __init__(self, hparams: dict, device="cuda"):
-        denoiser = str(hparams.get("denoiser", "fastdiff"))
-        if denoiser != "fastdiff":
-            raise NotImplementedError(
-                f"denoiser {denoiser!r} is not ported (ROADMAP.md queue 1, "
-                "the model zoo); the port trains the fastdiff denoiser")
         self.hparams = hparams
         self.device = checked_device(device)
         self.diff_cfg = DiffusionConfig.from_hparams(hparams)
         self.audio_cfg = AudioConfig.from_hparams(hparams)
         self.train_cfg = TrainConfig.from_hparams(hparams)
-        self.model_cfg = ModelConfig.from_hparams(hparams)
-        self.route = resolve_train_route(hparams, self.device)
+        self.denoiser_type = str(hparams.get("denoiser", "fastdiff"))
+        self.zoo = ZOO.get(self.denoiser_type)
+        if self.zoo is not None:
+            self.model_cfg = self.zoo[0].from_hparams(hparams)
+            self.route = None
+        else:
+            self.model_cfg = ModelConfig.from_hparams(hparams)
+            self.route = resolve_train_route(hparams, self.device)
         hyper = schedules.compute_hyperparams_given_schedule(
             schedules.linear_beta_schedule(self.diff_cfg))
         self.alpha = torch.as_tensor(hyper.alpha, dtype=torch.float32,
@@ -95,10 +108,13 @@ class FastDiffTask:
     # -- state -------------------------------------------------------------
     def build_state(self, seed: int | None = None) -> TrainState:
         seed = self.train_cfg.seed if seed is None else seed
-        model = FastDiff(self.model_cfg, seed=seed, device=self.device,
-                         train_route=self.route)
+        if self.zoo is not None:
+            model = self.zoo[1](self.model_cfg, seed=seed, device=self.device)
+        else:
+            model = FastDiff(self.model_cfg, seed=seed, device=self.device,
+                             train_route=self.route)
         print(f"| model params: {num_params(model) / 1e6:.3f}M "
-              f"(route {self.route})")
+              f"({self.denoiser_type}, route {self.route})")
         load_ckpt = self.hparams.get("load_ckpt", "")
         if load_ckpt:
             model.load_state_dict(self._load_external_params(load_ckpt))
@@ -114,11 +130,11 @@ class FastDiffTask:
         ``Trainer`` checkpoint."""
         saved = load_checkpoint(path, map_location=self.device)
         released = ckpt_import.released_state_dict(saved)
-        if released is not None:
+        if released is not None and self.zoo is None:
             print(f"| loaded released checkpoint: {path}")
             return ckpt_import.trainable_state_dict(released, self.model_cfg)
         print(f"| loaded checkpoint: {path}")
-        return saved["params"]
+        return saved.get("params", saved)
 
     # -- train/val ---------------------------------------------------------
     def _batch(self, batch: dict) -> tuple:
@@ -139,7 +155,9 @@ class FastDiffTask:
         model = state.model
         params = list(model.parameters())
         loss = self.loss(model, batch, generator, ts, z)
-        grads = torch.autograd.grad(loss, params)
+        # zeros for weights the loss does not reach (a zoo denoiser's last
+        # residual conv), as JAX's gradients hold them
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
         finite = torch.stack([torch.isfinite(loss)] +
                              [torch.isfinite(g).all() for g in grads]).all()
         if bool(finite):
@@ -189,15 +207,28 @@ class FastDiffTask:
     def sampler_constants(self) -> schedules.SamplerConstants:
         return constants_for_hparams(self.hparams)
 
-    def inference_model(self, state_dict: dict) -> FastDiff:
-        """The inference ``FastDiff`` on the route ``use_pallas_block`` picks
-        (``resolve_infer_route``, ``resolve_down_kernel``), on the task's
-        device, in eval mode, holding the fused weights ``state_dict``: the
-        counterpart of JAX's ``param_apply_fn``, called as ``model(x, mel,
-        t)``."""
-        model = FastDiff(self.model_cfg, seed=None,
-                         infer_route=resolve_infer_route(self.hparams),
-                         down_kernel=resolve_down_kernel(self.hparams))
+    def inference_state_dict(self, saved: dict) -> dict:
+        """The weights ``inference_model`` takes, from a loaded checkpoint,
+        a trainable state_dict or its EMA: weight norm fused for the
+        fastdiff denoiser (``vocoders/fastdiff_vocoder.py:
+        inference_state_dict``); a zoo denoiser's as they are."""
+        if self.zoo is not None:
+            return saved.get("params", saved)
+        return fastdiff_vocoder.inference_state_dict(saved, self.model_cfg)
+
+    def inference_model(self, state_dict: dict) -> torch.nn.Module:
+        """The inference denoiser on the task's device, in eval mode,
+        holding ``state_dict``, called as ``model(x, mel, t)``: the
+        counterpart of JAX's ``param_apply_fn``. For fastdiff a ``FastDiff``
+        on the route ``use_pallas_block`` picks (``resolve_infer_route``,
+        ``resolve_down_kernel``) with fused weights; a zoo denoiser is its
+        training module."""
+        if self.zoo is not None:
+            model = self.zoo[1](self.model_cfg, seed=None)
+        else:
+            model = FastDiff(self.model_cfg, seed=None,
+                             infer_route=resolve_infer_route(self.hparams),
+                             down_kernel=resolve_down_kernel(self.hparams))
         model.load_state_dict(state_dict)
         return model.to(self.device).eval()
 

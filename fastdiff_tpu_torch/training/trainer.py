@@ -15,7 +15,8 @@
   step ``resume_from_checkpoint`` pins): parameters, optimizer state, step,
   best score and EMA;
 - ``test`` restores the newest checkpoint (or runs the task's seed weights
-  when there is none), prefers the EMA weights, fuses weight norm and
+  when there is none), prefers the EMA weights, takes the task's
+  ``inference_state_dict`` of them (weight norm fused for FastDiff) and
   vocodes the task's test items, one utterance at a time, into
   ``generated_<step>_<gen_dir_name>``, printing each one's real-time
   factor and their mean.
@@ -39,7 +40,6 @@ import torch
 from fastdiff_tpu_torch.diffusion.sampler import inference_generator
 from fastdiff_tpu_torch.training import checkpoint as ckpt
 from fastdiff_tpu_torch.utils.logging_utils import MeterBank, ScalarLogger
-from fastdiff_tpu_torch.vocoders.fastdiff_vocoder import inference_state_dict
 
 
 class Trainer:
@@ -189,9 +189,8 @@ class Trainer:
         state, step = self.restore(state)
         trained = (state.ema if state.ema is not None
                    else state.model.state_dict())
-        sampler = task.make_test_sampler(
-            inference_state_dict(trained, task.model_cfg),
-            task.sampler_constants())
+        sampler = task.make_test_sampler(task.inference_state_dict(trained),
+                                         task.sampler_constants())
         gen_dir = os.path.join(
             self.work_dir,
             f"generated_{step}_{task.hparams.get('gen_dir_name', '')}")

@@ -2,9 +2,9 @@
 (``fastdiff_tpu/vocoders/base.py``).
 
 ``hparams['vocoder']`` is looked up case-insensitively among the registered
-classes (``fastdiff``, ``glmel``, ``gllinear``, ``stft``); any other name is
-a dotted import path, resolved by ``data/dataset.py:resolve_class`` (a
-``fastdiff_tpu.`` path names the port's class). Every vocoder is built as
+classes (``fastdiff``, ``pwg``, ``glmel``, ``gllinear``, ``stft``); any other
+name is a dotted import path, resolved by ``data/dataset.py:resolve_class``
+(a ``fastdiff_tpu.`` path names the port's class). Every vocoder is built as
 ``cls(hparams, device=...)`` on the CUDA card unless the caller names
 another device, and exposes ``spec2wav`` (spectrogram -> waveform) and the
 canonical ``wav2spec`` front end, which the binarizer shares, so analysis
@@ -38,9 +38,8 @@ def get_vocoder_cls(hparams: dict):
         return VOCODERS[name.lower()]
     if "." not in name:
         raise ValueError(f"unknown vocoder {name!r}: the port registers "
-                         f"{sorted(VOCODERS)} (the PWG vocoder is still to "
-                         "port: ROADMAP.md queue 1 item 11); other names are "
-                         "dotted class paths")
+                         f"{sorted(VOCODERS)}; other names are dotted class "
+                         "paths")
     from fastdiff_tpu_torch.data.dataset import resolve_class
     return resolve_class(name)
 

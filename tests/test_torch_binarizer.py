@@ -169,5 +169,8 @@ def test_resolve_class_maps_the_jax_names():
     from fastdiff_tpu_torch.data.tts_binarizer import TTSBinarizer
     assert pds.resolve_class(
         "fastdiff_tpu.data.tts_binarizer.TTSBinarizer") is TTSBinarizer
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pds.resolve_class("fastdiff_tpu.models.spk_encoder.SpeakerEncoder")
+    from fastdiff_tpu_torch.models.spk_encoder import SpeakerEncoder
+    assert pds.resolve_class(
+        "fastdiff_tpu.models.spk_encoder.SpeakerEncoder") is SpeakerEncoder
+    with pytest.raises(NotImplementedError, match="items 7b"):
+        pds.resolve_class("fastdiff_tpu.parallel.mesh.make_mesh")

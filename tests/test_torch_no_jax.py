@@ -11,6 +11,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -94,6 +95,15 @@ def test_port_imports_no_jax():
             "from fastdiff_tpu_torch import (NoisePredictor, "
             "search_noise_schedule)\n"
             "from fastdiff_tpu_torch.utils.metrics import mcd\n"
+            "import fastdiff_tpu_torch.models.spk_encoder\n"
+            "import fastdiff_tpu_torch.training.spk_task\n"
+            "import fastdiff_tpu_torch.models.wavenet\n"
+            "import fastdiff_tpu_torch.models.pwg\n"
+            "import fastdiff_tpu_torch.models.wavenet_mol\n"
+            "import fastdiff_tpu_torch.ops.mixture\n"
+            "import fastdiff_tpu_torch.training.armol_task\n"
+            "import fastdiff_tpu_torch.vocoders.pwg_vocoder\n"
+
             "import numpy\n"
             "assert mcd(numpy.full(4096, 0.1), numpy.full(4096, 0.1)) == 0.0\n"
             "from fastdiff_tpu_torch.text.processors import "
@@ -108,6 +118,11 @@ def test_port_imports_no_jax():
             ".__module__ == 'fastdiff_tpu_torch.training.task'\n"
             "assert resolve_class('fastdiff_tpu.training.tts_task."
             "FastSpeech2Task') is FastSpeech2Task\n"
+            "assert resolve_class('fastdiff_tpu.training.armol_task."
+            "MoLWaveNetTask').__module__ == "
+            "'fastdiff_tpu_torch.training.armol_task'\n"
+            "assert get_vocoder_cls({'vocoder': 'pwg'}).__module__ == "
+            "'fastdiff_tpu_torch.vocoders.pwg_vocoder'\n"
             "for path in ('data.tts_binarizer.TTSBinarizer', "
             "'data.zh_binarizer.ZhBinarizer', 'data.pre_align.TTSPreAlign', "
             "'data.pre_align.LJPreAlign'):\n"
@@ -199,6 +214,21 @@ def test_entry_points_default_to_the_card():
                  FastSpeech2Task):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(dict(hp))
+    # the model families ported with the speaker encoder and the zoo
+    from fastdiff_tpu_torch.models.spk_encoder import (SpeakerEncoder,
+                                                       get_speaker_encoder)
+    from fastdiff_tpu_torch.training.armol_task import MoLWaveNetTask
+    from fastdiff_tpu_torch.training.spk_task import train_spk_encoder
+    from fastdiff_tpu_torch.vocoders.pwg_vocoder import PWG
+    mels = [np.zeros((40, 80), np.float32)]
+    for make in (lambda: FastDiffTask({"denoiser": "wavenet"}),
+                 lambda: FastDiffTask({"denoiser": "pwg"}),
+                 lambda: MoLWaveNetTask({"hop_size": 256}),
+                 lambda: PWG({}), SpeakerEncoder,
+                 lambda: get_speaker_encoder(""),
+                 lambda: train_spk_encoder(mels, steps=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def test_chip_smoke_fails_without_gpu():

@@ -224,17 +224,13 @@ def test_resolve_class_imports_no_jax_package():
             f"for path in sorted(glob.glob({REPO!r} + "
             "'/fastdiff_tpu/configs/*.yaml')):\n"
             "    name = load_config_cascade(path)['task_cls']\n"
-            "    try:\n"
-            "        seen[name] = resolve_class(name).__module__\n"
-            "    except NotImplementedError as e:\n"
-            "        assert 'item 11' in str(e)\n"
-            "        seen[name] = None\n"
+            "    seen[name] = resolve_class(name).__module__\n"
             "assert seen['fastdiff_tpu.training.task.FastDiffTask'] == "
             "'fastdiff_tpu_torch.training.task', seen\n"
             "assert seen['fastdiff_tpu.training.tts_task.FastSpeech2Task'] "
             "== 'fastdiff_tpu_torch.training.tts_task', seen\n"
             "assert seen['fastdiff_tpu.training.armol_task.MoLWaveNetTask'] "
-            "is None\n"
+            "== 'fastdiff_tpu_torch.training.armol_task', seen\n"
             "bad = [m for m in sys.modules if m == 'fastdiff_tpu' or "
             "m.startswith(('fastdiff_tpu.', 'jax'))]\n"
             "assert not bad, bad\n"
@@ -248,12 +244,18 @@ def test_resolve_class_imports_no_jax_package():
 
 def test_pwg_denoiser_task_is_refused():
     """micro_lj_pwg.yaml's task is the port's FastDiffTask with
-    ``denoiser: pwg``, which the port has not (item 11)."""
+    ``denoiser: pwg``. The port refused it until the zoo was ported; now it
+    builds the config's diffusion PWG (30 layers, 3 stacks, 64 / 128 / 64,
+    scales 4 x 4) and resolves no LVC kernel route."""
+    from fastdiff_tpu_torch.models.pwg import PWGConfig
     hp = set_hparams(config=os.path.join(REPO, "fastdiff_tpu", "configs",
                                          "micro_lj_pwg.yaml"),
                      print_hparams=False, global_hparams=False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FastDiffTask(hp, device="cpu")
+    task = FastDiffTask(hp, device="cpu")
+    assert task.denoiser_type == "pwg" and task.route is None
+    assert task.model_cfg == PWGConfig(
+        layers=30, stacks=3, residual_channels=64, gate_channels=128,
+        skip_channels=64, upsample_scales=(4, 4, 4, 4))
 
 
 @pytest.mark.parametrize("name,cls", [
@@ -267,10 +269,16 @@ def test_vocoder_names_resolve(name, cls):
 
 
 def test_unknown_vocoder_names_raise():
-    with pytest.raises(ValueError, match="item 11"):
-        get_vocoder_cls({"vocoder": "pwg"})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_vocoder_cls({"vocoder": "fastdiff_tpu.vocoders.pwg_vocoder.PWG"})
+    """Names the registry lacks raise; ``pwg`` (refused until the PWG
+    vocoder was ported) resolves by name and by JAX's class path."""
+    from fastdiff_tpu_torch.vocoders.pwg_vocoder import PWG
+    with pytest.raises(ValueError, match="unknown vocoder 'hifigan'"):
+        get_vocoder_cls({"vocoder": "hifigan"})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_vocoder_cls({"vocoder": "fastdiff_tpu.vocoders.hifigan.HifiGAN"})
+    assert get_vocoder_cls({"vocoder": "pwg"}) is PWG
+    assert get_vocoder_cls(
+        {"vocoder": "fastdiff_tpu.vocoders.pwg_vocoder.PWG"}) is PWG
 
 
 def test_glmel_runs_and_converges_as_jax_s():

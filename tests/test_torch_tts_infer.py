@@ -238,12 +238,21 @@ def test_pipeline_and_demo_write_wavs(setup, tmp_path):
 
 
 def test_training_refuses(setup, tmp_path):
-    """What the TTS path still refuses: speaker embeddings in the binarizer
-    and the speaker encoder itself."""
+    """What the TTS path refused until the speaker encoder was ported
+    (speaker embeddings in the binarizer, the encoder itself) now builds;
+    the encoder asks for the card unless told otherwise, and a module the
+    port still lacks raises by name."""
+    from fastdiff_tpu_torch.models.spk_encoder import (SpeakerEncoder,
+                                                       get_speaker_encoder)
     hp = dict(setup["hp"], processed_data_dir=str(tmp_path),
               binary_data_dir=str(tmp_path / "binary"),
               binarization_args={"with_spk_embed": True})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TTSBinarizer(hp)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        resolve_class("fastdiff_tpu.models.spk_encoder.SpeakerEncoder")
+    assert TTSBinarizer(hp).device == "cuda"
+    assert TTSBinarizer(hp, device="cpu").device == "cpu"
+    assert resolve_class(
+        "fastdiff_tpu.models.spk_encoder.SpeakerEncoder") is SpeakerEncoder
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_speaker_encoder("", "cuda")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        resolve_class("fastdiff_tpu.data.native_io.NativeBatchLoader")
