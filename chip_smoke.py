@@ -59,9 +59,11 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    autograd through their plain versions (relative L2 <= 5e-2 each);
 10. one full-width train step (loss, backward, clip, AdamW) on a fixed
     batch of 20 x 25,600 samples through ``FastDiffTask.train_step``, the
-    ``ncl_sr``, ``ncl_vjp`` and ``plain`` routes raced in turns with CUDA
-    events: ms per step, peak memory, loss and gradient norm, and the
-    kernel routes' gradients against the plain route's;
+    ``ncl_sr``, ``ncl_vjp``, ``nwc_vjp`` (``use_pallas_block: true``) and
+    ``plain`` routes raced in turns with CUDA events: ms per step, peak
+    memory, loss and gradient norm, and the kernel routes' gradients
+    against the plain route's; one ``nwc_vjp`` step launches K7 and the
+    tensor-core K6 exactly twice each and no other kernel;
 11. ``Trainer(task, work_dir).fit()`` on a synthetic binarized dataset (24
     train and 4 valid items of 120-200 frames, written to a temporary
     directory): 6 updates at the recipe's batch with validation and a
@@ -232,9 +234,34 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     teacher-forced forward (1e-5); the generation loop for 2,048 steps with
     injected draws, CUDA graph equal to the eager loop; ``wavenet_generate``
     of an 864-frame mel (17 folds of 12,800 + 2 x 512): wall, samples / s,
-    RTF; no kernel launched.
+    RTF; no kernel launched;
+28. the trainable NWC route's Functions at the recipe's fused shapes (b
+    20 x 100 frames, bf16): ``AugHead`` (K7) and ``LVCBlockNWCRecompute``
+    (K6, hops 64 and 256) against autograd through their plain versions
+    (relative L2 <= 5e-2 per input);
+29. the C++ mmap loader (``data/native_io.py``): a cold ``g++`` build and
+    its wall; ``scripts/e2e_sanity.py``'s 24 tones through the
+    ``VocoderBinarizer`` (pickle shards and v2 files); 20 native batches of
+    16 x 12,800 bit-equal to the pickle path's on the same draws; batches
+    per second on the host, native against pickle raced in turns; a 3-step
+    ``Trainer.fit`` whose native batch counter rose;
+30. ``torchrun --standalone --nproc_per_node 1`` of
+    ``scripts/ddp_steps.py`` (NCCL, world size 1, DDP): 3 recipe steps
+    against the same 3 in this process without a process group, cuDNN
+    deterministic (the flags printed): losses and parameters within 1e-6
+    relative; ``DistributedChunkedVocoder`` at one card against
+    ``ChunkedVocoder`` on 3,000 frames (rel L2 <= 1e-6);
+31. ``utils/profiling`` on the NCL graph sampler at 864 frames:
+    ``device_timer_slope`` and ``device_timer`` beside phase 6's CUDA-event
+    time; ``trace()`` writes a Chrome trace that names K1, K2 and K3;
+    ``RTFMeter`` over four replayed utterances;
+32. the learning check's cut (``scripts/e2e_sanity.py``'s data and
+    hparams, ``ncl_sr``, the native loader): ``SANITY_STEPS`` updates of 16
+    x 12,800; fails unless the mean train loss of the last 50 is at most
+    ``SANITY_RATIO`` x that of the first 10 and every step launched K3 and
+    the tensor-core K4 exactly 3 times (the CUDA-core K4 never).
 
-Any failed check exits non-zero. The line before the last is a JSON object
+Each phase from 21 on prints its wall. Any failed check exits non-zero. The line before the last is a JSON object
 with each of the twelve kernels' launches (from the run of its path: phase
 7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9),
 its largest error against its plain version, its time beside the plain
@@ -252,14 +279,17 @@ metrics, the CLIs' walls), ``fs2_train`` phase 24's (pipeline counts and
 walls, card vs CPU errors, fit ms per step, peak memory, losses, launches
 per utterance), and each kernel carries
 ``fs2_infer_launches_per_utterance``, its launches per ``infer_to_wav`` of
-the trained FastSpeech 2 in phase 24; ``zoo`` holds phases 25-27's rows
-(``spk``, ``diffusion``, ``mol``). The last line is ``{"ok": true,
-"device": {...}}``.
+the trained FastSpeech 2 in phase 24, and K7 and K6 also
+``train_launches_per_step`` from one ``nwc_vjp`` step of phase 10; ``zoo``
+holds phases 25-27's rows (``spk``, ``diffusion``, ``mol``),
+``native_loader``, ``ddp``, ``profiling`` and ``learning_check`` phases
+29-32's. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import io
 import json
 import os
+import pathlib
 import re
 import shutil
 import subprocess
@@ -646,8 +676,10 @@ def phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
             fail(f"{name} gradients disagree with the plain version")
 
 
-def phase10_train_step(torch, FastDiffTask, smi_line, dev):
-    """One full-width train step per route, raced in turns."""
+def phase10_train_step(torch, FastDiffTask, smi_line, dev, all_counters):
+    """One full-width train step per route, raced in turns; the launches of
+    one ``nwc_vjp`` step: K7 and K6 twice each (the hop-64 and hop-256
+    blocks), every other kernel never."""
     gen = torch.Generator(device=dev).manual_seed(2)
     length = TRAIN_FRAMES * HOP_SIZE
     batch = {"wavs": torch.randn((TRAIN_BATCH, length, 1), generator=gen,
@@ -658,9 +690,14 @@ def phase10_train_step(torch, FastDiffTask, smi_line, dev):
     ts = torch.randint(0, 1000, (TRAIN_BATCH, 1, 1), generator=gen,
                        device=dev)
     z = torch.randn((TRAIN_BATCH, length, 1), generator=gen, device=dev)
-    routes = ("ncl_sr", "ncl_vjp", "plain")
-    tasks = {r: FastDiffTask({"use_pallas_block": r if r != "plain"
-                              else False}, device=dev) for r in routes}
+    routes = ("ncl_sr", "ncl_vjp", "nwc_vjp", "plain")
+    flags = {"nwc_vjp": True, "plain": False}
+    tasks = {r: FastDiffTask({"use_pallas_block": flags.get(r, r)},
+                             device=dev) for r in routes}
+    for r, task in tasks.items():
+        if task.route != r:
+            fail(f"use_pallas_block {flags.get(r, r)!r} resolved to "
+                 f"{task.route}, not {r}")
     states = {r: tasks[r].build_state(seed=0) for r in routes}
     # gradients of the identical initial weights, same draws
     grads = {}
@@ -672,7 +709,7 @@ def phase10_train_step(torch, FastDiffTask, smi_line, dev):
     ref = grads["plain"]
     ref_norm = torch.sqrt(sum(g.float().square().sum() for g in ref.values()))
     grad_rel = {}
-    for r in ("ncl_sr", "ncl_vjp"):
+    for r in ("ncl_sr", "ncl_vjp", "nwc_vjp"):
         diff = torch.sqrt(sum((grads[r][k].float() - g.float()).square().sum()
                               for k, g in ref.items()))
         worst = max(((rel_l2(grads[r][k], g), k) for k, g in ref.items()
@@ -691,9 +728,18 @@ def phase10_train_step(torch, FastDiffTask, smi_line, dev):
         metrics[r] = {k: float(v) for k, v in step(r).items()}
         torch.cuda.synchronize()
         peak[r] = torch.cuda.max_memory_allocated(dev)
+    zero_counters(all_counters)
+    step("nwc_vjp")
+    torch.cuda.synchronize()
+    nwc_launches = launched(all_counters)
+    phase(10, f"one nwc_vjp step launched {nwc_launches} (K7 aug_head and "
+              "the tensor-core K6 lvc_block_nwc 2 each, nothing else)")
+    if nwc_launches != {"aug_head": 2, "lvc_block_nwc": 2}:
+        fail("an nwc_vjp train step did not launch K7 and the tensor-core "
+             "K6 exactly twice each (and no other kernel)")
     for r in routes + routes[::-1]:
         times[r].append(cuda_ms(lambda: step(r), 3))
-    report = {}
+    report = {"nwc_vjp_launches_per_step": nwc_launches}
     for r in routes:
         ms = sum(times[r]) / len(times[r])
         share = STEP_FLOP / (ms / 1e3) / H100_BF16_PEAK
@@ -3542,6 +3588,373 @@ def phase27_mol(torch, all_counters, dev, smi_line) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase28_nwc_gradients(torch, nwc_ops, randn, c, layers, hid,
+                          smi_line) -> dict:
+    """The trainable NWC route's Functions against autograd through their
+    plain versions at the recipe's fused shapes (b 20 x 100 frames, hops
+    64 and 256), bf16; the forward kernels' ms per ``nwc_vjp`` step (K7
+    twice at 2,000 rows, K6 at hops 64 and 256) by CUDA-graph replay,
+    beside their plain versions and their bound."""
+    rows = nwc_ops.aug_rows(c)
+    m, k, n = TRAIN_BATCH * TRAIN_FRAMES, 3 * hid, layers * rows * 2 * c
+    tap, w = randn(m, k), randn(k, n, scale=0.05)
+    b = randn(n, scale=0.1, dtype=torch.float32)
+    checks = {"AugHead (K7)": grad_errors(
+        torch, nwc_ops.AugHead.apply, nwc_ops.aug_head_matmul_plain,
+        (tap, w, b), randn(m, n))}
+    with torch.no_grad():
+        ms_k = 2 * graph_ms(lambda: nwc_ops.aug_head_matmul(tap, w, b), 10)
+        ms_p = 2 * cuda_ms(lambda: nwc_ops.aug_head_matmul_plain(tap, w, b),
+                           3)
+    per_step = {"aug_head": [ms_k, ms_p, [gemm_work(m, k, n)] * 2],
+                "lvc_block_nwc": [0.0, 0.0, []]}
+    del tap, w, b
+    wstack = randn(layers, rows, c, scale=0.1)
+    for hop in (64, HOP_SIZE):
+        length = TRAIN_FRAMES * hop
+        x = randn(TRAIN_BATCH, length, c)
+        skip = randn(TRAIN_BATCH, length, c)
+        kern = randn(TRAIN_BATCH, TRAIN_FRAMES, layers, rows, 2 * c,
+                     scale=0.05)
+        checks[f"LVCBlockNWCRecompute (K6) hop {hop}"] = grad_errors(
+            torch, lambda *a, hop=hop: nwc_ops.LVCBlockNWCRecompute.apply(
+                *a, hop),
+            lambda *a, hop=hop: nwc_ops.lvc_block_nwc_plain(*a, hop),
+            (x, skip, kern, wstack), randn(TRAIN_BATCH, length, c))
+        with torch.no_grad():
+            acc = per_step["lvc_block_nwc"]
+            acc[0] += graph_ms(lambda hop=hop: nwc_ops.lvc_block_nwc(
+                x, skip, kern, wstack, hop), 10)
+            acc[1] += cuda_ms(lambda hop=hop: nwc_ops.lvc_block_nwc_plain(
+                x, skip, kern, wstack, hop), 3)
+            acc[2].append(block_work(TRAIN_BATCH, c, length,
+                                     2.0 * kern.numel()))
+        del x, skip, kern
+    torch.cuda.synchronize()
+    out = {}
+    for name, (ms, plain, works) in per_step.items():
+        b_ms, by = bound(works)
+        out[name] = dict(train_ms_per_step=ms, train_plain_ms_per_step=plain,
+                         train_bound_ms_per_step=b_ms)
+        phase(28, f"{name} forward per nwc_vjp step at the recipe: {ms:.4f} "
+                  f"ms (CUDA-graph replay), plain {plain:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({by}), at {b_ms / ms:.1%} of it "
+                  f"[{smi_line}]")
+    for name, errs in checks.items():
+        phase(28, f"{name} input gradients vs autograd through the plain "
+                  f"version (bf16, b {TRAIN_BATCH} x {TRAIN_FRAMES} "
+                  "frames): rel_l2 " + ", ".join(f"{e:.3e}" for e in errs)
+                  + " (bound 5e-2)")
+        if not all(e <= 5e-2 for e in errs):
+            fail(f"{name} gradients disagree with the plain version")
+    return out
+
+
+SANITY_STEPS = 300               # the learning check's cut (of 2,500)
+SANITY_RATIO = 0.5               # last-50 mean loss <= this x first-10 mean
+
+
+def make_tones_dataset(root: str, walls: dict) -> dict:
+    """``scripts/e2e_sanity.py``'s 24 tones binarized under ``root`` by the
+    port's ``VocoderBinarizer`` (pickle shards and v2 files); its hparams."""
+    from fastdiff_tpu_torch.data.binarizer import VocoderBinarizer
+    from fastdiff_tpu_torch.scripts import e2e_sanity
+    t0 = time.perf_counter()
+    e2e_sanity.write_tones(root)
+    hp = e2e_sanity.sanity_hparams(root)
+    VocoderBinarizer(hp).process()
+    walls["binarize"] = time.perf_counter() - t0
+    return hp
+
+
+def phase29_native_loader(torch, FastDiffTask, Trainer, root: str, dev,
+                          smi_line) -> dict:
+    """The C++ mmap loader: (a) its build, (b) the binarizer's v2 files and
+    native batches bit-equal to the pickle path's on the same draws, (c)
+    batches per second native vs pickle at the learning check's 16 x 12,800,
+    (d) a 3-step fit fed by it."""
+    from fastdiff_tpu_torch.data import dataset as pds
+    from fastdiff_tpu_torch.data import native_io
+    report = {}
+    # (a) a cold build into a fresh directory
+    build_dir = native_io.BUILD_DIR
+    with tempfile.TemporaryDirectory(prefix="fastdiff_native_") as tmp:
+        native_io.BUILD_DIR = pathlib.Path(tmp)
+        native_io.library.cache_clear()
+        t0 = time.perf_counter()
+        native_io.library()
+        report["build_s"] = time.perf_counter() - t0
+        native_io.BUILD_DIR = build_dir
+        native_io.library.cache_clear()
+    native_io.library()
+    phase(29, f"(a) g++ built {native_io.library_path().name} in "
+              f"{report['build_s']:.2f} s")
+    # (b) the binarizer's files, native batches against pickle batches
+    walls = {}
+    hp = make_tones_dataset(root, walls)
+    binary = hp["binary_data_dir"]
+    files = sorted(f for f in os.listdir(binary) if f.endswith((".bin",
+                                                               ".bidx")))
+    if files != ["test.bidx", "test.bin", "train.bidx", "train.bin",
+                 "valid.bidx", "valid.bin"]:
+        fail(f"the binarizer wrote v2 files {files}")
+    bare = os.path.join(root, "binary_pickle")
+    shutil.copytree(binary, bare, ignore=shutil.ignore_patterns("*.bi*"))
+    frames = hp["max_samples"] // hp["hop_size"]
+    batch = hp["max_sentences"]
+
+    def batches(data_dir):
+        ds = pds.VocoderDataset(dict(hp, binary_data_dir=data_dir), "train",
+                                shuffle=True)
+        return pds.train_batch_iterator(ds, batch, frames, seed=0)
+
+    before = native_io.BATCHES
+    nat, pic = batches(binary), batches(bare)
+    for i in range(20):
+        a, b = next(nat), next(pic)
+        if not all(np.array_equal(a[k], b[k]) for k in ("mels", "wavs")):
+            fail(f"native batch {i} differs from the pickle path's")
+    if native_io.BATCHES - before != 20:
+        fail("the native loader did not serve the native stream")
+    phase(29, f"(b) VocoderBinarizer on 24 tones in {walls['binarize']:.2f} "
+              f"s wrote {files}; 20 batches of {batch} x "
+              f"{frames * hp['hop_size']} samples bit-equal to the pickle "
+              "path's (same items, same crop starts)")
+
+    # (c) batches per second on the host, pickle, native, native, pickle
+    def rate(data_dir, n=200):
+        it = batches(data_dir)
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            next(it)
+        return n / (time.perf_counter() - t0)
+    runs = {"pickle": [rate(bare)], "native": [rate(binary), rate(binary)]}
+    runs["pickle"].append(rate(bare))
+    report["batches_per_s"] = {k: sum(v) / 2 for k, v in runs.items()}
+    report["batches_per_s_runs"] = runs
+    phase(29, f"(c) {batch} x {frames * hp['hop_size']} batches per second "
+              "on the host: native "
+              f"{report['batches_per_s']['native']:.1f} (runs "
+              + ", ".join(f"{v:.1f}" for v in runs["native"])
+              + f"), pickle {report['batches_per_s']['pickle']:.1f} (runs "
+              + ", ".join(f"{v:.1f}" for v in runs["pickle"]) + ")")
+    # (d) a short fit through the trainer on the native path
+    before = native_io.BATCHES
+    work = os.path.join(root, "work_fit3")
+    fit_hp = dict(hp, work_dir=work, max_updates=3, val_check_interval=3,
+                  num_sanity_val_steps=0, tb_log_interval=1)
+    t0 = time.perf_counter()
+    result = Trainer(FastDiffTask(fit_hp, device=dev), work).fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    served = native_io.BATCHES - before
+    phase(29, f"(d) fit of {result['step']} steps in {fit_s:.1f} s, val "
+              f"{result['val']['loss']:.4f}; native batches {served} "
+              f"[{smi_line}]")
+    if result["step"] != 3 or served < 3:
+        fail("the 3-step fit did not train on the native loader")
+    report.update(fit_s=fit_s, fit_native_batches=served,
+                  binarize_s=walls["binarize"])
+    shutil.rmtree(bare, ignore_errors=True)
+    return report, hp
+
+
+def phase30_ddp(torch, FastDiff, cfg, dev, smi_line) -> dict:
+    """(a) ``torchrun --nproc_per_node 1`` (NCCL, world size 1): 3 steps of
+    FastDiffTask under DDP against the same 3 steps in this process, which
+    has no process group; (b) ``DistributedChunkedVocoder`` at one device
+    against ``ChunkedVocoder`` on 3,000 frames."""
+    from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
+                                                      inference_generator,
+                                                      make_sampler)
+    from fastdiff_tpu_torch.scripts import ddp_steps
+    from fastdiff_tpu_torch.serving.chunked_vocoder import (
+        ChunkedVocoder, DistributedChunkedVocoder)
+    from fastdiff_tpu_torch.training.task import FastDiffTask
+    report = {}
+    flags_before = (torch.backends.cudnn.deterministic,
+                    torch.backends.cudnn.benchmark)
+    flags = ddp_steps.deterministic()
+    steps = 3
+    with tempfile.TemporaryDirectory(prefix="fastdiff_ddp_") as tmp:
+        out = os.path.join(tmp, "steps.npz")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m",
+             "fastdiff_tpu_torch.scripts.ddp_steps", "--out", out,
+             "--steps", str(steps)], cwd=repo, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+            fail(f"torchrun exited {proc.returncode}")
+        got = dict(np.load(out))
+    task = FastDiffTask({"use_pallas_block": "auto"}, device=dev)
+    if task.mesh.distributed:
+        fail("this process has a process group")
+    losses, params, ddp = ddp_steps.run_steps(task, steps, TRAIN_BATCH,
+                                              TRAIN_FRAMES)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags_before
+    if ddp or not bool(got["ddp"]) or int(got["world_size"]) != 1:
+        fail("the torchrun side did not run DDP at world size 1, or this "
+             "side did")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                       losses))
+    param_rel = max(rel_l2(torch.from_numpy(got["p:" + k]),
+                           torch.from_numpy(v)) for k, v in params.items())
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("| rank")]
+    phase(30, f"(a) torchrun --nproc_per_node 1 ({line[-1] if line else '?'}"
+              f"; {wall:.1f} s) vs the same {steps} steps without DDP: "
+              "losses " + ", ".join(f"{v:.6f}" for v in losses)
+              + f"; max loss rel {loss_rel:.2e}, max parameter rel_l2 "
+              f"{param_rel:.2e} (bound 1e-6); flags {flags}")
+    if not (loss_rel <= 1e-6 and param_rel <= 1e-6):
+        fail("DDP at world size 1 differs from the step without it")
+    report.update(torchrun_s=wall, loss_rel=loss_rel, param_rel=param_rel)
+
+    # (b) one device: the distributed chunked vocoder is the chunked one
+    model = FastDiff(cfg, seed=0, device=dev).eval()
+    run = make_sampler(model, constants_for_hparams({"N": 4}))
+    mel = (np.random.default_rng(30).normal(
+        size=(3000, cfg.cond_channels)) - 4.0).astype(np.float32)
+    local = ChunkedVocoder(run, HOP_SIZE).vocode(
+        mel, generator=inference_generator(0, dev))
+    shard = DistributedChunkedVocoder(run, HOP_SIZE, devices=[dev])
+    wav = shard.vocode(mel, generator=inference_generator(0, dev))
+    err = rel_l2(torch.from_numpy(wav), torch.from_numpy(local))
+    phase(30, f"(b) DistributedChunkedVocoder on {len(shard.devices)} "
+              f"device(s) vs ChunkedVocoder, 3,000 frames: rel_l2 {err:.2e} "
+              f"(bound 1e-6), bit-equal {np.array_equal(wav, local)} "
+              f"[{smi_line}]")
+    if wav.shape != (3000 * HOP_SIZE,) or not err <= 1e-6:
+        fail("the distributed chunked vocoder differs at one device")
+    report["chunked_rel_l2"] = err
+    return report
+
+
+def phase31_profiling(torch, FastDiff, cfg, dev, sampler_ms: float,
+                      smi_line) -> dict:
+    """``utils/profiling`` on phase 6's NCL graph sampler: the slope and
+    median timers beside phase 6's CUDA-event time, a trace that names K1,
+    K2 and K3, and ``RTFMeter`` over four utterances."""
+    from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
+                                                      inference_generator,
+                                                      make_sampler)
+    from fastdiff_tpu_torch.utils import profiling
+    model = FastDiff(cfg, seed=0, device=dev).eval()
+    run = make_sampler(model, constants_for_hparams({"N": 4}))
+    gen = inference_generator(1, dev)
+    mel = torch.randn((1, FRAMES_10S, cfg.cond_channels), generator=gen,
+                      device=dev) - 4.0
+    length = FRAMES_10S * HOP_SIZE
+
+    def call():
+        return run(gen, mel, length)
+    call()
+    call()                                   # eager, then the capture
+    slope = profiling.device_timer_slope(call, n1=5, n2=25, reps=3)
+    median = profiling.device_timer(call, iters=10, pipeline=5)
+    report = dict(slope_ms=slope, median_ms=median, phase6_ms=sampler_ms)
+    phase(31, f"N=4 NCL graph sampler at {FRAMES_10S} frames: "
+              f"device_timer_slope {slope:.3f} ms, device_timer "
+              f"{median:.3f} ms, phase 6's CUDA events {sampler_ms:.3f} ms "
+              f"[{smi_line}]")
+    with tempfile.TemporaryDirectory(prefix="fastdiff_trace_") as tmp:
+        with profiling.trace(tmp):
+            profiling.force(call())
+        text = (pathlib.Path(tmp) / "trace.json").read_text()
+    names = {"K1": (r"lvc_block_tc_kernel<false", r"lvc_block_tc_kernelILb0"),
+             "K2": (r"lvc_block_tc_kernel<true", r"lvc_block_tc_kernelILb1"),
+             "K3": (r"head_gemm_kernel",)}
+    seen = {k: sum(len(re.findall(p, text)) for p in pats)
+            for k, pats in names.items()}
+    report["trace_kernel_mentions"] = seen
+    phase(31, f"trace() wrote trace.json ({len(text)} bytes) naming "
+              + ", ".join(f"{k} {v} times" for k, v in seen.items()))
+    if not all(seen.values()):
+        fail("the trace does not name K1, K2 and K3")
+    meter = profiling.RTFMeter()
+    for frames in (100, 256, 500, FRAMES_10S):
+        m = torch.randn((1, frames, cfg.cond_channels), generator=gen,
+                        device=dev) - 4.0
+        run(gen, m, frames * HOP_SIZE)
+        run(gen, m, frames * HOP_SIZE)       # warm: eager, then capture
+        with meter.measure(frames * HOP_SIZE):
+            profiling.force(run(gen, m, frames * HOP_SIZE))
+    report["rtf"] = meter.rtf
+    phase(31, f"RTFMeter over 100 / 256 / 500 / {FRAMES_10S} frames "
+              f"(replays): {meter.summary()}")
+    if not 0 < meter.rtf < 1:
+        fail("RTFMeter's RTF is not in (0, 1)")
+    return report
+
+
+def phase32_learning(torch, FastDiffTask, Trainer, counters, hp: dict, dev,
+                     smi_line) -> dict:
+    """The learning check's cut: ``scripts/e2e_sanity.py``'s data and
+    hparams for ``SANITY_STEPS`` updates on ``ncl_sr``, fed by the native
+    loader; the mean train loss of the last 50 updates must be at most
+    ``SANITY_RATIO`` of the first 10's, every step launching K3 and the
+    tensor-core K4 3 times each."""
+    from fastdiff_tpu_torch.data import native_io
+    work = os.path.join(os.path.dirname(hp["binary_data_dir"]), "work_cut")
+    hp = dict(hp, work_dir=work, max_updates=SANITY_STEPS,
+              val_check_interval=SANITY_STEPS, tb_log_interval=SANITY_STEPS,
+              num_sanity_val_steps=0)
+    steps = []
+    task = FastDiffTask(hp, device=dev)
+    if task.route != "ncl_sr":
+        fail(f"the learning check resolved to route {task.route}")
+    train_step = task.train_step
+
+    def counted(state, batch, generator=None, **kw):
+        keys = ("lvc_block_ncl_sr", "lvc_block_ncl_sr_cc")
+        before = (counters[0]["taug_head"], *(counters[1][k] for k in keys))
+        out = train_step(state, batch, generator, **kw)
+        steps.append((out["loss"],
+                      counters[0]["taug_head"] - before[0],
+                      counters[1][keys[0]] - before[1],
+                      counters[1][keys[1]] - before[2]))
+        return out
+    task.train_step = counted
+    before = native_io.BATCHES
+    t0 = time.perf_counter()
+    result = Trainer(task, work).fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(s[0]) for s in steps]
+    served = native_io.BATCHES - before
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-50:]))
+    bad = [i for i, s in enumerate(steps) if s[1:] != (3, 3, 0)]
+    report = dict(steps=len(steps), wall_s=wall, first10=first, last50=last,
+                  ratio=last / first, val=result["val"]["loss"],
+                  native_batches=served,
+                  losses=losses[:10] + losses[-50:])
+    phase(32, f"learning check cut: {len(steps)} updates of "
+              f"{hp['max_sentences']} x {hp['max_samples']} "
+              f"(bf16, ncl_sr, native batches {served}) in {wall:.1f} s "
+              f"({wall / max(len(steps), 1) * 1e3:.1f} ms an update with "
+              f"validation); mean loss first 10 {first:.4f}, last 50 "
+              f"{last:.4f}, ratio {last / first:.3f} (bound {SANITY_RATIO}); "
+              f"val {result['val']['loss']:.4f}; steps not launching K3 3 / "
+              f"K4 3 / CUDA-core K4 0: {bad[:5]} [{smi_line}]")
+    if len(steps) != SANITY_STEPS or served < SANITY_STEPS:
+        fail("the learning check did not run its updates on the native "
+             "loader")
+    if not np.all(np.isfinite(losses)) or not last <= SANITY_RATIO * first:
+        fail("the vocoder did not learn: the last 50 updates' mean loss is "
+             f"above {SANITY_RATIO} x the first 10's")
+    if bad:
+        fail("a learning-check step did not launch K3 and the tensor-core "
+             "K4 exactly 3 times each")
+    return report
+
+
 def check_no_jax():
     """Fail if jax or any module of the JAX package was imported."""
     bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
@@ -3888,7 +4301,11 @@ def main():
         torch, lvc_block_ncl, randn, c, layers, rows, rows_p, dev, smi_line)
     phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
                      rows_p, dev)
-    train_report = phase10_train_step(torch, FastDiffTask, smi_line, dev)
+    all_counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
+                    lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES,
+                    bench_mosaic_micro.LAUNCHES)
+    train_report = phase10_train_step(torch, FastDiffTask, smi_line, dev,
+                                      all_counters)
     train_launches, fit_s = phase11_fit(torch, FastDiffTask, Trainer,
                                         counters, dev)
     if any(train_launches[k] == 0 for k in ("taug_head", "lvc_block_ncl_sr")):
@@ -3941,9 +4358,6 @@ def main():
         report.update(phase16_fh_block(torch, lvc_block_ncl, lvc_head, randn,
                                        c, layers, rows, rows_p, smi_line))
         fh_sampler = phase17_fh_route(torch, FastDiff, exp_r4b, cfg, gen, dev)
-    all_counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
-                    lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES,
-                    bench_mosaic_micro.LAUNCHES)
     k1_keys = ("lvc_block_ncl", "lvc_block_ncl_final")
     # per request: K5 on the hop-8 and hop-64 blocks of every step and K5
     # final on the hop-256 block; at 100 frames the hop-8 block is not
@@ -4044,6 +4458,37 @@ def main():
     phase(27, f"done in {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
+    # --- phase 28: the trainable NWC route's Functions ----------------------
+    t0 = time.perf_counter()
+    nwc_train = phase28_nwc_gradients(torch, lvc_block_pallas, randn, c,
+                                      layers, cfg.kpnet_hidden_channels,
+                                      smi_line)
+    phase(28, f"done in {time.perf_counter() - t0:.1f} s")
+
+    # --- phases 29-32: the loader, DDP, profiling, the learning check -------
+    # (phase 29 binarizes the learning check's tones; phase 32 trains on
+    # them)
+    tones = tempfile.mkdtemp(prefix="fastdiff_tones_")
+    try:
+        t0 = time.perf_counter()
+        loader_report, sanity_hp = phase29_native_loader(
+            torch, FastDiffTask, Trainer, tones, dev, smi_line)
+        phase(29, f"done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ddp_report = phase30_ddp(torch, FastDiff, cfg, dev, smi_line)
+        phase(30, f"done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        prof_report = phase31_profiling(torch, FastDiff, cfg, dev,
+                                        report["sampler_kernel_ms"], smi_line)
+        phase(31, f"done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        learn_report = phase32_learning(torch, FastDiffTask, Trainer,
+                                        counters, sanity_hp, dev, smi_line)
+        phase(32, f"done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tones, ignore_errors=True)
+    check_no_jax()
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -4090,13 +4535,21 @@ def main():
           "aug_head, downpath), 17 (lvc_block_ncl_fh*), 18 "
           "(taug_head_variant), 19 (conv_stage, lvc_stage); "
           "fs2_infer_launches_per_utterance from phase 24's infer_to_wav of "
-          "the trained FastSpeech 2", flush=True)
+          "the trained FastSpeech 2; train_launches_per_step (aug_head, "
+          "lvc_block_nwc) from one nwc_vjp step of phase 10 and "
+          "train_*_ms_per_step from phase 28 (the recipe's shapes)",
+          flush=True)
     fs2_launches = fs2_report["launches_per_utterance"]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
                     fs2_infer_launches_per_utterance=fs2_launches[name],
                     **report[name])
                for name, (src, rep) in sources.items()]
+    nwc_launches = train_report["nwc_vjp_launches_per_step"]
+    for k in kernels:
+        if k["name"] in nwc_launches:
+            k["train_launches_per_step"] = nwc_launches[k["name"]]
+            k.update(nwc_train[k["name"]])
     fh = fh_sampler["batches"]
     print(json.dumps({"kernels": kernels,
                       "sampler_ms": report["sampler_kernel_ms"],
@@ -4115,7 +4568,9 @@ def main():
                       "train_step": train_report, "fit_s": fit_s,
                       "entry": entry_report, "tts": tts_report,
                       "bddm": bddm_report, "fs2_train": fs2_report,
-                      "zoo": zoo_report}),
+                      "zoo": zoo_report, "native_loader": loader_report,
+                      "ddp": ddp_report, "profiling": prof_report,
+                      "learning_check": learn_report}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,7 +12,9 @@ search (the phi predictor, its training and the reverse search), the
 objective metrics (MCD, MR-STFT, PESQ; ``evaluate``, ``demo_vocoder``)
 and the other model families (the speaker encoder and its verification
 training, the WaveNet and diffusion-PWG denoisers, the PWG vocoder, the
-autoregressive MoL WaveNet and its task), written as PyTorch modules. Every kernel the JAX package wrote in Pallas
+autoregressive MoL WaveNet and its task), data-parallel training and
+sharded vocoding (``parallel/``), the C++ mmap data loader (``native/``)
+and the profiling helpers, written as PyTorch modules. Every kernel the JAX package wrote in Pallas
 (the LVC blocks, the predictor heads, the down path and the two
 experiment scripts' kernels) is hand-written CUDA C++ for ``sm_90a``
 (``csrc/``), built with ``nvcc`` on first use; every other op is plain
@@ -44,6 +46,9 @@ def __getattr__(name):
                                "make_param_sampler"),
         "ChunkedVocoder": ("fastdiff_tpu_torch.serving.chunked_vocoder",
                            "ChunkedVocoder"),
+        "DistributedChunkedVocoder": (
+            "fastdiff_tpu_torch.serving.chunked_vocoder",
+            "DistributedChunkedVocoder"),
         "StreamingVocoder": ("fastdiff_tpu_torch.serving.streaming_vocoder",
                              "StreamingVocoder"),
         "BatchedVocoder": ("fastdiff_tpu_torch.serving.batch_vocoder",

@@ -6,8 +6,8 @@
 - fans ``process_item`` over worker processes (``N_PROC``) and writes records
   ``{item_name, wav_fn, mel (T, n_mels) f32, wav f16, sec, len}`` with
   ``data/indexed_dataset.py`` plus ``<prefix>_lengths.npy`` of mel frame
-  counts. JAX also writes its v2 flat files for the C++ loader beside the
-  shards; the port writes the pickle shards only, which both packages read;
+  counts and, with ``with_wav``, the v2 flat files of the C++ loader
+  (``data/native_io.py``) beside the shards, as JAX writes them;
 - ``process_item`` / ``process_mel_item`` are also the inference featurizers
   of ``test_input_dir`` / ``test_mel_dir`` (``data/dataset.py``).
 
@@ -28,6 +28,7 @@ import numpy as np
 
 from fastdiff_tpu_torch.config import AudioConfig
 from fastdiff_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
+from fastdiff_tpu_torch.data.native_io import NativeDatasetBuilder
 from fastdiff_tpu_torch.ops.dsp import wav2mel_np
 from fastdiff_tpu_torch.utils import audio_io
 from fastdiff_tpu_torch.utils.multiprocess import chunked_multiprocess_run
@@ -132,17 +133,24 @@ class VocoderBinarizer:
         args = [(item_name, wav_fn, self.binarization_args, dict(self.hparams))
                 for item_name, wav_fn in meta]
         builder = IndexedDatasetBuilder(os.path.join(out_dir, prefix))
+        with_wav = self.binarization_args.get("with_wav", True)
+        native_builder = (NativeDatasetBuilder(os.path.join(out_dir, prefix))
+                          if with_wav else None)
         lengths, total_sec = [], 0.0
         for item in chunked_multiprocess_run(
                 self.process_item, args, num_workers=self.num_workers):
             if item is None:
                 continue
-            if not self.binarization_args.get("with_wav", True):
+            if not with_wav:
                 item.pop("wav", None)
             builder.add_item(item)
+            if native_builder is not None:
+                native_builder.add_item(item["mel"], item["wav"])
             lengths.append(item["len"])
             total_sec += item["sec"]
         builder.finalize()
+        if native_builder is not None:
+            native_builder.finalize()
         np.save(os.path.join(out_dir, f"{prefix}_lengths.npy"), lengths)
         print(f"| {prefix} total duration: {total_sec:.3f}s ({len(lengths)} items)")
 

@@ -1,5 +1,5 @@
 """Vocoder dataset and host-side batch pipeline, a copy of
-``fastdiff_tpu/data/dataset.py`` without its C++ loader.
+``fastdiff_tpu/data/dataset.py``.
 
 - train/valid items shorter than the crop window are filtered out using
   ``<prefix>_lengths.npy`` (reference: tasks/vocoder/dataset_utils.py:66-72);
@@ -15,13 +15,16 @@
   (dataset_utils.py:167-204).
 
 Items are read from the pickle shards (``data/indexed_dataset.py``). The
-JAX package's C++ mmap loader (``fastdiff_tpu/data/native_io.py``) is not
-ported; the crops and their order are the pickle path's.
+endless training stream reads a split through the C++ mmap loader
+(``data/native_io.py``) where the binarizer wrote its v2 files, with the
+same items and crop starts as the pickle path; a split without them reads
+the pickle shards, and one with them whose library cannot be built or
+loaded raises (JAX falls back to pickle on any failure).
 
 ``resolve_class`` imports a class from its dotted path. The configs name
 the JAX package's classes (``task_cls: fastdiff_tpu.training.task.
 FastDiffTask``); a ``fastdiff_tpu.`` path resolves to the port's module of
-the same name, and one the port lacks raises ``NotImplementedError``
+the same name, and a name the port lacks raises ``NotImplementedError``
 without importing the JAX package.
 """
 
@@ -35,6 +38,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from fastdiff_tpu_torch.data import native_io
 from fastdiff_tpu_torch.data.indexed_dataset import IndexedDataset
 
 
@@ -53,9 +57,8 @@ def resolve_class(dotted_path: str):
         if spec is None or not hasattr(importlib.import_module(port),
                                        cls_name):
             raise NotImplementedError(
-                f"{dotted_path} is not ported to fastdiff_tpu_torch (still "
-                "to port: parallel/mesh.py, data/native_io.py and "
-                "utils/profiling.py, ROADMAP.md queue 1 items 7b, 13 and 12)")
+                f"{dotted_path} is not ported to fastdiff_tpu_torch (no "
+                f"{cls_name!r} in {port})")
         pkg = port
     return getattr(importlib.import_module(pkg), cls_name)
 
@@ -177,15 +180,31 @@ def endless_index_stream(n_items: int, seed: int, shuffle: bool,
         epoch += 1
 
 
+def native_loader(dataset: VocoderDataset):
+    """The C++ mmap loader of ``dataset``'s split where its v2 files exist,
+    else None; raises where they exist and the library cannot be built or
+    loaded."""
+    if dataset._memory_items is not None or not dataset.data_dir:
+        return None
+    prefix = os.path.join(dataset.data_dir, dataset.prefix)
+    if not native_io.has_v2(prefix):
+        return None
+    return native_io.NativeBatchLoader(prefix)
+
+
 def train_batch_iterator(dataset: VocoderDataset, batch_size: int,
                          max_frames: int, seed: int = 1234,
                          shard_id: int = 0, num_shards: int = 1,
                          endless: bool = True) -> Iterator[dict]:
-    """Yield fixed-shape training batches forever (or one epoch), cropped
-    from the pickle shards."""
+    """Yield fixed-shape training batches forever (or one epoch).
+
+    The endless stream crops through the native loader where the split has
+    v2 files (``native_loader``), drawing the crop starts as the pickle
+    path does; otherwise, and for one epoch, from the pickle shards."""
     rng = np.random.default_rng(seed + 1000 * shard_id)
     hop = dataset.hop_size
     if endless:
+        native = native_loader(dataset)
         stream = endless_index_stream(len(dataset), seed, True,
                                       shard_id, num_shards)
         buf = []
@@ -193,7 +212,17 @@ def train_batch_iterator(dataset: VocoderDataset, batch_size: int,
             buf.append(idx)
             if len(buf) < batch_size:
                 continue
-            yield crop_batch([dataset[i] for i in buf], max_frames, hop, rng)
+            if native is not None:
+                raw = np.asarray([dataset.avail_idxs[i] for i in buf],
+                                 np.int64)
+                starts = np.asarray(
+                    [rng.integers(0, dataset.sizes[i] - max_frames)
+                     for i in buf], np.int64)
+                yield native.load(raw, starts, max_frames, hop,
+                                  native.item_n_mels(int(raw[0])))
+            else:
+                yield crop_batch([dataset[i] for i in buf], max_frames, hop,
+                                 rng)
             buf = []
     else:
         order = np.random.default_rng(seed).permutation(len(dataset))

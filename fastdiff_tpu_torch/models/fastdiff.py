@@ -58,6 +58,13 @@ route's autograd Function:
   saved-residual backward (``LVCBlockSR``);
 - ``ncl_vjp``: Kernel A and Kernel B with a recompute backward
   (``LVCBlockRecompute``);
+- ``nwc_vjp``: JAX's ``use_pallas_block: true`` in training. Blocks that
+  the NWC ``fusable`` admits (hop >= 64, at least 2 frames) run K7
+  (``AugHead``) and K6 with a recompute backward
+  (``LVCBlockNWCRecompute``) on NWC copies of x and skip, transposed back
+  to NCL after the block (autograd carries the gradients through the
+  transposes); every other block runs the plain head and block. The down
+  path stays plain, as JAX trains it;
 - ``plain``: autograd through the plain head and block.
 """
 
@@ -75,7 +82,7 @@ from fastdiff_tpu_torch.ops import nn as fnn
 from fastdiff_tpu_torch.ops.lvc import lvc_gated_residual_nwc
 
 
-TRAIN_ROUTES = ("ncl_sr", "ncl_vjp", "plain")
+TRAIN_ROUTES = ("ncl_sr", "ncl_vjp", "nwc_vjp", "plain")
 INFER_ROUTES = ("ncl", "ncl_fh", "nwc", "plain")
 _TRUE = ("1", "true", "yes", "on")
 
@@ -131,15 +138,13 @@ def resolve_train_route(hp: dict, device) -> str:
     """The LVC block route of training from ``use_pallas_block``, the
     counterpart of ``fastdiff_tpu/config.py:resolve_train_block``:
     "ncl_sr" and "ncl_vjp" as given; "auto" or "" -> "ncl_sr" on a CUDA
-    device and "plain" on the CPU; false (and any other value) -> "plain";
-    true, the trainable NWC route (not ported), raises."""
+    device and "plain" on the CPU; true (or "1", "yes", "on") ->
+    "nwc_vjp", K7 and K6 under autograd; false (and any other value) ->
+    "plain"."""
     raw = hp.get("use_pallas_block", "auto")
     low = raw.strip().lower() if isinstance(raw, str) else raw
     if raw is True or low in _TRUE:
-        raise NotImplementedError(
-            "use_pallas_block: true selects the trainable NWC route "
-            "(nwc_vjp), which is not ported (ROADMAP.md queue 1 item 7d, "
-            "the trainable NWC route); use ncl_sr, ncl_vjp or false")
+        return "nwc_vjp"
     if low in ("ncl_sr", "ncl_vjp"):
         return low
     if low in ("auto", ""):
@@ -404,6 +409,10 @@ class LVCBlock(nn.Module):
         """The trainable block: operands packed in the graph, the head and
         block of ``route`` (see the module docstring)."""
         b, _, frames = mel.shape
+        if route == "nwc_vjp":
+            if nwc_ops.fusable(self.hop, frames):
+                return self._forward_train_nwc(x, skip, mel, emb, dtype)
+            route = "plain"
         w_head, b_head, wstack_t = self.operands(dtype)
         head = (lvc_head.taug_head_matmul_plain if route == "plain"
                 else lvc_head.TaugHead.apply)
@@ -416,6 +425,21 @@ class LVCBlock(nn.Module):
         if route == "ncl_vjp":
             return block_ops.LVCBlockRecompute.apply(*args)
         return block_ops.lvc_block_ncl_plain(*args)
+
+    def _forward_train_nwc(self, x, skip, mel, emb, dtype):
+        """The ``nwc_vjp`` block: K7 and K6 under autograd on (B, L, C)
+        copies of the NCL activations; returns (B, C, L)."""
+        b, _, frames = mel.shape
+        c = self.convs[0].bias.shape[0]
+        w_aug, b_aug, wstack = self.nwc_operands(dtype)
+        kern_aug = nwc_ops.AugHead.apply(
+            self._taps(mel, emb, dtype), w_aug, b_aug).reshape(
+                b, frames, self.layers, -1, 2 * c)
+        x_nwc = self._upsample(x, dtype).transpose(1, 2).contiguous()
+        skip_nwc = skip.to(dtype).transpose(1, 2).contiguous()
+        out = nwc_ops.LVCBlockNWCRecompute.apply(x_nwc, skip_nwc, kern_aug,
+                                                 wstack, self.hop)
+        return out.transpose(1, 2)
 
 
 class FastDiff(nn.Module):
@@ -440,7 +464,8 @@ class FastDiff(nn.Module):
             raise ValueError(f"infer_route {infer_route!r} is not one of "
                              f"{INFER_ROUTES}")
         if train_route is not None and infer_route != "ncl":
-            raise ValueError("the trainable model runs the NCL routes only")
+            raise ValueError("a trainable model (train_route) takes its "
+                             "route from train_route, not infer_route")
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)

@@ -27,6 +27,12 @@ Two kernels:
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version beside it.
+
+The trainable NWC route (``use_pallas_block: true`` in training, JAX's
+``nwc_vjp``) runs both under autograd: ``AugHead`` is K7 forward with the
+plain matmul VJP (JAX's ``_aug_head_bwd``), ``LVCBlockNWCRecompute`` is K6
+forward with a backward that recomputes ``lvc_block_nwc_plain`` and
+differentiates it (JAX's ``_aug_bwd`` through ``_unfused_from_aug``).
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from fastdiff_tpu_torch.ops.lvc_block_ncl import (BlockPlan, TC_APAD,
                                                   TC_YPAD, _sm_count,
                                                   block_tile_plan,
                                                   tensor_core_hop)
-from fastdiff_tpu_torch.ops.lvc_head import launch_head_gemm
+from fastdiff_tpu_torch.ops.lvc_head import (head_matmul_backward,
+                                             launch_head_gemm)
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
 # launches of the CUDA kernels since the last reset (plain runs not
@@ -155,6 +162,24 @@ def aug_head_matmul(tap: torch.Tensor, w_aug: torch.Tensor,
     if out.shape[0]:
         LAUNCHES["aug_head"] += 1
     return out
+
+
+class AugHead(torch.autograd.Function):
+    """Trainable K7: ``apply(tap, w_aug, b_aug)`` runs ``aug_head_matmul``;
+    the backward is JAX's ``_aug_head_bwd``, the plain matmul VJP (JAX too
+    computes it outside any kernel): dtap = g @ w_aug^T rounded to tap's
+    dtype, dw = tap^T @ g rounded to w_aug's dtype, db = sum of g in
+    float32."""
+
+    @staticmethod
+    def forward(ctx, tap, w_aug, b_aug):
+        ctx.save_for_backward(tap, w_aug)
+        ctx.b_dtype = b_aug.dtype
+        return aug_head_matmul(tap, w_aug, b_aug)
+
+    @staticmethod
+    def backward(ctx, g):
+        return head_matmul_backward(*ctx.saved_tensors, ctx.b_dtype, g)
 
 
 def unfused_reference(x, skip, kernels, biases, conv_ws, conv_bs,
@@ -278,3 +303,23 @@ def _launch_nwc(entry: str, extra: tuple, key: str, x, skip, kern_aug,
     _build.check(code, entry)
     LAUNCHES[key] += 1
     return out
+
+
+class LVCBlockNWCRecompute(torch.autograd.Function):
+    """Trainable K6: ``apply(x, skip, kern_aug, wstack, hop) -> out`` runs
+    ``lvc_block_nwc``; the backward recomputes ``lvc_block_nwc_plain``
+    under autograd and differentiates it, as JAX's ``_aug_bwd``
+    differentiates ``_unfused_from_aug``."""
+
+    @staticmethod
+    def forward(ctx, x, skip, kern_aug, wstack, hop):
+        ctx.save_for_backward(x, skip, kern_aug, wstack)
+        ctx.hop = hop
+        return lvc_block_nwc(x, skip, kern_aug, wstack, hop)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = lvc_block_nwc_plain(*inputs, ctx.hop)
+        return (*torch.autograd.grad(out, inputs, g), None)

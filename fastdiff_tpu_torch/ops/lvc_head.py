@@ -314,9 +314,18 @@ class TaugHead(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        tap, w_head = ctx.saved_tensors
-        gf = g.reshape(g.shape[0], -1)
-        dtap = (gf.float() @ w_head.to(gf.dtype).float().t()).to(tap.dtype)
-        dw = (tap.float().t() @ gf.to(tap.dtype).float()).to(w_head.dtype)
-        db = gf.float().sum(dim=0).to(ctx.b_dtype)
-        return dtap, dw, db
+        return head_matmul_backward(*ctx.saved_tensors, ctx.b_dtype, g)
+
+
+def head_matmul_backward(tap: torch.Tensor, w_head: torch.Tensor, b_dtype,
+                         g: torch.Tensor) -> tuple:
+    """The plain matmul VJP of a head GEMM (JAX's ``_taug5d_bwd`` and
+    ``_aug_head_bwd``): g (M, N) -> dtap = g @ w_head^T rounded to tap's
+    dtype, dw = tap^T @ g rounded to w_head's dtype, db = sum of g in
+    float32 cast to ``b_dtype`` (products of the rounded operands, summed
+    in float32)."""
+    gf = g.reshape(g.shape[0], -1)
+    dtap = (gf.float() @ w_head.to(gf.dtype).float().t()).to(tap.dtype)
+    dw = (tap.float().t() @ gf.to(tap.dtype).float()).to(w_head.dtype)
+    db = gf.float().sum(dim=0).to(b_dtype)
+    return dtap, dw, db

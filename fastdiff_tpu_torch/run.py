@@ -13,6 +13,14 @@
 (``data/dataset.py:resolve_class`` maps the configs' ``fastdiff_tpu.`` paths
 to the port). ``--device`` (default ``cuda``) names the device; without a
 card ``cuda`` raises, so a CPU run asks for ``--device cpu``.
+
+Data-parallel training runs one process per card under ``torchrun``
+(``parallel/mesh.py:maybe_initialize_distributed`` starts the process
+group from its environment, as JAX's entry point starts its distributed
+runtime):
+
+    torchrun --nproc_per_node 4 -m fastdiff_tpu_torch.run --config ... \
+        --exp_name my_exp
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import numpy as np
 
 from fastdiff_tpu_torch.data.dataset import resolve_class
 from fastdiff_tpu_torch.models.fastdiff import checked_device
+from fastdiff_tpu_torch.parallel.mesh import maybe_initialize_distributed
 from fastdiff_tpu_torch.training.trainer import Trainer
 from fastdiff_tpu_torch.utils.hparams import add_config_args, set_hparams
 
@@ -50,6 +59,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     device = checked_device(args.device)
     hparams = set_hparams(args=args)
+    maybe_initialize_distributed(hparams, device)
     print(f"| device: {device}")
     return run_task(hparams, device)
 

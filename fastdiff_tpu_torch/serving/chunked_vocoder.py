@@ -13,8 +13,10 @@ graph each), and the graph's memory grows with the utterance. With
 
 The sampler is ``sample(generator, mel (B, F, n_mels), audio_length) ->
 (B, L, 1)``, e.g. ``FastDiffVocoder.sample`` or a ``make_sampler``
-runner. The mesh-sharded ``DistributedChunkedVocoder`` is not ported (one
-card).
+runner. ``DistributedChunkedVocoder`` spreads the chunk batch over every
+visible device in one process, with no collective
+(``parallel/mesh.py:ShardedSampler``): JAX's sequence parallelism over its
+mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from fastdiff_tpu_torch.diffusion.sampler import (fold_in,
                                                   inference_generator, split)
+from fastdiff_tpu_torch.parallel.mesh import ShardedSampler
 
 # FastDiff receptive field in mel frames: kernel-predictor context (~9
 # frames) plus the sample-level conv stacks (< 2 frames at hop 256)
@@ -114,3 +117,21 @@ class ChunkedVocoder:
             weight[lo:hi] += win[seg_lo: seg_lo + hi - lo]
         out = out / np.maximum(weight, 1e-8)
         return out[: frames * self.hop]
+
+
+class DistributedChunkedVocoder(ChunkedVocoder):
+    """Chunked vocoding with the chunk batch sharded over devices: the
+    chunk count is padded with zero chunks to a multiple of the device
+    count, each device vocodes its contiguous block of chunks, and the
+    crossfade runs on the gathered rows (``fastdiff_tpu/serving/
+    chunked_vocoder.py:DistributedChunkedVocoder``). ``sampler`` is one
+    sampler per device or one callable for all (``ShardedSampler``);
+    ``devices`` defaults to every visible card. On one device it is
+    ``ChunkedVocoder``, call for call."""
+
+    def __init__(self, sampler, hop_size: int, devices=None,
+                 chunk_frames: int = 256,
+                 halo_frames: int = DEFAULT_HALO_FRAMES):
+        super().__init__(sampler, hop_size, chunk_frames, halo_frames)
+        self.sampler = ShardedSampler(sampler, devices)
+        self.devices = self.sampler.devices

@@ -12,7 +12,9 @@ the step counter still advances), ``val_step``, the loaders,
 returning None: there is no diffusion sampler. ``make_test_sampler`` loads
 the weights into the model ``test_step`` generates with
 (``models/wavenet_mol.py:wavenet_generate``, a CUDA graph on the card).
-``micro_lj_armol.yaml`` names it as ``task_cls``.
+``micro_lj_armol.yaml`` names it as ``task_cls``. Under a process group
+the model runs under ``DistributedDataParallel`` on the rank's rows of
+each batch (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from fastdiff_tpu_torch.models.wavenet_mol import (MoLWaveNet,
                                                    MoLWaveNetConfig,
                                                    wavenet_generate,
                                                    wavenet_mol_loss)
+from fastdiff_tpu_torch.parallel import mesh as meshlib
 from fastdiff_tpu_torch.training.optim import AdamW
 from fastdiff_tpu_torch.training.task import TrainState
 from fastdiff_tpu_torch.utils import audio_io
@@ -44,6 +47,7 @@ class MoLWaveNetTask:
     def __init__(self, hparams: dict, device="cuda"):
         self.hparams = hparams
         self.device = checked_device(device)
+        self.mesh = meshlib.make_mesh(device=self.device)
         self.audio_cfg = AudioConfig.from_hparams(hparams)
         self.train_cfg = TrainConfig.from_hparams(hparams)
         self.model_cfg = MoLWaveNetConfig.from_hparams(hparams)
@@ -57,7 +61,8 @@ class MoLWaveNetTask:
         seed = self.train_cfg.seed if seed is None else seed
         model = MoLWaveNet(self.model_cfg, seed=seed, device=self.device)
         print(f"| model params: {num_params(model) / 1e6:.3f}M")
-        return TrainState(model, AdamW(model.parameters(), self.train_cfg))
+        return TrainState(model, AdamW(model.parameters(), self.train_cfg),
+                          ddp=meshlib.data_parallel(model, self.mesh))
 
     # -- train/val ---------------------------------------------------------
     def loss(self, model: MoLWaveNet, batch: dict) -> torch.Tensor:
@@ -72,10 +77,12 @@ class MoLWaveNetTask:
         the update was skipped) as 0-dim tensors. The loss draws nothing,
         so ``generator`` is unused."""
         params = list(state.model.parameters())
-        loss = self.loss(state.model, batch)
+        loss = self.loss(state.net, meshlib.shard_batch(batch, self.mesh))
         # zeros for weights the loss does not reach (the last block's out
-        # conv), as JAX's gradients hold them
-        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        # conv), as JAX's gradients hold them; averaged over the ranks
+        # under DDP
+        grads = meshlib.gradients(loss, params, state.ddp)
+        loss = meshlib.mean_over_ranks(loss.detach(), self.mesh)
         finite = torch.stack([torch.isfinite(loss)] +
                              [torch.isfinite(g).all() for g in grads]).all()
         if bool(finite):

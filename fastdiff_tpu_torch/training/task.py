@@ -30,7 +30,15 @@ waveform back to frames * hop, peak-normalizes it, writes
 
 The data pipeline is ``data/dataset.py``, plain numpy copied from the JAX
 package (binarized ``<split>`` files and ``<split>_lengths.npy`` under
-``binary_data_dir``, random aligned crops of ``max_samples``).
+``binary_data_dir``, random aligned crops of ``max_samples``; the C++ mmap
+loader where the split has v2 files).
+
+Data parallel (``parallel/mesh.py``, a process group under ``torchrun``):
+the trainable module runs wrapped in ``DistributedDataParallel``
+(``TrainState.ddp``); at world size W > 1 each rank keeps its contiguous
+rows of the global batch and of the global batch's draws of t and z (JAX's
+``dp`` sharding of one global key's draws), DDP averages the gradients,
+and the reported losses are means over the ranks.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from fastdiff_tpu_torch.models.fastdiff import (FastDiff, checked_device,
                                                 resolve_train_route)
 from fastdiff_tpu_torch.models.pwg import PWGConfig, PWGDiffusion
 from fastdiff_tpu_torch.models.wavenet import WaveNet, WaveNetConfig
+from fastdiff_tpu_torch.parallel import mesh as meshlib
 from fastdiff_tpu_torch.training.checkpoint import load_checkpoint
 from fastdiff_tpu_torch.training.optim import AdamW, global_norm
 from fastdiff_tpu_torch.utils import audio_io, ckpt_import
@@ -74,11 +83,19 @@ ZOO = {"wavenet": (WaveNetConfig, WaveNet), "pwg": (PWGConfig, PWGDiffusion)}
 class TrainState:
     """What a training run carries from step to step (the FastDiff and the
     FastSpeech 2 tasks); ``ema`` maps each parameter name to its moving
-    average when ``ema_decay`` > 0."""
+    average when ``ema_decay`` > 0; ``ddp`` is ``model`` wrapped in
+    ``DistributedDataParallel`` when a process group is up (the module the
+    train step runs), else None."""
     model: torch.nn.Module
     optimizer: AdamW
     step: int = 0
     ema: Optional[Dict[str, torch.Tensor]] = None
+    ddp: Optional[torch.nn.Module] = None
+
+    @property
+    def net(self) -> torch.nn.Module:
+        """The module a train step calls: ``ddp`` when there is one."""
+        return self.model if self.ddp is None else self.ddp
 
 
 class FastDiffTask:
@@ -104,6 +121,8 @@ class FastDiffTask:
                                      device=self.device)
         # EMA of the parameters (0 disables), as in the JAX task
         self.ema_decay = float(hparams.get("ema_decay", 0.0) or 0.0)
+        self.mesh = meshlib.make_mesh(device=self.device)
+        meshlib.warn_replicated(self.train_cfg.max_sentences, self.mesh)
 
     # -- state -------------------------------------------------------------
     def build_state(self, seed: int | None = None) -> TrainState:
@@ -118,7 +137,8 @@ class FastDiffTask:
         load_ckpt = self.hparams.get("load_ckpt", "")
         if load_ckpt:
             model.load_state_dict(self._load_external_params(load_ckpt))
-        state = TrainState(model, AdamW(model.parameters(), self.train_cfg))
+        state = TrainState(model, AdamW(model.parameters(), self.train_cfg),
+                           ddp=meshlib.data_parallel(model, self.mesh))
         if self.ema_decay > 0:
             state.ema = {k: p.detach().clone()
                          for k, p in model.named_parameters()}
@@ -143,7 +163,19 @@ class FastDiffTask:
                      for k in ("mels", "wavs"))
 
     def loss(self, model, batch: dict, generator=None, ts=None, z=None):
+        """The loss of ``batch``; at world size > 1 of this rank's rows of
+        it, and of the draws made (or given) for the whole batch."""
         mels, wavs = self._batch(batch)
+        if self.mesh.world_size > 1:
+            b = wavs.shape[0]
+            if ts is None:
+                ts = torch.randint(0, self.alpha.shape[0], (b, 1, 1),
+                                   generator=generator, device=wavs.device)
+            if z is None:
+                z = torch.randn(wavs.shape, generator=generator,
+                                device=wavs.device, dtype=wavs.dtype)
+            rows = meshlib.shard_rows(b, self.mesh)
+            mels, wavs, ts, z = mels[rows], wavs[rows], ts[rows], z[rows]
         return theta_timestep_loss(model, mels, wavs, self.alpha,
                                    generator=generator, ts=ts, z=z)
 
@@ -154,10 +186,12 @@ class FastDiffTask:
         ``nonfinite`` (1.0 when the update was skipped) as 0-dim tensors."""
         model = state.model
         params = list(model.parameters())
-        loss = self.loss(model, batch, generator, ts, z)
+        loss = self.loss(state.net, batch, generator, ts, z)
         # zeros for weights the loss does not reach (a zoo denoiser's last
-        # residual conv), as JAX's gradients hold them
-        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        # residual conv), as JAX's gradients hold them; averaged over the
+        # ranks under DDP
+        grads = meshlib.gradients(loss, params, state.ddp)
+        loss = meshlib.mean_over_ranks(loss.detach(), self.mesh)
         finite = torch.stack([torch.isfinite(loss)] +
                              [torch.isfinite(g).all() for g in grads]).all()
         if bool(finite):
@@ -175,7 +209,8 @@ class FastDiffTask:
     @torch.no_grad()
     def val_step(self, state: TrainState, batch: dict,
                  generator: torch.Generator | None = None) -> dict:
-        return {"loss": self.loss(state.model, batch, generator)}
+        return {"loss": meshlib.mean_over_ranks(
+            self.loss(state.model, batch, generator), self.mesh)}
 
     # -- dataloaders -------------------------------------------------------
     def _max_frames(self) -> int:

@@ -23,6 +23,10 @@
 
 Random draws come from a ``torch.Generator`` on the task's device, seeded
 from ``seed`` and the step the run starts at (in ``test``, from ``seed``).
+
+Data parallel (``parallel/mesh.py``): every rank runs the loop and
+restores the same checkpoint; only rank 0 logs scalars and figures and
+saves checkpoints, as in JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from fastdiff_tpu_torch.diffusion.sampler import inference_generator
+from fastdiff_tpu_torch.parallel.mesh import make_mesh
 from fastdiff_tpu_torch.training import checkpoint as ckpt
 from fastdiff_tpu_torch.utils.logging_utils import MeterBank, ScalarLogger
 
@@ -48,7 +53,9 @@ class Trainer:
         self.cfg = task.train_cfg
         self.work_dir = work_dir or "checkpoints/default"
         os.makedirs(self.work_dir, exist_ok=True)
-        self.logger = ScalarLogger(os.path.join(self.work_dir, "tb_logs"))
+        self.is_main = make_mesh().rank == 0
+        self.logger = ScalarLogger(os.path.join(self.work_dir, "tb_logs"),
+                                   enabled=self.is_main)
         self.best_val: Optional[float] = None
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -101,6 +108,8 @@ class Trainer:
         return meters.averages() if n else {"loss": float("nan")}
 
     def _maybe_save(self, state, step: int, val_metrics: dict):
+        if not self.is_main:
+            return
         monitor = val_metrics.get(
             self.cfg.valid_monitor_key.replace("val_", ""), None)
         is_best = False

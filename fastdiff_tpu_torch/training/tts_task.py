@@ -16,6 +16,9 @@ on the CUDA card unless the caller names another device.
   optimizer update, and returns the loss terms as floats (``loss`` is
   ``total``). Nothing is drawn and the model has no dropout, so the step is
   deterministic; as in JAX there is no skip of non-finite steps and no EMA.
+- data parallel (a process group, ``parallel/mesh.py``): the module runs
+  wrapped in ``DistributedDataParallel``, each of W ranks keeps its rows of
+  the padded batch, and the loss terms are means over the ranks.
 - ``val_step`` is the loss under ``no_grad``; ``val_figures`` draws the
   ground-truth and predicted mels of the first validation batch side by
   side (``utils/plot.py``), which the ``Trainer`` logs as PNGs.
@@ -50,6 +53,7 @@ from fastdiff_tpu_torch.models.fastspeech2 import (DEFAULT_LAMBDAS,
 from fastdiff_tpu_torch.ops.cwt import f0_to_cwt
 from fastdiff_tpu_torch.ops.mel_losses import parse_mel_losses
 from fastdiff_tpu_torch.ops.pitch import norm_interp_f0
+from fastdiff_tpu_torch.parallel import mesh as meshlib
 from fastdiff_tpu_torch.training.optim import AdamW
 from fastdiff_tpu_torch.training.task import TrainState
 from fastdiff_tpu_torch.utils import audio_io
@@ -147,6 +151,7 @@ class FastSpeech2Task:
     def __init__(self, hparams: dict, device="cuda"):
         self.hparams = hparams
         self.device = checked_device(device)
+        self.mesh = meshlib.make_mesh(device=self.device)
         self.train_cfg = TrainConfig.from_hparams(hparams)
         self.audio_cfg = AudioConfig.from_hparams(hparams)
         vocab_size = int(hparams.get("vocab_size", 0)) or \
@@ -177,7 +182,8 @@ class FastSpeech2Task:
             model.parameters(), self.train_cfg,
             warmup_updates=int(self.hparams.get("warmup_updates", 8000)),
             hidden_size=self.model_cfg.hidden)
-        return TrainState(model, optimizer)
+        return TrainState(model, optimizer,
+                          ddp=meshlib.data_parallel(model, self.mesh))
 
     # -- steps -------------------------------------------------------------
     def _to_device(self, batch: dict) -> dict:
@@ -209,18 +215,18 @@ class FastSpeech2Task:
         losses["loss"] = losses["total"]
         return losses
 
-    @staticmethod
-    def _floats(losses: dict) -> dict:
-        values = torch.stack([v.detach() for v in losses.values()]).tolist()
-        return dict(zip(losses, values))
+    def _floats(self, losses: dict) -> dict:
+        values = meshlib.mean_over_ranks(
+            torch.stack([v.detach() for v in losses.values()]), self.mesh)
+        return dict(zip(losses, values.tolist()))
 
     def train_step(self, state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None) -> dict:
         """One update in place; returns the loss terms as floats."""
-        model = state.model
-        params = list(model.parameters())
-        losses = self.loss(model, self._to_device(batch))
-        grads = torch.autograd.grad(losses["total"], params)
+        params = list(state.model.parameters())
+        losses = self.loss(state.net, self._to_device(
+            meshlib.shard_batch(batch, self.mesh)))
+        grads = meshlib.gradients(losses["total"], params, state.ddp)
         state.optimizer.step(grads)
         state.step += 1
         return self._floats(losses)

@@ -18,6 +18,18 @@ from fastdiff_tpu_torch.serving.batch_vocoder import BatchedVocoder
 FRAMES = (5, 8, 13, 16, 7, 21, 3, 9, 10)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _constants(n=4):
     hp = schedules.compute_hyperparams_given_schedule(
         schedules.linear_beta_schedule(DiffusionConfig(T=50, beta_0=1e-4,

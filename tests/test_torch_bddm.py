@@ -47,6 +47,18 @@ T_DIFF, TAU, LENGTH, BATCH = 400, 50, 1024, 2
 FRAMES = LENGTH // 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _hyper():
     return schedules.compute_hyperparams_given_schedule(
         schedules.linear_beta_schedule(PortDiffusionConfig(T=T_DIFF)))

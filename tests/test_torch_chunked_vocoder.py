@@ -21,6 +21,18 @@ from fastdiff_tpu_torch.serving.chunked_vocoder import ChunkedVocoder
 CPU = torch.Generator()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _linear(mel: np.ndarray, audio_length: int) -> np.ndarray:
     """Deterministic, local 'vocoder': the mel mean upsampled by hop (no
     noise), so chunked and unchunked outputs agree away from the edges."""

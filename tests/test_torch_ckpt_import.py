@@ -37,6 +37,18 @@ CFG = ModelConfig(**ARCH)
 JAX_CFG = JaxModelConfig(**ARCH)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _released_name(name: str) -> str:
     """A trainable port state_dict key -> the reference's key."""
     name = name.replace("final_conv.", "final_conv.0.")

@@ -24,6 +24,18 @@ CFG = ModelConfig()
 FACTORS = tuple(reversed(CFG.upsample_ratios))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def weights():
     """(JAX down-path subtree, fused; the port model holding it)."""

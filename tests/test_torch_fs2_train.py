@@ -57,6 +57,18 @@ CASES = {
 SHAPES = ((11, 61), (7, 37))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _items(seed: int = 0) -> list:
     """Seeded records as the TTS binarizer writes them: phone ids, a log10
     mel, f0 with unvoiced frames, coarse pitch, an aligned mel2ph and a

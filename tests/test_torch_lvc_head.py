@@ -28,6 +28,18 @@ LAYERS, C = 4, 8
 ROWS = 3 * C + 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_head(tap, w, b, rows_jax, dtype):
     """(M, K) @ (K, layers, 2C, ROWS) weights padded to rows_jax, interpret."""
     wp = np.pad(w, [(0, 0)] * 3 + [(0, rows_jax - ROWS)])

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from fastdiff_tpu.utils import metrics as jax_metrics
 from fastdiff_tpu.utils.pesq import pesq as jax_pesq
@@ -28,6 +29,18 @@ from fastdiff_tpu_torch.vocoders.denoise import denoise
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 22050
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _voice(seconds=0.8, f0=140.0, seed=0, sr=SR):

@@ -58,6 +58,18 @@ SR, HOP, SEED = 22050, 256, 1234
 SECONDS = (0.9, 1.3)                  # 78 and 112 frames
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _wav(seconds, seed):
     rng = np.random.default_rng(seed)
     t = np.arange(int(seconds * SR)) / SR

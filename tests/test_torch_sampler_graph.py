@@ -41,6 +41,18 @@ FRAMES = 16
 LENGTH = FRAMES * PORT_SMALL.total_hop
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _constants(n=4):
     hyper = schedules.compute_hyperparams_given_schedule(
         schedules.linear_beta_schedule(DiffusionConfig()))

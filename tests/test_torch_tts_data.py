@@ -56,6 +56,18 @@ SMALL = {"hidden_size": 32, "enc_layers": 1, "dec_layers": 1,
          "max_frames": 200, "use_pitch_embed": True}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _records(path: str, reader) -> list:
     ds = reader(path)
     return [ds[i] for i in range(len(ds))]

@@ -240,8 +240,8 @@ def test_pipeline_and_demo_write_wavs(setup, tmp_path):
 def test_training_refuses(setup, tmp_path):
     """What the TTS path refused until the speaker encoder was ported
     (speaker embeddings in the binarizer, the encoder itself) now builds;
-    the encoder asks for the card unless told otherwise, and a module the
-    port still lacks raises by name."""
+    the encoder asks for the card unless told otherwise, and the C++
+    loader, refused until it was ported, resolves by JAX's name."""
     from fastdiff_tpu_torch.models.spk_encoder import (SpeakerEncoder,
                                                        get_speaker_encoder)
     hp = dict(setup["hp"], processed_data_dir=str(tmp_path),
@@ -254,5 +254,6 @@ def test_training_refuses(setup, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             get_speaker_encoder("", "cuda")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        resolve_class("fastdiff_tpu.data.native_io.NativeBatchLoader")
+    from fastdiff_tpu_torch.data.native_io import NativeBatchLoader
+    assert resolve_class(
+        "fastdiff_tpu.data.native_io.NativeBatchLoader") is NativeBatchLoader

@@ -41,6 +41,18 @@ ARCH = {"inner_channels": 8, "cond_channels": N_MELS,
         "diffusion_step_embed_dim_out": 32, "compute_dtype": "float32"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread: the suite runs several workers on the
+    machine's cores, and torch's CPU kernels oversubscribe them (a 60-step
+    training test took 135 s under five busy neighbours, 0.8 s with one
+    thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
