@@ -259,9 +259,26 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     hparams, ``ncl_sr``, the native loader): ``SANITY_STEPS`` updates of 16
     x 12,800; fails unless the mean train loss of the last 50 is at most
     ``SANITY_RATIO`` x that of the first 10 and every step launched K3 and
-    the tensor-core K4 exactly 3 times (the CUDA-core K4 never).
+    the tensor-core K4 exactly 3 times (the CUDA-core K4 never);
+33. the reference's full reverse process, N = 200 and N = 1000, on the NCL
+    route at 864 frames, b 1, through ``make_param_sampler``
+    (``scripts/bench_n1000.py``'s set-up): the first (eager) call's wall;
+    the second's (the capture of one reverse step, two graphs, and one
+    sample's N replays) with each graph's nodes and instantiation,
+    ``memory_reserved`` around it and the runner's buffer and draw bytes;
+    the replay bit-equal to the first call, launching exactly 3N K3, 2N
+    K1 and N K2, finite; replay ms by CUDA events and x realtime; the
+    kernel route against the plain route at 100 frames on injected noise
+    at both N (relative L2 <= 0.1); ``run.main --infer --hparams N=200`` on
+    two utterances of one 128-frame bucket;
+34. ``scripts/streaming_latency_curve.py`` on phase 32's checkpoint and the
+    tones' valid split (the five settings, latency and finite MCD, mel-L2,
+    MR-STFT), then ``scripts/drive_ncl_sr.py`` at the recipe (exit 0);
+35. ``scripts/graft_entry.py``: ``entry()``'s full-width forward on the
+    card, and ``dryrun_multichip`` over every card (NCCL ranks).
 
-Each phase from 21 on prints its wall. Any failed check exits non-zero. The line before the last is a JSON object
+Phase 10 runs through ``scripts/bench_trainstep.py``. Each phase from 21
+on prints its wall. Any failed check exits non-zero. The line before the last is a JSON object
 with each of the twelve kernels' launches (from the run of its path: phase
 7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9),
 its largest error against its plain version, its time beside the plain
@@ -283,7 +300,9 @@ the trained FastSpeech 2 in phase 24, and K7 and K6 also
 ``train_launches_per_step`` from one ``nwc_vjp`` step of phase 10; ``zoo``
 holds phases 25-27's rows (``spk``, ``diffusion``, ``mol``),
 ``native_loader``, ``ddp``, ``profiling`` and ``learning_check`` phases
-29-32's. The last line is ``{"ok": true, "device": {...}}``.
+29-32's, ``full_reverse`` phase 33's and ``script_twins`` phases 34-35's;
+K1-K3 also carry ``full_reverse_launches_per_sample`` from phase 33. The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 import io
@@ -677,59 +696,21 @@ def phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
 
 
 def phase10_train_step(torch, FastDiffTask, smi_line, dev, all_counters):
-    """One full-width train step per route, raced in turns; the launches of
+    """One full-width train step per route, raced in turns
+    (``fastdiff_tpu_torch/scripts/bench_trainstep.py``); the launches of
     one ``nwc_vjp`` step: K7 and K6 twice each (the hop-64 and hop-256
     blocks), every other kernel never."""
-    gen = torch.Generator(device=dev).manual_seed(2)
-    length = TRAIN_FRAMES * HOP_SIZE
-    batch = {"wavs": torch.randn((TRAIN_BATCH, length, 1), generator=gen,
-                                 device=dev).mul_(0.3).cpu().numpy(),
-             "mels": torch.randn((TRAIN_BATCH, TRAIN_FRAMES, 80),
-                                 generator=gen, device=dev).sub_(4.0)
-             .cpu().numpy()}
-    ts = torch.randint(0, 1000, (TRAIN_BATCH, 1, 1), generator=gen,
-                       device=dev)
-    z = torch.randn((TRAIN_BATCH, length, 1), generator=gen, device=dev)
+    from fastdiff_tpu_torch.scripts import bench_trainstep
     routes = ("ncl_sr", "ncl_vjp", "nwc_vjp", "plain")
-    flags = {"nwc_vjp": True, "plain": False}
-    tasks = {r: FastDiffTask({"use_pallas_block": flags.get(r, r)},
-                             device=dev) for r in routes}
-    for r, task in tasks.items():
-        if task.route != r:
-            fail(f"use_pallas_block {flags.get(r, r)!r} resolved to "
-                 f"{task.route}, not {r}")
-    states = {r: tasks[r].build_state(seed=0) for r in routes}
+    try:
+        race = bench_trainstep.setup(dev, routes, TRAIN_BATCH, TRAIN_FRAMES)
+    except ValueError as e:
+        fail(str(e))
     # gradients of the identical initial weights, same draws
-    grads = {}
-    for r in routes:
-        model = states[r].model
-        names, params = zip(*model.named_parameters())
-        loss = tasks[r].loss(model, batch, ts=ts, z=z)
-        grads[r] = dict(zip(names, torch.autograd.grad(loss, params)))
-    ref = grads["plain"]
-    ref_norm = torch.sqrt(sum(g.float().square().sum() for g in ref.values()))
-    grad_rel = {}
-    for r in ("ncl_sr", "ncl_vjp", "nwc_vjp"):
-        diff = torch.sqrt(sum((grads[r][k].float() - g.float()).square().sum()
-                              for k, g in ref.items()))
-        worst = max(((rel_l2(grads[r][k], g), k) for k, g in ref.items()
-                     if float(g.float().norm()) > 0), key=lambda t: t[0])
-        grad_rel[r] = (float(diff / ref_norm), worst)
-    del grads
-
-    def step(r):
-        return tasks[r].train_step(states[r], batch, ts=ts, z=z)
-
-    metrics, peak, times = {}, {}, {r: [] for r in routes}
-    for r in routes:                               # warm-up, peak memory
-        step(r)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        metrics[r] = {k: float(v) for k, v in step(r).items()}
-        torch.cuda.synchronize()
-        peak[r] = torch.cuda.max_memory_allocated(dev)
+    grad_rel = bench_trainstep.gradient_errors(race)
+    metrics, peak = bench_trainstep.warm(race)       # warm-up, peak memory
     zero_counters(all_counters)
-    step("nwc_vjp")
+    race.step("nwc_vjp")
     torch.cuda.synchronize()
     nwc_launches = launched(all_counters)
     phase(10, f"one nwc_vjp step launched {nwc_launches} (K7 aug_head and "
@@ -737,8 +718,7 @@ def phase10_train_step(torch, FastDiffTask, smi_line, dev, all_counters):
     if nwc_launches != {"aug_head": 2, "lvc_block_nwc": 2}:
         fail("an nwc_vjp train step did not launch K7 and the tensor-core "
              "K6 exactly twice each (and no other kernel)")
-    for r in routes + routes[::-1]:
-        times[r].append(cuda_ms(lambda: step(r), 3))
+    times = bench_trainstep.race(race, 3)
     report = {"nwc_vjp_launches_per_step": nwc_launches}
     for r in routes:
         ms = sum(times[r]) / len(times[r])
@@ -3955,6 +3935,254 @@ def phase32_learning(torch, FastDiffTask, Trainer, counters, hp: dict, dev,
     return report
 
 
+FULL_REVERSE = (200, 1000)      # the reference's full reverse processes
+CHECK_FRAMES = 100              # kernel route vs plain route, injected noise
+REVERSE_BOUND = 0.1             # their waveforms' relative L2
+
+
+def phase33_full_reverse(torch, FastDiff, all_counters, cfg, dev,
+                         smi_line) -> dict:
+    """The reference's full reverse process, N = 200 and N = 1000, on the
+    NCL route at 864 frames, b 1, through ``make_param_sampler``
+    (``fastdiff_tpu_torch/scripts/bench_n1000.py``'s set-up): the first
+    (eager) call's wall; the second call's (the capture of the reverse step
+    and one sample's replays), each graph's nodes and instantiation, the
+    pool's ``memory_reserved`` around it and the runner's buffer and draw
+    bytes; the replay bit-equal to the first call with a generator of the
+    same seed, launching exactly 3N K3, 2N K1 and N K2 (``replay_launches``
+    and the counters of one call), finite; the replays' ms by CUDA events
+    and x realtime. Then at 100 frames the kernel route (``ncl``) against
+    the plain route on the same seed-0 weights and injected noise, eagerly,
+    at both N (relative L2 <= 0.1); and ``run.main --infer --hparams N=200``
+    on two utterances of one 128-frame bucket (K3 +600, K1 +400, K2 +200,
+    the CUDA-core K1 +0 each; the second captures)."""
+    from fastdiff_tpu_torch import run
+    from fastdiff_tpu_torch.config import AudioConfig
+    from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams
+    from fastdiff_tpu_torch.diffusion.sampler import sample as eager_sample
+    from fastdiff_tpu_torch.ops import dsp
+    from fastdiff_tpu_torch.scripts import bench_n1000
+    from fastdiff_tpu_torch.utils import audio_io
+    report = {}
+    for n in FULL_REVERSE:
+        want = {"taug_head": 3 * n, "lvc_block_ncl": 2 * n,
+                "lvc_block_ncl_final": n}
+        sampler, mel, length = bench_n1000.build(n, FRAMES_10S, dev, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = bench_n1000.sample_once(sampler, mel, length, 1)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        before = torch.cuda.memory_reserved(dev)
+        graphs = []
+        zero_counters(all_counters)
+        t0 = time.perf_counter()
+        with bench_n1000.graph_census(graphs):
+            second = bench_n1000.sample_once(sampler, mel, length, 1)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        launches = launched(all_counters)
+        after = torch.cuda.memory_reserved(dev)
+        runner = next(iter(sampler._runners.values()))
+        draw_bytes = runner.z.numel() * runner.z.element_size()
+        per_replay = sampler.replay_launches(mel, length)
+        ms = cuda_ms(lambda: bench_n1000.sample_once(sampler, mel, length, 2),
+                     2)
+        audio_s = length * AUDIO_SECONDS_PER_SAMPLE
+        equal = bool(torch.equal(first, second))
+        row = dict(first_s=first_s, capture_s=capture_s,
+                   graphs=[dict(nodes=nodes, instantiate_s=s_)
+                           for nodes, s_ in graphs],
+                   reserved_before=before, reserved_after=after,
+                   buffer_bytes=bench_n1000.buffer_bytes(sampler),
+                   draw_bytes=draw_bytes, replay_ms=ms,
+                   x_realtime=audio_s / (ms / 1e3), bit_equal=equal,
+                   launches=per_replay)
+        phase(33, f"N={n}, {FRAMES_10S} frames ({audio_s:.2f} s), b 1, NCL "
+                  f"graph sampler: first call (eager) {first_s:.2f} s; "
+                  f"second (capture + one sample's replays) "
+                  f"{capture_s:.2f} s, graphs "
+                  + ", ".join(f"{g['nodes']} nodes instantiated in "
+                              f"{g['instantiate_s']:.4f} s"
+                              for g in row["graphs"])
+                  + f"; memory_reserved {before / 2 ** 30:.3f} -> "
+                  f"{after / 2 ** 30:.3f} GiB; runner buffers "
+                  f"{row['buffer_bytes'] / 2 ** 20:.2f} MiB, draws "
+                  f"{draw_bytes / 2 ** 20:.3f} MiB; replay "
+                  f"{ms:.2f} ms = {ms / n:.4f} ms/step -> "
+                  f"{row['x_realtime']:.2f}x realtime; replay bit-equal to "
+                  f"the first call: {equal}; launches per replay "
+                  f"{per_replay}, the second call's {launches} "
+                  f"[{smi_line}]")
+        if not torch.isfinite(second).all() or second.shape != (1, length, 1):
+            fail(f"N={n}: the replay is not finite or has the wrong shape")
+        if not equal:
+            fail(f"N={n}: the replay differs from the first (eager) call")
+        if per_replay != want or launches != want:
+            fail(f"N={n}: a replay launched {per_replay} (counters "
+                 f"{launches}), expected {want}")
+        report[n] = row
+        del sampler, first, second
+
+    # the kernel route against the plain route, injected noise, 100 frames
+    models = {route: FastDiff(cfg, seed=0, infer_route=route,
+                              device=dev).eval() for route in ("ncl", "plain")}
+    length = CHECK_FRAMES * HOP_SIZE
+    gen = torch.Generator(device=dev).manual_seed(33)
+    mel = torch.randn((1, CHECK_FRAMES, cfg.cond_channels), generator=gen,
+                      device=dev) - 4.0
+    for n in FULL_REVERSE:
+        const = constants_for_hparams({"N": n})
+        draws = torch.randn((n + 1, 1, length, 1), generator=gen,
+                            device=dev)
+        noise = (draws[0], list(draws[1:]))
+        outs = {}
+        for route, model in models.items():
+            with torch.inference_mode():
+                outs[route] = eager_sample(model, mel, const, length,
+                                           noise=noise)
+        err = rel_l2(outs["ncl"], outs["plain"])
+        report[n]["kernel_vs_plain_rel_l2"] = err
+        phase(33, f"N={n}, {CHECK_FRAMES} frames, injected noise: kernel "
+                  f"route vs plain route rel_l2 {err:.3e} (bound "
+                  f"{REVERSE_BOUND}), max_abs {max_abs(outs['ncl'], outs['plain']):.3e}")
+        if not all(torch.isfinite(o).all() for o in outs.values()):
+            fail(f"N={n}: a route's waveform is not finite")
+        if not err <= REVERSE_BOUND:
+            fail(f"N={n}: the kernel route drifts from the plain route")
+    del models
+
+    # run.main --infer at N = 200 on two utterances of one bucket
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(repo, "fastdiff_tpu", "configs", "ljspeech.yaml")
+    root = tempfile.mkdtemp(prefix="fastdiff_n200_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        mel_dir = os.path.join(root, "mels")
+        os.makedirs(mel_dir)
+        acfg = AudioConfig()
+        frames = {}
+        for i, sec in enumerate((1.2, 1.4)):
+            name = f"utt{i}_{sec:g}s"
+            mel_i = dsp.wav2mel_np(synth_wav(sec, i), acfg)[1].T
+            np.save(os.path.join(mel_dir, f"{name}.npy"), mel_i)
+            frames[name] = mel_i.shape[0]
+        zero_counters(all_counters)
+        t0 = time.perf_counter()
+        results = run.main(["--config", config, "--exp_name", "n200",
+                            "--infer", "--hparams",
+                            f"test_mel_dir={mel_dir},N=200"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launched(all_counters)
+        (gen_dir,) = [os.path.join(root, "checkpoints", "n200", d)
+                      for d in os.listdir(os.path.join(root, "checkpoints",
+                                                       "n200"))
+                      if d.startswith("generated_")]
+        for r in results:
+            wav, _ = audio_io.load_wav(os.path.join(
+                gen_dir, f"{r['item_name']}_pred.wav"))
+            if len(wav) != r["frames"] * HOP_SIZE or \
+                    not np.isfinite(wav).all():
+                fail(f"N=200 --infer: {r['item_name']} wrote {len(wav)} "
+                     f"samples for {r['frames']} frames, or non-finite")
+        want = {"taug_head": 600 * len(frames),
+                "lvc_block_ncl": 400 * len(frames),
+                "lvc_block_ncl_final": 200 * len(frames)}
+        phase(33, "run.main --infer --hparams N=200: " + ", ".join(
+            f"{r['item_name']} {r['frames']} -> {r['padded_frames']} frames "
+            f"rtf {r['rtf']:.4f}" for r in results)
+            + f"; captures {[r['captures'] for r in results]}; launches "
+            f"{launches} (expected {want}); wall {wall:.1f} s "
+            f"[{smi_line}]")
+        if len(results) != len(frames) or launches != want or \
+                [r["captures"] for r in results] != [0, 1]:
+            fail("N=200 --infer did not vocode both utterances through one "
+                 "bucket's graph on the kernels of its path")
+        report["infer_n200"] = dict(wall_s=wall, rtf=[r["rtf"]
+                                                      for r in results])
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
+def phase34_curve_and_drive(torch, hp: dict, dev, smi_line) -> dict:
+    """The streaming curve twin (``scripts/streaming_latency_curve.py``) on
+    the learning check's checkpoint (phase 32's work dir, its hparams
+    written beside it as ``config.yaml``) and the tones' valid split: the
+    five settings, each row's latency and metrics finite; then
+    ``scripts/drive_ncl_sr.py`` at the recipe (exit 0)."""
+    from fastdiff_tpu_torch.config import AudioConfig
+    from fastdiff_tpu_torch.scripts import drive_ncl_sr
+    from fastdiff_tpu_torch.scripts import streaming_latency_curve as curve
+    from fastdiff_tpu_torch.utils.hparams import dump_yaml
+    work = os.path.join(os.path.dirname(hp["binary_data_dir"]), "work_cut")
+    with open(os.path.join(work, "config.yaml"), "w") as f:
+        f.write(dump_yaml(dict(hp, work_dir=work)))
+    t0 = time.perf_counter()
+    rows = curve.main([work, "--device", str(dev)])
+    curve_s = time.perf_counter() - t0
+    audio = AudioConfig.from_hparams(hp)
+    report = {"curve": [{k: v for k, v in r.items() if k != "pairs"}
+                        for r in rows], "curve_s": curve_s}
+    phase(34, f"streaming curve on {work} in {curve_s:.1f} s: " + "; ".join(
+        f"({r['chunk']}, {r['halo']}) {r['latency_ms']:.0f} ms MCD "
+        f"{r['mcd']:.2f} mel-L2 {r['mel_l2']:.3f} MR-STFT {r['mr_stft']:.3f}"
+        for r in rows) + f" [{smi_line}]")
+    if [(r["chunk"], r["halo"]) for r in rows] != curve.SETTINGS or any(
+            r["latency_ms"] != (r["chunk"] - r["halo"]) * audio.hop_size
+            / audio.sample_rate * 1e3
+            or not all(np.isfinite(r[k]) for k in ("mcd", "mel_l2",
+                                                   "mr_stft"))
+            for r in rows):
+        fail("the streaming curve's rows are not the five settings with "
+             "finite metrics")
+    t0 = time.perf_counter()
+    code = drive_ncl_sr.main([])
+    report["drive_ncl_sr"] = dict(exit=code, wall_s=time.perf_counter() - t0)
+    phase(34, f"drive_ncl_sr at the recipe: exit {code} in "
+              f"{report['drive_ncl_sr']['wall_s']:.1f} s")
+    if code != 0:
+        fail("drive_ncl_sr: the ncl_sr step is not finite or disagrees "
+             "with the plain route")
+    return report
+
+
+def phase35_graft(torch, dev, smi_line) -> dict:
+    """``scripts/graft_entry.py``: ``entry()`` on the card (the full-width
+    forward at 25 frames, b 2: finite, its shape) and
+    ``dryrun_multichip(torch.cuda.device_count())`` (NCCL ranks)."""
+    from fastdiff_tpu_torch.scripts import graft_entry
+    fn, example = graft_entry.entry()
+    out = fn(*example)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: fn(*example), 5)
+    phase(35, f"graft_entry.entry(): forward {tuple(out.shape)} on "
+              f"{out.device}, finite {bool(torch.isfinite(out).all())}, "
+              f"{ms:.3f} ms a call [{smi_line}]")
+    if out.shape != (2, 25 * HOP_SIZE, 1) or not out.is_cuda or \
+            not torch.isfinite(out).all():
+        fail("graft_entry.entry()'s forward is not a finite (2, 6400, 1) "
+             "waveform on the card")
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    try:
+        results = graft_entry.dryrun_multichip(n, dev, timeout=600)
+    except RuntimeError as e:
+        fail(f"dryrun_multichip({n}): {str(e)[-2000:]}")
+    wall = time.perf_counter() - t0
+    phase(35, f"dryrun_multichip({n}) in {wall:.1f} s: " + "; ".join(
+        f"rank {r['rank']}/{r['world']} ({r['backend']}) toy loss "
+        f"{r['toy_loss']:.4f}, ncl_vjp {r['ncl_vjp_loss']:.4f}, full size "
+        f"{r['full_loss']:.4f}" for r in results))
+    if [r["backend"] for r in results] != ["nccl"] * n or \
+            results[0].get("chunked_samples") != 16 * n * HOP_SIZE:
+        fail("the dry run did not run NCCL ranks or vocode its chunks")
+    return dict(entry_ms=ms, dryrun_s=wall, ranks=results)
+
+
 def check_no_jax():
     """Fail if jax or any module of the JAX package was imported."""
     bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
@@ -4485,8 +4713,29 @@ def main():
         learn_report = phase32_learning(torch, FastDiffTask, Trainer,
                                         counters, sanity_hp, dev, smi_line)
         phase(32, f"done in {time.perf_counter() - t0:.1f} s")
+
+        # --- phase 33: the full reverse process, N = 200 and N = 1000 -----
+        t0 = time.perf_counter()
+        reverse_report = phase33_full_reverse(torch, FastDiff, all_counters,
+                                              cfg, dev, smi_line)
+        reverse_report["wall_s"] = time.perf_counter() - t0
+        phase(33, f"done in {reverse_report['wall_s']:.1f} s")
+        check_no_jax()
+
+        # --- phase 34: the streaming curve (phase 32's checkpoint) and
+        # drive_ncl_sr
+        t0 = time.perf_counter()
+        twins_report = phase34_curve_and_drive(torch, sanity_hp, dev,
+                                               smi_line)
+        phase(34, f"done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tones, ignore_errors=True)
+    check_no_jax()
+
+    # --- phase 35: the graft entry and the data-parallel dry run ----------
+    t0 = time.perf_counter()
+    twins_report["graft"] = phase35_graft(torch, dev, smi_line)
+    phase(35, f"done in {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
     sources = {
@@ -4537,7 +4786,9 @@ def main():
           "fs2_infer_launches_per_utterance from phase 24's infer_to_wav of "
           "the trained FastSpeech 2; train_launches_per_step (aug_head, "
           "lvc_block_nwc) from one nwc_vjp step of phase 10 and "
-          "train_*_ms_per_step from phase 28 (the recipe's shapes)",
+          "train_*_ms_per_step from phase 28 (the recipe's shapes); "
+          "full_reverse_launches_per_sample (taug_head, lvc_block_ncl*) "
+          "from one replayed sample of phase 33 at N = 200 and N = 1000",
           flush=True)
     fs2_launches = fs2_report["launches_per_utterance"]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -4547,6 +4798,11 @@ def main():
                for name, (src, rep) in sources.items()]
     nwc_launches = train_report["nwc_vjp_launches_per_step"]
     for k in kernels:
+        if k["name"] in ("taug_head", "lvc_block_ncl",
+                         "lvc_block_ncl_final"):
+            k["full_reverse_launches_per_sample"] = {
+                n: reverse_report[n]["launches"][k["name"]]
+                for n in FULL_REVERSE}
         if k["name"] in nwc_launches:
             k["train_launches_per_step"] = nwc_launches[k["name"]]
             k.update(nwc_train[k["name"]])
@@ -4570,7 +4826,9 @@ def main():
                       "bddm": bddm_report, "fs2_train": fs2_report,
                       "zoo": zoo_report, "native_loader": loader_report,
                       "ddp": ddp_report, "profiling": prof_report,
-                      "learning_check": learn_report}),
+                      "learning_check": learn_report,
+                      "full_reverse": reverse_report,
+                      "script_twins": twins_report}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

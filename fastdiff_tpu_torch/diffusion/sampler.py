@@ -11,10 +11,11 @@ model's device, or injected as ``noise=(x_T, [z_0, ..., z_{N-1}])`` so that a
 test can replay another sampler's draws.
 
 ``make_sampler`` and ``make_param_sampler`` are the twins of JAX's compiled
-samplers (one ``lax.scan`` program per shape): the same loop on static
-buffers, run eagerly on a shape's first call and from its second on
-captured on the card as one CUDA graph per shape and replayed
-(``GraphSampler``).
+samplers (one ``lax.scan`` program per shape, its step compiled once): the
+same loop on static buffers, run eagerly on a shape's first call and from
+its second on as N replays of a CUDA graph of one reverse step
+(``GraphSampler``), so N = 1000 costs the capture and the memory of
+N = 4.
 """
 
 from __future__ import annotations
@@ -76,29 +77,45 @@ def fold_in(generator: torch.Generator, index: int) -> torch.Generator:
     return torch.Generator(device=generator.device).manual_seed(int(seed[0]))
 
 
-def _f32(v) -> np.float32:
-    return np.float32(v)
-
-
-def reverse_step(x: torch.Tensor, eps: torch.Tensor, i: int,
-                 constants: SamplerConstants, ddim: bool,
-                 z: torch.Tensor | None) -> torch.Tensor:
-    """Step ``i`` of the reverse process: x and the denoiser's eps -> the
-    next x; ``z`` is the step's noise draw (None on the last DDPM step and
-    for DDIM). The step constants are combined in float32, as in the JAX
-    scan body."""
-    one = _f32(1.0)
-    b_n, a_n = _f32(constants.beta[i]), _f32(constants.alpha[i])
+def step_coefficients(constants: SamplerConstants,
+                      ddim: bool) -> np.ndarray:
+    """(N, 3) float32: step i's scalars of ``reverse_step``. DDPM:
+    (beta / sqrt(1 - alpha^2), 1 / sqrt(1 - beta), sigma); DDIM: (c1,
+    c2 + c3, 0). Each is combined in float64 from the float32 constants
+    and rounded once: in float32, 1 - alpha^2 and DDIM's c2 + c3 lose
+    much of their value to cancellation where alpha nears 1 (the last
+    steps of N = 200 and N = 1000). The division by
+    sqrt(1 - beta) is a product with its reciprocal, which is what a CUDA
+    division by a host scalar computes. DDIM's a_next is the alpha of the
+    step after, 1 after the last; where rounding puts it above 1,
+    1 - a_next^2 is held at its exact 0 (not a NaN from its square
+    root)."""
+    beta = np.asarray(constants.beta, np.float32).astype(np.float64)
+    alpha = np.asarray(constants.alpha, np.float32).astype(np.float64)
+    sigma = np.asarray(constants.sigma, np.float32).astype(np.float64)
     if ddim:
-        a_next = a_n / np.sqrt(one - b_n)
-        c1 = a_next / a_n
-        c2 = -np.sqrt(one - a_n * a_n) * c1
-        c3 = np.sqrt(one - a_next * a_next)
-        return float(c1) * x + float(c2 + c3) * eps
-    x = x - float(b_n / np.sqrt(one - a_n * a_n)) * eps
-    x = x / float(np.sqrt(one - b_n))
+        a_next = alpha / np.sqrt(1.0 - beta)
+        c1 = a_next / alpha
+        c2 = -np.sqrt(1.0 - alpha * alpha) * c1
+        c3 = np.sqrt(np.maximum(1.0 - a_next * a_next, 0.0))
+        cols = (c1, c2 + c3, np.zeros_like(c1))
+    else:
+        cols = (beta / np.sqrt(1.0 - alpha * alpha),
+                1.0 / np.sqrt(1.0 - beta), sigma)
+    return np.stack(cols, axis=1).astype(np.float32)
+
+
+def reverse_step(x: torch.Tensor, eps: torch.Tensor, coef: torch.Tensor,
+                 ddim: bool, z: torch.Tensor | None) -> torch.Tensor:
+    """One step of the reverse process: x and the denoiser's eps -> the
+    next x. ``coef`` is the step's row of ``step_coefficients`` (3,), on
+    x's device; ``z`` is the step's noise draw (None on the last DDPM step
+    and for DDIM)."""
+    if ddim:
+        return coef[0] * x + coef[1] * eps
+    x = (x - coef[0] * eps) * coef[1]
     if z is not None:
-        x = x + float(constants.sigma[i]) * z
+        x = x + coef[2] * z
     return x
 
 
@@ -131,6 +148,7 @@ def sample(denoise_fn: Callable, mel: torch.Tensor,
         x = torch.randn(shape, generator=generator, device=device)
     if tuple(x.shape) != shape:
         raise ValueError(f"x_T shape {tuple(x.shape)} != {shape}")
+    coef = torch.from_numpy(step_coefficients(constants, ddim)).to(device)
     for i in range(n_steps):
         t_vec = torch.full((batch, 1), float(constants.steps[i]),
                            dtype=torch.float32, device=device)
@@ -139,7 +157,7 @@ def sample(denoise_fn: Callable, mel: torch.Tensor,
         if not ddim and i < n_steps - 1:
             z = (zs[i].to(device, torch.float32) if zs is not None
                  else torch.randn(shape, generator=generator, device=device))
-        x = reverse_step(x, eps, i, constants, ddim, z)
+        x = reverse_step(x, eps, coef[i], ddim, z)
     return x
 
 
@@ -163,97 +181,134 @@ def _counts_held(rise: dict):
 
 
 class _Runner:
-    """The reverse loop of one shape on static buffers: mel, x_T, the
-    N - 1 step draws (none for DDIM) and the (B, 1) step vectors. Its first
-    call runs the loop eagerly (``warm``); from its second on it runs a
-    CUDA graph of the loop on the card (``capture``, ``replay``), the same
-    eager loop on the CPU."""
+    """The reverse loop of one shape on static buffers: mel, x (x_T, then
+    the state), one step draw z (none for DDIM), the step vectors and
+    ``step_coefficients`` on the device, and a (B,) step index that each
+    step reads and advances. Its first call runs the loop eagerly
+    (``warm``); from its second on each step is a replay of a CUDA graph
+    of one reverse step (``capture``, ``replay``), N replays a sample, as
+    JAX's scan runs one compiled step N times; on the CPU the same eager
+    loop. Two graphs a shape at most: a step that adds its draw and a step
+    that adds none (the last DDPM step, every DDIM step), so the graphs'
+    nodes, capture time and memory do not grow with N. A step's draw is
+    made on the host's stream just before its step, from the generator in
+    the order ``sample`` draws (x_T, z_0, ..., z_{N-2}), or copied from the
+    injected ``noise``."""
 
     def __init__(self, model, constants: SamplerConstants, ddim: bool,
                  mel: torch.Tensor, audio_length: int, device):
         batch = mel.shape[0]
-        n_steps = constants.n_steps
-        self.model, self.constants, self.ddim = model, constants, ddim
+        self.model, self.ddim = model, ddim
+        self.n_steps = constants.n_steps
         self.shape = (batch, audio_length, 1)
         self.mel = torch.empty(mel.shape, dtype=mel.dtype, device=device)
-        self.x_t = torch.empty(self.shape, device=device)
-        self.zs = [torch.empty(self.shape, device=device)
-                   for _ in range(0 if ddim else n_steps - 1)]
-        self.t = [torch.full((batch, 1), float(constants.steps[i]),
-                             dtype=torch.float32, device=device)
-                  for i in range(n_steps)]
+        self.x = torch.empty(self.shape, device=device)
+        self.z = (torch.empty(self.shape, device=device)
+                  if not ddim and self.n_steps > 1 else None)
+        self.t = torch.from_numpy(np.asarray(constants.steps, np.float32)
+                                  .reshape(-1, 1)).to(device)
+        self.coef = torch.from_numpy(
+            step_coefficients(constants, ddim)).to(device)
+        self.index = torch.zeros(batch, dtype=torch.long, device=device)
         self.captured = False
-        self.graph = None
-        self.out = None
-        self.rise = {}                  # (counter index, key) -> launches
+        self.graphs = {}                # noisy step? -> CUDAGraph
+        self.rise = {}                  # noisy step? -> {(counter, key): n}
 
     def fill(self, generator, mel, noise):
-        """Copy mel in, and x_T and the step draws: from ``generator`` in
-        the order ``sample`` draws them (x_T, z_0, ..., z_{N-2}), or from
-        the injected ``noise``."""
+        """Copy mel in, draw x_T from ``generator`` (or copy the injected
+        one) and set the step index to 0."""
         self.mel.copy_(mel)
+        self.index.zero_()
         if noise is None:
-            for buf in [self.x_t] + self.zs:
-                buf.normal_(generator=generator)
+            self.x.normal_(generator=generator)
             return
-        x_t, zs = _check_noise(noise, self.constants.n_steps)
+        x_t, _ = _check_noise(noise, self.n_steps)
         if tuple(x_t.shape) != self.shape:
             raise ValueError(f"x_T shape {tuple(x_t.shape)} != {self.shape}")
-        for buf, src in zip([self.x_t] + self.zs, [x_t] + list(zs)):
-            buf.copy_(src)
+        self.x.copy_(x_t)
 
-    def body(self) -> torch.Tensor:
-        x = self.x_t
-        for i in range(self.constants.n_steps):
-            eps = self.model(x, self.mel, self.t[i])
-            z = self.zs[i] if i < len(self.zs) else None
-            x = reverse_step(x, eps, i, self.constants, self.ddim, z)
-        return x
+    def _noisy(self, i: int) -> bool:
+        """Whether step i adds a draw (every DDPM step but the last)."""
+        return self.z is not None and i < self.n_steps - 1
 
-    def warm(self, side):
+    def step(self, noisy: bool):
+        """One reverse step at the device's step index, in place on x."""
+        t = self.t.index_select(0, self.index)
+        coef = self.coef.index_select(0, self.index[:1])[0]
+        eps = self.model(self.x, self.mel, t)
+        self.x.copy_(reverse_step(self.x, eps, coef, self.ddim,
+                                  self.z if noisy else None))
+        self.index.add_(1)
+
+    def run(self, generator, noise, launch):
+        """The N steps, each by ``launch(noisy)``, each noisy step's draw
+        made just before it."""
+        zs = None if noise is None else noise[1]
+        for i in range(self.n_steps):
+            if self._noisy(i):
+                if zs is None:
+                    self.z.normal_(generator=generator)
+                else:
+                    self.z.copy_(zs[i])
+            launch(self._noisy(i))
+
+    def warm(self, side, generator, noise):
         """The first call: the loop run eagerly, on the card on the ``side``
         stream (it builds the kernels, lets cuDNN pick its algorithms and
         encodes the TMA maps before any capture); its output is the call's
         answer and its launches count as launches."""
         if side is None:
-            self.out = self.body()
+            self.run(generator, noise, self.step)
             return
-        current = torch.cuda.current_stream(self.x_t.device)
+        current = torch.cuda.current_stream(self.x.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.out = self.body()
+            self.run(generator, noise, self.step)
         current.wait_stream(side)
 
     def capture(self, pool, stream):
-        """The loop captured on ``stream`` into ``pool`` (on the CPU, where
-        both are None, only marked captured). The capture launches nothing:
-        the counters' rise inside it is recorded and added on every replay.
-        A failed capture raises."""
+        """One step of each kind the loop runs captured on ``stream`` into
+        ``pool`` (on the CPU, where both are None, only marked captured).
+        The capture launches nothing: the counters' rise inside it is
+        recorded and added on every replay of that step. A failed capture
+        raises."""
         if pool is not None:
             current = torch.cuda.current_stream(stream.device)
-            graph = torch.cuda.CUDAGraph()
-            rise = {}
+            kinds = {self._noisy(0), self._noisy(self.n_steps - 1)}
+            graphs, rises = {}, {}
             try:
-                with _counts_held(rise):
-                    with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        out = self.body()
+                for noisy in sorted(kinds):
+                    graphs[noisy] = torch.cuda.CUDAGraph()
+                    rises[noisy] = {}
+                    with _counts_held(rises[noisy]):
+                        with torch.cuda.graph(graphs[noisy], pool=pool,
+                                              stream=stream):
+                            self.step(noisy)
             finally:
                 # a capture that fails to end leaves its stream current
                 torch.cuda.set_stream(current)
-            self.graph, self.rise, self.out = graph, rise, out
+            self.graphs, self.rise = graphs, rises
         self.captured = True
 
-    def replay(self):
-        """Replay the graph (on the CPU: run the body, its launches
-        counted as a replay's) and add the capture's launches."""
-        if self.graph is not None:
-            self.graph.replay()
-        else:
-            self.rise = {}
-            with _counts_held(self.rise):
-                self.out = self.body()
-        for (j, key), n in self.rise.items():
-            COUNTERS[j][key] += n
+    def replay(self, generator, noise):
+        """The N steps as replays of the captured steps, each adding its
+        capture's launches to the counters (on the CPU: the eager loop)."""
+        if not self.graphs:
+            self.run(generator, noise, self.step)
+            return
+
+        def launch(noisy):
+            self.graphs[noisy].replay()
+            for (j, key), n in self.rise[noisy].items():
+                COUNTERS[j][key] += n
+        self.run(generator, noise, launch)
+
+    def launches(self) -> dict:
+        """{(counter index, key): launches} one sample's replays add."""
+        total = collections.Counter()
+        for i in range(self.n_steps):
+            total.update(self.rise[self._noisy(i)])
+        return dict(total)
 
 
 def _storage(model) -> tuple:
@@ -266,8 +321,9 @@ class GraphSampler:
     model's current weights: ``sample``'s loop on static buffers, one
     runner per (mel shape and dtype, audio length, ddim, ``use_kernels``,
     TF32 settings). The first call at a shape runs the loop eagerly and
-    answers with its output; the second captures it as one CUDA graph on a
-    CUDA model, and every call from then on replays it. A shape that comes
+    answers with its output; the second captures its reverse step as CUDA
+    graphs on a CUDA model (``_Runner``), and every call from then on
+    replays them, N replays a call. A shape that comes
     once costs one eager run, not a capture. A failed capture raises
     (nothing falls back to the eager loop) and leaves the sampler on a new
     capture stream and pool. On a CPU model the same runners run eagerly.
@@ -276,13 +332,14 @@ class GraphSampler:
     a clone of the static output, which the next replay overwrites. With a
     generator of the same seed it draws what ``sample`` draws. All graphs
     share one memory pool; at most ``max_graphs`` shapes are kept, the
-    least recently used evicted (its graph's memory goes back to the
+    least recently used evicted (its graphs' memory goes back to the
     pool). Before every call the storage of every parameter and buffer is
     compared with the last call's: when it moved (``load_state_dict(...,
     assign=True)``, ``.to``), every runner is dropped (``recaptures``
     counts the drops) and the shapes start again from their first call.
     Calls must not overlap (the server serializes them). The launch
-    counters rise on every replay by the launches the graph holds."""
+    counters rise on every step replayed by the launches its graph
+    holds."""
 
     def __init__(self, model, constants: SamplerConstants,
                  ddim: bool = False, max_graphs: int = 8):
@@ -329,13 +386,13 @@ class GraphSampler:
         return self._shape_key(mel, audio_length)
 
     def replay_launches(self, mel: torch.Tensor, audio_length: int) -> dict:
-        """The kernel launches one replay at this call's shape adds to the
-        counters ({counter key: launches}), as recorded at its capture;
-        None when no graph of that shape is held."""
+        """The kernel launches one call's replays at this call's shape add
+        to the counters ({counter key: launches}), as recorded at the
+        capture of its steps; None when no graph of that shape is held."""
         runner = self._runners.get(self._shape_key(mel, audio_length))
-        if runner is None or runner.graph is None:
+        if runner is None or not runner.graphs:
             return None
-        return {key: n for (_, key), n in runner.rise.items()}
+        return {key: n for (_, key), n in runner.launches().items()}
 
     def _side(self, device: torch.device):
         if device.type != "cuda":
@@ -346,12 +403,12 @@ class GraphSampler:
 
     def _capture(self, key, runner):
         pool = None
-        if runner.x_t.is_cuda:
+        if runner.x.is_cuda:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             pool = self._pool
         try:
-            runner.capture(pool, self._side(runner.x_t.device))
+            runner.capture(pool, self._side(runner.x.device))
         except BaseException:
             # the failed capture's stream and pool may be left unusable
             del self._runners[key]
@@ -371,7 +428,7 @@ class GraphSampler:
                 runner = _Runner(self.model, self.constants, self.ddim, mel,
                                  int(audio_length), device)
                 runner.fill(generator, mel, noise)
-                runner.warm(self._side(device))
+                runner.warm(self._side(device), generator, noise)
                 self._runners[key] = runner     # kept once its warm-up ran
                 self.warmups += 1
             else:
@@ -379,8 +436,8 @@ class GraphSampler:
                 runner.fill(generator, mel, noise)
                 if not runner.captured:
                     self._capture(key, runner)
-                runner.replay()
-        return runner.out.clone()
+                runner.replay(generator, noise)
+        return runner.x.clone()
 
 
 class ParamGraphSampler(GraphSampler):

@@ -108,6 +108,11 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.utils.profiling\n"
             "import fastdiff_tpu_torch.scripts.e2e_sanity\n"
             "import fastdiff_tpu_torch.scripts.ddp_steps\n"
+            "import fastdiff_tpu_torch.scripts.bench_n1000\n"
+            "import fastdiff_tpu_torch.scripts.bench_trainstep\n"
+            "import fastdiff_tpu_torch.scripts.drive_ncl_sr\n"
+            "import fastdiff_tpu_torch.scripts.streaming_latency_curve\n"
+            "import fastdiff_tpu_torch.scripts.graft_entry\n"
             "from fastdiff_tpu_torch import DistributedChunkedVocoder\n"
 
             "import numpy\n"
@@ -205,6 +210,40 @@ def test_every_jax_module_has_a_port_counterpart():
                  "serving.chunked_vocoder.DistributedChunkedVocoder"):
         got = resolve_class("fastdiff_tpu." + path)
         assert got.__module__ == "fastdiff_tpu_torch." + path.rsplit(".", 1)[0]
+
+
+# root scripts with no twin in fastdiff_tpu_torch/scripts/, and why
+NO_TWIN = {
+    "exp_trace_sampler.py": "covered by scripts/profile_sampler.py --graph",
+    "exp_trace_train.py": "covered by scripts/profile_sampler.py --train",
+    "make_micro_lj.py": "reads the reference's egs/audios, audio that is "
+                        "not in the repository",
+    **{name: "probes TPU (XLA / Mosaic) lowerings only" for name in (
+        "exp_batchfold.py", "exp_layout.py", "exp_taug_ab.py",
+        "perf_experiments.py", "exp_r4c.py", "exp_r4d.py", "exp_r4e.py",
+        "exp_r5a.py", "exp_r5b.py", "exp_r5c.py", "exp_r5d.py",
+        "exp_r5e.py", "exp_r5f.py", "exp_r5g.py", "exp_r5h.py",
+        "exp_batchscale2.py", "exp_floor.py", "bench_megakernel.py",
+        "bench_kernel_ablation.py")},
+}
+
+
+def test_every_root_script_has_a_twin_or_a_reason():
+    """Each ``scripts/*.py`` and ``__graft_entry__.py`` has a twin of the
+    same name in ``fastdiff_tpu_torch/scripts/`` (``graft_entry.py`` for
+    the entry), or is named in ``NO_TWIN`` with its reason; no script of
+    ``NO_TWIN`` has a twin, and each of them exists."""
+    root = pathlib.Path(REPO)
+    twins = root / "fastdiff_tpu_torch" / "scripts"
+    scripts = {p.name: p.name for p in (root / "scripts").glob("*.py")}
+    scripts["__graft_entry__.py"] = "graft_entry.py"
+    assert len(scripts) > 30
+    missing = [name for name, twin in scripts.items()
+               if not (twins / twin).exists() and name not in NO_TWIN]
+    assert not missing, missing
+    assert not [name for name in NO_TWIN if (twins / name).exists()]
+    assert set(NO_TWIN) <= set(scripts), set(NO_TWIN) - set(scripts)
+    assert all(reason for reason in NO_TWIN.values())
 
 
 def test_port_sources_import_nothing_of_the_jax_side():

@@ -55,6 +55,10 @@ SMALL = ("N=4,inner_channels=4,lvc_layers_each_block=2,"
          "diffusion_step_embed_dim_mid=32,diffusion_step_embed_dim_out=32,"
          "compute_dtype=float32")
 SR, HOP, SEED = 22050, 256, 1234
+
+
+def _small(n_steps: int) -> str:
+    return SMALL.replace("N=4,", f"N={n_steps},")
 SECONDS = (0.9, 1.3)                  # 78 and 112 frames
 
 
@@ -115,19 +119,25 @@ def _preds(work_dir) -> dict:
 
 @pytest.fixture(scope="module")
 def jax_runs(inputs, tmp_path_factory):
-    """JAX's ``Trainer.test`` on each input dir, seed weights, threefry
-    key of ``seed``."""
+    """JAX's ``Trainer.test`` on an input dir with N steps, seed weights,
+    threefry key of ``seed``: ``jax_runs(source, n_steps)``, each run
+    once."""
     root = tmp_path_factory.mktemp("jax_infer")
     out = {}
-    for source, path in inputs.items():
-        with _Chdir(root / source):
-            hp = jax_hparams.set_hparams(
-                config=CONFIG, exp_name="jax",
-                hparams_str=f"{SMALL},{source}={path}", print_hparams=False,
-                global_hparams=False)
-            results = JaxTrainer(JaxTask(hp), hp["work_dir"]).test()
-            out[source] = (hp, results, _preds(hp["work_dir"]))
-    return out
+
+    def run_once(source, n_steps):
+        if (source, n_steps) not in out:
+            with _Chdir(root / f"{source}_{n_steps}"):
+                hp = jax_hparams.set_hparams(
+                    config=CONFIG, exp_name="jax",
+                    hparams_str=f"{_small(n_steps)},{source}="
+                                f"{inputs[source]}",
+                    print_hparams=False, global_hparams=False)
+                results = JaxTrainer(JaxTask(hp), hp["work_dir"]).test()
+                out[source, n_steps] = (hp, results,
+                                        _preds(hp["work_dir"]))
+        return out[source, n_steps]
+    return run_once
 
 
 def _jax_noise(seed=SEED, n_steps=4):
@@ -168,26 +178,33 @@ def _write_checkpoint(hp, work_dir, ema: bool):
     Trainer(task, work_dir)._maybe_save(state, 1, {})
 
 
-def _run_port(root, source, path, monkeypatch, ema=False):
+def _run_port(root, source, path, monkeypatch, ema=False, n_steps=4):
     monkeypatch.chdir(root)
-    hp = set_hparams(config=CONFIG, hparams_str=SMALL, print_hparams=False,
-                     global_hparams=False)
+    hp = set_hparams(config=CONFIG, hparams_str=_small(n_steps),
+                     print_hparams=False, global_hparams=False)
     _write_checkpoint(hp, os.path.join("checkpoints", "port"), ema)
     test = Trainer.test
     monkeypatch.setattr(Trainer, "test", lambda self, state=None: test(
-        self, state, noise=_jax_noise()))
+        self, state, noise=_jax_noise(n_steps=n_steps)))
     # base.yaml has ema_decay: 0, an int, so an override must be an int
-    overrides = f"{SMALL},{source}={path}" + (",ema_decay=1" if ema else "")
+    overrides = (f"{_small(n_steps)},{source}={path}"
+                 + (",ema_decay=1" if ema else ""))
     return run.main(["--config", CONFIG, "--exp_name", "port", "--infer",
                      "--device", "cpu", "--hparams", overrides])
 
 
-@pytest.mark.parametrize("source", ["test_input_dir", "test_mel_dir"])
-def test_run_infer_matches_jax_trainer_test(source, inputs, jax_runs,
-                                            tmp_path, monkeypatch):
+@pytest.mark.parametrize("source,n_steps", [("test_input_dir", 4),
+                                            ("test_mel_dir", 4),
+                                            ("test_input_dir", 200)])
+def test_run_infer_matches_jax_trainer_test(source, n_steps, inputs,
+                                            jax_runs, tmp_path, monkeypatch):
+    """At the reference's N = 4 and at its full reverse process of
+    N = 200 (``--hparams N=200``: both packages resolve
+    linspace(1e-4, 0.02, 200))."""
     ema = source == "test_mel_dir"
-    results = _run_port(tmp_path, source, inputs[source], monkeypatch, ema)
-    _, jax_results, jax_preds = jax_runs[source]
+    results = _run_port(tmp_path, source, inputs[source], monkeypatch, ema,
+                        n_steps)
+    _, jax_results, jax_preds = jax_runs(source, n_steps)
     preds = _preds(os.path.join(tmp_path, "checkpoints", "port"))
     assert os.path.isdir(os.path.join(tmp_path, "checkpoints", "port",
                                       "generated_1_"))

@@ -81,45 +81,114 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
-def _eager(model, mel, gen, ddim=False, length=LENGTH):
+def _eager(model, mel, gen, ddim=False, length=LENGTH, const=CONST):
     with torch.no_grad():
-        return sample(model, mel, CONST, length, ddim=ddim, generator=gen)
+        return sample(model, mel, const, length, ddim=ddim, generator=gen)
 
 
+def _jax_step_coefficients(const, ddim):
+    """The (N, 3) scalars JAX's scan body combines at each step
+    (``fastdiff_tpu/diffusion/sampler.py:reverse_step``, under jit, in
+    float32), in the port's ``step_coefficients`` layout."""
+    beta, alpha, sigma = (jnp.asarray(np.asarray(v, np.float32))
+                          for v in (const.beta, const.alpha, const.sigma))
+
+    def body(_, i):
+        b_n, a_n = beta[i], alpha[i]
+        if ddim:
+            a_next = a_n / jnp.sqrt(1.0 - b_n)
+            c1 = a_next / a_n
+            c2 = -jnp.sqrt(1.0 - a_n ** 2) * c1
+            c3 = jnp.sqrt(1.0 - a_next ** 2)
+            return None, jnp.stack([c1, c2 + c3, 0.0 * c1])
+        return None, jnp.stack([b_n / jnp.sqrt(1.0 - a_n ** 2),
+                                1.0 / jnp.sqrt(1.0 - b_n), sigma[i]])
+    steps = jnp.arange(const.n_steps)
+    return np.asarray(jax.jit(lambda: jax.lax.scan(body, None, steps)[1])())
+
+
+@pytest.mark.parametrize("n_steps", [4, 200, 1000])
 @pytest.mark.parametrize("ddim", [False, True])
-def test_param_sampler_matches_jax_with_injected_noise(ddim):
+def test_param_sampler_matches_jax_with_injected_noise(ddim, n_steps,
+                                                       monkeypatch):
     """make_param_sampler(state_dict, ...) against JAX's
     make_param_sampler(params, key, mel, L), the JAX draws reproduced from
-    its key (split as in its sampler) and injected; 1e-3."""
+    its key (split as in its sampler) and injected; 1e-3, at the
+    reference's N = 4 and at its full reverse processes, N = 200 and
+    N = 1000. The largest error, at N = 1000 (DDPM, |x| up to 1.6e4 from
+    the untrained model): 4.2e-2 absolute, 0.15 of the bound.
+
+    DDIM's c2 + c3 is a difference of two ~1e-3 terms at the last steps
+    of N = 200 and N = 1000; JAX's scan combines it in float32 and misses
+    its float64 value by over 1e-3 relative, where the port's
+    ``step_coefficients`` combine in float64 and round once; the waveforms
+    then differ by 2.5e-3 (N = 200) and 1.6e-2 (N = 1000). There
+    the port's loop and model are held to JAX's with JAX's own step
+    scalars injected, as the draws are."""
+    const = _constants(n_steps)
+    if ddim and n_steps > 4:
+        theirs = _jax_step_coefficients(const, ddim)
+        ours = port_sampler.step_coefficients(const, ddim)
+        assert np.max(np.abs(theirs - ours)[:, 1] / np.abs(ours[:, 1])) > 1e-3
+        monkeypatch.setattr(port_sampler, "step_coefficients",
+                            lambda c, d: theirs.copy())
     params = init_fastdiff(jax.random.PRNGKey(0), SMALL)
     mel = _mel(seed=3)
     key = jax.random.PRNGKey(7)
-    ref = jax_make_param_sampler(get_apply_fn(SMALL), CONST, ddim=ddim)(
+    ref = jax_make_param_sampler(get_apply_fn(SMALL), const, ddim=ddim)(
         params, key, jnp.asarray(mel.numpy()), LENGTH)
     key, sub = jax.random.split(key)
     shape = (1, LENGTH, 1)
     x_t = torch.from_numpy(np.array(jax.random.normal(sub, shape)))
     zs = [torch.from_numpy(np.array(jax.random.normal(k, shape)))
-          for k in jax.random.split(key, CONST.n_steps)]
+          for k in jax.random.split(key, const.n_steps)]
     state = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
                             PORT_SMALL)
-    run = make_param_sampler(FastDiff(PORT_SMALL, seed=None).eval(), CONST,
+    run = make_param_sampler(FastDiff(PORT_SMALL, seed=None).eval(), const,
                              ddim=ddim)
     out = run(state, None, mel, LENGTH, noise=(x_t, zs))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-3,
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("n_steps", [4, 200, 1000])
+@pytest.mark.parametrize("ddim", [False, True])
+def test_step_coefficients_are_the_float64_combination(ddim, n_steps):
+    """Every step scalar is its formula evaluated in float64 on the
+    float32 constants and rounded once, finite where float32 would take
+    the square root of a negative (DDIM's last step at N = 1000, where
+    a_next rounds to 1 + 1 ulp), and the same table drives the eager
+    sampler and the runner."""
+    const = _constants(n_steps)
+    got = port_sampler.step_coefficients(const, ddim)
+    beta, alpha, sigma = (np.asarray(v, np.float32).astype(np.float64)
+                          for v in (const.beta, const.alpha, const.sigma))
+    if ddim:
+        a_next = alpha / np.sqrt(1.0 - beta)
+        c1 = a_next / alpha
+        c3 = np.sqrt(np.clip(1.0 - a_next ** 2, 0.0, None))
+        want = np.stack([c1, c3 - np.sqrt(1.0 - alpha ** 2) * c1,
+                         np.zeros_like(c1)], 1)
+    else:
+        want = np.stack([beta / np.sqrt(1.0 - alpha ** 2),
+                         1.0 / np.sqrt(1.0 - beta), sigma], 1)
+    assert got.dtype == np.float32 and got.shape == (n_steps, 3)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+@pytest.mark.parametrize("n_steps", [4, 200])
 @pytest.mark.parametrize("ddim,batch", [(False, 1), (True, 1), (False, 2)])
-def test_runner_draws_what_the_eager_sampler_draws(ddim, batch):
+def test_runner_draws_what_the_eager_sampler_draws(ddim, batch, n_steps):
     """A generator of the same seed: bit for bit, on the first call (the
     warm-up), the second (the capture) and a later one at the same
-    shape."""
+    shape, at N = 4 and at the full reverse process of N = 200."""
+    const = _constants(n_steps)
     model = _model(0)
     mel = _mel(batch, seed=1)
-    run = make_sampler(model, CONST, ddim=ddim)
+    run = make_sampler(model, const, ddim=ddim)
     for i, seed in enumerate((5, 6, 7)):
-        want = _eager(model, mel, _gen(seed), ddim)
+        want = _eager(model, mel, _gen(seed), ddim, const=const)
         got = run(_gen(seed), mel, LENGTH)
         assert got.shape == (batch, LENGTH, 1)
         assert torch.equal(got, want)
