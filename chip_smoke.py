@@ -262,9 +262,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     the tensor-core K4 exactly 3 times (the CUDA-core K4 never);
 33. the reference's full reverse process, N = 200 and N = 1000, on the NCL
     route at 864 frames, b 1, through ``make_param_sampler``
-    (``scripts/bench_n1000.py``'s set-up): the first (eager) call's wall;
-    the second's (the capture of one reverse step, two graphs, and one
-    sample's N replays) with each graph's nodes and instantiation,
+    (``scripts/bench_n1000.py``'s ``build`` and ``measure``): the first
+    (eager) call's wall; the second's (the capture of a block of eight
+    reverse steps, two graphs, and one sample's N / 8 replays) with each
+    graph's nodes and instantiation,
     ``memory_reserved`` around it and the runner's buffer and draw bytes;
     the replay bit-equal to the first call, launching exactly 3N K3, 2N
     K1 and N K2, finite; replay ms by CUDA events and x realtime; the
@@ -3944,18 +3945,19 @@ def phase33_full_reverse(torch, FastDiff, all_counters, cfg, dev,
                          smi_line) -> dict:
     """The reference's full reverse process, N = 200 and N = 1000, on the
     NCL route at 864 frames, b 1, through ``make_param_sampler``
-    (``fastdiff_tpu_torch/scripts/bench_n1000.py``'s set-up): the first
-    (eager) call's wall; the second call's (the capture of the reverse step
-    and one sample's replays), each graph's nodes and instantiation, the
-    pool's ``memory_reserved`` around it and the runner's buffer and draw
-    bytes; the replay bit-equal to the first call with a generator of the
-    same seed, launching exactly 3N K3, 2N K1 and N K2 (``replay_launches``
-    and the counters of one call), finite; the replays' ms by CUDA events
-    and x realtime. Then at 100 frames the kernel route (``ncl``) against
-    the plain route on the same seed-0 weights and injected noise, eagerly,
-    at both N (relative L2 <= 0.1); and ``run.main --infer --hparams N=200``
-    on two utterances of one 128-frame bucket (K3 +600, K1 +400, K2 +200,
-    the CUDA-core K1 +0 each; the second captures)."""
+    (``fastdiff_tpu_torch/scripts/bench_n1000.py``'s ``build`` and
+    ``measure``): the first (eager) call's wall; the second call's (the
+    capture of the blocks of reverse steps and one sample's replays), each
+    graph's nodes and instantiation, the pool's ``memory_reserved`` around
+    it and the runner's buffer and draw bytes; the replay bit-equal to the
+    first call with a generator of the same seed, launching exactly 3N K3,
+    2N K1 and N K2 (``replay_launches`` and the counters of one call),
+    finite; the replays' ms by CUDA events and x realtime. Then at 100
+    frames the kernel route (``ncl``) against the plain route on the same
+    seed-0 weights and injected noise, eagerly, at both N (relative L2 <=
+    0.1); and ``run.main --infer --hparams N=200`` on two utterances of one
+    128-frame bucket (K3 +600, K1 +400, K2 +200, the CUDA-core K1 +0 each;
+    the second captures)."""
     from fastdiff_tpu_torch import run
     from fastdiff_tpu_torch.config import AudioConfig
     from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams
@@ -3968,61 +3970,32 @@ def phase33_full_reverse(torch, FastDiff, all_counters, cfg, dev,
         want = {"taug_head": 3 * n, "lvc_block_ncl": 2 * n,
                 "lvc_block_ncl_final": n}
         sampler, mel, length = bench_n1000.build(n, FRAMES_10S, dev, cfg)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        first = bench_n1000.sample_once(sampler, mel, length, 1)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        before = torch.cuda.memory_reserved(dev)
-        graphs = []
-        zero_counters(all_counters)
-        t0 = time.perf_counter()
-        with bench_n1000.graph_census(graphs):
-            second = bench_n1000.sample_once(sampler, mel, length, 1)
-        torch.cuda.synchronize()
-        capture_s = time.perf_counter() - t0
-        launches = launched(all_counters)
-        after = torch.cuda.memory_reserved(dev)
-        runner = next(iter(sampler._runners.values()))
-        draw_bytes = runner.z.numel() * runner.z.element_size()
-        per_replay = sampler.replay_launches(mel, length)
-        ms = cuda_ms(lambda: bench_n1000.sample_once(sampler, mel, length, 2),
-                     2)
-        audio_s = length * AUDIO_SECONDS_PER_SAMPLE
-        equal = bool(torch.equal(first, second))
-        row = dict(first_s=first_s, capture_s=capture_s,
-                   graphs=[dict(nodes=nodes, instantiate_s=s_)
-                           for nodes, s_ in graphs],
-                   reserved_before=before, reserved_after=after,
-                   buffer_bytes=bench_n1000.buffer_bytes(sampler),
-                   draw_bytes=draw_bytes, replay_ms=ms,
-                   x_realtime=audio_s / (ms / 1e3), bit_equal=equal,
-                   launches=per_replay)
-        phase(33, f"N={n}, {FRAMES_10S} frames ({audio_s:.2f} s), b 1, NCL "
-                  f"graph sampler: first call (eager) {first_s:.2f} s; "
-                  f"second (capture + one sample's replays) "
-                  f"{capture_s:.2f} s, graphs "
-                  + ", ".join(f"{g['nodes']} nodes instantiated in "
-                              f"{g['instantiate_s']:.4f} s"
-                              for g in row["graphs"])
-                  + f"; memory_reserved {before / 2 ** 30:.3f} -> "
-                  f"{after / 2 ** 30:.3f} GiB; runner buffers "
-                  f"{row['buffer_bytes'] / 2 ** 20:.2f} MiB, draws "
-                  f"{draw_bytes / 2 ** 20:.3f} MiB; replay "
-                  f"{ms:.2f} ms = {ms / n:.4f} ms/step -> "
-                  f"{row['x_realtime']:.2f}x realtime; replay bit-equal to "
-                  f"the first call: {equal}; launches per replay "
-                  f"{per_replay}, the second call's {launches} "
-                  f"[{smi_line}]")
-        if not torch.isfinite(second).all() or second.shape != (1, length, 1):
+        row = bench_n1000.measure(sampler, mel, length, 2)
+        phase(33, f"N={n}, {FRAMES_10S} frames ({row['audio_s']:.2f} s), b "
+                  f"1, NCL graph sampler: first call (eager) "
+                  f"{row['first_s']:.2f} s; second (capture + one sample's "
+                  f"replays) {row['capture_s']:.2f} s, graphs of "
+                  f"{row['block']} steps "
+                  + ", ".join(f"{nodes} nodes instantiated in {s_:.4f} s"
+                              for nodes, s_ in row["graphs"])
+                  + f"; memory_reserved {row['reserved_before'] / 2 ** 30:.3f}"
+                  f" -> {row['reserved_after'] / 2 ** 30:.3f} GiB; runner "
+                  f"buffers {row['buffer_bytes'] / 2 ** 20:.2f} MiB, draws "
+                  f"{row['draw_bytes'] / 2 ** 20:.3f} MiB; replay "
+                  f"{row['replay_ms']:.2f} ms = {row['ms_per_step']:.4f} "
+                  f"ms/step -> {row['x_realtime']:.2f}x realtime; replay "
+                  f"bit-equal to the first call: {row['bit_equal']}; "
+                  f"launches per replay {row['launches']}, the second "
+                  f"call's {row['second_launches']} [{smi_line}]")
+        if not (row["finite"] and row["shape_ok"]):
             fail(f"N={n}: the replay is not finite or has the wrong shape")
-        if not equal:
+        if not row["bit_equal"]:
             fail(f"N={n}: the replay differs from the first (eager) call")
-        if per_replay != want or launches != want:
-            fail(f"N={n}: a replay launched {per_replay} (counters "
-                 f"{launches}), expected {want}")
+        if row["launches"] != want or row["second_launches"] != want:
+            fail(f"N={n}: a replay launched {row['launches']} (the second "
+                 f"call {row['second_launches']}), expected {want}")
         report[n] = row
-        del sampler, first, second
+        del sampler
 
     # the kernel route against the plain route, injected noise, 100 frames
     models = {route: FastDiff(cfg, seed=0, infer_route=route,

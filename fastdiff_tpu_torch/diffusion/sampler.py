@@ -13,9 +13,9 @@ test can replay another sampler's draws.
 ``make_sampler`` and ``make_param_sampler`` are the twins of JAX's compiled
 samplers (one ``lax.scan`` program per shape, its step compiled once): the
 same loop on static buffers, run eagerly on a shape's first call and from
-its second on as N replays of a CUDA graph of one reverse step
-(``GraphSampler``), so N = 1000 costs the capture and the memory of
-N = 4.
+its second on as replays of a CUDA graph of a block of up to eight
+reverse steps (``GraphSampler``), so N = 1000 costs the capture and the
+memory of N = 8.
 """
 
 from __future__ import annotations
@@ -77,32 +77,42 @@ def fold_in(generator: torch.Generator, index: int) -> torch.Generator:
     return torch.Generator(device=generator.device).manual_seed(int(seed[0]))
 
 
+def _fma(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """a * b + c of float32 arrays as one fused multiply-add: the product
+    is exact in float64, and the sum is rounded to float32."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _rsqrt(x: np.ndarray) -> np.ndarray:
+    """1 / sqrt(x) of a float32 array, rounded to float32 once."""
+    return (1.0 / np.sqrt(x.astype(np.float64))).astype(np.float32)
+
+
 def step_coefficients(constants: SamplerConstants,
                       ddim: bool) -> np.ndarray:
     """(N, 3) float32: step i's scalars of ``reverse_step``. DDPM:
     (beta / sqrt(1 - alpha^2), 1 / sqrt(1 - beta), sigma); DDIM: (c1,
-    c2 + c3, 0). Each is combined in float64 from the float32 constants
-    and rounded once: in float32, 1 - alpha^2 and DDIM's c2 + c3 lose
-    much of their value to cancellation where alpha nears 1 (the last
-    steps of N = 200 and N = 1000). The division by
-    sqrt(1 - beta) is a product with its reciprocal, which is what a CUDA
-    division by a host scalar computes. DDIM's a_next is the alpha of the
-    step after, 1 after the last; where rounding puts it above 1,
-    1 - a_next^2 is held at its exact 0 (not a NaN from its square
-    root)."""
-    beta = np.asarray(constants.beta, np.float32).astype(np.float64)
-    alpha = np.asarray(constants.alpha, np.float32).astype(np.float64)
-    sigma = np.asarray(constants.sigma, np.float32).astype(np.float64)
+    c2 + c3, 0). JAX's scan body's float32 formula as its compiler
+    evaluates it: a division by a square root is a product with the
+    reciprocal square root, and a product feeds the sum that consumes it
+    as one fused multiply-add (1 - alpha^2, c2 + c3). Where alpha nears 1
+    (the last steps of N = 200 and N = 1000), 1 - alpha^2 and c2 + c3
+    cancel most of their terms, so two-rounding float32 would miss JAX's
+    value by up to 2 % there. Where rounding puts DDIM's a_next above 1,
+    1 - a_next^2 is held at 0 (not a NaN from its square root)."""
+    beta, alpha, sigma = (np.asarray(v, np.float32) for v in
+                          (constants.beta, constants.alpha, constants.sigma))
+    one = np.ones_like(alpha)
+    inv_root = _rsqrt(one - beta)
     if ddim:
-        a_next = alpha / np.sqrt(1.0 - beta)
+        a_next = alpha * inv_root
         c1 = a_next / alpha
-        c2 = -np.sqrt(1.0 - alpha * alpha) * c1
-        c3 = np.sqrt(np.maximum(1.0 - a_next * a_next, 0.0))
-        cols = (c1, c2 + c3, np.zeros_like(c1))
+        root = np.sqrt(_fma(-alpha, alpha, one))
+        c3 = np.sqrt(np.maximum(_fma(-a_next, a_next, one), np.float32(0)))
+        cols = (c1, _fma(-root, c1, c3), np.zeros_like(c1))
     else:
-        cols = (beta / np.sqrt(1.0 - alpha * alpha),
-                1.0 / np.sqrt(1.0 - beta), sigma)
-    return np.stack(cols, axis=1).astype(np.float32)
+        cols = (beta * _rsqrt(_fma(-alpha, alpha, one)), inv_root, sigma)
+    return np.stack(cols, axis=1)
 
 
 def reverse_step(x: torch.Tensor, eps: torch.Tensor, coef: torch.Tensor,
@@ -180,39 +190,52 @@ def _counts_held(rise: dict):
             counter.update(saved)
 
 
+MAX_BLOCK = 8       # reverse steps one captured graph holds at most
+
+
+def block_steps(n_steps: int) -> int:
+    """The steps one graph of the runner holds: the largest divisor of N
+    up to ``MAX_BLOCK`` (all N steps for N <= 8; 8 at N = 200 and N =
+    1000)."""
+    return max(k for k in range(1, min(n_steps, MAX_BLOCK) + 1)
+               if n_steps % k == 0)
+
+
 class _Runner:
     """The reverse loop of one shape on static buffers: mel, x (x_T, then
-    the state), one step draw z (none for DDIM), the step vectors and
-    ``step_coefficients`` on the device, and a (B,) step index that each
-    step reads and advances. Its first call runs the loop eagerly
-    (``warm``); from its second on each step is a replay of a CUDA graph
-    of one reverse step (``capture``, ``replay``), N replays a sample, as
-    JAX's scan runs one compiled step N times; on the CPU the same eager
-    loop. Two graphs a shape at most: a step that adds its draw and a step
-    that adds none (the last DDPM step, every DDIM step), so the graphs'
-    nodes, capture time and memory do not grow with N. A step's draw is
-    made on the host's stream just before its step, from the generator in
-    the order ``sample`` draws (x_T, z_0, ..., z_{N-2}), or copied from the
-    injected ``noise``."""
+    the state), the draws of one block of steps (none for DDIM), the step
+    vectors and ``step_coefficients`` on the device, and a (B,) step index
+    that each step reads and advances. The N steps run in blocks of
+    ``block_steps(N)``. Its first call runs the loop eagerly (``warm``);
+    from its second on each block is a replay of a CUDA graph of that many
+    reverse steps (``capture``, ``replay``), as JAX's scan runs one
+    compiled step N times; on the CPU the same eager loop. Two graphs a
+    shape at most, a block whose steps all add their draws and the last
+    block (its last step adds none; every DDIM step adds none), so the
+    graphs' nodes, capture time and memory do not grow with N. A block's
+    draws are made on the host's stream just before the block, from the
+    generator in the order ``sample`` draws (x_T, z_0, ..., z_{N-2}), or
+    copied from the injected ``noise``."""
 
     def __init__(self, model, constants: SamplerConstants, ddim: bool,
                  mel: torch.Tensor, audio_length: int, device):
         batch = mel.shape[0]
         self.model, self.ddim = model, ddim
         self.n_steps = constants.n_steps
+        self.block = block_steps(self.n_steps)
         self.shape = (batch, audio_length, 1)
         self.mel = torch.empty(mel.shape, dtype=mel.dtype, device=device)
         self.x = torch.empty(self.shape, device=device)
-        self.z = (torch.empty(self.shape, device=device)
-                  if not ddim and self.n_steps > 1 else None)
+        self.zs = [torch.empty(self.shape, device=device) for _ in range(
+            0 if ddim else min(self.block, self.n_steps - 1))]
         self.t = torch.from_numpy(np.asarray(constants.steps, np.float32)
                                   .reshape(-1, 1)).to(device)
         self.coef = torch.from_numpy(
             step_coefficients(constants, ddim)).to(device)
         self.index = torch.zeros(batch, dtype=torch.long, device=device)
         self.captured = False
-        self.graphs = {}                # noisy step? -> CUDAGraph
-        self.rise = {}                  # noisy step? -> {(counter, key): n}
+        self.graphs = {}                # block kind -> CUDAGraph
+        self.rise = {}                  # block kind -> {(counter, key): n}
 
     def fill(self, generator, mel, noise):
         """Copy mel in, draw x_T from ``generator`` (or copy the injected
@@ -227,30 +250,37 @@ class _Runner:
             raise ValueError(f"x_T shape {tuple(x_t.shape)} != {self.shape}")
         self.x.copy_(x_t)
 
-    def _noisy(self, i: int) -> bool:
-        """Whether step i adds a draw (every DDPM step but the last)."""
-        return self.z is not None and i < self.n_steps - 1
+    def _kind(self, start: int) -> tuple:
+        """The block from step ``start``: whether each of its steps adds a
+        draw (every DDPM step but the last)."""
+        return tuple(bool(self.zs) and i < self.n_steps - 1
+                     for i in range(start, start + self.block))
 
-    def step(self, noisy: bool):
+    def step(self, z: torch.Tensor | None):
         """One reverse step at the device's step index, in place on x."""
         t = self.t.index_select(0, self.index)
         coef = self.coef.index_select(0, self.index[:1])[0]
         eps = self.model(self.x, self.mel, t)
-        self.x.copy_(reverse_step(self.x, eps, coef, self.ddim,
-                                  self.z if noisy else None))
+        self.x.copy_(reverse_step(self.x, eps, coef, self.ddim, z))
         self.index.add_(1)
 
+    def steps(self, kind: tuple):
+        """The block's steps, step j adding draw j where it adds one."""
+        for j, noisy in enumerate(kind):
+            self.step(self.zs[j] if noisy else None)
+
     def run(self, generator, noise, launch):
-        """The N steps, each by ``launch(noisy)``, each noisy step's draw
-        made just before it."""
+        """The blocks, each by ``launch(kind)``, each block's draws made
+        just before it."""
         zs = None if noise is None else noise[1]
-        for i in range(self.n_steps):
-            if self._noisy(i):
-                if zs is None:
-                    self.z.normal_(generator=generator)
-                else:
-                    self.z.copy_(zs[i])
-            launch(self._noisy(i))
+        for start in range(0, self.n_steps, self.block):
+            kind = self._kind(start)
+            for j, noisy in enumerate(kind):
+                if noisy and zs is None:
+                    self.zs[j].normal_(generator=generator)
+                elif noisy:
+                    self.zs[j].copy_(zs[start + j])
+            launch(kind)
 
     def warm(self, side, generator, noise):
         """The first call: the loop run eagerly, on the card on the ``side``
@@ -258,32 +288,32 @@ class _Runner:
         encodes the TMA maps before any capture); its output is the call's
         answer and its launches count as launches."""
         if side is None:
-            self.run(generator, noise, self.step)
+            self.run(generator, noise, self.steps)
             return
         current = torch.cuda.current_stream(self.x.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.run(generator, noise, self.step)
+            self.run(generator, noise, self.steps)
         current.wait_stream(side)
 
     def capture(self, pool, stream):
-        """One step of each kind the loop runs captured on ``stream`` into
+        """Each kind of block the loop runs captured on ``stream`` into
         ``pool`` (on the CPU, where both are None, only marked captured).
         The capture launches nothing: the counters' rise inside it is
-        recorded and added on every replay of that step. A failed capture
+        recorded and added on every replay of that block. A failed capture
         raises."""
         if pool is not None:
             current = torch.cuda.current_stream(stream.device)
-            kinds = {self._noisy(0), self._noisy(self.n_steps - 1)}
+            kinds = {self._kind(0), self._kind(self.n_steps - self.block)}
             graphs, rises = {}, {}
             try:
-                for noisy in sorted(kinds):
-                    graphs[noisy] = torch.cuda.CUDAGraph()
-                    rises[noisy] = {}
-                    with _counts_held(rises[noisy]):
-                        with torch.cuda.graph(graphs[noisy], pool=pool,
+                for kind in sorted(kinds):
+                    graphs[kind] = torch.cuda.CUDAGraph()
+                    rises[kind] = {}
+                    with _counts_held(rises[kind]):
+                        with torch.cuda.graph(graphs[kind], pool=pool,
                                               stream=stream):
-                            self.step(noisy)
+                            self.steps(kind)
             finally:
                 # a capture that fails to end leaves its stream current
                 torch.cuda.set_stream(current)
@@ -291,23 +321,23 @@ class _Runner:
         self.captured = True
 
     def replay(self, generator, noise):
-        """The N steps as replays of the captured steps, each adding its
+        """The blocks as replays of their graphs, each adding its
         capture's launches to the counters (on the CPU: the eager loop)."""
         if not self.graphs:
-            self.run(generator, noise, self.step)
+            self.run(generator, noise, self.steps)
             return
 
-        def launch(noisy):
-            self.graphs[noisy].replay()
-            for (j, key), n in self.rise[noisy].items():
+        def launch(kind):
+            self.graphs[kind].replay()
+            for (j, key), n in self.rise[kind].items():
                 COUNTERS[j][key] += n
         self.run(generator, noise, launch)
 
     def launches(self) -> dict:
         """{(counter index, key): launches} one sample's replays add."""
         total = collections.Counter()
-        for i in range(self.n_steps):
-            total.update(self.rise[self._noisy(i)])
+        for start in range(0, self.n_steps, self.block):
+            total.update(self.rise[self._kind(start)])
         return dict(total)
 
 
@@ -321,10 +351,10 @@ class GraphSampler:
     model's current weights: ``sample``'s loop on static buffers, one
     runner per (mel shape and dtype, audio length, ddim, ``use_kernels``,
     TF32 settings). The first call at a shape runs the loop eagerly and
-    answers with its output; the second captures its reverse step as CUDA
-    graphs on a CUDA model (``_Runner``), and every call from then on
-    replays them, N replays a call. A shape that comes
-    once costs one eager run, not a capture. A failed capture raises
+    answers with its output; the second captures its blocks of reverse
+    steps as CUDA graphs on a CUDA model (``_Runner``), and every call from
+    then on replays them, N / ``block_steps(N)`` replays a call. A shape
+    that comes once costs one eager run, not a capture. A failed capture raises
     (nothing falls back to the eager loop) and leaves the sampler on a new
     capture stream and pool. On a CPU model the same runners run eagerly.
 
@@ -338,7 +368,7 @@ class GraphSampler:
     assign=True)``, ``.to``), every runner is dropped (``recaptures``
     counts the drops) and the shapes start again from their first call.
     Calls must not overlap (the server serializes them). The launch
-    counters rise on every step replayed by the launches its graph
+    counters rise on every block replayed by the launches its graph
     holds."""
 
     def __init__(self, model, constants: SamplerConstants,
@@ -388,7 +418,7 @@ class GraphSampler:
     def replay_launches(self, mel: torch.Tensor, audio_length: int) -> dict:
         """The kernel launches one call's replays at this call's shape add
         to the counters ({counter key: launches}), as recorded at the
-        capture of its steps; None when no graph of that shape is held."""
+        capture of its blocks; None when no graph of that shape is held."""
         runner = self._runners.get(self._shape_key(mel, audio_length))
         if runner is None or not runner.graphs:
             return None

@@ -8,12 +8,13 @@
 
 It prints the first call's wall (the kernels built before it; the call
 runs the reverse loop eagerly), the second call's wall (the capture of the
-sampler's CUDA graphs and one replay), each graph captured with its node
-count and its instantiation seconds, ``torch.cuda.memory_reserved`` before
-and after the capture, the bytes of the runner's static buffers (mel, x,
+sampler's CUDA graphs and one sample's replays), each graph captured with
+its node count and its instantiation seconds, ``torch.cuda.memory_reserved``
+before and after the capture, the bytes of the runner's static buffers (mel, x,
 the noise draws, the step tables), the kernel launches one replay adds,
 whether a replay is bit-equal to the first call with a generator of the
-same seed, and the replays' time by CUDA events, as JAX's last line:
+same seed, and the replays' time by CUDA events (``measure``, which
+``chip_smoke.py``'s phase 33 runs too), as JAX's last line:
 
     == N=1000: X s per 10.03 s utterance -> Y x realtime (Z ms/step)
 
@@ -35,7 +36,8 @@ import numpy as np
 import torch
 
 from fastdiff_tpu_torch.config import ModelConfig
-from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
+from fastdiff_tpu_torch.diffusion.sampler import (COUNTERS,
+                                                  constants_for_hparams,
                                                   make_param_sampler)
 from fastdiff_tpu_torch.models.fastdiff import FastDiff, checked_device
 from fastdiff_tpu_torch.utils.timing import cuda_ms
@@ -136,6 +138,62 @@ def smi_line() -> str:
         "nvidia-smi: not available"
 
 
+def _counts() -> list:
+    return [dict(counter) for counter in COUNTERS]
+
+
+def measure(sampler, mel: torch.Tensor, audio_length: int,
+            reps: int) -> dict:
+    """One shape's measurement on the card: the first call's wall
+    (``first_s``, the eager loop), the second call's (``capture_s``: the
+    capture of the sampler's graphs and one sample's replays), each
+    graph's ``(nodes, instantiation seconds)``, ``memory_reserved`` before
+    and after the second call, the runner's buffer and draw bytes, the
+    launches one replay adds (``launches``, ``replay_launches``) and the
+    second call's rise of the counters (``second_launches``), whether the
+    second call is bit-equal to the first (the same seed) and finite in
+    the right shape, and the mean ms of ``reps`` calls by CUDA events
+    (``replay_ms``) with ms a step and x realtime."""
+    device = next(sampler.model.parameters()).device
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    first = sample_once(sampler, mel, audio_length, 1)
+    torch.cuda.synchronize(device)
+    first_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved(device)
+    graphs = []
+    counts = _counts()
+    t0 = time.perf_counter()
+    with graph_census(graphs):
+        second = sample_once(sampler, mel, audio_length, 1)
+    torch.cuda.synchronize(device)
+    capture_s = time.perf_counter() - t0
+    second_launches = {key: n - before.get(key, 0)
+                       for counter, before in zip(COUNTERS, counts)
+                       for key, n in counter.items()
+                       if n != before.get(key, 0)}
+    runner = next(iter(sampler._runners.values()))
+    row = dict(
+        first_s=first_s, capture_s=capture_s, graphs=graphs,
+        reserved_before=reserved,
+        reserved_after=torch.cuda.memory_reserved(device),
+        buffer_bytes=buffer_bytes(sampler),
+        draw_bytes=sum(z.numel() * z.element_size() for z in runner.zs),
+        block=runner.block,
+        launches=sampler.replay_launches(mel, audio_length),
+        second_launches=second_launches,
+        bit_equal=bool(torch.equal(first, second)),
+        finite=bool(torch.isfinite(second).all()),
+        shape_ok=tuple(second.shape) == (mel.shape[0], audio_length, 1))
+    del first, second
+    ms = cuda_ms(lambda: sample_once(sampler, mel, audio_length, 2), reps)
+    n_steps = sampler.constants.n_steps
+    audio_s = audio_length / SR
+    row.update(replay_ms=ms, ms_per_step=ms / n_steps, audio_s=audio_s,
+               x_realtime=audio_s / (ms / 1e3))
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--n", type=int, default=1000)
@@ -148,35 +206,24 @@ def main(argv=None) -> int:
     _build.library()
     print(f"| kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     sampler, mel, length = build(args.n, args.frames, device)
-
-    t0 = time.perf_counter()
-    first = sample_once(sampler, mel, length, 1)
-    torch.cuda.synchronize()
-    print(f"| first call (eager loop) {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    reserved = torch.cuda.memory_reserved(device)
-    graphs = []
-    t0 = time.perf_counter()
-    with graph_census(graphs):
-        second = sample_once(sampler, mel, length, 1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    after = torch.cuda.memory_reserved(device)
-    print(f"| second call (capture + one replay) {wall:.2f} s; graphs "
+    row = measure(sampler, mel, length, args.reps)
+    print(f"| first call (eager loop) {row['first_s']:.2f} s", flush=True)
+    print(f"| second call (capture + one sample's replays) "
+          f"{row['capture_s']:.2f} s; graphs of {row['block']} steps "
           + ", ".join(f"{nodes} nodes instantiated in {s:.3f} s"
-                      for nodes, s in graphs)
-          + f"; memory_reserved {reserved / 2 ** 30:.3f} -> "
-          f"{after / 2 ** 30:.3f} GiB; runner buffers "
-          f"{buffer_bytes(sampler) / 2 ** 20:.1f} MiB; launches per replay "
-          f"{sampler.replay_launches(mel, length)}; replay bit-equal to "
-          f"the first call: {bool(torch.equal(first, second))}", flush=True)
-    if not torch.isfinite(second).all():
+                      for nodes, s in row["graphs"])
+          + f"; memory_reserved {row['reserved_before'] / 2 ** 30:.3f} -> "
+          f"{row['reserved_after'] / 2 ** 30:.3f} GiB; runner buffers "
+          f"{row['buffer_bytes'] / 2 ** 20:.1f} MiB (draws "
+          f"{row['draw_bytes'] / 2 ** 20:.2f} MiB); launches per replay "
+          f"{row['launches']}; replay bit-equal to the first call: "
+          f"{row['bit_equal']}", flush=True)
+    if not row["finite"]:
         raise SystemExit("the sampler's output is not finite")
-    ms = cuda_ms(lambda: sample_once(sampler, mel, length, 2), args.reps)
-    best = ms / 1e3
-    secs = length / SR
-    print(f"== N={args.n}: {best:.3f} s per {secs:.2f} s utterance -> "
-          f"{secs / best:.2f}x realtime ({best * 1e3 / args.n:.3f} ms/step)"
+    best = row["replay_ms"] / 1e3
+    print(f"== N={args.n}: {best:.3f} s per {row['audio_s']:.2f} s "
+          f"utterance -> {row['x_realtime']:.2f}x realtime "
+          f"({row['ms_per_step']:.3f} ms/step)"
           f" [{torch.cuda.get_device_name(0)}; {smi_line()}]", flush=True)
     return 0
 

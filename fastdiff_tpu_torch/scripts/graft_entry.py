@@ -9,18 +9,19 @@ denoiser forward (``ModelConfig()``, seed-0 weights, the route
 ``use_pallas_block: auto`` takes) at 25 frames, batch 2, on the card.
 
 ``dryrun_multichip(n)`` runs JAX's four checks data parallel over ``n``
-ranks, one process each (gloo on the CPU, NCCL on cards, one card a
-rank), each rank keeping its rows of the global batch under
-``DistributedDataParallel``: (1) one train step of a tiny model (C = 8,
-one LVC layer, f32, the plain route) at 8 frames, one crop a rank; (2)
-one step on the ``ncl_vjp`` route at 16 frames (at the tiny widths on the
-CPU, where the route's plain versions run; at the full widths in bf16 on
-cards, the widths its kernels are built for); (3) rank 0 vocodes 16
-frames a rank with ``DistributedChunkedVocoder`` over the ranks' devices,
-N = 4, from the tiny model's trained weights; (4) one train step of the
-full-size model (15.3M parameters, f32, the plain route) at 16 frames.
-Every loss and waveform must be finite; a rank that fails raises in the
-caller with its output.
+ranks, one process each (NCCL on cards, one card a rank, by default;
+gloo on the CPU when the caller asks for it), each rank keeping its rows
+of the global batch under ``DistributedDataParallel``: (1) one train
+step of a tiny model (C = 8, one LVC layer, f32, the plain route) at 8
+frames, one crop a rank; (2) one step on the ``ncl_vjp`` route at 16
+frames (at the tiny widths on the CPU, where the route's plain versions
+run; at the full widths in bf16 on cards, the widths its kernels are
+built for); (3) rank 0 vocodes 16 frames a rank with
+``DistributedChunkedVocoder`` over the ranks' devices, N = 4, from the
+tiny model's trained weights; (4) one train step of the full-size model
+(15.3M parameters, f32, the plain route) at 16 frames. Every loss and
+waveform must be finite; a rank that fails raises in the caller with its
+output.
 """
 
 from __future__ import annotations
@@ -174,14 +175,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun_multichip(n_devices: int, device=None,
+def dryrun_multichip(n_devices: int, device="cuda",
                      timeout: float = 900) -> list:
     """JAX's dry run over ``n_devices`` ranks (module docstring), one
-    process each, on cards when ``device`` (default: the card when there
-    is one) is CUDA, else gloo ranks on the CPU; each rank's results
-    ({rank, world, backend, losses, chunked samples}), rank order."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    process each: NCCL ranks on cards when ``device`` is CUDA (the
+    default; no card raises), gloo ranks on the CPU when the caller asks
+    for it; each rank's results ({rank, world, backend, losses, chunked
+    samples}), rank order."""
     device = checked_device(device)
     if device.type == "cuda" and torch.cuda.device_count() < n_devices:
         raise ValueError(f"need {n_devices} cards, have "

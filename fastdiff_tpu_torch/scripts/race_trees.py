@@ -172,14 +172,14 @@ print("RESULT " + json.dumps({"ms": ms, "max_abs_err": errs}))
 """
 
 
-def probe(tree: pathlib.Path, reps: int, tfs, variants, tiles) -> dict:
-    """The probe's result from a fresh process at the root of ``tree``."""
+def probe(tree: pathlib.Path, source: str, args: list,
+          timeout: float = 600) -> dict:
+    """The result of the probe ``source`` (its ``RESULT`` line) from a
+    fresh process at the root of ``tree``, called with ``args``."""
     env = dict(os.environ, PYTHONPATH=str(tree))
-    proc = subprocess.run(
-        [sys.executable, "-c", PROBE, str(reps), ",".join(map(str, tfs)),
-         ",".join(f"{o}:{t}" for o, t in variants),
-         ",".join(map(str, tiles))],
-        cwd=tree, env=env, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-c", source, *args], cwd=tree,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
             return json.loads(line[len("RESULT "):])
@@ -187,28 +187,39 @@ def probe(tree: pathlib.Path, reps: int, tfs, variants, tiles) -> dict:
                        f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
 
 
-def run(other: pathlib.Path, reps: int = 20, tfs=(1, 8)) -> dict:
-    from fastdiff_tpu_torch.scripts.bench_mosaic_micro import CONV_TILES
-    from fastdiff_tpu_torch.scripts.exp_r4b import VARIANTS
-    variants = [(order, m_tile) for _, order, m_tile in VARIANTS]
+def turns(other: pathlib.Path, source: str, args: list,
+          timeout: float = 600) -> dict:
+    """The probe run from ``other`` and from this tree in turns (other,
+    this, this, other): per tree the mean of its two runs of each ``ms``
+    entry, the runs, and the first run's other entries; with the card's
+    name and power limit."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     trees = {"other": other.resolve(), "this": HERE}
     runs = {"other": [], "this": []}
     for name in ("other", "this", "this", "other"):
-        runs[name].append(probe(trees[name], reps, tfs, variants,
-                                CONV_TILES))
+        runs[name].append(probe(trees[name], source, args, timeout))
     report = {"card": smi.stdout.strip(), "trees": {
         k: str(v) for k, v in trees.items()}}
     for name, results in runs.items():
         keys = results[0]["ms"]
-        report[name] = {
-            "ms": {k: sum(r["ms"][k] for r in results) / len(results)
-                   for k in keys},
-            "runs": {k: [r["ms"][k] for r in results] for k in keys},
-            "max_abs_err": results[0]["max_abs_err"]}
+        report[name] = dict(
+            {k: v for k, v in results[0].items() if k != "ms"},
+            ms={k: sum(r["ms"][k] for r in results) / len(results)
+                for k in keys},
+            runs={k: [r["ms"][k] for r in results] for k in keys})
     return report
+
+
+def run(other: pathlib.Path, reps: int = 20, tfs=(1, 8)) -> dict:
+    from fastdiff_tpu_torch.scripts.bench_mosaic_micro import CONV_TILES
+    from fastdiff_tpu_torch.scripts.exp_r4b import VARIANTS
+    variants = [(order, m_tile) for _, order, m_tile in VARIANTS]
+    return turns(other, PROBE, [
+        str(reps), ",".join(map(str, tfs)),
+        ",".join(f"{o}:{t}" for o, t in variants),
+        ",".join(map(str, CONV_TILES))])
 
 
 def main():

@@ -113,6 +113,8 @@ def test_port_imports_no_jax():
             "import fastdiff_tpu_torch.scripts.drive_ncl_sr\n"
             "import fastdiff_tpu_torch.scripts.streaming_latency_curve\n"
             "import fastdiff_tpu_torch.scripts.graft_entry\n"
+            "import fastdiff_tpu_torch.scripts.race_trees\n"
+            "import fastdiff_tpu_torch.scripts.race_sampler_paths\n"
             "from fastdiff_tpu_torch import DistributedChunkedVocoder\n"
 
             "import numpy\n"
@@ -262,8 +264,9 @@ def test_port_sources_import_nothing_of_the_jax_side():
 
 
 def test_entry_points_default_to_the_card():
-    """Without a device the vocoder, the server and the tasks ask for the
-    CUDA card; with no card they raise and never fall back to the CPU."""
+    """Without a device the vocoder, the server, the tasks and the script
+    twins ask for the CUDA card; with no card they raise and never fall
+    back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
     from fastdiff_tpu_torch.serving.server import VocoderService
@@ -292,6 +295,13 @@ def test_entry_points_default_to_the_card():
                  lambda: PWG({}), SpeakerEncoder,
                  lambda: get_speaker_encoder(""),
                  lambda: train_spk_encoder(mels, steps=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    # the script twins of the full reverse process and the graft entry
+    from fastdiff_tpu_torch.scripts import bench_n1000, drive_ncl_sr
+    from fastdiff_tpu_torch.scripts import graft_entry
+    for make in (lambda: bench_n1000.build(4), drive_ncl_sr.drive,
+                 graft_entry.entry, lambda: graft_entry.dryrun_multichip(2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 
