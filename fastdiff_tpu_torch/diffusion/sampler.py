@@ -33,6 +33,7 @@ from fastdiff_tpu_torch.diffusion import schedules
 from fastdiff_tpu_torch.diffusion.schedules import SamplerConstants
 from fastdiff_tpu_torch.ops import downpath_pallas, lvc_block_ncl
 from fastdiff_tpu_torch.ops import lvc_block_pallas, lvc_head
+from fastdiff_tpu_torch.utils.profiling import span
 
 # the launch counters of the kernels a denoiser forward can reach
 COUNTERS = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
@@ -240,15 +241,17 @@ class _Runner:
     def fill(self, generator, mel, noise):
         """Copy mel in, draw x_T from ``generator`` (or copy the injected
         one) and set the step index to 0."""
-        self.mel.copy_(mel)
-        self.index.zero_()
-        if noise is None:
-            self.x.normal_(generator=generator)
-            return
-        x_t, _ = _check_noise(noise, self.n_steps)
-        if tuple(x_t.shape) != self.shape:
-            raise ValueError(f"x_T shape {tuple(x_t.shape)} != {self.shape}")
-        self.x.copy_(x_t)
+        with span("sampler.fill"):
+            self.mel.copy_(mel)
+            self.index.zero_()
+            if noise is None:
+                self.x.normal_(generator=generator)
+                return
+            x_t, _ = _check_noise(noise, self.n_steps)
+            if tuple(x_t.shape) != self.shape:
+                raise ValueError(
+                    f"x_T shape {tuple(x_t.shape)} != {self.shape}")
+            self.x.copy_(x_t)
 
     def _kind(self, start: int) -> tuple:
         """The block from step ``start``: whether each of its steps adds a
@@ -287,14 +290,15 @@ class _Runner:
         stream (it builds the kernels, lets cuDNN pick its algorithms and
         encodes the TMA maps before any capture); its output is the call's
         answer and its launches count as launches."""
-        if side is None:
-            self.run(generator, noise, self.steps)
-            return
-        current = torch.cuda.current_stream(self.x.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.run(generator, noise, self.steps)
-        current.wait_stream(side)
+        with span("sampler.warm"):
+            if side is None:
+                self.run(generator, noise, self.steps)
+                return
+            current = torch.cuda.current_stream(self.x.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.run(generator, noise, self.steps)
+            current.wait_stream(side)
 
     def capture(self, pool, stream):
         """Each kind of block the loop runs captured on ``stream`` into
@@ -323,15 +327,16 @@ class _Runner:
     def replay(self, generator, noise):
         """The blocks as replays of their graphs, each adding its
         capture's launches to the counters (on the CPU: the eager loop)."""
-        if not self.graphs:
-            self.run(generator, noise, self.steps)
-            return
+        with span("sampler.replay"):
+            if not self.graphs:
+                self.run(generator, noise, self.steps)
+                return
 
-        def launch(kind):
-            self.graphs[kind].replay()
-            for (j, key), n in self.rise[kind].items():
-                COUNTERS[j][key] += n
-        self.run(generator, noise, launch)
+            def launch(kind):
+                self.graphs[kind].replay()
+                for (j, key), n in self.rise[kind].items():
+                    COUNTERS[j][key] += n
+            self.run(generator, noise, launch)
 
     def launches(self) -> dict:
         """{(counter index, key): launches} one sample's replays add."""
@@ -363,13 +368,19 @@ class GraphSampler:
     generator of the same seed it draws what ``sample`` draws. All graphs
     share one memory pool; at most ``max_graphs`` shapes are kept, the
     least recently used evicted (its graphs' memory goes back to the
-    pool). Before every call the storage of every parameter and buffer is
-    compared with the last call's: when it moved (``load_state_dict(...,
-    assign=True)``, ``.to``), every runner is dropped (``recaptures``
-    counts the drops) and the shapes start again from their first call.
-    Calls must not overlap (the server serializes them). The launch
-    counters rise on every block replayed by the launches its graph
-    holds."""
+    pool; ``evictions`` counts them). Before every call the storage of
+    every parameter and buffer is compared with the last call's: when it
+    moved (``load_state_dict(..., assign=True)``, ``.to``), every runner is
+    dropped (``recaptures`` counts the drops) and the shapes start again
+    from their first call. Calls must not overlap (the server serializes
+    them). The launch counters rise on every block replayed by the
+    launches its graph holds.
+
+    Under ``torch.profiler`` a call is the span ``sampler.call`` holding
+    ``sampler.lookup`` (storage scan, key, LRU move or eviction), then
+    ``sampler.fill`` and ``sampler.warm`` (first call), or ``sampler.fill``,
+    ``sampler.capture`` (second call only) and ``sampler.replay``, then
+    ``sampler.clone``; none is opened inside a captured region."""
 
     def __init__(self, model, constants: SamplerConstants,
                  ddim: bool = False, max_graphs: int = 8):
@@ -384,6 +395,7 @@ class GraphSampler:
         self.warmups = 0
         self.captures = 0
         self.recaptures = 0
+        self.evictions = 0
 
     @property
     def graphs_cached(self) -> int:
@@ -432,42 +444,49 @@ class GraphSampler:
         return self._stream
 
     def _capture(self, key, runner):
-        pool = None
-        if runner.x.is_cuda:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            pool = self._pool
-        try:
-            runner.capture(pool, self._side(runner.x.device))
-        except BaseException:
-            # the failed capture's stream and pool may be left unusable
-            del self._runners[key]
-            self._pool = self._stream = None
-            raise
-        self.captures += 1
+        with span("sampler.capture"):
+            pool = None
+            if runner.x.is_cuda:
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                pool = self._pool
+            try:
+                runner.capture(pool, self._side(runner.x.device))
+            except BaseException:
+                # the failed capture's stream and pool may be left unusable
+                del self._runners[key]
+                self._pool = self._stream = None
+                raise
+            self.captures += 1
 
     def __call__(self, generator, mel: torch.Tensor, audio_length: int, *,
                  noise: tuple | None = None) -> torch.Tensor:
-        with torch.inference_mode():
-            key = self._key(mel, audio_length)
-            runner = self._runners.get(key)
-            if runner is None:
-                while len(self._runners) >= self.max_graphs:
-                    self._runners.popitem(last=False)
-                device = self._device()
-                runner = _Runner(self.model, self.constants, self.ddim, mel,
-                                 int(audio_length), device)
-                runner.fill(generator, mel, noise)
-                runner.warm(self._side(device), generator, noise)
-                self._runners[key] = runner     # kept once its warm-up ran
-                self.warmups += 1
-            else:
-                self._runners.move_to_end(key)
-                runner.fill(generator, mel, noise)
-                if not runner.captured:
-                    self._capture(key, runner)
-                runner.replay(generator, noise)
-        return runner.x.clone()
+        with span("sampler.call"):
+            with torch.inference_mode():
+                with span("sampler.lookup"):
+                    key = self._key(mel, audio_length)
+                    runner = self._runners.get(key)
+                    if runner is None:
+                        while len(self._runners) >= self.max_graphs:
+                            self._runners.popitem(last=False)
+                            self.evictions += 1
+                    else:
+                        self._runners.move_to_end(key)
+                if runner is None:
+                    device = self._device()
+                    runner = _Runner(self.model, self.constants, self.ddim,
+                                     mel, int(audio_length), device)
+                    runner.fill(generator, mel, noise)
+                    runner.warm(self._side(device), generator, noise)
+                    self._runners[key] = runner  # kept once its warm-up ran
+                    self.warmups += 1
+                else:
+                    runner.fill(generator, mel, noise)
+                    if not runner.captured:
+                        self._capture(key, runner)
+                    runner.replay(generator, noise)
+            with span("sampler.clone"):
+                return runner.x.clone()
 
 
 class ParamGraphSampler(GraphSampler):

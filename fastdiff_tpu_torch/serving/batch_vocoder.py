@@ -9,6 +9,11 @@ than one device each stack is padded to a multiple of the device count and
 split into one row block per device (``parallel/mesh.py:ShardedSampler``,
 a copy of the model and its sampler on each), as JAX shards it over its
 ``dp`` axis; on one device the sampler runs the stack as it is.
+
+Under ``torch.profiler`` a call is the span ``vocoder.vocode``; each stack
+adds ``vocoder.stack`` (pad and stack on the host, ``torch.from_numpy``),
+the sampler's own spans, ``vocoder.fetch`` (wait, D2H, ``.numpy()``) and
+``vocoder.trim``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from fastdiff_tpu_torch.diffusion.sampler import (inference_generator,
                                                   make_sampler)
 from fastdiff_tpu_torch.parallel.mesh import ShardedSampler, local_devices
 from fastdiff_tpu_torch.serving.chunked_vocoder import wav_numpy
+from fastdiff_tpu_torch.utils.profiling import span
 
 
 class BatchedVocoder:
@@ -77,23 +83,30 @@ class BatchedVocoder:
         The buckets run in increasing padded length, each in input order,
         all drawing from ``generator`` (default ``inference_generator(0)``
         on the card)."""
-        if generator is None:
-            generator = inference_generator(0)
-        buckets = {}
-        for i, mel in enumerate(mels):
-            buckets.setdefault(self._bucket(mel.shape[0]), []).append(i)
+        with span("vocoder.vocode"):
+            if generator is None:
+                generator = inference_generator(0)
+            buckets = {}
+            for i, mel in enumerate(mels):
+                buckets.setdefault(self._bucket(mel.shape[0]), []).append(i)
 
-        out: List[np.ndarray] = [None] * len(mels)
-        for padded_frames, idxs in sorted(buckets.items()):
-            for start in range(0, len(idxs), self.max_batch):
-                chunk = idxs[start: start + self.max_batch]
-                stack = np.zeros((len(chunk), padded_frames,
-                                  mels[chunk[0]].shape[1]), np.float32)
-                for row, i in enumerate(chunk):
-                    stack[row, : mels[i].shape[0]] = mels[i]
-                wavs = wav_numpy(self.sampler(generator,
-                                              torch.from_numpy(stack),
-                                              padded_frames * self.hop))
-                for row, i in enumerate(chunk):
-                    out[i] = wavs[row, : mels[i].shape[0] * self.hop]
-        return out
+            out: List[np.ndarray] = [None] * len(mels)
+            for padded_frames, idxs in sorted(buckets.items()):
+                for start in range(0, len(idxs), self.max_batch):
+                    with span("vocoder.stack"):
+                        chunk = idxs[start: start + self.max_batch]
+                        stack = np.zeros((len(chunk), padded_frames,
+                                          mels[chunk[0]].shape[1]),
+                                         np.float32)
+                        for row, i in enumerate(chunk):
+                            stack[row, : mels[i].shape[0]] = mels[i]
+                        stack = torch.from_numpy(stack)
+                    wav = self.sampler(generator, stack,
+                                       padded_frames * self.hop)
+                    with span("vocoder.fetch"):
+                        wavs = wav_numpy(wav)
+                    del wav     # the device output is free for the next call
+                    with span("vocoder.trim"):
+                        for row, i in enumerate(chunk):
+                            out[i] = wavs[row, : mels[i].shape[0] * self.hop]
+            return out

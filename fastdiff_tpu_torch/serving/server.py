@@ -28,8 +28,11 @@ Endpoints:
     POST /vocode    body: .npy mel -> audio/wav (503 while cold or full)
     GET  /healthz   200 once the model is warm
     GET  /metrics   JSON: request counts, queue depth, RTF, audio seconds,
-                    graphs_cached, graph_captures and graph_warmups
-                    (counts)
+                    graphs_cached, graph_captures, graph_warmups,
+                    graph_evictions and graph_recaptures (counts), and
+                    queue_wait_seconds (summed time requests waited for
+                    the device; a ``server.queue_wait`` span under
+                    ``torch.profiler``)
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from fastdiff_tpu_torch.utils.hparams import set_hparams
+from fastdiff_tpu_torch.utils.profiling import span
 from fastdiff_tpu_torch.vocoders.base import get_vocoder_cls
 
 
@@ -76,6 +80,7 @@ class VocoderService:
         self.requests_failed = 0
         self.gen_seconds = 0.0
         self.audio_seconds = 0.0
+        self.queue_wait_seconds = 0.0
 
     def warmup(self, frames: int = 128):
         """Vocode ``frames`` of silence twice: the first run builds the
@@ -105,12 +110,18 @@ class VocoderService:
         if mel.shape[1] != self.num_mels:
             raise ValueError(f"expected {self.num_mels} mel bins, "
                              f"got shape {mel.shape}")
-        with self._lock:                      # one device: serialize
+        waited = time.perf_counter()
+        with span("server.queue_wait"):
+            self._lock.acquire()              # one device: serialize
+        try:
             t0 = time.perf_counter()
+            self.queue_wait_seconds += t0 - waited
             wav = self.vocoder.spec2wav(mel.astype(np.float32))
             self.gen_seconds += time.perf_counter() - t0
             self.audio_seconds += len(wav) / self.sample_rate
             return wav
+        finally:
+            self._lock.release()
 
     def metrics(self) -> dict:
         gen = self.gen_seconds
@@ -127,6 +138,9 @@ class VocoderService:
             "graphs_cached": self.vocoder.sampler.graphs_cached,
             "graph_captures": self.vocoder.sampler.captures,
             "graph_warmups": self.vocoder.sampler.warmups,
+            "graph_evictions": self.vocoder.sampler.evictions,
+            "graph_recaptures": self.vocoder.sampler.recaptures,
+            "queue_wait_seconds": round(self.queue_wait_seconds, 6),
         }
 
 

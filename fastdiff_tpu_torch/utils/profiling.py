@@ -7,6 +7,10 @@
   card when there is one), written as a Chrome trace
   ``<log_dir>/trace.json``; the block gets the profiler, whose
   ``key_averages()`` sum the kernels by name.
+- ``span(name)``: a named host span in that trace (and in any other
+  ``torch.profiler`` over the block), on the profiler's clock beside the
+  device's kernels and copies; with no profiler running, one shared
+  no-op context, so a span costs a flag read.
 - ``RTFMeter``: generation time over audio time across utterances, the
   JAX meter's arithmetic.
 - ``device_timer``, ``timed_pipeline``, ``device_timer_slope``: the time of
@@ -56,6 +60,18 @@ def force(value) -> float:
     if last.device.type == "cuda":
         torch.cuda.synchronize(last.device)
     return float(last.detach().reshape(-1)[-1:].float().sum())
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records;
+    otherwise a shared ``nullcontext`` (no ``RecordFunction`` entered,
+    nothing allocated). Program spans are named ``<layer>.<phase>``."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
