@@ -225,8 +225,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     loss must move off a zero output's and most gradient leaves outside the
     output conv must be non-zero); the N = 4 graph sampler at 864 frames, its
     warm-up, capture and replay bit-equal to the eager loop, ms per
-    utterance; the PWG vocoder's ``spec2wav`` at 864 frames; every kernel
-    counter still 0 (the zoo launches none of K1-K10);
+    utterance, and the launches of one replayed call: 30 x 4 of
+    ``wavenet_cond`` (phase 36's kernel) for the WaveNet and none for the
+    PWG; the PWG vocoder's ``spec2wav`` at 864 frames; every other kernel
+    counter 0 (training and the PWG launch no hand-written kernel);
 27. the MoL WaveNet at ``micro_lj_armol.yaml``'s full width: a 20-update
     ``run.main`` fit at 8 x 12,800 (ms per step by CUDA events, peak
     memory; the loss must fall); one step card vs CPU in f32 (1e-5 /
@@ -276,12 +278,27 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     tones' valid split (the five settings, latency and finite MCD, mel-L2,
     MR-STFT), then ``scripts/drive_ncl_sr.py`` at the recipe (exit 0);
 35. ``scripts/graft_entry.py``: ``entry()``'s full-width forward on the
-    card, and ``dryrun_multichip`` over every card (NCCL ranks).
+    card, and ``dryrun_multichip`` over every card (NCCL ranks);
+36. DiffWave's mel conditioning kernel (``ops/wavenet_cond.py``,
+    ``csrc/wavenet_cond.cu``): both instantiations' registers and spills
+    (fails on a spill), its grid and shared memory; against its plain
+    version at b 16 x 896 frames and b 1 x 864 frames (s 16, 2C 128: two
+    bf16 ulps of |h_in| + |h_out| a value, one of the projection and one of
+    the rounding of h, relative L2 under 1e-3) and bit
+    for bit on data whose f32 sums are exact; four ms per call at each
+    shape: the kernel by CUDA-graph replay, its bound (h read and written
+    at 3.35 TB/s), the plain version and the library calls it replaces
+    (two ``conv_transpose2d``, the 1x1 ``conv1d`` and the add), the last
+    two by CUDA-graph replay too; each value more than one ulp off printed
+    beside its h_in and its projection (float64, cuDNN's float32, both
+    sides' bf16); a DiffWave BASE N = 6 graph sampler call launching it
+    30 x 6 = 180 times and no other kernel.
 
 Phase 10 runs through ``scripts/bench_trainstep.py``. Each phase from 21
 on prints its wall. Any failed check exits non-zero. The line before the last is a JSON object
-with each of the twelve kernels' launches (from the run of its path: phase
-7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9),
+with each of the thirteen kernels' launches (from the run of its path: phase
+7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9,
+36 for ``wavenet_cond``: one DiffWave sampler call),
 its largest error against its plain version, its time beside the plain
 version's, the least time the card could take for the same work
 (``bound_ms``: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, whichever is
@@ -1260,6 +1277,7 @@ KERNEL_COUNTERS = {
     "lvc_block_nwc_tc_kernel": ("lvc_block_nwc",),
     "down_stage1": ("downpath",),
     "down_stage2": ("downpath",),
+    "wavenet_cond_kernel": ("wavenet_cond",),
 }
 
 
@@ -3227,7 +3245,11 @@ def phase26_zoo(torch, all_counters, dev, smi_line) -> dict:
     graph sampler at 864 frames (``make_test_sampler``): the third call (a
     replay) bit-equal to the eager ``sample`` with the same injected noise,
     ms per utterance by CUDA events; (d) the PWG vocoder's ``spec2wav`` at
-    864 frames; every kernel counter 0 across all of it."""
+    864 frames. One replayed sampler call must launch ``wavenet_cond``
+    (phase 36's kernel) once a block and step for the WaveNet, and nothing
+    for the PWG; every kernel counter must read 0 across the rest (the
+    training steps, the eager and graph sampler calls of the PWG, its
+    vocoder)."""
     from fastdiff_tpu_torch.diffusion.sampler import sample
     from fastdiff_tpu_torch.training.task import FastDiffTask
     from fastdiff_tpu_torch.vocoders import get_vocoder_cls
@@ -3320,6 +3342,10 @@ def phase26_zoo(torch, all_counters, dev, smi_line) -> dict:
             fail(f"{name}: the loss does not depend on the network")
         del sides
 
+        if launched(all_counters):
+            fail(f"{name}: the training steps launched kernels: "
+                 f"{launched(all_counters)}")
+
         # (c) the N = 4 graph sampler
         task = FastDiffTask(hp, device=dev)
         model = task.build_state(seed=0).model
@@ -3341,18 +3367,34 @@ def phase26_zoo(torch, all_counters, dev, smi_line) -> dict:
         equal = [bool(torch.equal(o, eager)) for o in outs]
         ms = cuda_ms(lambda: sampler(None, None, mel, audio_len,
                                      noise=noise), 3)
+        # the launches of one replayed call: the WaveNet's blocks each step
+        want = ({"wavenet_cond": len(model.blocks) * const.n_steps}
+                if name == "wavenet" else {})
+        other = {k: v for k, v in launched(all_counters).items()
+                 if k not in want}
+        if other:
+            fail(f"{name}: the sampler calls launched {other}")
+        zero_counters(all_counters)
+        sampler(None, None, mel, audio_len, noise=noise)
+        torch.cuda.synchronize()
+        per_call = launched(all_counters)
+        zero_counters(all_counters)
         audio_s = audio_len * AUDIO_SECONDS_PER_SAMPLE
         row["sampler"] = dict(ms=ms, rtf=ms / 1e3 / audio_s,
                               bit_equal=equal, captures=sampler.captures,
-                              max_abs_err=max_abs(outs[-1], eager))
+                              max_abs_err=max_abs(outs[-1], eager),
+                              launches_per_call=per_call)
         phase(26, f"{name} N = {const.n_steps} graph sampler at {frames} "
                   f"frames ({audio_s:.2f} s): {ms:.2f} ms per utterance by "
                   f"CUDA events (RTF {ms / 1e3 / audio_s:.4f}), captures "
                   f"{sampler.captures}; warm-up / capture / replay bit-equal "
-                  f"to the eager loop {equal} [{smi_line}]")
+                  f"to the eager loop {equal}; one replayed call launches "
+                  f"{per_call or 'no kernel'} [{smi_line}]")
         if not all(equal) or sampler.captures != 1 or \
                 not bool(outs[-1].isfinite().all()):
             fail(f"{name}: the graph sampler differs from the eager loop")
+        if per_call != want:
+            fail(f"{name}: one sampler call launched {per_call}, not {want}")
         del sampler, task, model, outs, eager, noise
 
     # (d) the PWG vocoder
@@ -3375,8 +3417,8 @@ def phase26_zoo(torch, all_counters, dev, smi_line) -> dict:
     if len(wav) != ZOO_FRAMES * HOP_SIZE or not np.isfinite(wav).all():
         fail("the PWG vocoder's waveform is wrong")
     report["launched"] = launched(all_counters)
-    phase(26, f"kernel launches across the zoo paths: "
-              f"{report['launched'] or 'none of K1-K10'}")
+    phase(26, f"kernel launches across the zoo paths but the WaveNet "
+              f"sampler's: {report['launched'] or 'none'}")
     if report["launched"]:
         fail(f"the zoo paths launched kernels: {report['launched']}")
     return report
@@ -4156,6 +4198,193 @@ def phase35_graft(torch, dev, smi_line) -> dict:
     return dict(entry_ms=ms, dryrun_s=wall, ranks=results)
 
 
+WAVENET_COND_SHAPES = ((16, 896), (1, FRAMES_10S))   # (batch, frames)
+
+
+def wavenet_cond_witness(torch, wc, h, mel, ups, mel_w, mel_b, s, got,
+                         want, where, most=8) -> list:
+    """The values of ``where`` (at most ``most``) beside what makes them:
+    h_in; the projection y = b + W . cond in float64 (exact), cuDNN's
+    float32 (the 1x1 conv the plain version runs) and both rounded to bf16,
+    the kernel's from a launch on h = 0 (bf16(0 + bf16(y)) = bf16(y)); and
+    h_out on both sides."""
+    import torch.nn.functional as F
+    bf16 = torch.bfloat16
+    pos = where.nonzero()[:most]
+    if not len(pos):
+        return []
+    length = h.shape[-1]
+    cond = mel.transpose(1, 2)[:, None]
+    for w, b in ups:
+        cond = wc.upsample_plain(cond, w, b, s, bf16)
+    cond = cond[:, 0, :, :length]
+    wm = mel_w.to(bf16).float()
+    y32 = F.conv1d(cond.float(), wm, mel_b.float())
+    y_kernel = wc.wavenet_cond(torch.zeros_like(h), mel, ups, mel_w, mel_b,
+                               stride=s)
+    rows = []
+    for b, c, j in pos.tolist():
+        y64 = float(wm[c, :, 0].double() @ cond[b, :, j].double()
+                    + float(mel_b[c]))
+        rows.append(dict(
+            at=[b, c, j], h_in=float(h[b, c, j]), y_f64=y64,
+            y_cudnn_f32=float(y32[b, c, j]),
+            y_cudnn_bf16=float(y32[b, c, j].to(bf16)),
+            y_kernel_bf16=float(y_kernel[b, c, j]),
+            h_out_plain=float(want[b, c, j]),
+            h_out_kernel=float(got[b, c, j])))
+    del cond, y32, y_kernel
+    return rows
+
+
+def phase36_wavenet_cond(torch, all_counters, dev, smi_line) -> dict:
+    """DiffWave's per-block mel conditioning kernel alone (phase 36 of the
+    module docstring); returns its entry of the kernels' JSON line, at
+    b 16 x 896 frames (the DiffWave cell's longest call)."""
+    import torch.nn.functional as F
+    from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
+                                                      make_sampler)
+    from fastdiff_tpu_torch.models.wavenet import WaveNet, WaveNetConfig
+    from fastdiff_tpu_torch.ops import _build
+    from fastdiff_tpu_torch.ops import wavenet_cond as wc
+
+    _build.library()
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for s in wc.STRIDES:
+        info = ptxas_entry(log, f"wavenet_cond_kernelILi{s}E")
+        phase(36, f"wavenet_cond_kernel<{s}>: {info}; {wc.smem_bytes(128, s)}"
+                  f" bytes of dynamic shared memory at 2C = 128, grid "
+                  f"{wc.launch_grid(16, 896 * HOP_SIZE, 128, s, sms)} at b 16 x"
+                  f" {896 * HOP_SIZE} samples")
+        check_no_spill(info, f"wavenet_cond_kernel<{s}>")
+    s, ch2, n_mels = 16, 128, 80
+    gen = torch.Generator(device=dev).manual_seed(36)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def few_bits(shape, lo, hi, scale):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=dev).float() * scale
+
+    report, bf16 = {}, torch.bfloat16
+    for batch, frames in WAVENET_COND_SHAPES:
+        length = frames * s * s
+        mel = (randn(batch, frames, n_mels) - 4.0).to(bf16)
+        ups = [(randn(1, 1, 3, 2 * s, scale=(2.0 / (6 * s)) ** 0.5),
+                randn(1, scale=0.1)) for _ in range(2)]
+        mel_w, mel_b = randn(ch2, n_mels, 1, scale=n_mels ** -0.5), \
+            randn(ch2, scale=0.1)
+        h = randn(batch, ch2, length).to(bf16)
+        with torch.inference_mode():
+            want = wc.wavenet_cond_plain(h, mel, ups, mel_w, mel_b,
+                                         stride=s).float()
+            h_in = h.float()
+            got = wc.wavenet_cond(h.clone(), mel, ups, mel_w, mel_b,
+                                  stride=s).float()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                (h_in.abs() + want.abs()).clamp_min(2.0 ** -126))) - 7)
+            over = int((diff > ulp).sum())
+            # one ulp of the projection (the tensor cores' sum order) plus
+            # one rounding of h_in + y, a tie of which may go either way
+            beyond = int((diff > 2 * ulp).sum())
+            flips = int((diff > 0).sum())
+            err = float(diff.norm() / want.norm())
+            max_err = float(diff.max())
+            witness = wavenet_cond_witness(torch, wc, h, mel, ups, mel_w,
+                                           mel_b, s, got, want, diff > ulp)
+            for w in witness:
+                phase(36, f"b {batch} x {frames}: a value over one ulp: "
+                          + json.dumps(w))
+            del got, want, h_in, diff, ulp
+            # few-bit operands: every f32 sum exact, any order the same bits
+            ex = (few_bits((batch, frames, n_mels), 0, 9, 0.25).to(bf16),
+                  [(few_bits((1, 1, 3, 2 * s), 0, 5, 0.125),
+                    few_bits((1,), 1, 3, 0.125)) for _ in range(2)],
+                  few_bits((ch2, n_mels, 1), -4, 5, 0.125),
+                  few_bits((ch2,), -8, 9, 0.125))
+            exact = bool(torch.equal(
+                wc.wavenet_cond(h.clone(), *ex, stride=s),
+                wc.wavenet_cond_plain(h, *ex, stride=s)))
+            mel2d = mel.float().transpose(1, 2)[:, None].contiguous()
+            w_lib = [w.to(bf16).float() for w, _ in ups]
+            wm_lib = mel_w.to(bf16).float()
+            h_work = h.clone()
+            hf = h.float()
+
+            def library():
+                x = F.conv_transpose2d(mel2d, w_lib[0], stride=(1, s),
+                                       padding=(1, s // 2))
+                x = F.conv_transpose2d(x, w_lib[1], stride=(1, s),
+                                       padding=(1, s // 2))
+                return hf + F.conv1d(x[:, 0, :, :length], wm_lib, mel_b)
+
+            reps = 20 if batch > 1 else 100
+            kernel_ms = graph_ms(lambda: wc.wavenet_cond(
+                h_work, mel, ups, mel_w, mel_b, stride=s), reps)
+            plain_ms = graph_ms(lambda: wc.wavenet_cond_plain(
+                h, mel, ups, mel_w, mel_b, stride=s), max(1, reps // 10))
+            library_ms = graph_ms(library, max(1, reps // 10))
+            kernel_ms2 = graph_ms(lambda: wc.wavenet_cond(
+                h_work, mel, ups, mel_w, mel_b, stride=s), reps)
+            del mel2d, hf, h_work
+        nbytes = 2 * 2.0 * batch * ch2 * length
+        row = dict(max_abs_err=max_err, values_over_one_ulp=over,
+                   values_over_two_ulps=beyond, over_one_ulp=witness,
+                   values_differing=flips, rel_l2=err, exact_data_equal=exact,
+                   ms=(kernel_ms + kernel_ms2) / 2, ms_runs=[kernel_ms,
+                                                             kernel_ms2],
+                   bound_ms=nbytes / H100_HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes", plain_ms=plain_ms,
+                   library_ms=library_ms)
+        report[f"b{batch}x{frames}"] = row
+        phase(36, f"wavenet_cond at b {batch} x {frames} frames (s {s}, 2C "
+                  f"{ch2}, {length} samples): {flips} of {h.numel()} values "
+                  f"differ from plain, {over} by more than one bf16 ulp of "
+                  f"|h_in| + |h_out| and {beyond} by more than two, rel L2 "
+                  f"{err:.2e}; exact data "
+                  f"bit-equal {exact}; kernel {row['ms']:.4f} ms by graph "
+                  f"replay (runs {kernel_ms:.4f}, {kernel_ms2:.4f}; bound "
+                  f"{row['bound_ms']:.4f} ms, h read + written at 3.35 TB/s: "
+                  f"{row['bound_ms'] / row['ms']:.1%}), plain {plain_ms:.4f} "
+                  f"ms, library calls {library_ms:.4f} ms (cudnn TF32 "
+                  f"{torch.backends.cudnn.allow_tf32}) [{smi_line}]")
+        if beyond or err >= 1e-3 or not exact:
+            fail("wavenet_cond disagrees with its plain version")
+        del h, mel
+        torch.cuda.empty_cache()
+
+    # a DiffWave BASE graph sampler call at N = 6: 30 blocks x 6 steps
+    model = WaveNet(WaveNetConfig(multiband=False), seed=0, device=dev).eval()
+    const = constants_for_hparams({"T": 1000, "beta_0": 1e-6, "beta_T": 0.01,
+                                   "noise_schedule": "", "N": 6})
+    sampler = make_sampler(model, const)
+    mel = randn(1, 64, n_mels) - 4.0
+    length = 64 * HOP_SIZE
+    sgen = torch.Generator(device=dev)
+    for _ in range(2):
+        sampler(sgen.manual_seed(1), mel, length)
+    zero_counters(all_counters)
+    wav = sampler(sgen.manual_seed(1), mel, length)
+    torch.cuda.synchronize()
+    launches = launched(all_counters)
+    per_call = launches.get("wavenet_cond", 0)
+    phase(36, f"DiffWave BASE N = {const.n_steps} graph sampler at 64 frames:"
+              f" a replayed call launches {launches}, finite "
+              f"{bool(wav.isfinite().all())}")
+    if launches != {"wavenet_cond": 30 * const.n_steps} or \
+            not bool(wav.isfinite().all()):
+        fail("the DiffWave sampler call did not launch wavenet_cond once a "
+             "block and step, and nothing else")
+    entry = dict(report[f"b{WAVENET_COND_SHAPES[0][0]}x"
+                        f"{WAVENET_COND_SHAPES[0][1]}"])
+    entry.update(shapes=report, launches_per_sampler_call=per_call)
+    return entry
+
+
 def check_no_jax():
     """Fail if jax or any module of the JAX package was imported."""
     bad = sorted(m for m in sys.modules if m in ("jax", "fastdiff_tpu")
@@ -4181,7 +4410,7 @@ def main():
         from fastdiff_tpu_torch.models.fastdiff import FastDiff
         from fastdiff_tpu_torch.ops import (_build, downpath_pallas,
                                             lvc_block_ncl, lvc_block_pallas,
-                                            lvc_head)
+                                            lvc_head, wavenet_cond)
         from fastdiff_tpu_torch.scripts import bench_mosaic_micro, exp_r4b
         from fastdiff_tpu_torch.serving.server import (VocoderService,
                                                        start_server)
@@ -4504,7 +4733,7 @@ def main():
                      rows_p, dev)
     all_counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
                     lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES,
-                    bench_mosaic_micro.LAUNCHES)
+                    bench_mosaic_micro.LAUNCHES, wavenet_cond.LAUNCHES)
     train_report = phase10_train_step(torch, FastDiffTask, smi_line, dev,
                                       all_counters)
     train_launches, fit_s = phase11_fit(torch, FastDiffTask, Trainer,
@@ -4711,6 +4940,13 @@ def main():
     phase(35, f"done in {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
+    # --- phase 36: DiffWave's mel conditioning kernel ------------------------
+    t0 = time.perf_counter()
+    wavenet_cond_report = phase36_wavenet_cond(torch, all_counters, dev,
+                                               smi_line)
+    phase(36, f"done in {time.perf_counter() - t0:.1f} s")
+    check_no_jax()
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -4779,6 +5015,13 @@ def main():
         if k["name"] in nwc_launches:
             k["train_launches_per_step"] = nwc_launches[k["name"]]
             k.update(nwc_train[k["name"]])
+    # replaces no TPU kernel: the DiffWave zoo path's XLA chain
+    kernels.append(dict(
+        name="wavenet_cond", route="cuda",
+        source="fastdiff_tpu_torch/csrc/wavenet_cond.cu",
+        replaces=None,
+        launches=wavenet_cond_report.pop("launches_per_sampler_call"),
+        **wavenet_cond_report))
     fh = fh_sampler["batches"]
     print(json.dumps({"kernels": kernels,
                       "sampler_ms": report["sampler_kernel_ms"],

@@ -17,6 +17,13 @@ root as JAX's. An upsampler's ``v`` is PyTorch's ConvTranspose2d kernel
 (1, 1, 3, 2s); JAX stores it flipped in both spatial axes
 (``models/bridge.py`` flips it).
 
+Each block's upsamplers, crop, mel_conv and add into h are one call of
+``ops/wavenet_cond.py``. With gradients off (the samplers' inference mode),
+bf16 and the widths its ``supports`` names (DiffWave BASE's among them)
+that is ``wavenet_cond``: the hand-written kernel on a card, which raises
+on a length it does not take, and the plain version on the CPU. Training
+and other widths run ``wavenet_cond_plain``.
+
 Cast points follow JAX's: the step embedding in float32, each conv in the
 compute dtype with float32 accumulation, and x in float32 from the first
 residual on (JAX multiplies by a float32 scalar there).
@@ -30,11 +37,11 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from fastdiff_tpu_torch.models.fastdiff import WNConv
 from fastdiff_tpu_torch.ops import nn as fnn
+from fastdiff_tpu_torch.ops import wavenet_cond
 
 SQRT_HALF = float(np.float32(math.sqrt(0.5)))
 
@@ -85,8 +92,9 @@ def compute_dtype(name: str) -> torch.dtype:
 
 
 class Upsampler(nn.Module):
-    """One weight-normed ConvTranspose2d(1, 1, (3, 2s), stride (1, s),
-    padding (1, s // 2)) + leaky ReLU 0.4."""
+    """The parameters of one weight-normed ConvTranspose2d(1, 1, (3, 2s),
+    stride (1, s), padding (1, s // 2)) + leaky ReLU 0.4, which
+    ``ops/wavenet_cond.py`` runs."""
 
     def __init__(self, stride: int):
         super().__init__()
@@ -95,14 +103,9 @@ class Upsampler(nn.Module):
         self.g = nn.Parameter(torch.empty(()))
         self.bias = nn.Parameter(torch.empty(1))
 
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        """x (B, 1, n_mels, T') -> (B, 1, n_mels, T' * s) in ``dtype``."""
-        w = self.g * self.v / torch.sqrt(torch.sum(self.v ** 2) + 1e-12)
-        s = self.stride
-        y = F.conv_transpose2d(x.float(), w.to(dtype).float(), stride=(1, s),
-                               padding=(1, s // 2)).to(dtype)
-        y = y + self.bias.to(dtype)
-        return fnn.leaky_relu(y, 0.4).to(dtype)
+    def weight(self) -> torch.Tensor:
+        """The weight-normed kernel (1, 1, 3, 2s), float32."""
+        return self.g * self.v / torch.sqrt(torch.sum(self.v ** 2) + 1e-12)
 
 
 class WaveNetBlock(nn.Module):
@@ -142,6 +145,11 @@ class WaveNet(nn.Module):
         self.out_conv = nn.Conv1d(cfg.skip_channels, cfg.out_channels, 1)
         self.blocks = nn.ModuleList(
             [WaveNetBlock(cfg) for _ in range(cfg.num_res_layers)])
+        # widths the conditioning kernel is built for (both upsamplers
+        # share one stride); others run the plain version
+        self.cond_kernel = wavenet_cond.supports(
+            2 * cfg.res_channels, cfg.cond_channels, cfg.upsample_strides[0],
+            self.dtype)
         if seed is not None:
             self.init_weights(torch.Generator().manual_seed(seed))
         if device is not None:
@@ -180,10 +188,17 @@ class WaveNet(nn.Module):
         cfg, dtype = self.cfg, self.dtype
         c = cfg.res_channels
         length = audio.shape[1]
+        stride = cfg.upsample_strides[0]
         emb = self._embed(t)
         x = torch.relu(_conv(self.init_conv,
                              audio.to(dtype).transpose(1, 2), dtype))
-        mel2d = mel.to(dtype).transpose(1, 2)[:, None]     # (B, 1, M, T')
+        # each block's upsamplers, crop, mel_conv and add into h are one
+        # call: with gradients off ops/wavenet_cond.py's op (the kernel on a
+        # card, which has no backward), else its plain version
+        add_cond = (wavenet_cond.wavenet_cond
+                    if self.cond_kernel and not torch.is_grad_enabled()
+                    else wavenet_cond.wavenet_cond_plain)
+        mel_c = mel.to(dtype).contiguous()                  # (B, T', M)
         skip_sum = torch.zeros(audio.shape[0], cfg.skip_channels, length,
                                device=audio.device)
         for n, blk in enumerate(self.blocks):
@@ -192,11 +207,10 @@ class WaveNet(nn.Module):
             h = x + part_t[:, :, None].to(x.dtype)
             h = _conv(blk.dilated_conv, h, dtype,
                       dilation=2 ** (n % cfg.dilation_cycle))
-            cond = mel2d
-            for up in blk.upsamplers:
-                cond = up(cond, dtype)
-            cond = cond[:, 0, :, :length]
-            h = h + _conv(blk.mel_conv, cond, dtype)
+            h = add_cond(h, mel_c, [(up.weight(), up.bias)
+                                    for up in blk.upsamplers],
+                         blk.mel_conv.weight, blk.mel_conv.bias,
+                         stride=stride)
             out = torch.tanh(h[:, :c]) * torch.sigmoid(h[:, c:])
             res = _conv(blk.res_conv, out, dtype)
             x = (x + res).float() * SQRT_HALF

@@ -84,6 +84,10 @@ SIGNATURES = {
     # (padded K, ring stages, shared memory) and its grid; stream
     "lvc_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P],
+    # h, mel, w1, b1, w2, b2, w_mel, b_mel, B, 2C, L, T', n_mels, stride,
+    # then wavenet_cond.launch_grid's grid and smem_bytes; stream
+    "wavenet_cond_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -33,3 +33,9 @@ def stub_missing_modules(*names):
                 __import__(name)
             except ImportError:
                 sys.modules[name] = types.ModuleType(name)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "card: needs a CUDA card (skips without one)")
+
