@@ -25,13 +25,26 @@ on the CUDA card unless the caller names another device.
 - ``train_dataloader`` / ``val_dataloader`` read the binarized records of
   ``data/tts_binarizer.py`` (items without ``phone`` skipped) and pad each
   batch with ``collate_tts`` to a multiple of 8 tokens and 32 frames.
-- ``infer_to_wav`` runs text -> mel -> waveform: the forward of
-  ``state.model`` in inference mode (predicted durations, the mel padded to
-  ``max_frames``), trimmed to its valid frames, then the vocoder of the
-  registry (``hparams['vocoder']``, FastDiff by default), which the task
-  builds on its first call and keeps, so its graph sampler and generator
-  carry over from call to call. JAX builds a vocoder per call and pads no
-  mel: each new frame count is a new graph shape here too.
+- ``synthesize`` is the text-to-wav entry, and ``infer_to_wav`` writes what
+  it returns: the forward of ``state.model`` in inference mode (predicted
+  durations, the mel padded to ``max_frames``; on the card replayed from a
+  CUDA graph of the sentence's token count, ``tts/acoustic_graphs.py``),
+  trimmed to its valid frames, then the vocoder ``tts_vocoder`` builds on the first call and
+  keeps, so its graph sampler and generator carry over from call to call.
+  That is the registry's (``hparams['vocoder']``, FastDiff by default) at
+  the mel's own frame count, as JAX's unpadded ``infer_to_wav`` (JAX builds
+  a vocoder per call): each new frame count is a new graph shape. With
+  ``infer_frame_bucket`` set, the registry FastDiff's denoiser runs behind
+  a ``BatchedVocoder`` instead: the mel is zero-padded to a multiple of the
+  bucket, which is what FastSpeech 2 itself gives past its valid frames, so
+  a corpus's lengths replay a few graphs (one a bucket, every bucket up to
+  ``max_frames`` kept), and the waveform is trimmed back.
+- Under ``torch.profiler`` a ``synthesize`` call is the span ``tts.call``,
+  holding ``tts.acoustic`` (the forward up to the mel on the host), inside
+  it ``tts.length`` (the device-to-host read of the predicted length), and
+  ``tts.vocode`` (the vocoder, whose ``vocoder.*`` / ``sampler.*`` spans sit
+  inside). ``counters`` counts the calls, their tokens and their predicted
+  frames.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import torch
 from fastdiff_tpu_torch.config import AudioConfig, TrainConfig
 from fastdiff_tpu_torch.data.dataset import (VocoderDataset,
                                              endless_index_stream)
+from fastdiff_tpu_torch.diffusion.sampler import make_sampler
 from fastdiff_tpu_torch.models.fastdiff import checked_device
 from fastdiff_tpu_torch.models.fastspeech2 import (DEFAULT_LAMBDAS,
                                                    FastSpeech2, FS2Config,
@@ -54,9 +68,12 @@ from fastdiff_tpu_torch.ops.cwt import f0_to_cwt
 from fastdiff_tpu_torch.ops.mel_losses import parse_mel_losses
 from fastdiff_tpu_torch.ops.pitch import norm_interp_f0
 from fastdiff_tpu_torch.parallel import mesh as meshlib
+from fastdiff_tpu_torch.serving.batch_vocoder import BatchedVocoder
 from fastdiff_tpu_torch.training.optim import AdamW
 from fastdiff_tpu_torch.training.task import TrainState
+from fastdiff_tpu_torch.tts.acoustic_graphs import AcousticGraphs
 from fastdiff_tpu_torch.utils import audio_io
+from fastdiff_tpu_torch.utils.profiling import span
 from fastdiff_tpu_torch.vocoders import get_vocoder_cls
 
 def _round_up(n: int, multiple: int) -> int:
@@ -163,6 +180,9 @@ class FastSpeech2Task:
                         if k in hparams}
         self.pitch_loss = str(hparams.get("pitch_loss", "l1"))
         self.vocoder = None
+        self.generator = None
+        self.acoustic_graphs = None
+        self.counters = {"calls": 0, "tokens": 0, "frames": 0}
         self._datasets: Dict[str, VocoderDataset] = {}
 
     @staticmethod
@@ -291,24 +311,74 @@ class FastSpeech2Task:
     def infer_mel(self, state: TrainState, tokens) -> np.ndarray:
         """tokens (T_ph,) -> mel (T_valid, n_mels) from the forward with
         predicted durations at ``t_mel = max_frames``."""
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                                 device=self.device)[None]
-        out = state.model(tokens)
-        t_valid = int(out["mel_mask"][0].sum())
-        return out["mel"][0, :t_valid].cpu().numpy()
+        return self._acoustic(state, tokens)[0]
+
+    def _acoustic(self, state: TrainState, tokens) -> tuple:
+        """(``infer_mel``'s mel, the forward's output dict on the device):
+        ``state.model`` through ``AcousticGraphs``, one graph a token
+        count."""
+        with span("tts.acoustic"):
+            if self.acoustic_graphs is None or \
+                    self.acoustic_graphs.model is not state.model:
+                self.acoustic_graphs = AcousticGraphs(state.model)
+            tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                                     device=self.device)[None]
+            out = self.acoustic_graphs(tokens)
+            with span("tts.length"):
+                t_valid = int(out["mel_mask"][0].sum())
+            return out["mel"][0, :t_valid].cpu().numpy(), out
+
+    def tts_vocoder(self):
+        """The vocoder ``synthesize`` runs, built on the first call and kept,
+        and its generator (``self.generator``): the registry's; with
+        ``infer_frame_bucket`` set, its denoiser behind a ``BatchedVocoder``
+        at that bucket with one graph for every bucket up to ``max_frames``
+        and the registry vocoder's generator."""
+        if self.vocoder is None:
+            vocoder = get_vocoder_cls(self.hparams)(self.hparams,
+                                                    device=self.device)
+            self.generator = getattr(vocoder, "generator", None)
+            bucket = int(self.hparams.get("infer_frame_bucket", 0) or 0)
+            if bucket:
+                graphs = -(-self.model_cfg.max_len // bucket)
+                vocoder = BatchedVocoder.from_sampler(
+                    make_sampler(vocoder.model, vocoder.constants,
+                                 max_graphs=graphs),
+                    hop_size=vocoder.hop, frame_bucket=bucket, max_batch=1,
+                    devices=[self.device])
+            self.vocoder = vocoder
+        return self.vocoder
+
+    @torch.no_grad()
+    def synthesize(self, state: TrainState, tokens, vocoder=None,
+                   generator: Optional[torch.Generator] = None):
+        """The text-to-wav entry: tokens (T_ph,) -> (waveform (T_valid *
+        hop,) float32, the forward's output dict on the device). The
+        vocoder is ``tts_vocoder()`` unless the caller gives one with a
+        ``spec2wav``; a ``BatchedVocoder`` draws from ``generator``
+        (default the task's)."""
+        if vocoder is None:
+            vocoder = self.tts_vocoder()
+        with span("tts.call"):
+            mel, out = self._acoustic(state, tokens)
+            self.counters["calls"] += 1
+            self.counters["tokens"] += len(tokens)
+            self.counters["frames"] += mel.shape[0]
+            with span("tts.vocode"):
+                if isinstance(vocoder, BatchedVocoder):
+                    if generator is None:
+                        generator = self.generator
+                    wav, = vocoder.vocode([mel], generator=generator)
+                else:
+                    wav = vocoder.spec2wav(mel)
+        return wav, out
 
     def infer_to_wav(self, state: TrainState, tokens, out_path: str,
                      vocoder=None) -> np.ndarray:
-        """tokens (T_ph,) -> mel -> waveform through the vocoder registry
+        """tokens (T_ph,) -> mel -> waveform through ``synthesize``
         (tts_base.py after_infer role); writes the peak-normalized wav to
         ``out_path`` when one is given."""
-        mel = self.infer_mel(state, tokens)
-        if vocoder is None:
-            if self.vocoder is None:
-                self.vocoder = get_vocoder_cls(self.hparams)(
-                    self.hparams, device=self.device)
-            vocoder = self.vocoder
-        wav = vocoder.spec2wav(mel)
+        wav, _ = self.synthesize(state, tokens, vocoder)
         if out_path:
             audio_io.save_wav(wav / max(1e-9, np.abs(wav).max()), out_path,
                               self.audio_cfg.sample_rate)
