@@ -291,14 +291,30 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     (two ``conv_transpose2d``, the 1x1 ``conv1d`` and the add), the last
     two by CUDA-graph replay too; each value more than one ulp off printed
     beside its h_in and its projection (float64, cuDNN's float32, both
-    sides' bf16); a DiffWave BASE N = 6 graph sampler call launching it
-    30 x 6 = 180 times and no other kernel.
+    sides' bf16); an N = 6 graph sampler call of a 30-layer WaveNet at 128
+    channels (widths the block kernel declines) launching it 30 x 6 = 180
+    times and no other kernel;
+37. DiffWave's residual block kernel (``ops/wavenet_block.py``,
+    ``csrc/wavenet_block.cu``): both instantiations' registers and spills
+    (fails on a spill), shared memory and grid; against its plain version
+    at b 16 x 896 and b 1 x 864 frames at each dilation 1-512 (block 0's
+    kind at 1, the last block's at 512: each update within 1e-2 relative
+    L2), and against float64 at b 1 x 864 beside the plain version's error;
+    four ms per launch at each shape, each the mean over the ten dilations:
+    the kernel by CUDA-graph replay, its bound (x and the skip sum, f32,
+    read and written at 3.35 TB/s), the plain version and the route it
+    replaced (the plain ops with ``wavenet_cond``), the last two by
+    CUDA-graph replay too; a DiffWave BASE N = 6 graph sampler call
+    launching it 30 x 6 = 180 times and no other kernel, and the profile
+    of a replay holding 180 ``wavenet_block_kernel`` and no
+    ``wavenet_cond_kernel``.
 
 Phase 10 runs through ``scripts/bench_trainstep.py``. Each phase from 21
 on prints its wall. Any failed check exits non-zero. The line before the last is a JSON object
-with each of the thirteen kernels' launches (from the run of its path: phase
+with each of the fourteen kernels' launches (from the run of its path: phase
 7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9,
-36 for ``wavenet_cond``: one DiffWave sampler call),
+36 for ``wavenet_cond``: one sampler call of the 128-channel WaveNet, 37 for
+``wavenet_block``: one DiffWave BASE sampler call),
 its largest error against its plain version, its time beside the plain
 version's, the least time the card could take for the same work
 (``bound_ms``: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, whichever is
@@ -325,6 +341,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 import io
 import json
+import math
 import os
 import pathlib
 import re
@@ -1278,6 +1295,7 @@ KERNEL_COUNTERS = {
     "down_stage1": ("downpath",),
     "down_stage2": ("downpath",),
     "wavenet_cond_kernel": ("wavenet_cond",),
+    "wavenet_block_kernel": ("wavenet_block",),
 }
 
 
@@ -3245,8 +3263,8 @@ def phase26_zoo(torch, all_counters, dev, smi_line) -> dict:
     graph sampler at 864 frames (``make_test_sampler``): the third call (a
     replay) bit-equal to the eager ``sample`` with the same injected noise,
     ms per utterance by CUDA events; (d) the PWG vocoder's ``spec2wav`` at
-    864 frames. One replayed sampler call must launch ``wavenet_cond``
-    (phase 36's kernel) once a block and step for the WaveNet, and nothing
+    864 frames. One replayed sampler call must launch ``wavenet_block``
+    (phase 37's kernel) once a block and step for the WaveNet, and nothing
     for the PWG; every kernel counter must read 0 across the rest (the
     training steps, the eager and graph sampler calls of the PWG, its
     vocoder)."""
@@ -3367,8 +3385,9 @@ def phase26_zoo(torch, all_counters, dev, smi_line) -> dict:
         equal = [bool(torch.equal(o, eager)) for o in outs]
         ms = cuda_ms(lambda: sampler(None, None, mel, audio_len,
                                      noise=noise), 3)
-        # the launches of one replayed call: the WaveNet's blocks each step
-        want = ({"wavenet_cond": len(model.blocks) * const.n_steps}
+        # the launches of one replayed call: the WaveNet's blocks each step,
+        # each block one launch of the block kernel
+        want = ({"wavenet_block": len(model.blocks) * const.n_steps}
                 if name == "wavenet" else {})
         other = {k: v for k, v in launched(all_counters).items()
                  if k not in want}
@@ -4357,8 +4376,12 @@ def phase36_wavenet_cond(torch, all_counters, dev, smi_line) -> dict:
         del h, mel
         torch.cuda.empty_cache()
 
-    # a DiffWave BASE graph sampler call at N = 6: 30 blocks x 6 steps
-    model = WaveNet(WaveNetConfig(multiband=False), seed=0, device=dev).eval()
+    # a graph sampler call at N = 6: 30 blocks x 6 steps of a WaveNet at 128
+    # residual and skip channels (2C = 256), which the block kernel
+    # declines, so each block's conditioning is this kernel
+    model = WaveNet(WaveNetConfig(multiband=False, res_channels=128,
+                                  skip_channels=128), seed=0,
+                    device=dev).eval()
     const = constants_for_hparams({"T": 1000, "beta_0": 1e-6, "beta_T": 0.01,
                                    "noise_schedule": "", "N": 6})
     sampler = make_sampler(model, const)
@@ -4372,16 +4395,241 @@ def phase36_wavenet_cond(torch, all_counters, dev, smi_line) -> dict:
     torch.cuda.synchronize()
     launches = launched(all_counters)
     per_call = launches.get("wavenet_cond", 0)
-    phase(36, f"DiffWave BASE N = {const.n_steps} graph sampler at 64 frames:"
-              f" a replayed call launches {launches}, finite "
+    phase(36, f"WaveNet (30 layers, 128 channels) N = {const.n_steps} graph "
+              f"sampler at 64 frames: a replayed call launches {launches}, "
+              f"finite "
               f"{bool(wav.isfinite().all())}")
     if launches != {"wavenet_cond": 30 * const.n_steps} or \
             not bool(wav.isfinite().all()):
-        fail("the DiffWave sampler call did not launch wavenet_cond once a "
-             "block and step, and nothing else")
+        fail("the 128-channel WaveNet's sampler call did not launch "
+             "wavenet_cond once a block and step, and nothing else")
     entry = dict(report[f"b{WAVENET_COND_SHAPES[0][0]}x"
                         f"{WAVENET_COND_SHAPES[0][1]}"])
     entry.update(shapes=report, launches_per_sampler_call=per_call)
+    return entry
+
+
+WAVENET_BLOCK_DILATIONS = tuple(2 ** k for k in range(10))
+
+
+def wavenet_block_operands(torch, wb, gen, dev, batch, frames, first):
+    """(x, skip_sum, part_t, mel, weights) at DiffWave BASE's widths, the
+    weights drawn as the seed model draws them: block 0's kind (bf16 x, no
+    skip sum) where ``first``, else a later block's (f32 x, a skip sum)."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(n, fan_in):
+        return (torch.rand((n,), generator=gen, device=dev) * 2 - 1) \
+            * fan_in ** -0.5
+
+    c, m, s = wb.C, wb.N_MELS, 16
+    w = wb.BlockWeights(
+        randn(2 * c, c, 3, scale=(2 / (3 * c)) ** 0.5), uniform(2 * c, 3 * c),
+        [(randn(1, 1, 3, 2 * s, scale=(2 / (6 * s)) ** 0.5),
+          randn(1, scale=0.1)) for _ in range(2)],
+        randn(2 * c, m, 1, scale=(2 / m) ** 0.5), uniform(2 * c, m),
+        randn(c, c, 1, scale=(2 / c) ** 0.5), uniform(c, c),
+        randn(c, c, 1, scale=(2 / c) ** 0.5), uniform(c, c))
+    length = frames * s * s
+    mel = (randn(batch, frames, m) - 4.0).to(torch.bfloat16)
+    part_t = randn(batch, c)
+    if first:
+        return (torch.relu(randn(batch, c, length)).to(torch.bfloat16), None,
+                part_t, mel, w)
+    return randn(batch, c, length), randn(batch, c, length, scale=3.0), \
+        part_t, mel, w
+
+
+def wavenet_block_errors(torch, wb, got, want, x, skip):
+    """Relative L2 gaps of x' and of the skip sum, each over what the block
+    added (x' None: the last block's kind, the skip sum's gap alone)."""
+    base_s = 0 if skip is None else skip
+    es = float((got[1] - want[1]).norm() / (want[1] - base_s).norm())
+    if got[0] is None:
+        return None, es
+    base_x = x.float() * wb.SQRT_HALF
+    return float((got[0] - want[0]).norm() / (want[0] - base_x).norm()), es
+
+
+def wavenet_block_f64(torch, wb, wc, x, skip, part_t, mel, w, dilation):
+    """The block in float64 from the same bf16-rounded weights, mel and
+    conditioning: the exact values both routes round."""
+    import torch.nn.functional as F
+    bf16, d64, c = torch.bfloat16, torch.float64, wb.C
+    eye = torch.eye(wb.N_MELS, device=x.device)[:, :, None]
+    cond = wc.wavenet_cond_plain(
+        torch.zeros(x.shape[0], wb.N_MELS, x.shape[-1], dtype=bf16,
+                    device=x.device), mel, w.ups, eye,
+        torch.zeros(wb.N_MELS, device=x.device), stride=16).to(d64)
+    pt = part_t.to(bf16) if x.dtype == bf16 else part_t
+    a = (x.to(d64) + pt.to(d64)[:, :, None]).to(bf16).to(d64)
+    z = F.conv1d(a, w.w_dil.to(bf16).to(d64), w.b_dil.to(d64),
+                 padding=dilation, dilation=dilation)
+    z = z + F.conv1d(cond, w.mel_w.to(bf16).to(d64), w.mel_b.to(d64))
+    out = torch.tanh(z[:, :c]) * torch.sigmoid(z[:, c:])
+    r = F.conv1d(out, w.w_res.to(bf16).to(d64), w.b_res.to(d64))
+    sk = F.conv1d(out, w.w_skip.to(bf16).to(d64), w.b_skip.to(d64))
+    return ((x.to(d64) + r) * math.sqrt(0.5),
+            sk + (0 if skip is None else skip.to(d64)))
+
+
+def phase37_wavenet_block(torch, all_counters, dev, smi_line) -> dict:
+    """DiffWave's residual block kernel alone (phase 37 of the module
+    docstring); returns its entry of the kernels' JSON line, at b 16 x 896
+    frames (the DiffWave cell's longest call)."""
+    from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
+                                                      make_sampler)
+    from fastdiff_tpu_torch.models.wavenet import WaveNet, WaveNetConfig
+    from fastdiff_tpu_torch.ops import _build
+    from fastdiff_tpu_torch.ops import wavenet_block as wb
+    from fastdiff_tpu_torch.ops import wavenet_cond as wc
+
+    _build.library()
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs = {}
+    for s in wb.STRIDES:
+        info = ptxas_entry(log, f"wavenet_block_kernelILi{s}E")
+        regs[s] = info
+        phase(37, f"wavenet_block_kernel<{s}>: {info}; {wb.smem_bytes(s)} "
+                  f"bytes of dynamic shared memory, {wb.THREADS} threads "
+                  f"({wb.GROUPS} groups), grid "
+                  f"{wb.launch_grid(16, 896 * HOP_SIZE, sms)} at b 16 x "
+                  f"{896 * HOP_SIZE} samples")
+        check_no_spill(info, f"wavenet_block_kernel<{s}>")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    report = {}
+    for batch, frames in WAVENET_COND_SHAPES:
+        length = frames * 256
+        worst = [0.0, 0.0]
+        with torch.inference_mode():
+            for d in WAVENET_BLOCK_DILATIONS:
+                first, last = d == 1, d == 512
+                x, skip, pt, mel, w = wavenet_block_operands(
+                    torch, wb, gen, dev, batch, frames, first)
+                want = wb.wavenet_block_plain(
+                    x, None if skip is None else skip.clone(), pt, mel, w,
+                    dilation=d, stride=16)
+                got = wb.wavenet_block(
+                    x, None if skip is None else skip.clone(), pt, mel, w,
+                    dilation=d, stride=16, want_x=not last)
+                torch.cuda.synchronize()
+                finite = bool(got[1].isfinite().all()) and (
+                    got[0] is None or bool(got[0].isfinite().all()))
+                ex, es = wavenet_block_errors(torch, wb, got, want, x, skip)
+                worst = [max(worst[0], ex or 0.0), max(worst[1], es)]
+                if not finite or (ex or 0.0) >= 1e-2 or es >= 1e-2:
+                    fail(f"wavenet_block at b {batch} x {frames}, dilation "
+                         f"{d}: x' gap {ex}, skip gap {es}, finite {finite}")
+                del x, skip, want, got
+            f64 = {}
+            if batch == 1:
+                for d in (1, 16, 512):
+                    x, skip, pt, mel, w = wavenet_block_operands(
+                        torch, wb, gen, dev, batch, frames, d == 1)
+                    exact = wavenet_block_f64(torch, wb, wc, x, skip, pt,
+                                              mel, w, d)
+                    plain = wb.wavenet_block_plain(
+                        x, None if skip is None else skip.clone(), pt, mel,
+                        w, dilation=d, stride=16)
+                    kern = wb.wavenet_block(
+                        x, None if skip is None else skip.clone(), pt, mel,
+                        w, dilation=d, stride=16)
+                    row = []
+                    for i, base in enumerate((
+                            x.double() * math.sqrt(0.5),
+                            0 if skip is None else skip.double())):
+                        size = (exact[i] - base).norm()
+                        row.append([float((kern[i].double() - exact[i]).norm()
+                                          / size),
+                                    float((plain[i].double() - exact[i])
+                                          .norm() / size)])
+                    f64[d] = row
+                    phase(37, f"dilation {d} against float64: x' kernel "
+                              f"{row[0][0]:.3e} / plain {row[0][1]:.3e}, skip "
+                              f"kernel {row[1][0]:.3e} / plain "
+                              f"{row[1][1]:.3e}")
+                    del x, skip, exact, plain, kern
+            # ms per launch, the mean over the ten dilations of a later block
+            x, skip, pt, mel, w = wavenet_block_operands(
+                torch, wb, gen, dev, batch, frames, False)
+            work = skip.clone()
+
+            def kernel():
+                for d in WAVENET_BLOCK_DILATIONS:
+                    wb.wavenet_block(x, work, pt, mel, w, dilation=d,
+                                     stride=16)
+
+            def plain():
+                for d in WAVENET_BLOCK_DILATIONS:
+                    wb.wavenet_block_plain(x, skip, pt, mel, w, dilation=d,
+                                           stride=16)
+
+            def replaced():
+                for d in WAVENET_BLOCK_DILATIONS:
+                    wb.wavenet_block_plain(x, skip, pt, mel, w, dilation=d,
+                                           stride=16,
+                                           add_cond=wc.wavenet_cond)
+
+            n = len(WAVENET_BLOCK_DILATIONS)
+            reps = 2 if batch > 1 else 20
+            kernel_ms = graph_ms(kernel, reps) / n
+            plain_ms = graph_ms(plain, 1, 3) / n
+            library_ms = graph_ms(replaced, 1, 3) / n
+            kernel_ms2 = graph_ms(kernel, reps) / n
+            del x, skip, work
+        torch.cuda.empty_cache()
+        nbytes = 4.0 * 4 * wb.C * batch * length
+        ms = (kernel_ms + kernel_ms2) / 2
+        row = dict(max_rel_l2_x=worst[0], max_rel_l2_skip=worst[1],
+                   f64=f64, ms=ms, ms_runs=[kernel_ms, kernel_ms2],
+                   bound_ms=nbytes / H100_HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes", plain_ms=plain_ms,
+                   library_ms=library_ms)
+        report[f"b{batch}x{frames}"] = row
+        phase(37, f"wavenet_block at b {batch} x {frames} frames ({length} "
+                  f"samples), ten dilations: updates within {worst[0]:.2e} "
+                  f"(x') and {worst[1]:.2e} (skip) relative L2 of plain; "
+                  f"kernel {ms:.4f} ms a launch by graph replay (runs "
+                  f"{kernel_ms:.4f}, {kernel_ms2:.4f}; bound "
+                  f"{row['bound_ms']:.4f} ms, x and skip f32 read + written "
+                  f"at 3.35 TB/s: {row['bound_ms'] / ms:.1%}), plain "
+                  f"{plain_ms:.4f} ms, the replaced route (plain ops + "
+                  f"wavenet_cond) {library_ms:.4f} ms (cudnn TF32 "
+                  f"{torch.backends.cudnn.allow_tf32}) [{smi_line}]")
+
+    # a DiffWave BASE graph sampler call at N = 6: 30 blocks x 6 steps
+    model = WaveNet(WaveNetConfig(multiband=False), seed=0, device=dev).eval()
+    const = constants_for_hparams({"T": 1000, "beta_0": 1e-6, "beta_T": 0.01,
+                                   "noise_schedule": "", "N": 6})
+    sampler = make_sampler(model, const)
+    mel = torch.randn((1, 64, wb.N_MELS), generator=gen, device=dev) - 4.0
+    length = 64 * HOP_SIZE
+    sgen = torch.Generator(device=dev)
+    for _ in range(2):
+        sampler(sgen.manual_seed(1), mel, length)
+    zero_counters(all_counters)
+    wav = sampler(sgen.manual_seed(1), mel, length)
+    torch.cuda.synchronize()
+    launches = launched(all_counters)
+    per_replay = sampler.replay_launches(mel, length)
+    seen = replayed_kernels(torch, lambda: sampler(sgen.manual_seed(1), mel,
+                                                   length),
+                            per_replay, "DiffWave BASE sampler")
+    zero_counters(all_counters)
+    phase(37, f"DiffWave BASE N = {const.n_steps} graph sampler at 64 frames:"
+              f" a replayed call launches {launches}, the profile of a "
+              f"replay holds {seen}, finite {bool(wav.isfinite().all())}")
+    if launches != {"wavenet_block": 30 * const.n_steps} or \
+            seen != {"wavenet_block_kernel": 30 * const.n_steps} or \
+            not bool(wav.isfinite().all()):
+        fail("the DiffWave sampler call did not launch wavenet_block once a "
+             "block and step, and nothing else")
+    entry = dict(report[f"b{WAVENET_COND_SHAPES[0][0]}x"
+                        f"{WAVENET_COND_SHAPES[0][1]}"])
+    entry.update(shapes=report, registers=regs,
+                 launches_per_sampler_call=launches["wavenet_block"])
     return entry
 
 
@@ -4410,7 +4658,8 @@ def main():
         from fastdiff_tpu_torch.models.fastdiff import FastDiff
         from fastdiff_tpu_torch.ops import (_build, downpath_pallas,
                                             lvc_block_ncl, lvc_block_pallas,
-                                            lvc_head, wavenet_cond)
+                                            lvc_head, wavenet_block,
+                                            wavenet_cond)
         from fastdiff_tpu_torch.scripts import bench_mosaic_micro, exp_r4b
         from fastdiff_tpu_torch.serving.server import (VocoderService,
                                                        start_server)
@@ -4733,7 +4982,8 @@ def main():
                      rows_p, dev)
     all_counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
                     lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES,
-                    bench_mosaic_micro.LAUNCHES, wavenet_cond.LAUNCHES)
+                    bench_mosaic_micro.LAUNCHES, wavenet_cond.LAUNCHES,
+                    wavenet_block.LAUNCHES)
     train_report = phase10_train_step(torch, FastDiffTask, smi_line, dev,
                                       all_counters)
     train_launches, fit_s = phase11_fit(torch, FastDiffTask, Trainer,
@@ -4947,6 +5197,13 @@ def main():
     phase(36, f"done in {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
+    # --- phase 37: DiffWave's residual block kernel ------------------------
+    t0 = time.perf_counter()
+    wavenet_block_report = phase37_wavenet_block(torch, all_counters, dev,
+                                                 smi_line)
+    phase(37, f"done in {time.perf_counter() - t0:.1f} s")
+    check_no_jax()
+
     sources = {
         "taug_head": ("fastdiff_tpu_torch/csrc/taug_head.cu",
                       "fastdiff_tpu/ops/lvc_block_pallas.py:292"),
@@ -5022,6 +5279,12 @@ def main():
         replaces=None,
         launches=wavenet_cond_report.pop("launches_per_sampler_call"),
         **wavenet_cond_report))
+    kernels.append(dict(
+        name="wavenet_block", route="cuda",
+        source="fastdiff_tpu_torch/csrc/wavenet_block.cu",
+        replaces=None,
+        launches=wavenet_block_report.pop("launches_per_sampler_call"),
+        **wavenet_block_report))
     fh = fh_sampler["batches"]
     print(json.dumps({"kernels": kernels,
                       "sampler_ms": report["sampler_kernel_ms"],

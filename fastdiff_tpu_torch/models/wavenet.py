@@ -17,12 +17,16 @@ root as JAX's. An upsampler's ``v`` is PyTorch's ConvTranspose2d kernel
 (1, 1, 3, 2s); JAX stores it flipped in both spatial axes
 (``models/bridge.py`` flips it).
 
-Each block's upsamplers, crop, mel_conv and add into h are one call of
-``ops/wavenet_cond.py``. With gradients off (the samplers' inference mode),
-bf16 and the widths its ``supports`` names (DiffWave BASE's among them)
-that is ``wavenet_cond``: the hand-written kernel on a card, which raises
-on a length it does not take, and the plain version on the CPU. Training
-and other widths run ``wavenet_cond_plain``.
+Each residual block is one call of ``ops/wavenet_block.py``. With
+gradients off (the samplers' inference mode), bf16 and the widths its
+``supports`` names (64 residual and skip channels, 80 mel bins: DiffWave
+BASE's) that is ``wavenet_block``: the hand-written kernel of the whole
+block on a card, which raises on a length it does not take, and the plain
+version on the CPU. Otherwise the block runs ``wavenet_block_plain``, whose
+upsamplers, crop, mel_conv and add into h are one call of
+``ops/wavenet_cond.py``: with gradients off, bf16 and the widths its
+``supports`` names ``wavenet_cond`` (its kernel on a card), else (training)
+``wavenet_cond_plain``.
 
 Cast points follow JAX's: the step embedding in float32, each conv in the
 compute dtype with float32 accumulation, and x in float32 from the first
@@ -41,9 +45,9 @@ from torch import nn
 
 from fastdiff_tpu_torch.models.fastdiff import WNConv
 from fastdiff_tpu_torch.ops import nn as fnn
-from fastdiff_tpu_torch.ops import wavenet_cond
+from fastdiff_tpu_torch.ops import wavenet_block, wavenet_cond
 
-SQRT_HALF = float(np.float32(math.sqrt(0.5)))
+SQRT_HALF = wavenet_block.SQRT_HALF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +124,16 @@ class WaveNetBlock(nn.Module):
         self.res_conv = WNConv(c, c, 1)
         self.skip_conv = WNConv(c, cfg.skip_channels, 1)
 
+    def weights(self) -> wavenet_block.BlockWeights:
+        """The block's weights as ``ops/wavenet_block.py`` takes them,
+        weight norm resolved (f32)."""
+        return wavenet_block.BlockWeights(
+            self.dilated_conv.weight, self.dilated_conv.bias,
+            [(up.weight(), up.bias) for up in self.upsamplers],
+            self.mel_conv.weight, self.mel_conv.bias,
+            self.res_conv.weight, self.res_conv.bias,
+            self.skip_conv.weight, self.skip_conv.bias)
+
 
 def _conv(conv, x, dtype, dilation: int = 1):
     return fnn.conv1d_ncl(conv.weight, conv.bias, x, dilation=dilation,
@@ -145,8 +159,11 @@ class WaveNet(nn.Module):
         self.out_conv = nn.Conv1d(cfg.skip_channels, cfg.out_channels, 1)
         self.blocks = nn.ModuleList(
             [WaveNetBlock(cfg) for _ in range(cfg.num_res_layers)])
-        # widths the conditioning kernel is built for (both upsamplers
-        # share one stride); others run the plain version
+        # widths the block and conditioning kernels are built for (both
+        # upsamplers share one stride); others run the plain versions
+        self.block_kernel = wavenet_block.supports(
+            cfg.res_channels, cfg.skip_channels, cfg.cond_channels,
+            cfg.upsample_strides[0], self.dtype)
         self.cond_kernel = wavenet_cond.supports(
             2 * cfg.res_channels, cfg.cond_channels, cfg.upsample_strides[0],
             self.dtype)
@@ -186,35 +203,37 @@ class WaveNet(nn.Module):
     def forward(self, audio: torch.Tensor, mel: torch.Tensor,
                 t: torch.Tensor) -> torch.Tensor:
         cfg, dtype = self.cfg, self.dtype
-        c = cfg.res_channels
-        length = audio.shape[1]
         stride = cfg.upsample_strides[0]
         emb = self._embed(t)
         x = torch.relu(_conv(self.init_conv,
                              audio.to(dtype).transpose(1, 2), dtype))
-        # each block's upsamplers, crop, mel_conv and add into h are one
-        # call: with gradients off ops/wavenet_cond.py's op (the kernel on a
-        # card, which has no backward), else its plain version
+        # each block: with gradients off and at its widths ops/wavenet_block.py's
+        # op (the kernel on a card, which has no backward), else its plain
+        # version, whose conditioning is likewise ops/wavenet_cond.py's op or
+        # its plain version
+        inference = not torch.is_grad_enabled()
+        kernel = self.block_kernel and inference
         add_cond = (wavenet_cond.wavenet_cond
-                    if self.cond_kernel and not torch.is_grad_enabled()
+                    if self.cond_kernel and inference
                     else wavenet_cond.wavenet_cond_plain)
         mel_c = mel.to(dtype).contiguous()                  # (B, T', M)
-        skip_sum = torch.zeros(audio.shape[0], cfg.skip_channels, length,
-                               device=audio.device)
+        if kernel:
+            x = x.contiguous()          # the kernel reads NCL rows of x
+        skip_sum = None
+        last = len(self.blocks) - 1
         for n, blk in enumerate(self.blocks):
             part_t = fnn.dense(blk.fc_t.weight, blk.fc_t.bias, emb,
                                compute_dtype=dtype)
-            h = x + part_t[:, :, None].to(x.dtype)
-            h = _conv(blk.dilated_conv, h, dtype,
-                      dilation=2 ** (n % cfg.dilation_cycle))
-            h = add_cond(h, mel_c, [(up.weight(), up.bias)
-                                    for up in blk.upsamplers],
-                         blk.mel_conv.weight, blk.mel_conv.bias,
-                         stride=stride)
-            out = torch.tanh(h[:, :c]) * torch.sigmoid(h[:, c:])
-            res = _conv(blk.res_conv, out, dtype)
-            x = (x + res).float() * SQRT_HALF
-            skip_sum = skip_sum + _conv(blk.skip_conv, out, dtype)
+            dilation = 2 ** (n % cfg.dilation_cycle)
+            if kernel:
+                # the forward never reads the last block's x
+                x, skip_sum = wavenet_block.wavenet_block(
+                    x, skip_sum, part_t, mel_c, blk.weights(),
+                    dilation=dilation, stride=stride, want_x=n < last)
+            else:
+                x, skip_sum = wavenet_block.wavenet_block_plain(
+                    x, skip_sum, part_t, mel_c, blk.weights(),
+                    dilation=dilation, stride=stride, add_cond=add_cond)
         skip = skip_sum * float(np.float32(math.sqrt(1.0 / cfg.num_res_layers)))
         skip = torch.relu(_conv(self.final_conv, skip.to(dtype), dtype))
         out = fnn.conv1d_ncl(self.out_conv.weight, self.out_conv.bias, skip,

@@ -88,6 +88,11 @@ SIGNATURES = {
     # then wavenet_cond.launch_grid's grid and smem_bytes; stream
     "wavenet_cond_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, x_out (or NULL), skip, part_t, mel, w_dil, b_dil, w1, b1, w2, b2,
+    # w_mel, b_mel, w_res, b_res, w_skip, b_skip, B, C, C_skip, L, T',
+    # n_mels, stride, dilation, x_bf16, skip_read, then
+    # wavenet_block.launch_grid's grid and smem_bytes; stream
+    "wavenet_block_launch": [_P] * 17 + [_I] * 12 + [_P],
 }
 
 

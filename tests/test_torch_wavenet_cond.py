@@ -14,7 +14,8 @@ run the file with ``python3 -m pytest --confcutdir=tests -c /dev/null
 tests/test_torch_wavenet_cond.py -m card``): the kernel against the plain
 version at the DiffWave cell's shape and at a multiband shape (within one
 ulp of the projection and one rounding of h), bit for bit on exact data;
-the launches of one captured N = 6 sampler call and of a training step;
+the launches of one captured N = 6 sampler call (DiffWave BASE's blocks now
+run the block kernel, ``ops/wavenet_block.py``) and of a training step;
 ``WaveNet`` refusing a length the kernel does not take.
 """
 
@@ -384,10 +385,13 @@ DIFFWAVE_HP = {"hop_size": 256, "audio_num_mel_bins": 80, "T": 1000,
 
 @pytest.mark.card
 def test_launches_per_sampler_call_and_train_step_on_card(card):
-    """DiffWave BASE (30 blocks) at N = 6: a replayed sampler call adds 30 x
-    6 = 180 launches, a training step none."""
+    """DiffWave BASE (30 blocks) at N = 6: a replayed sampler call runs each
+    block as one launch of the block kernel (``ops/wavenet_block.py``), 30
+    x 6 = 180, and so none of this kernel; a training step launches
+    neither."""
     from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
                                                       make_sampler)
+    from fastdiff_tpu_torch.ops import wavenet_block as wb
     from fastdiff_tpu_torch.training.task import FastDiffTask
 
     model = WaveNet(WaveNetConfig(multiband=False), seed=0,
@@ -400,11 +404,13 @@ def test_launches_per_sampler_call_and_train_step_on_card(card):
     length = 16 * 256
     for _ in range(2):                          # warm-up, capture
         sampler(gen, mel, length)
-    before = wc.LAUNCHES["wavenet_cond"]
+    before = wc.LAUNCHES["wavenet_cond"], wb.LAUNCHES["wavenet_block"]
     wav = sampler(gen, mel, length)
     torch.cuda.synchronize()
-    assert wc.LAUNCHES["wavenet_cond"] - before == 180
-    assert sampler.replay_launches(mel, length)["wavenet_cond"] == 180
+    assert wc.LAUNCHES["wavenet_cond"] - before[0] == 0
+    assert wb.LAUNCHES["wavenet_block"] - before[1] == 180
+    assert sampler.replay_launches(mel, length).get("wavenet_cond", 0) == 0
+    assert sampler.replay_launches(mel, length)["wavenet_block"] == 180
     assert bool(wav.isfinite().all())
 
     task = FastDiffTask(dict(DIFFWAVE_HP), device=card)
@@ -413,10 +419,11 @@ def test_launches_per_sampler_call_and_train_step_on_card(card):
                                         device=card)).cpu().numpy(),
              "mels": (torch.randn((2, 10, M), generator=gen, device=card)
                       - 4.0).cpu().numpy()}
-    before = wc.LAUNCHES["wavenet_cond"]
+    before = wc.LAUNCHES["wavenet_cond"], wb.LAUNCHES["wavenet_block"]
     metrics = task.train_step(state, batch)
     torch.cuda.synchronize()
-    assert wc.LAUNCHES["wavenet_cond"] == before
+    assert (wc.LAUNCHES["wavenet_cond"], wb.LAUNCHES["wavenet_block"]) == \
+        before
     assert math.isfinite(float(metrics["loss"]))
 
 
