@@ -28,12 +28,11 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    within one bf16 ulp of the largest output; timed against ``torch.addmm``
    raced in turns (CUDA-graph replay: device time alone), with the
    achieved TB/s and share of the bound at each M;
-4. Kernel B (LVC block) on the tensor cores and on the CUDA cores, each
-   against its plain version, at hops 8, 64 and 256 with 864 frames (hop
-   256 with and without the final-conv epilogue), and at 100 frames of hop
-   8 (a block the JAX kernel cannot tile); the three raced in turns (the
-   kernels by CUDA-graph replay), with the tensor cores' share of the
-   bound;
+4. Kernel B (LVC block) on the tensor cores against its plain version,
+   at hops 8, 64 and 256 with 864 frames (hop 256 with and without the
+   final-conv epilogue), and at 100 frames of hop 8 (a block the JAX
+   kernel cannot tile); the two timed in turns (the kernel by CUDA-graph
+   replay), with the tensor cores' share of the bound;
 5. a full-width bf16 denoiser forward at 864 frames, kernel path against
    plain path, bounded by a relative L2 error;
 6. the N=4 sampler on 10 s of audio (864 frames, 221,184 samples, b = 1),
@@ -43,16 +42,14 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    256 and 864 frames, each sent three times (the frame count's first
    request runs eagerly, the second captures its CUDA graph, the third
    replays it), each answered with a WAV of frames * 256 finite samples,
-   each raising Kernel A's launch count by exactly 3 blocks x 4 steps, the
-   tensor-core K1's by 8, K2's by 4 and the CUDA-core Kernel B's by 0 (a
-   replay adds the launches its graph holds, which phase 20 holds against
-   a profile of a replay);
+   each raising Kernel A's launch count by exactly 3 blocks x 4 steps,
+   K1's by 8 and K2's by 4 (a replay adds the launches its graph holds,
+   which phase 20 holds against a profile of a replay);
 8. Kernel B-SR (K4, the training block, which also writes s, y and z) on
-   the tensor cores and on the CUDA cores against its plain version at the
-   training recipe's shapes (b = 20, 100 frames, hops 8, 64 and 256), with
-   phase 4's bounds on out, s, y and z; the three raced in turns (the
-   kernels by CUDA-graph replay), with the tensor cores' share of each
-   hop's bound;
+   the tensor cores against its plain version at the training recipe's
+   shapes (b = 20, 100 frames, hops 8, 64 and 256), with phase 4's bounds
+   on out, s, y and z; the two timed in turns (the kernel by CUDA-graph
+   replay), with the tensor cores' share of each hop's bound;
 9. gradients on the card at the hop-256 recipe shape, bf16: the
    saved-residual block (``LVCBlockSR``), the recompute block
    (``LVCBlockRecompute``) and the trainable head (``TaugHead``) against
@@ -68,15 +65,15 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     train and 4 valid items of 120-200 frames, written to a temporary
     directory): 6 updates at the recipe's batch with validation and a
     checkpoint every 3, then a second ``fit`` to 8 that resumes from step
-    6; every train step launches Kernel A and the tensor-core Kernel B-SR
-    exactly 3 times, the CUDA-core Kernel B-SR never;
+    6; every train step launches Kernel A and Kernel B-SR exactly 3
+    times;
 12. K7 (the NWC route's row-major head GEMM, the same kernel) against its
     plain version at 256 and 864 x 192 @ 192 x 24,832, as phase 3;
-13. K6 (the NWC LVC block) on the tensor cores and on the CUDA cores,
-    each against its plain version, at hops 64 and 256 with 864 frames and
-    at b = 2 x 100 frames of hop 64 (a multi-tile edge case), with phase
-    4's bounds; the three raced in turns (the kernels by CUDA-graph
-    replay), with the tensor cores' share of the bound;
+13. K6 (the NWC LVC block) on the tensor cores against its plain version,
+    at hops 64 and 256 with 864 frames and at b = 2 x 100 frames of hop 64
+    (a multi-tile edge case), with phase 4's bounds; the two timed in
+    turns (the kernel by CUDA-graph replay), with the tensor cores' share
+    of the bound;
 14. K8 (the fused down path, two launches) against its plain version at
     221,184 samples (b = 1) and at two 2,048-sample halo units (b = 2), each
     output within 4 bf16 ulps of its largest value, timed by CUDA-graph
@@ -90,12 +87,11 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     K8 by 4 (256 and 864 frames) or 0 (100 frames: not a multiple of
     2,048 samples, so the plain down path runs, as in JAX), K1 and K3 by 0.
 
-16. K5 (the fused-head LVC block) on the tensor cores and on the CUDA
-    cores, each against its plain version, at hops 8, 64 and 256 with 864
-    frames (hop 256 with the final-conv epilogue too) and at b = 2 x 100
-    frames of hop 64, with phase 4's bounds; the tensor-core kernel raced
-    by CUDA-graph replay against the CUDA-core kernel and against K3 + K1
-    on the same inputs, with its share of the bound;
+16. K5 (the fused-head LVC block) on the tensor cores against its plain
+    version, at hops 8, 64 and 256 with 864 frames (hop 256 with the
+    final-conv epilogue too) and at b = 2 x 100 frames of hop 64, with
+    phase 4's bounds; raced by CUDA-graph replay against K3 + K1 on the
+    same inputs, with its share of the bound;
 17. the fused-head route (``use_pallas_block: ncl_fh``): a full-width bf16
     denoiser forward, kernels against plain (relative L2 <= 5e-2) and
     against the NCL route; the N=4 sampler at 864 frames, b = 1 and b = 4,
@@ -147,8 +143,8 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     of 1.2, 3.0, 3.3 and 10 s (104, 259, 285 and 862 frames; the 3.0 and
     3.3 s files share the 384-frame bucket) and their ``.npy`` mels through
     ``fastdiff_tpu_torch.run.main([... '--infer'])``: every ``_pred.wav``
-    of frames * 256 finite samples, K3 +12, K1 +8, K2 +4 and the CUDA-core
-    Kernel B +0 per utterance, one capture for the shared bucket, each
+    of frames * 256 finite samples, K3 +12, K1 +8 and K2 +4 per
+    utterance, one capture for the shared bucket, each
     utterance's RTF and the mean; ``use_pallas_block=false`` against
     ``auto`` on the same seed (written wavs, rel L2 <= 5e-2, no kernel
     launched); ``--infer`` on the work dir of a 2-step ``fit`` with an EMA
@@ -158,15 +154,14 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     from one phase within 1e-4 rel L2, 60 iterations' spectral
     convergence within 5 %); ``scripts/vocode.py`` on the mel dir;
 22. the TTS serving path at the full width of
-    ``fastdiff_tpu/configs/fs2_ljspeech.yaml`` (FastSpeech 2 seed-0
-    weights, the FastDiff vocoder's seed weights, N = 4, ``auto``), a
-    phone set written from the ``en`` processor's output on four
-    LJSpeech-style sentences (23-152 tokens): ``FastSpeech2Task.
-    infer_to_wav`` of each (predicted durations): frames, wav length, K3
-    +12, K1 +8, K2 +4 and the CUDA-core Kernel B +0 per call, warm-ups and
-    captures; teacher durations of 6 frames a phone: the card's mel
-    against the CPU's (TF32 off, rel L2 <= 1e-4), the predicted mel2ph
-    card against CPU (equal); FastSpeech 2 ms (t_mel = max_frames),
+    ``fastdiff_tpu/configs/fs2_ljspeech.yaml`` (FastSpeech 2 seed-0 weights,
+    the FastDiff vocoder's seed weights, N = 4, ``auto``), a phone set
+    written from the ``en`` processor's output on four LJSpeech-style
+    sentences (23-152 tokens): ``FastSpeech2Task. infer_to_wav`` of each
+    (predicted durations): frames, wav length, K3 +12, K1 +8 and K2 +4 per
+    call, warm-ups and captures; teacher durations of 6 frames a phone: the
+    card's mel against the CPU's (TF32 off, rel L2 <= 1e-4), the predicted
+    mel2ph card against CPU (equal); FastSpeech 2 ms (t_mel = max_frames),
     vocoder ms and the RTF of ``infer_to_wav`` on a replayed graph by CUDA
     events; ``python -m fastdiff_tpu_torch.scripts.demo_tts`` as a
     subprocess on the teacher mels against ``TTSPipeline`` with
@@ -178,8 +173,8 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     ``FastDiffTask.inference_model``) on phase 11's synthetic dataset:
     (a) 20 Adam(1e-4) steps of the phi noise predictor at the recipe
     batch (20 x 25,600 samples): ms per step by CUDA events, loss and
-    every phi gradient finite, K3 +3, K1 +2, K2 +1 and the CUDA-core
-    Kernel B +0 per step; on one batch with injected t and z the kernel
+    every phi gradient finite, K3 +3, K1 +2 and K2 +1 per step; on one
+    batch with injected t and z the kernel
     route against the plain route (loss rel 1e-2, phi gradients rel L2
     5e-2) and the plain route on the card (TF32 off) against the CPU (loss
     rel 1e-4); (b) the reverse search for N = 8, 6, 4 and 3 at 864 frames,
@@ -226,7 +221,7 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     output conv must be non-zero); the N = 4 graph sampler at 864 frames, its
     warm-up, capture and replay bit-equal to the eager loop, ms per
     utterance, and the launches of one replayed call: 30 x 4 of
-    ``wavenet_cond`` (phase 36's kernel) for the WaveNet and none for the
+    ``wavenet_block`` (phase 37's kernel) for the WaveNet and none for the
     PWG; the PWG vocoder's ``spec2wav`` at 864 frames; every other kernel
     counter 0 (training and the PWG launch no hand-written kernel);
 27. the MoL WaveNet at ``micro_lj_armol.yaml``'s full width: a 20-update
@@ -261,7 +256,7 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     hparams, ``ncl_sr``, the native loader): ``SANITY_STEPS`` updates of 16
     x 12,800; fails unless the mean train loss of the last 50 is at most
     ``SANITY_RATIO`` x that of the first 10 and every step launched K3 and
-    the tensor-core K4 exactly 3 times (the CUDA-core K4 never);
+    K4 exactly 3 times;
 33. the reference's full reverse process, N = 200 and N = 1000, on the NCL
     route at 864 frames, b 1, through ``make_param_sampler``
     (``scripts/bench_n1000.py``'s ``build`` and ``measure``): the first
@@ -279,50 +274,31 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     MR-STFT), then ``scripts/drive_ncl_sr.py`` at the recipe (exit 0);
 35. ``scripts/graft_entry.py``: ``entry()``'s full-width forward on the
     card, and ``dryrun_multichip`` over every card (NCCL ranks);
-36. DiffWave's mel conditioning kernel (``ops/wavenet_cond.py``,
-    ``csrc/wavenet_cond.cu``): both instantiations' registers and spills
-    (fails on a spill), its grid and shared memory; against its plain
-    version at b 16 x 896 frames and b 1 x 864 frames (s 16, 2C 128: two
-    bf16 ulps of |h_in| + |h_out| a value, one of the projection and one of
-    the rounding of h, relative L2 under 1e-3) and bit
-    for bit on data whose f32 sums are exact; four ms per call at each
-    shape: the kernel by CUDA-graph replay, its bound (h read and written
-    at 3.35 TB/s), the plain version and the library calls it replaces
-    (two ``conv_transpose2d``, the 1x1 ``conv1d`` and the add), the last
-    two by CUDA-graph replay too; each value more than one ulp off printed
-    beside its h_in and its projection (float64, cuDNN's float32, both
-    sides' bf16); an N = 6 graph sampler call of a 30-layer WaveNet at 128
-    channels (widths the block kernel declines) launching it 30 x 6 = 180
-    times and no other kernel;
 37. DiffWave's residual block kernel (``ops/wavenet_block.py``,
     ``csrc/wavenet_block.cu``): both instantiations' registers and spills
     (fails on a spill), shared memory and grid; against its plain version
     at b 16 x 896 and b 1 x 864 frames at each dilation 1-512 (block 0's
     kind at 1, the last block's at 512: each update within 1e-2 relative
     L2), and against float64 at b 1 x 864 beside the plain version's error;
-    four ms per launch at each shape, each the mean over the ten dilations:
-    the kernel by CUDA-graph replay, its bound (x and the skip sum, f32,
-    read and written at 3.35 TB/s), the plain version and the route it
-    replaced (the plain ops with ``wavenet_cond``), the last two by
-    CUDA-graph replay too; a DiffWave BASE N = 6 graph sampler call
-    launching it 30 x 6 = 180 times and no other kernel, and the profile
-    of a replay holding 180 ``wavenet_block_kernel`` and no
-    ``wavenet_cond_kernel``.
+    three ms per launch at each shape, each the mean over the ten
+    dilations: the kernel by CUDA-graph replay, its bound (x and the skip
+    sum, f32, read and written at 3.35 TB/s) and the plain version (the
+    library's ops) by CUDA-graph replay too; a DiffWave BASE N = 6 graph
+    sampler call launching it 30 x 6 = 180 times and no other kernel, and
+    the profile of a replay holding 180 ``wavenet_block_kernel`` and no
+    other hand-written kernel.
 
 Phase 10 runs through ``scripts/bench_trainstep.py``. Each phase from 21
 on prints its wall. Any failed check exits non-zero. The line before the last is a JSON object
-with each of the fourteen kernels' launches (from the run of its path: phase
-7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9,
-36 for ``wavenet_cond``: one sampler call of the 128-channel WaveNet, 37 for
-``wavenet_block``: one DiffWave BASE sampler call),
+with each of the thirteen kernels' launches (from the run of its path: phase
+7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9, 37
+for ``wavenet_block``: one DiffWave BASE sampler call),
 its largest error against its plain version, its time beside the plain
 version's, the least time the card could take for the same work
 (``bound_ms``: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, whichever is
 larger, ``bound_by`` says which) and the time of one PyTorch call that
 computes the same function where there is one (``library_ms``, else null);
-the six tensor-core block kernels (K1, K2, K4, K5, K5 final, K6) also
-carry ``cuda_core_ms``, the CUDA-core kernel of the same function raced
-beside them; ``entry`` holds phase 21's RTF per utterance and GLMel's
+``entry`` holds phase 21's RTF per utterance and GLMel's
 wall, ``tts`` phase 22's rows per utterance (frames, FastSpeech 2 ms,
 vocoder ms, RTF) and its wall, ``bddm`` phase 23's (phi step ms and
 launches, the route checks, each search and each schedule's sample ms and
@@ -634,13 +610,76 @@ def head_gemm_cases(n_phase, label, torch, fn, plain, randn, k, n, rows):
     return out
 
 
+def phase4_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p, dev,
+                 smi_line):
+    """Kernel B on the tensor cores against its plain version at the model's
+    hops with 864 frames (hop 256 with and without the epilogue) and at 100
+    frames of hop 8, timed in turns (the kernel by CUDA-graph replay);
+    returns the entries of K1 and K2 per denoiser forward."""
+    wstack_t = randn(layers, c, rows, scale=0.1)
+    final_wb = randn(8, c, scale=0.1)
+    per_forward = {"lvc_block_ncl": [0.0, 0.0, 0.0, []],
+                   "lvc_block_ncl_final": [0.0, 0.0, 0.0, []]}
+    cases = [(8, FRAMES_10S, False, True), (64, FRAMES_10S, False, True),
+             (256, FRAMES_10S, False, False),
+             (256, FRAMES_10S, True, True), (8, 100, False, False)]
+    for hop, frames, final, on_path in cases:
+        length = frames * hop
+        x = randn(1, c, length)
+        skip = randn(1, c, length)
+        kern = torch.zeros((1, frames, layers, 2 * c, rows_p),
+                           dtype=torch.bfloat16, device=dev)
+        kern[..., :rows] = randn(1, frames, layers, 2 * c, rows, scale=0.05)
+        fwb = final_wb if final else None
+
+        def run_k():
+            return lvc_block_ncl.lvc_block_ncl(x, skip, kern, wstack_t, hop,
+                                               fwb)
+
+        def run_p():
+            return lvc_block_ncl.lvc_block_ncl_plain(x, skip, kern, wstack_t,
+                                                     hop, fwb)
+
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        what = "with epilogue" if final else "block only"
+        both = (lambda a, b: [(a[0], b[0]), (a[1], b[1])] if final
+                else [(a, b)])
+        # bf16 carries: a flipped rounding in s or y moves later layers by a
+        # few bf16 ulps (2^-5 relative to the largest value is four ulps of
+        # it); a wrong kernel is off by O(1)
+        errs = check_pairs(both(got, ref), f"Kernel B tensor cores (hop "
+                                           f"{hop}, {frames} frames, {what})")
+        # plain, kernel, plain: the kernel by CUDA-graph replay (device
+        # time alone)
+        ms_p1 = cuda_ms(run_p, 3)
+        ms_k = graph_ms(run_k, 10)
+        ms_p = (ms_p1 + cuda_ms(run_p, 3)) / 2
+        work = block_work(1, c, length, 2.0 * kern.numel(), final=final)
+        b_ms, by = bound([work])
+        phase(4, f"Kernel B hop {hop}, {frames} frames ({what}): tensor "
+                 "cores " + ", ".join(f"max_abs_err {e:.3e} rel_l2 {r:.3e}"
+                                      for e, r in errs)
+                 + f"; tensor cores {ms_k:.4f} ms, plain {ms_p:.4f} ms; bound "
+                 f"{b_ms:.4f} ms ({by}), tensor cores at {b_ms / ms_k:.1%} of "
+                 f"it [{smi_line}]")
+        acc = per_forward["lvc_block_ncl_final" if final else "lvc_block_ncl"]
+        acc[0] = max(acc[0], max(e for e, _ in errs))
+        if on_path:
+            acc[1] += ms_k
+            acc[2] += ms_p
+            acc[3].append(work)
+        del x, skip, kern, got, ref
+    return {name: entry(*acc) for name, acc in per_forward.items()}
+
+
 def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
                     dev, smi_line):
-    """Kernel B-SR on the tensor cores and on the CUDA cores against its
-    plain version at the recipe's shapes (phase 4's bounds on out, s, y, z),
-    the three raced in turns (the kernels by CUDA-graph replay)."""
+    """Kernel B-SR on the tensor cores against its plain version at the
+    recipe's shapes (phase 4's bounds on out, s, y, z), timed in turns (the
+    kernel by CUDA-graph replay)."""
     wstack_t = randn(layers, c, rows, scale=0.1)
-    worst, ms_k, ms_p, ms_c, works = 0.0, 0.0, 0.0, 0.0, []
+    worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
     for hop in (8, 64, 256):
         length = TRAIN_FRAMES * hop
         x = randn(TRAIN_BATCH, c, length)
@@ -653,23 +692,17 @@ def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
         def run_k():
             return lvc_block_ncl.lvc_block_ncl_sr(x, skip, kern, wstack_t, hop)
 
-        def run_cc():
-            return lvc_block_ncl.lvc_block_ncl_sr_cc(x, skip, kern, wstack_t,
-                                                     hop)
-
         def run_p():
             return lvc_block_ncl.lvc_block_ncl_sr_plain(x, skip, kern,
                                                         wstack_t, hop)
 
-        got, got_cc, ref = run_k(), run_cc(), run_p()
+        got, ref = run_k(), run_p()
         torch.cuda.synchronize()
         errs = check_pairs(list(zip(got, ref)),
                            f"Kernel B-SR tensor cores (hop {hop})")
-        errs_cc = check_pairs(list(zip(got_cc, ref)),
-                              f"Kernel B-SR CUDA cores (hop {hop})")
-        del got, got_cc, ref
+        del got, ref
         ms_p1 = cuda_ms(run_p, 2)
-        k, cc = race_graph(run_cc, run_k, 5)
+        k = graph_ms(run_k, 5)
         p = (ms_p1 + cuda_ms(run_p, 2)) / 2
         work = block_work(TRAIN_BATCH, c, length, 2.0 * kern.numel(),
                           save=True)
@@ -678,19 +711,15 @@ def phase8_sr_block(torch, lvc_block_ncl, randn, c, layers, rows, rows_p,
                  "frames: tensor cores " + ", ".join(
                      f"{n} max_abs_err {e:.3e} rel_l2 {r:.3e}" for n, (e, r)
                      in zip(("out", "s", "y", "z"), errs))
-                 + "; CUDA cores " + ", ".join(
-                     f"{n} {e:.3e} / {r:.3e}" for n, (e, r)
-                     in zip(("out", "s", "y", "z"), errs_cc))
-                 + f"; raced: tensor cores {k:.4f} ms, CUDA cores {cc:.4f} "
-                 f"ms ({cc / k:.2f}x), plain {p:.4f} ms; bound {b_ms:.4f} ms "
-                 f"({by}), tensor cores at {b_ms / k:.1%} of it [{smi_line}]")
+                 + f"; tensor cores {k:.4f} ms, plain {p:.4f} ms; bound "
+                 f"{b_ms:.4f} ms ({by}), tensor cores at {b_ms / k:.1%} of it "
+                 f"[{smi_line}]")
         worst = max([worst] + [e for e, _ in errs])
         ms_k += k
         ms_p += p
-        ms_c += cc
         works.append(work)
         del x, skip, kern
-    return dict(entry(worst, ms_k, ms_p, works), cuda_core_ms=ms_c)
+    return entry(worst, ms_k, ms_p, works)
 
 
 def phase9_gradients(torch, lvc_block_ncl, lvc_head, randn, c, layers, rows,
@@ -825,15 +854,13 @@ def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
             train_step = task.train_step
 
             def counted(state, batch, generator=None, **kw):
-                keys = ("lvc_block_ncl_sr", "lvc_block_ncl_sr_cc")
                 before = (counters[0]["taug_head"],
-                          *(counters[1][k] for k in keys))
+                          counters[1]["lvc_block_ncl_sr"])
                 out = train_step(state, batch, generator, **kw)
                 steps.append(dict(
                     {k: float(v) for k, v in out.items()},
                     a=counters[0]["taug_head"] - before[0],
-                    sr=counters[1][keys[0]] - before[1],
-                    sr_cc=counters[1][keys[1]] - before[2]))
+                    sr=counters[1]["lvc_block_ncl_sr"] - before[1]))
                 return out
             task.train_step = counted
             return task
@@ -859,8 +886,7 @@ def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
                   + ", ".join(f"{s['grad_norm']:.3f}" for s in steps)
                   + f"; val {result['val']}; {changed} parameter tensors "
                   f"changed; files {files}; launches per step A "
-                  f"{[s['a'] for s in steps]} B-SR {[s['sr'] for s in steps]}"
-                  f" (CUDA-core B-SR {[s['sr_cc'] for s in steps]})")
+                  f"{[s['a'] for s in steps]} B-SR {[s['sr'] for s in steps]}")
         if result["step"] != 6 or len(steps) != 6:
             fail(f"fit ran {len(steps)} steps to step {result['step']}")
         if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
@@ -868,10 +894,9 @@ def phase11_fit(torch, FastDiffTask, Trainer, counters, dev):
             fail("fit: a loss or gradient norm is not finite")
         if changed == 0:
             fail("fit: no parameter changed")
-        if any(s["a"] != 3 or s["sr"] != 3 or s["sr_cc"] for s in steps):
-            fail("fit: a train step did not launch Kernel A and the "
-                 "tensor-core Kernel B-SR exactly 3 times (and the CUDA-core "
-                 "one never)")
+        if any(s["a"] != 3 or s["sr"] != 3 for s in steps):
+            fail("fit: a train step did not launch Kernel A and Kernel B-SR "
+                 "exactly 3 times")
         if not {"model_ckpt_steps_6.ckpt", "model_ckpt_best.pt"} <= set(
                 files) or "model_ckpt_steps_3.ckpt" in files or any(
                 f.endswith(".part") for f in files):
@@ -906,13 +931,12 @@ def phase12_aug_head(torch, nwc_ops, randn, c, layers, hid):
 
 
 def phase13_nwc_block(torch, nwc_ops, randn, c, layers, smi_line):
-    """K6 on the tensor cores and on the CUDA cores, each against its plain
-    version (phase 4's bounds), at the route's hops with 864 frames and at
-    b = 2 x 100 frames of hop 64; the three raced in turns (the kernels by
-    CUDA-graph replay)."""
+    """K6 on the tensor cores against its plain version (phase 4's bounds),
+    at the route's hops with 864 frames and at b = 2 x 100 frames of hop
+    64; timed in turns (the kernel by CUDA-graph replay)."""
     rows = 3 * c + 1
     wstack = randn(layers, rows, c, scale=0.1)
-    worst, ms_k, ms_p, ms_c, works = 0.0, 0.0, 0.0, 0.0, []
+    worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
     for hop, frames, b, on_path in ((64, FRAMES_10S, 1, True),
                                     (256, FRAMES_10S, 1, True),
                                     (64, 100, 2, False)):
@@ -924,35 +948,28 @@ def phase13_nwc_block(torch, nwc_ops, randn, c, layers, smi_line):
         def run_k():
             return nwc_ops.lvc_block_nwc(x, skip, kern_aug, wstack, hop)
 
-        def run_cc():
-            return nwc_ops.lvc_block_nwc_cc(x, skip, kern_aug, wstack, hop)
-
         def run_p():
             return nwc_ops.lvc_block_nwc_plain(x, skip, kern_aug, wstack, hop)
 
-        got, got_cc, ref = run_k(), run_cc(), run_p()
+        got, ref = run_k(), run_p()
         torch.cuda.synchronize()
         what = f"hop {hop}, {frames} frames, b {b}"
         (e, r), = check_pairs([(got, ref)], f"K6 tensor cores ({what})")
-        (e_c, r_c), = check_pairs([(got_cc, ref)], f"K6 CUDA cores ({what})")
         ms_p1 = cuda_ms(run_p, 3)
-        k, cc = race_graph(run_cc, run_k, 10)
+        k = graph_ms(run_k, 10)
         p = (ms_p1 + cuda_ms(run_p, 3)) / 2
         work = block_work(b, c, length, 2.0 * kern_aug.numel())
         b_ms, by = bound([work])
         phase(13, f"K6 lvc_block_nwc {what}: tensor cores max_abs_err "
-                  f"{e:.3e} rel_l2 {r:.3e}; CUDA cores max_abs_err {e_c:.3e} "
-                  f"rel_l2 {r_c:.3e}; raced: tensor cores {k:.4f} ms, CUDA "
-                  f"cores {cc:.4f} ms ({cc / k:.2f}x), plain {p:.4f} ms; "
-                  f"bound {b_ms:.4f} ms ({by}), tensor cores at "
+                  f"{e:.3e} rel_l2 {r:.3e}; tensor cores {k:.4f} ms, plain "
+                  f"{p:.4f} ms; bound {b_ms:.4f} ms ({by}), tensor cores at "
                   f"{b_ms / k:.1%} of it [{smi_line}]")
         worst = max(worst, e)
         if on_path:
             ms_k += k
             ms_p += p
-            ms_c += cc
             works.append(work)
-    return dict(entry(worst, ms_k, ms_p, works), cuda_core_ms=ms_c)
+    return entry(worst, ms_k, ms_p, works)
 
 
 def phase14_downpath(torch, down_ops, model, dev, smi_line):
@@ -1074,17 +1091,17 @@ def phase15_nwc_route(torch, model, sample, make_sampler, const, gen, dev,
 
 def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
                      rows_p, smi_line):
-    """K5 on the tensor cores and on the CUDA cores, each against its plain
-    version (phase 4's bounds), at the route's hops with 864 frames and at
-    b = 2 x 100 frames of hop 64; raced in turns by CUDA-graph replay
-    against the CUDA-core kernel and against K3 + K1 on the same inputs."""
+    """K5 on the tensor cores against its plain version (phase 4's bounds),
+    at the route's hops with 864 frames and at b = 2 x 100 frames of hop
+    64; raced in turns by CUDA-graph replay against K3 + K1 on the same
+    inputs."""
     n = layers * 2 * c * rows_p
     wstack_t = randn(layers, c, rows, scale=0.1)
     final_wb = randn(8, c, scale=0.1)
     # head weights scaled so the kernels come out near phase 4's (~0.05)
     w_head = randn(HEAD_K, n, scale=0.004)
     b_head = randn(n, scale=0.01, dtype=torch.float32)
-    per_forward = {name: dict(err=0.0, ms=0.0, plain=0.0, cc=0.0, works=[])
+    per_forward = {name: dict(err=0.0, ms=0.0, plain=0.0, works=[])
                    for name in ("lvc_block_ncl_fh", "lvc_block_ncl_fh_final")}
     cases = [(8, FRAMES_10S, 1, False, True), (64, FRAMES_10S, 1, False, True),
              (256, FRAMES_10S, 1, False, False),
@@ -1100,10 +1117,6 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
             return block_ops.lvc_block_ncl_fh(x, skip, tap_c, w_head, b_head,
                                               wstack_t, hop, fwb)
 
-        def run_cc():
-            return block_ops.lvc_block_ncl_fh_cc(x, skip, tap_c, w_head,
-                                                 b_head, wstack_t, hop, fwb)
-
         def run_p():
             return block_ops.lvc_block_ncl_fh_plain(x, skip, tap_c, w_head,
                                                     b_head, wstack_t, hop,
@@ -1115,17 +1128,15 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
                     b, frames, layers, 2 * c, rows_p)
             return block_ops.lvc_block_ncl(x, skip, kern, wstack_t, hop, fwb)
 
-        got, got_cc, ref = run_k(), run_cc(), run_p()
+        got, ref = run_k(), run_p()
         torch.cuda.synchronize()
         both = (lambda a, r: list(zip(a, r))) if final else (
             lambda a, r: [(a, r)])
         what = f"hop {hop}, {frames} frames, b {b}" + (
             ", with epilogue" if final else "")
         errs = check_pairs(both(got, ref), f"K5 tensor cores ({what})")
-        errs_cc = check_pairs(both(got_cc, ref), f"K5 CUDA cores ({what})")
         ms_p1 = cuda_ms(run_p, 3)
-        ms_k, ms_cc = race_graph(run_cc, run_k, 5)
-        ms_k2, ms_two = race_graph(run_two, run_k, 10)
+        ms_k, ms_two = race_graph(run_two, run_k, 10)
         ms_p = (ms_p1 + cuda_ms(run_p, 3)) / 2
         head_flop, head_bytes = gemm_work(b * frames, HEAD_K, n)
         flop, nbytes = block_work(b, c, length, final=final)
@@ -1135,12 +1146,8 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
         plan = block_ops.fh_tile_plan(b, frames, hop)
         phase(16, f"K5 {what}: tensor cores " + ", ".join(
             f"max_abs_err {e:.3e} rel_l2 {r:.3e}" for e, r in errs)
-            + "; CUDA cores " + ", ".join(
-                f"max_abs_err {e:.3e} rel_l2 {r:.3e}" for e, r in errs_cc)
-            + f"; raced (CUDA graphs): tensor cores {ms_k:.4f} ms, CUDA "
-            f"cores {ms_cc:.4f} ms ({ms_cc / ms_k:.2f}x); tensor cores "
-            f"{ms_k2:.4f} ms, K3 + K1 {ms_two:.4f} ms; plain "
-            f"{ms_p:.4f} ms; "
+            + f"; raced (CUDA graphs): tensor cores {ms_k:.4f} ms, K3 + K1 "
+            f"{ms_two:.4f} ms; plain {ms_p:.4f} ms; "
             f"bound {b_ms:.4f} ms ({by}), tensor cores at {b_ms / ms_k:.1%} "
             f"of it; tile {plan.tile}, {plan.blocks} CTAs in {plan.waves} "
             f"wave(s), w_head {plan.l2_bytes / 1e9:.2f} GB from L2 into the "
@@ -1151,10 +1158,8 @@ def phase16_fh_block(torch, block_ops, lvc_head, randn, c, layers, rows,
         if on_path:
             acc["ms"] += ms_k
             acc["plain"] += ms_p
-            acc["cc"] += ms_cc
             acc["works"].append(work)
-    return {name: dict(entry(a["err"], a["ms"], a["plain"], a["works"]),
-                       cuda_core_ms=a["cc"])
+    return {name: entry(a["err"], a["ms"], a["plain"], a["works"])
             for name, a in per_forward.items()}
 
 
@@ -1287,14 +1292,10 @@ KERNEL_COUNTERS = {
     "head_gemm_kernel": ("taug_head", "aug_head", "taug_head_variant"),
     "lvc_block_tc_kernel": ("lvc_block_ncl", "lvc_block_ncl_final",
                             "lvc_block_ncl_sr"),
-    "lvc_block_kernel": ("lvc_block_ncl_cc", "lvc_block_ncl_sr_cc",
-                         "lvc_block_nwc_cc"),
     "lvc_block_fh_tc_kernel": ("lvc_block_ncl_fh", "lvc_block_ncl_fh_final"),
-    "lvc_block_fh_kernel": ("lvc_block_ncl_fh_cc",),
     "lvc_block_nwc_tc_kernel": ("lvc_block_nwc",),
     "down_stage1": ("downpath",),
     "down_stage2": ("downpath",),
-    "wavenet_cond_kernel": ("wavenet_cond",),
     "wavenet_block_kernel": ("wavenet_block",),
 }
 
@@ -1553,9 +1554,9 @@ def synth_wav(seconds: float, seed: int) -> np.ndarray:
 def phase21_entry(torch, counters, dev, smi_line) -> dict:
     """The port's entry path at full width (``fastdiff_tpu/configs/
     ljspeech.yaml``, N = 4): ``run.main([... '--infer'])`` on a wav dir and
-    on a mel dir (K3 +12, K1 +8, K2 +4 per utterance, the CUDA-core
-    Kernel B +0; the two utterances of the 384-frame bucket add one
-    capture), ``use_pallas_block=false`` against ``auto`` (rel L2 <= 5e-2),
+    on a mel dir (K3 +12, K1 +8, K2 +4 per utterance; the two utterances
+    of the 384-frame bucket add one capture), ``use_pallas_block=false``
+    against ``auto`` (rel L2 <= 5e-2),
     ``--infer`` on the work dir of a 2-step ``fit`` with an EMA, the CLI as
     a subprocess, ``vocoder: GLMel`` on the card against the CPU, and
     ``scripts/vocode.py``."""
@@ -1588,8 +1589,7 @@ def phase21_entry(torch, counters, dev, smi_line) -> dict:
             mel = dsp.wav2mel_np(wav, cfg)[1].T
             np.save(os.path.join(mel_dir, f"{name}.npy"), mel)
             frames[name] = mel.shape[0]
-        per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
-               "lvc_block_ncl_cc": 0}
+        per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4}
 
         def infer(exp, source, path, extra="", rise=per):
             for counter in counters:
@@ -1787,18 +1787,18 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
     """The TTS serving path at the full width of ``fastdiff_tpu/configs/
     fs2_ljspeech.yaml`` (FastSpeech 2 seed-0 weights; the FastDiff vocoder
     at ``ljspeech.yaml``'s settings, seed weights, N = 4, ``auto`` ->
-    ``ncl``), with a phone set written from the ``en`` processor's output
-    on the sentences, as the binarizer would: (a) ``FastSpeech2Task.
+    ``ncl``), with a phone set written from the ``en`` processor's output on
+    the sentences, as the binarizer would: (a) ``FastSpeech2Task.
     infer_to_wav`` of each sentence (predicted durations): frames, wav
-    length, K3 +12 / K1 +8 / K2 +4 / CUDA-core Kernel B +0 per call, the
-    graph sampler's warm-ups and captures; (b) teacher durations of 6
-    frames a phone: the card's mel against the CPU's (TF32 off, rel L2 <=
-    1e-4), the predicted mel2ph card against CPU (equal), the written wavs
-    of ``use_pallas_block: false`` against ``auto`` (rel L2 <= 5e-2, no
-    kernel under false); (c) FastSpeech 2 ms (t_mel = max_frames), vocoder
-    ms and the RTF of ``infer_to_wav`` by CUDA events; (d) ``python -m
-    fastdiff_tpu_torch.scripts.demo_tts`` as a subprocess on the teacher
-    mels, and no jax, ``fastdiff_tpu`` or PyYAML imported."""
+    length, K3 +12 / K1 +8 / K2 +4 per call, the graph sampler's warm-ups
+    and captures; (b) teacher durations of 6 frames a phone: the card's mel
+    against the CPU's (TF32 off, rel L2 <= 1e-4), the predicted mel2ph card
+    against CPU (equal), the written wavs of ``use_pallas_block: false``
+    against ``auto`` (rel L2 <= 5e-2, no kernel under false); (c) FastSpeech
+    2 ms (t_mel = max_frames), vocoder ms and the RTF of ``infer_to_wav`` by
+    CUDA events; (d) ``python -m fastdiff_tpu_torch.scripts.demo_tts`` as a
+    subprocess on the teacher mels, and no jax, ``fastdiff_tpu`` or PyYAML
+    imported."""
     from fastdiff_tpu_torch.models.fastspeech2 import (FastSpeech2,
                                                        dur_to_mel2ph,
                                                        mel2ph_to_dur)
@@ -1814,8 +1814,7 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
                           "fs2_ljspeech.yaml")
     yaml_before = "yaml" in sys.modules
     root = tempfile.mkdtemp(prefix="fastdiff_tts_")
-    per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
-           "lvc_block_ncl_cc": 0}
+    per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4}
 
     def zero():
         for counter in all_counters:
@@ -2346,9 +2345,8 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line, root) -> dict:
     on one batch at ``scheduler: none`` (lr 2e-4) must lower the total
     loss; (d) a fresh task restores the newest checkpoint (equal to the
     fit's state) and ``infer_to_wav`` vocodes two sentences through the
-    FastDiff vocoder on ``auto`` -> ``ncl``: K3 +12 / K1 +8 / K2 +4 / the
-    CUDA-core Kernel B +0 per utterance, finite wavs of frames * 256
-    samples."""
+    FastDiff vocoder on ``auto`` -> ``ncl``: K3 +12 / K1 +8 / K2 +4 per
+    utterance, finite wavs of frames * 256 samples."""
     import contextlib
     import importlib.util
 
@@ -2366,8 +2364,7 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line, root) -> dict:
 
     config = FS2_CONFIG
     cwd = os.getcwd()
-    per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
-           "lvc_block_ncl_cc": 0}
+    per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4}
     report = {"device": smi_line}
     walls = report["walls_s"] = {}
 
@@ -2759,23 +2756,23 @@ def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
     configs/ljspeech.yaml`` (seed-0 weights fused by
     ``inference_state_dict``; ``auto`` -> ``ncl`` and ``false`` -> ``plain``
     through ``FastDiffTask.inference_model``) on the synthetic binarized
-    dataset: (a) 20 Adam steps of the phi predictor at the recipe batch
-    (20 x 25,600 samples): ms per step by CUDA events, loss and every phi
-    gradient finite, K3 +3 / K1 +2 / K2 +1 / CUDA-core Kernel B +0 per
-    step; on one batch with injected t and z the kernel route against the
-    plain route (loss rel 1e-2, gradients rel L2 5e-2) and the plain route
-    on the card (TF32 off) against the CPU (loss 1e-4); (b) the reverse
-    search for N = 8, 6, 4, 3 at 864 frames, b 1, from one injected x on
-    both routes: schedules, steps, wall, launches per step, the first
-    reverse step's x (rel L2 5e-2) and first predicted beta (rel 5e-2)
-    kernel against plain; (c) every non-empty searched and every
-    published schedule through ``make_param_sampler`` at 864 frames: ms
-    per sample by graph replay (one capture each), launches 3N / 2N / N,
-    MCD, MR-STFT and PESQ against the synthetic wav (seed weights, not
-    quality); (d) ``demo_vocoder`` then ``evaluate`` as subprocesses on a
-    2 s wav, beside them ``bddm_search --phi_steps 5`` on the synthetic
-    dataset (its JSON under the work dir, ``docs/BDDM.md`` unchanged; its
-    wall is read when the other two are done)."""
+    dataset: (a) 20 Adam steps of the phi predictor at the recipe batch (20
+    x 25,600 samples): ms per step by CUDA events, loss and every phi
+    gradient finite, K3 +3 / K1 +2 / K2 +1 per step; on one batch with
+    injected t and z the kernel route against the plain route (loss rel
+    1e-2, gradients rel L2 5e-2) and the plain route on the card (TF32 off)
+    against the CPU (loss 1e-4); (b) the reverse search for N = 8, 6, 4, 3
+    at 864 frames, b 1, from one injected x on both routes: schedules,
+    steps, wall, launches per step, the first reverse step's x (rel L2 5e-2)
+    and first predicted beta (rel 5e-2) kernel against plain; (c) every
+    non-empty searched and every published schedule through
+    ``make_param_sampler`` at 864 frames: ms per sample by graph replay (one
+    capture each), launches 3N / 2N / N, MCD, MR-STFT and PESQ against the
+    synthetic wav (seed weights, not quality); (d) ``demo_vocoder`` then
+    ``evaluate`` as subprocesses on a 2 s wav, beside them ``bddm_search
+    --phi_steps 5`` on the synthetic dataset (its JSON under the work dir,
+    ``docs/BDDM.md`` unchanged; its wall is read when the other two are
+    done)."""
     import hashlib
 
     from fastdiff_tpu_torch.config import AudioConfig
@@ -2796,8 +2793,7 @@ def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
     config = os.path.join(repo, "fastdiff_tpu", "configs", "ljspeech.yaml")
     bddm_doc = os.path.join(repo, "docs", "BDDM.md")
     root = tempfile.mkdtemp(prefix="fastdiff_bddm_")
-    per = {"taug_head": 3, "lvc_block_ncl": 2, "lvc_block_ncl_final": 1,
-           "lvc_block_ncl_cc": 0}
+    per = {"taug_head": 3, "lvc_block_ncl": 2, "lvc_block_ncl_final": 1}
 
     def zero():
         for counter in all_counters:
@@ -3955,13 +3951,11 @@ def phase32_learning(torch, FastDiffTask, Trainer, counters, hp: dict, dev,
     train_step = task.train_step
 
     def counted(state, batch, generator=None, **kw):
-        keys = ("lvc_block_ncl_sr", "lvc_block_ncl_sr_cc")
-        before = (counters[0]["taug_head"], *(counters[1][k] for k in keys))
+        before = (counters[0]["taug_head"], counters[1]["lvc_block_ncl_sr"])
         out = train_step(state, batch, generator, **kw)
         steps.append((out["loss"],
                       counters[0]["taug_head"] - before[0],
-                      counters[1][keys[0]] - before[1],
-                      counters[1][keys[1]] - before[2]))
+                      counters[1]["lvc_block_ncl_sr"] - before[1]))
         return out
     task.train_step = counted
     before = native_io.BATCHES
@@ -3972,7 +3966,7 @@ def phase32_learning(torch, FastDiffTask, Trainer, counters, hp: dict, dev,
     losses = [float(s[0]) for s in steps]
     served = native_io.BATCHES - before
     first, last = float(np.mean(losses[:10])), float(np.mean(losses[-50:]))
-    bad = [i for i, s in enumerate(steps) if s[1:] != (3, 3, 0)]
+    bad = [i for i, s in enumerate(steps) if s[1:] != (3, 3)]
     report = dict(steps=len(steps), wall_s=wall, first10=first, last50=last,
                   ratio=last / first, val=result["val"]["loss"],
                   native_batches=served,
@@ -3984,7 +3978,7 @@ def phase32_learning(torch, FastDiffTask, Trainer, counters, hp: dict, dev,
               f"validation); mean loss first 10 {first:.4f}, last 50 "
               f"{last:.4f}, ratio {last / first:.3f} (bound {SANITY_RATIO}); "
               f"val {result['val']['loss']:.4f}; steps not launching K3 3 / "
-              f"K4 3 / CUDA-core K4 0: {bad[:5]} [{smi_line}]")
+              f"K4 3: {bad[:5]} [{smi_line}]")
     if len(steps) != SANITY_STEPS or served < SANITY_STEPS:
         fail("the learning check did not run its updates on the native "
              "loader")
@@ -4017,8 +4011,8 @@ def phase33_full_reverse(torch, FastDiff, all_counters, cfg, dev,
     frames the kernel route (``ncl``) against the plain route on the same
     seed-0 weights and injected noise, eagerly, at both N (relative L2 <=
     0.1); and ``run.main --infer --hparams N=200`` on two utterances of one
-    128-frame bucket (K3 +600, K1 +400, K2 +200, the CUDA-core K1 +0 each;
-    the second captures)."""
+    128-frame bucket (K3 +600, K1 +400, K2 +200 each; the second
+    captures)."""
     from fastdiff_tpu_torch import run
     from fastdiff_tpu_torch.config import AudioConfig
     from fastdiff_tpu_torch.diffusion.sampler import constants_for_hparams
@@ -4217,198 +4211,7 @@ def phase35_graft(torch, dev, smi_line) -> dict:
     return dict(entry_ms=ms, dryrun_s=wall, ranks=results)
 
 
-WAVENET_COND_SHAPES = ((16, 896), (1, FRAMES_10S))   # (batch, frames)
-
-
-def wavenet_cond_witness(torch, wc, h, mel, ups, mel_w, mel_b, s, got,
-                         want, where, most=8) -> list:
-    """The values of ``where`` (at most ``most``) beside what makes them:
-    h_in; the projection y = b + W . cond in float64 (exact), cuDNN's
-    float32 (the 1x1 conv the plain version runs) and both rounded to bf16,
-    the kernel's from a launch on h = 0 (bf16(0 + bf16(y)) = bf16(y)); and
-    h_out on both sides."""
-    import torch.nn.functional as F
-    bf16 = torch.bfloat16
-    pos = where.nonzero()[:most]
-    if not len(pos):
-        return []
-    length = h.shape[-1]
-    cond = mel.transpose(1, 2)[:, None]
-    for w, b in ups:
-        cond = wc.upsample_plain(cond, w, b, s, bf16)
-    cond = cond[:, 0, :, :length]
-    wm = mel_w.to(bf16).float()
-    y32 = F.conv1d(cond.float(), wm, mel_b.float())
-    y_kernel = wc.wavenet_cond(torch.zeros_like(h), mel, ups, mel_w, mel_b,
-                               stride=s)
-    rows = []
-    for b, c, j in pos.tolist():
-        y64 = float(wm[c, :, 0].double() @ cond[b, :, j].double()
-                    + float(mel_b[c]))
-        rows.append(dict(
-            at=[b, c, j], h_in=float(h[b, c, j]), y_f64=y64,
-            y_cudnn_f32=float(y32[b, c, j]),
-            y_cudnn_bf16=float(y32[b, c, j].to(bf16)),
-            y_kernel_bf16=float(y_kernel[b, c, j]),
-            h_out_plain=float(want[b, c, j]),
-            h_out_kernel=float(got[b, c, j])))
-    del cond, y32, y_kernel
-    return rows
-
-
-def phase36_wavenet_cond(torch, all_counters, dev, smi_line) -> dict:
-    """DiffWave's per-block mel conditioning kernel alone (phase 36 of the
-    module docstring); returns its entry of the kernels' JSON line, at
-    b 16 x 896 frames (the DiffWave cell's longest call)."""
-    import torch.nn.functional as F
-    from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
-                                                      make_sampler)
-    from fastdiff_tpu_torch.models.wavenet import WaveNet, WaveNetConfig
-    from fastdiff_tpu_torch.ops import _build
-    from fastdiff_tpu_torch.ops import wavenet_cond as wc
-
-    _build.library()
-    log = (_build.BUILD_DIR / "build.log").read_text()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for s in wc.STRIDES:
-        info = ptxas_entry(log, f"wavenet_cond_kernelILi{s}E")
-        phase(36, f"wavenet_cond_kernel<{s}>: {info}; {wc.smem_bytes(128, s)}"
-                  f" bytes of dynamic shared memory at 2C = 128, grid "
-                  f"{wc.launch_grid(16, 896 * HOP_SIZE, 128, s, sms)} at b 16 x"
-                  f" {896 * HOP_SIZE} samples")
-        check_no_spill(info, f"wavenet_cond_kernel<{s}>")
-    s, ch2, n_mels = 16, 128, 80
-    gen = torch.Generator(device=dev).manual_seed(36)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
-    def few_bits(shape, lo, hi, scale):
-        return torch.randint(lo, hi, shape, generator=gen,
-                             device=dev).float() * scale
-
-    report, bf16 = {}, torch.bfloat16
-    for batch, frames in WAVENET_COND_SHAPES:
-        length = frames * s * s
-        mel = (randn(batch, frames, n_mels) - 4.0).to(bf16)
-        ups = [(randn(1, 1, 3, 2 * s, scale=(2.0 / (6 * s)) ** 0.5),
-                randn(1, scale=0.1)) for _ in range(2)]
-        mel_w, mel_b = randn(ch2, n_mels, 1, scale=n_mels ** -0.5), \
-            randn(ch2, scale=0.1)
-        h = randn(batch, ch2, length).to(bf16)
-        with torch.inference_mode():
-            want = wc.wavenet_cond_plain(h, mel, ups, mel_w, mel_b,
-                                         stride=s).float()
-            h_in = h.float()
-            got = wc.wavenet_cond(h.clone(), mel, ups, mel_w, mel_b,
-                                  stride=s).float()
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            ulp = torch.exp2(torch.floor(torch.log2(
-                (h_in.abs() + want.abs()).clamp_min(2.0 ** -126))) - 7)
-            over = int((diff > ulp).sum())
-            # one ulp of the projection (the tensor cores' sum order) plus
-            # one rounding of h_in + y, a tie of which may go either way
-            beyond = int((diff > 2 * ulp).sum())
-            flips = int((diff > 0).sum())
-            err = float(diff.norm() / want.norm())
-            max_err = float(diff.max())
-            witness = wavenet_cond_witness(torch, wc, h, mel, ups, mel_w,
-                                           mel_b, s, got, want, diff > ulp)
-            for w in witness:
-                phase(36, f"b {batch} x {frames}: a value over one ulp: "
-                          + json.dumps(w))
-            del got, want, h_in, diff, ulp
-            # few-bit operands: every f32 sum exact, any order the same bits
-            ex = (few_bits((batch, frames, n_mels), 0, 9, 0.25).to(bf16),
-                  [(few_bits((1, 1, 3, 2 * s), 0, 5, 0.125),
-                    few_bits((1,), 1, 3, 0.125)) for _ in range(2)],
-                  few_bits((ch2, n_mels, 1), -4, 5, 0.125),
-                  few_bits((ch2,), -8, 9, 0.125))
-            exact = bool(torch.equal(
-                wc.wavenet_cond(h.clone(), *ex, stride=s),
-                wc.wavenet_cond_plain(h, *ex, stride=s)))
-            mel2d = mel.float().transpose(1, 2)[:, None].contiguous()
-            w_lib = [w.to(bf16).float() for w, _ in ups]
-            wm_lib = mel_w.to(bf16).float()
-            h_work = h.clone()
-            hf = h.float()
-
-            def library():
-                x = F.conv_transpose2d(mel2d, w_lib[0], stride=(1, s),
-                                       padding=(1, s // 2))
-                x = F.conv_transpose2d(x, w_lib[1], stride=(1, s),
-                                       padding=(1, s // 2))
-                return hf + F.conv1d(x[:, 0, :, :length], wm_lib, mel_b)
-
-            reps = 20 if batch > 1 else 100
-            kernel_ms = graph_ms(lambda: wc.wavenet_cond(
-                h_work, mel, ups, mel_w, mel_b, stride=s), reps)
-            plain_ms = graph_ms(lambda: wc.wavenet_cond_plain(
-                h, mel, ups, mel_w, mel_b, stride=s), max(1, reps // 10))
-            library_ms = graph_ms(library, max(1, reps // 10))
-            kernel_ms2 = graph_ms(lambda: wc.wavenet_cond(
-                h_work, mel, ups, mel_w, mel_b, stride=s), reps)
-            del mel2d, hf, h_work
-        nbytes = 2 * 2.0 * batch * ch2 * length
-        row = dict(max_abs_err=max_err, values_over_one_ulp=over,
-                   values_over_two_ulps=beyond, over_one_ulp=witness,
-                   values_differing=flips, rel_l2=err, exact_data_equal=exact,
-                   ms=(kernel_ms + kernel_ms2) / 2, ms_runs=[kernel_ms,
-                                                             kernel_ms2],
-                   bound_ms=nbytes / H100_HBM_BYTES_PER_S * 1e3,
-                   bound_by="bytes", plain_ms=plain_ms,
-                   library_ms=library_ms)
-        report[f"b{batch}x{frames}"] = row
-        phase(36, f"wavenet_cond at b {batch} x {frames} frames (s {s}, 2C "
-                  f"{ch2}, {length} samples): {flips} of {h.numel()} values "
-                  f"differ from plain, {over} by more than one bf16 ulp of "
-                  f"|h_in| + |h_out| and {beyond} by more than two, rel L2 "
-                  f"{err:.2e}; exact data "
-                  f"bit-equal {exact}; kernel {row['ms']:.4f} ms by graph "
-                  f"replay (runs {kernel_ms:.4f}, {kernel_ms2:.4f}; bound "
-                  f"{row['bound_ms']:.4f} ms, h read + written at 3.35 TB/s: "
-                  f"{row['bound_ms'] / row['ms']:.1%}), plain {plain_ms:.4f} "
-                  f"ms, library calls {library_ms:.4f} ms (cudnn TF32 "
-                  f"{torch.backends.cudnn.allow_tf32}) [{smi_line}]")
-        if beyond or err >= 1e-3 or not exact:
-            fail("wavenet_cond disagrees with its plain version")
-        del h, mel
-        torch.cuda.empty_cache()
-
-    # a graph sampler call at N = 6: 30 blocks x 6 steps of a WaveNet at 128
-    # residual and skip channels (2C = 256), which the block kernel
-    # declines, so each block's conditioning is this kernel
-    model = WaveNet(WaveNetConfig(multiband=False, res_channels=128,
-                                  skip_channels=128), seed=0,
-                    device=dev).eval()
-    const = constants_for_hparams({"T": 1000, "beta_0": 1e-6, "beta_T": 0.01,
-                                   "noise_schedule": "", "N": 6})
-    sampler = make_sampler(model, const)
-    mel = randn(1, 64, n_mels) - 4.0
-    length = 64 * HOP_SIZE
-    sgen = torch.Generator(device=dev)
-    for _ in range(2):
-        sampler(sgen.manual_seed(1), mel, length)
-    zero_counters(all_counters)
-    wav = sampler(sgen.manual_seed(1), mel, length)
-    torch.cuda.synchronize()
-    launches = launched(all_counters)
-    per_call = launches.get("wavenet_cond", 0)
-    phase(36, f"WaveNet (30 layers, 128 channels) N = {const.n_steps} graph "
-              f"sampler at 64 frames: a replayed call launches {launches}, "
-              f"finite "
-              f"{bool(wav.isfinite().all())}")
-    if launches != {"wavenet_cond": 30 * const.n_steps} or \
-            not bool(wav.isfinite().all()):
-        fail("the 128-channel WaveNet's sampler call did not launch "
-             "wavenet_cond once a block and step, and nothing else")
-    entry = dict(report[f"b{WAVENET_COND_SHAPES[0][0]}x"
-                        f"{WAVENET_COND_SHAPES[0][1]}"])
-    entry.update(shapes=report, launches_per_sampler_call=per_call)
-    return entry
-
-
+WAVENET_SHAPES = ((16, 896), (1, FRAMES_10S))   # (batch, frames)
 WAVENET_BLOCK_DILATIONS = tuple(2 ** k for k in range(10))
 
 
@@ -4500,7 +4303,7 @@ def phase37_wavenet_block(torch, all_counters, dev, smi_line) -> dict:
         check_no_spill(info, f"wavenet_block_kernel<{s}>")
     gen = torch.Generator(device=dev).manual_seed(37)
     report = {}
-    for batch, frames in WAVENET_COND_SHAPES:
+    for batch, frames in WAVENET_SHAPES:
         length = frames * 256
         worst = [0.0, 0.0]
         with torch.inference_mode():
@@ -4566,17 +4369,10 @@ def phase37_wavenet_block(torch, all_counters, dev, smi_line) -> dict:
                     wb.wavenet_block_plain(x, skip, pt, mel, w, dilation=d,
                                            stride=16)
 
-            def replaced():
-                for d in WAVENET_BLOCK_DILATIONS:
-                    wb.wavenet_block_plain(x, skip, pt, mel, w, dilation=d,
-                                           stride=16,
-                                           add_cond=wc.wavenet_cond)
-
             n = len(WAVENET_BLOCK_DILATIONS)
             reps = 2 if batch > 1 else 20
             kernel_ms = graph_ms(kernel, reps) / n
             plain_ms = graph_ms(plain, 1, 3) / n
-            library_ms = graph_ms(replaced, 1, 3) / n
             kernel_ms2 = graph_ms(kernel, reps) / n
             del x, skip, work
         torch.cuda.empty_cache()
@@ -4586,7 +4382,7 @@ def phase37_wavenet_block(torch, all_counters, dev, smi_line) -> dict:
                    f64=f64, ms=ms, ms_runs=[kernel_ms, kernel_ms2],
                    bound_ms=nbytes / H100_HBM_BYTES_PER_S * 1e3,
                    bound_by="bytes", plain_ms=plain_ms,
-                   library_ms=library_ms)
+                   library_ms=None)        # no PyTorch call computes a block
         report[f"b{batch}x{frames}"] = row
         phase(37, f"wavenet_block at b {batch} x {frames} frames ({length} "
                   f"samples), ten dilations: updates within {worst[0]:.2e} "
@@ -4594,9 +4390,8 @@ def phase37_wavenet_block(torch, all_counters, dev, smi_line) -> dict:
                   f"kernel {ms:.4f} ms a launch by graph replay (runs "
                   f"{kernel_ms:.4f}, {kernel_ms2:.4f}; bound "
                   f"{row['bound_ms']:.4f} ms, x and skip f32 read + written "
-                  f"at 3.35 TB/s: {row['bound_ms'] / ms:.1%}), plain "
-                  f"{plain_ms:.4f} ms, the replaced route (plain ops + "
-                  f"wavenet_cond) {library_ms:.4f} ms (cudnn TF32 "
+                  f"at 3.35 TB/s: {row['bound_ms'] / ms:.1%}), plain (the "
+                  f"library's ops) {plain_ms:.4f} ms (cudnn TF32 "
                   f"{torch.backends.cudnn.allow_tf32}) [{smi_line}]")
 
     # a DiffWave BASE graph sampler call at N = 6: 30 blocks x 6 steps
@@ -4626,8 +4421,8 @@ def phase37_wavenet_block(torch, all_counters, dev, smi_line) -> dict:
             not bool(wav.isfinite().all()):
         fail("the DiffWave sampler call did not launch wavenet_block once a "
              "block and step, and nothing else")
-    entry = dict(report[f"b{WAVENET_COND_SHAPES[0][0]}x"
-                        f"{WAVENET_COND_SHAPES[0][1]}"])
+    entry = dict(report[f"b{WAVENET_SHAPES[0][0]}x"
+                        f"{WAVENET_SHAPES[0][1]}"])
     entry.update(shapes=report, registers=regs,
                  launches_per_sampler_call=launches["wavenet_block"])
     return entry
@@ -4658,8 +4453,7 @@ def main():
         from fastdiff_tpu_torch.models.fastdiff import FastDiff
         from fastdiff_tpu_torch.ops import (_build, downpath_pallas,
                                             lvc_block_ncl, lvc_block_pallas,
-                                            lvc_head, wavenet_block,
-                                            wavenet_cond)
+                                            lvc_head, wavenet_block)
         from fastdiff_tpu_torch.scripts import bench_mosaic_micro, exp_r4b
         from fastdiff_tpu_torch.serving.server import (VocoderService,
                                                        start_server)
@@ -4823,78 +4617,8 @@ def main():
                                     3 * ms_lib)
 
         # --- phase 4: Kernel B ---------------------------------------------
-        wstack_t = randn(layers, c, rows, scale=0.1)
-        final_wb = randn(8, c, scale=0.1)
-        per_forward = {"lvc_block_ncl": [0.0, 0.0, 0.0, [], 0.0],
-                       "lvc_block_ncl_final": [0.0, 0.0, 0.0, [], 0.0]}
-        cases = [(8, FRAMES_10S, False, True), (64, FRAMES_10S, False, True),
-                 (256, FRAMES_10S, False, False),
-                 (256, FRAMES_10S, True, True), (8, 100, False, False)]
-        for hop, frames, final, on_path in cases:
-            length = frames * hop
-            x = randn(1, c, length)
-            skip = randn(1, c, length)
-            kern = torch.zeros((1, frames, layers, 2 * c, rows_p), dtype=bf16,
-                               device=dev)
-            kern[..., :rows] = randn(1, frames, layers, 2 * c, rows,
-                                     scale=0.05)
-            fwb = final_wb if final else None
-
-            def run_k():
-                return lvc_block_ncl.lvc_block_ncl(x, skip, kern, wstack_t,
-                                                   hop, fwb)
-
-            def run_cc():
-                return lvc_block_ncl.lvc_block_ncl_cc(x, skip, kern,
-                                                      wstack_t, hop, fwb)
-
-            def run_p():
-                return lvc_block_ncl.lvc_block_ncl_plain(x, skip, kern,
-                                                         wstack_t, hop, fwb)
-
-            got, got_cc, ref = run_k(), run_cc(), run_p()
-            torch.cuda.synchronize()
-            what = "with epilogue" if final else "block only"
-            both = (lambda a, b: [(a[0], b[0]), (a[1], b[1])] if final
-                    else [(a, b)])
-            # bf16 carries: a flipped rounding in s or y moves later layers
-            # by a few bf16 ulps (2^-5 relative to the largest value is four
-            # ulps of it); a wrong kernel is off by O(1)
-            errs = check_pairs(both(got, ref), f"Kernel B tensor cores (hop "
-                                               f"{hop}, {frames} frames, "
-                                               f"{what})")
-            errs_cc = check_pairs(both(got_cc, ref), f"Kernel B CUDA cores "
-                                                     f"(hop {hop})")
-            # plain, CUDA cores, tensor cores, tensor cores, CUDA cores,
-            # plain: the kernels by CUDA-graph replay (device time alone)
-            ms_p1 = cuda_ms(run_p, 3)
-            ms_k, ms_cc = race_graph(run_cc, run_k, 10)
-            ms_p = (ms_p1 + cuda_ms(run_p, 3)) / 2
-            b_ms, by = bound([block_work(1, c, length, 2.0 * kern.numel(),
-                                         final=final)])
-            phase(4, f"Kernel B hop {hop}, {frames} frames ({what}): tensor "
-                     "cores " + ", ".join(f"max_abs_err {e:.3e} rel_l2 "
-                                          f"{r:.3e}" for e, r in errs)
-                     + "; CUDA cores " + ", ".join(
-                         f"max_abs_err {e:.3e} rel_l2 {r:.3e}"
-                         for e, r in errs_cc)
-                     + f"; raced: tensor cores {ms_k:.4f} ms, CUDA cores "
-                     f"{ms_cc:.4f} ms ({ms_cc / ms_k:.2f}x), plain "
-                     f"{ms_p:.4f} ms; bound {b_ms:.4f} ms ({by}), tensor "
-                     f"cores at {b_ms / ms_k:.1%} of it [{smi_line}]")
-            name = "lvc_block_ncl_final" if final else "lvc_block_ncl"
-            acc = per_forward[name]
-            acc[0] = max(acc[0], max(e for e, _ in errs))
-            if on_path:
-                acc[1] += ms_k
-                acc[2] += ms_p
-                acc[3].append(block_work(1, c, length, 2.0 * kern.numel(),
-                                         final=final))
-                acc[4] += ms_cc
-            del x, skip, kern, got, got_cc, ref
-        for name, (err, ms_k, ms_p, works, ms_cc) in per_forward.items():
-            report[name] = dict(entry(err, ms_k, ms_p, works),
-                                cuda_core_ms=ms_cc)
+        report.update(phase4_block(torch, lvc_block_ncl, randn, c, layers,
+                                   rows, rows_p, dev, smi_line))
 
         # --- phase 5: full-width denoiser forward --------------------------
         model = FastDiff(cfg, seed=0, device=dev).eval()
@@ -4958,12 +4682,11 @@ def main():
     counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES)
     per_step = len(cfg.upsample_ratios) * const.n_steps
     # K1 on the hop-8 and hop-64 blocks and K2 on the hop-256 block of every
-    # step, all on the tensor cores; the CUDA-core Kernel B never
+    # step
     rises = {"A": (("taug_head",), per_step),
              "K1": (("lvc_block_ncl",), (len(cfg.upsample_ratios) - 1)
                     * const.n_steps),
-             "K2": (("lvc_block_ncl_final",), const.n_steps),
-             "K1 CUDA cores": (("lvc_block_ncl_cc",), 0)}
+             "K2": (("lvc_block_ncl_final",), const.n_steps)}
     launches = serve_and_count(
         7, VocoderService({"N": 4, "seed": 1234}, device=dev), start_server,
         counters, {frames: rises for frames in (100, 256, FRAMES_10S)},
@@ -4982,8 +4705,7 @@ def main():
                      rows_p, dev)
     all_counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
                     lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES,
-                    bench_mosaic_micro.LAUNCHES, wavenet_cond.LAUNCHES,
-                    wavenet_block.LAUNCHES)
+                    bench_mosaic_micro.LAUNCHES, wavenet_block.LAUNCHES)
     train_report = phase10_train_step(torch, FastDiffTask, smi_line, dev,
                                       all_counters)
     train_launches, fit_s = phase11_fit(torch, FastDiffTask, Trainer,
@@ -5017,11 +4739,9 @@ def main():
         start_server, (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
                        lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES),
         {frames: {"K6": (("lvc_block_nwc",), 2 * steps),
-                  "K6 CUDA cores": (("lvc_block_nwc_cc",), 0),
                   "K7": (("aug_head",), 2 * steps),
                   "K8": (("downpath",), k8),
-                  "K1": (("lvc_block_ncl", "lvc_block_ncl_final",
-                          "lvc_block_ncl_cc"), 0),
+                  "K1": (("lvc_block_ncl", "lvc_block_ncl_final"), 0),
                   "K3": (("taug_head",), 0)}
          for frames, k8 in ((100, 0), (256, steps), (FRAMES_10S, steps))},
         cfg.cond_channels)
@@ -5048,7 +4768,6 @@ def main():
         start_server, all_counters,
         {frames: {"K5": (("lvc_block_ncl_fh",), fused * steps),
                   "K5 final": (("lvc_block_ncl_fh_final",), steps),
-                  "K5 CUDA cores": (("lvc_block_ncl_fh_cc",), 0),
                   "K1": (k1_keys, (2 - fused) * steps),
                   "K3": (("taug_head",), (2 - fused) * steps)}
          for frames, fused in ((100, 1), (256, 2), (FRAMES_10S, 2))},
@@ -5190,13 +4909,6 @@ def main():
     phase(35, f"done in {time.perf_counter() - t0:.1f} s")
     check_no_jax()
 
-    # --- phase 36: DiffWave's mel conditioning kernel ------------------------
-    t0 = time.perf_counter()
-    wavenet_cond_report = phase36_wavenet_cond(torch, all_counters, dev,
-                                               smi_line)
-    phase(36, f"done in {time.perf_counter() - t0:.1f} s")
-    check_no_jax()
-
     # --- phase 37: DiffWave's residual block kernel ------------------------
     t0 = time.perf_counter()
     wavenet_block_report = phase37_wavenet_block(torch, all_counters, dev,
@@ -5236,9 +4948,7 @@ def main():
           "64, lvc_block_ncl_final hop 256, aug_head 2 calls, "
           "lvc_block_nwc hops 64 + 256, downpath 1 call (two launches), "
           "lvc_block_ncl_fh "
-          "hops 8 + 64, lvc_block_ncl_fh_final hop 256 (the six block "
-          "kernels on the tensor cores; cuda_core_ms is the CUDA-core kernel "
-          "of the same function raced beside each); lvc_block_ncl_sr per "
+          "hops 8 + 64, lvc_block_ncl_fh_final hop 256; lvc_block_ncl_sr per "
           "train-step forward at the recipe (hops 8 + 64 + 256, b 20 x 100 "
           "frames); "
           "taug_head_variant per call at 864 rows (m_outer, m_tile 216); "
@@ -5273,12 +4983,6 @@ def main():
             k["train_launches_per_step"] = nwc_launches[k["name"]]
             k.update(nwc_train[k["name"]])
     # replaces no TPU kernel: the DiffWave zoo path's XLA chain
-    kernels.append(dict(
-        name="wavenet_cond", route="cuda",
-        source="fastdiff_tpu_torch/csrc/wavenet_cond.cu",
-        replaces=None,
-        launches=wavenet_cond_report.pop("launches_per_sampler_call"),
-        **wavenet_cond_report))
     kernels.append(dict(
         name="wavenet_block", route="cuda",
         source="fastdiff_tpu_torch/csrc/wavenet_block.cu",

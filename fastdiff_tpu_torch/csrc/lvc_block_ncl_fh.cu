@@ -3,7 +3,7 @@
 // kernel-predictor head GEMM run inside the kernel, so the per-frame LVC
 // kernels (kern_taug, 46 MB per block call at 864 frames) never reach
 // device memory; with final_wb also Kernel B's final-conv epilogue (K5
-// final). lvc_block_ncl_fh_cc.cu keeps the CUDA-core kernel for other hops.
+// final). Other hops run the plain version (ops/lvc_block_ncl.py).
 //
 // Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_fh, both of its
 // pallas_call sites (_kernel_body_fh and _kernel_body_fh_final, whose head
@@ -32,7 +32,7 @@
 //
 // against the 92 MB that K3 + K1 move through HBM. Reading w_head once per
 // CTA and call, not once per chunk of 8 frames as the CUDA-core kernel
-// does (1.56 / 2.7 / 5.4 GB per hop, plus its re-reads), is the cut; TMA
+// did (1.56 / 2.7 / 5.4 GB per hop, plus its re-reads), is the cut; TMA
 // brings it: chunks of 64 columns x 192 rows (two boxes of 96 rows x 128
 // bytes, the 128-byte swizzle) into a 3-stage ring, issued by one producer
 // warp and counted on mbarriers (tma.cuh's tensor-map cache encodes the

@@ -4,7 +4,7 @@
 //
 // Replaces fastdiff_tpu/ops/lvc_block_ncl.py:lvc_block_ncl_aug, both of its
 // pallas_call sites (_kernel_body and _kernel_body_final). Layer i, with
-// d = 3^i, exactly as the CUDA-core kernel (lvc_block_ncl.cu) computes it:
+// d = 3^i (lvc_block_tc.cuh):
 //
 //   s     = bf16(carry + skip)                 (zero outside [0, L))
 //   y     = bf16(leaky0.2(W_i . [a(t-d); a; a(t+d)] + b_i)),  a = leaky0.2(s)
@@ -27,7 +27,7 @@
 //   accumulation, output channels as M and samples as N. The bias row of
 //   kern_taug and W_i's bias column initialise the accumulators. bf16 x
 //   bf16 products are exact in f32, so only the order of summation differs
-//   from the CUDA-core kernel; bf16 is rounded at the same places.
+//   from the plain version's; bf16 is rounded at the same places.
 // - mma.sync fed by ldmatrix, not wgmma: every tap is a row shift of one
 //   sample-major tile (+-1 for the LVC, +-1, 3, 9, 27 for the conv), and
 //   ldmatrix takes one row address per lane, so any shift reads the B
@@ -68,8 +68,8 @@
 // 3.35 TB/s, of a 0.22 ms bytes bound.
 //
 // Hops that are no multiple of 8 (an n8 tile would straddle two frames)
-// run the CUDA-core kernels (lvc_block_ncl_cc_launch,
-// lvc_block_ncl_sr_cc_launch).
+// run the plain version (ops/lvc_block_ncl.py), as JAX does on the blocks
+// its kernels decline.
 
 #include "lvc_block_tc.cuh"
 

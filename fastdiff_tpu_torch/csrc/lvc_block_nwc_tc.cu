@@ -2,9 +2,8 @@
 // every hop that is a multiple of 8 (the route's K6 hops are 64 and 256).
 //
 // Replaces fastdiff_tpu/ops/lvc_block_pallas.py:_fused_call (its
-// pallas_call, body _kernel_body). It computes what lvc_block_ncl.cu's NWC
-// kernel (lvc_block_nwc_cc_launch, kept for other hops) computes, layer i
-// with d = 3^i:
+// pallas_call, body _kernel_body). Other hops run the plain version
+// (ops/lvc_block_pallas.py:lvc_block_nwc_plain). Layer i with d = 3^i:
 //
 //   s     = bf16(carry + skip)                 (zero outside [0, L))
 //   y     = bf16(leaky0.2(W_i . [a(t-d); a; a(t+d)] + b_i)),  a = leaky0.2(s)

@@ -1,9 +1,16 @@
 // Tensor-core stages of the 4-layer LVC block: both contractions of a layer
 // as bf16 mma.sync.m16n8k16 products with f32 accumulation, over
-// activations kept sample-major in shared memory. Used by
-// lvc_block_ncl_tc.cu (K1, K2, K4), lvc_block_ncl_fh.cu (K5) and
-// lvc_block_nwc_tc.cu (K6); only the *_cc fallbacks for hops that are no
-// multiple of 8 still run the CUDA-core stages of lvc_block_common.cuh.
+// activations kept sample-major in shared memory, with the block's widths,
+// halo and bf16 helpers. Used by lvc_block_ncl_tc.cu (K1, K2, K4),
+// lvc_block_ncl_fh.cu (K5) and lvc_block_nwc_tc.cu (K6), the only LVC block
+// kernels; they take hops that are multiples of 8, and the ops in ops/
+// raise on a CUDA tensor at any other hop.
+//
+// Layer i of the block, d = 3^i:
+//   s     = carry + skip                       (bf16, zero outside [0, L))
+//   y     = leaky0.2(W_i . [a(t-d); a; a(t+d); 1]),  a = leaky0.2(s)
+//   z     = K_{i,f} . [y(t-1); y; y(t+1); 1]   (per frame f = t / hop, f32)
+//   carry = s + bf16(sigmoid(z[:C]) * tanh(z[C:]))
 //
 // Every stage is called by all THREADS threads of a block whose extent is
 // `ext` samples (the tile's outputs plus HALO on each side), row 0 being
@@ -39,9 +46,27 @@
 
 #pragma once
 
-#include "lvc_block_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int C = 32;                   // inner channels
+constexpr int HALO = 48;                // samples recomputed on each side
+constexpr int ROWS = 3 * C + 1;         // augmented contraction rows
+constexpr int LAYERS = 4;
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ float leaky(float v) {
+  return v >= 0.0f ? v : 0.2f * v;
+}
+
 namespace tc {
 
 constexpr int THREADS = 256;              // 8 warps

@@ -9,8 +9,8 @@
 //   x'   = (x + r) * sqrt(1/2)         f32
 //   skip_sum += s                      f32
 //
-// cond is the block's two mel upsamplers (csrc/wavenet_cond.cuh, the stages
-// of csrc/wavenet_cond.cu: cuDNN's conditioning bit for bit), and a is zero
+// cond is the block's two mel upsamplers (the stages of csrc/wavenet_cond.cuh:
+// cuDNN's conditioning bit for bit), and a is zero
 // outside [0, L) (the conv pads a, not x). Block 0 takes x in bf16, as the
 // init conv leaves it: a = bf16(x + bf16(t_n)) and x' = bf16(x + r) *
 // sqrt(1/2), the bf16 adds of models/wavenet.py, and it writes skip_sum

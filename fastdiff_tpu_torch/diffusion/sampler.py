@@ -33,13 +33,12 @@ from fastdiff_tpu_torch.diffusion import schedules
 from fastdiff_tpu_torch.diffusion.schedules import SamplerConstants
 from fastdiff_tpu_torch.ops import downpath_pallas, lvc_block_ncl
 from fastdiff_tpu_torch.ops import lvc_block_pallas, lvc_head, wavenet_block
-from fastdiff_tpu_torch.ops import wavenet_cond
 from fastdiff_tpu_torch.utils.profiling import span
 
 # the launch counters of the kernels a denoiser forward can reach
 COUNTERS = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
             lvc_block_pallas.LAUNCHES, downpath_pallas.LAUNCHES,
-            wavenet_cond.LAUNCHES, wavenet_block.LAUNCHES)
+            wavenet_block.LAUNCHES)
 
 
 def constants_for_hparams(hp: dict) -> SamplerConstants:

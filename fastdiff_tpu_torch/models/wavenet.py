@@ -22,11 +22,9 @@ gradients off (the samplers' inference mode), bf16 and the widths its
 ``supports`` names (64 residual and skip channels, 80 mel bins: DiffWave
 BASE's) that is ``wavenet_block``: the hand-written kernel of the whole
 block on a card, which raises on a length it does not take, and the plain
-version on the CPU. Otherwise the block runs ``wavenet_block_plain``, whose
-upsamplers, crop, mel_conv and add into h are one call of
-``ops/wavenet_cond.py``: with gradients off, bf16 and the widths its
-``supports`` names ``wavenet_cond`` (its kernel on a card), else (training)
-``wavenet_cond_plain``.
+version on the CPU. Otherwise (training, or other widths) the block runs
+``wavenet_block_plain``, whose upsamplers, crop, mel_conv and add into h
+are ``ops/wavenet_cond.py:wavenet_cond_plain``.
 
 Cast points follow JAX's: the step embedding in float32, each conv in the
 compute dtype with float32 accumulation, and x in float32 from the first
@@ -45,7 +43,7 @@ from torch import nn
 
 from fastdiff_tpu_torch.models.fastdiff import WNConv
 from fastdiff_tpu_torch.ops import nn as fnn
-from fastdiff_tpu_torch.ops import wavenet_block, wavenet_cond
+from fastdiff_tpu_torch.ops import wavenet_block
 
 SQRT_HALF = wavenet_block.SQRT_HALF
 
@@ -98,7 +96,7 @@ def compute_dtype(name: str) -> torch.dtype:
 class Upsampler(nn.Module):
     """The parameters of one weight-normed ConvTranspose2d(1, 1, (3, 2s),
     stride (1, s), padding (1, s // 2)) + leaky ReLU 0.4, which
-    ``ops/wavenet_cond.py`` runs."""
+    ``ops/wavenet_cond.py:upsample_plain`` and the block kernel run."""
 
     def __init__(self, stride: int):
         super().__init__()
@@ -159,14 +157,11 @@ class WaveNet(nn.Module):
         self.out_conv = nn.Conv1d(cfg.skip_channels, cfg.out_channels, 1)
         self.blocks = nn.ModuleList(
             [WaveNetBlock(cfg) for _ in range(cfg.num_res_layers)])
-        # widths the block and conditioning kernels are built for (both
-        # upsamplers share one stride); others run the plain versions
+        # widths the block kernel is built for (both upsamplers share one
+        # stride); others run the plain version
         self.block_kernel = wavenet_block.supports(
             cfg.res_channels, cfg.skip_channels, cfg.cond_channels,
             cfg.upsample_strides[0], self.dtype)
-        self.cond_kernel = wavenet_cond.supports(
-            2 * cfg.res_channels, cfg.cond_channels, cfg.upsample_strides[0],
-            self.dtype)
         if seed is not None:
             self.init_weights(torch.Generator().manual_seed(seed))
         if device is not None:
@@ -209,13 +204,8 @@ class WaveNet(nn.Module):
                              audio.to(dtype).transpose(1, 2), dtype))
         # each block: with gradients off and at its widths ops/wavenet_block.py's
         # op (the kernel on a card, which has no backward), else its plain
-        # version, whose conditioning is likewise ops/wavenet_cond.py's op or
-        # its plain version
-        inference = not torch.is_grad_enabled()
-        kernel = self.block_kernel and inference
-        add_cond = (wavenet_cond.wavenet_cond
-                    if self.cond_kernel and inference
-                    else wavenet_cond.wavenet_cond_plain)
+        # version
+        kernel = self.block_kernel and not torch.is_grad_enabled()
         mel_c = mel.to(dtype).contiguous()                  # (B, T', M)
         if kernel:
             x = x.contiguous()          # the kernel reads NCL rows of x
@@ -233,7 +223,7 @@ class WaveNet(nn.Module):
             else:
                 x, skip_sum = wavenet_block.wavenet_block_plain(
                     x, skip_sum, part_t, mel_c, blk.weights(),
-                    dilation=dilation, stride=stride, add_cond=add_cond)
+                    dilation=dilation, stride=stride)
         skip = skip_sum * float(np.float32(math.sqrt(1.0 / cfg.num_res_layers)))
         skip = torch.relu(_conv(self.final_conv, skip.to(dtype), dtype))
         out = fnn.conv1d_ncl(self.out_conv.weight, self.out_conv.bias, skip,

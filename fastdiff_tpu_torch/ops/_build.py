@@ -35,45 +35,33 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P],
     # x, skip, kern, wstack_t, final_wb (or NULL), out, fin (or NULL),
     # B, C, L, F, hop, rows_p, layers, then lvc_block_ncl.block_tile_plan's
-    # tile; stream (the tensor-core kernel, hop % 8 == 0)
+    # tile; stream (hop % 8 == 0)
     "lvc_block_ncl_launch": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # the same operands but the tile: the CUDA-core kernel, any hop
-    "lvc_block_ncl_cc_launch": [_P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _P],
     # x, skip, kern, wstack_t, out, s_all, y_all, z_all,
     # B, C, L, F, hop, rows_p, layers, then block_tile_plan's tile; stream
-    # (Kernel B-SR on the tensor cores, hop % 8 == 0)
+    # (hop % 8 == 0)
     "lvc_block_ncl_sr_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # the same operands but the tile: Kernel B-SR on the CUDA cores, any hop
-    "lvc_block_ncl_sr_cc_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _P],
     # tap, w_aug, b_aug, out, M, N, K, tile_m, tile_n, stages, units,
     # grid, smem, stream
     "aug_head_launch": [_P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _P],
     # x, skip, kern_aug, wstack, out, B, C, L, F, hop, rows, layers, then
-    # lvc_block_pallas.nwc_tile_plan's tile and shared memory; stream (K6 on
-    # the tensor cores, hop % 8 == 0)
+    # lvc_block_pallas.nwc_tile_plan's tile and shared memory; stream
+    # (hop % 8 == 0)
     "lvc_block_nwc_launch": [_P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # the same operands but the plan: K6 on the CUDA cores, any hop
-    "lvc_block_nwc_cc_launch": [_P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _P],
     # audio, first_aug, res_aug, conv_aug, skip0, skip1, skip2, x,
     # B, L, C, stream
     "downpath_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, skip, tap_c, w_head, b_head, wstack_t, final_wb (or NULL), out,
     # fin (or NULL), B, C, L, F, hop, khead, rows_p, layers, then
     # lvc_block_ncl.fh_tile_plan's tile, frames, grid and shared memory;
-    # stream (K5 on the tensor cores, hop % 8 == 0)
+    # stream (hop % 8 == 0)
     "lvc_block_ncl_fh_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P],
-    # the same operands but the plan: K5 on the CUDA cores, any hop
-    "lvc_block_ncl_fh_cc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # as taug_head_launch, then lvc_head.head_gemm_walk_plan's stripe
     "taug_head_variant_launch": [_P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _P],
@@ -84,10 +72,6 @@ SIGNATURES = {
     # (padded K, ring stages, shared memory) and its grid; stream
     "lvc_stage_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P],
-    # h, mel, w1, b1, w2, b2, w_mel, b_mel, B, 2C, L, T', n_mels, stride,
-    # then wavenet_cond.launch_grid's grid and smem_bytes; stream
-    "wavenet_cond_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, x_out (or NULL), skip, part_t, mel, w_dil, b_dil, w1, b1, w2, b2,
     # w_mel, b_mel, w_res, b_res, w_skip, b_skip, B, C, C_skip, L, T',
     # n_mels, stride, dilation, x_bf16, skip_read, then

@@ -16,26 +16,24 @@ bias; ``K_{i,f}`` is ``kern_taug[b, f, i, :, :3C+1]`` from the predictor head
 (``ops/lvc_head.py``). With ``final_wb`` (8, C) the block also returns the
 model's final k=7 C->1 conv of the carry, in float32.
 
-The JAX kernel only fuses blocks whose hop and frame count fit its tiling
-(``fusable``); Kernel B takes any hop >= 1 and any frame count, so every
-block of every request runs through it. On a CUDA tensor
-``lvc_block_ncl`` launches the tensor-core kernel
-(``csrc/lvc_block_ncl_tc.cu``, tiles from ``block_tile_plan``) when the
-hop is a multiple of 8, and the CUDA-core kernel (``lvc_block_ncl_cc``,
-``csrc/lvc_block_ncl.cu``) for any other hop; on a CPU tensor it runs the
-plain version, which keeps the kernels' cast points. Kernel B-SR
-(``lvc_block_ncl_sr``) dispatches the same way: the tensor-core kernel's
-SAVE instantiation, or ``lvc_block_ncl_sr_cc``.
+The JAX kernels only fuse the blocks whose hop and frame count fit their
+tiling (``fusable``) and run the plain version (XLA) on the rest. On a CUDA
+tensor ``lvc_block_ncl`` launches the tensor-core kernel
+(``csrc/lvc_block_ncl_tc.cu``, tiles from ``block_tile_plan``) at any frame
+count when the hop is a multiple of 8 (``tensor_core_hop``), and raises at
+any other hop, which no configuration has; on a CPU tensor it runs the
+plain version, which keeps the kernel's cast points. Kernel B-SR
+(``lvc_block_ncl_sr``) dispatches the same way, to the tensor-core kernel's
+SAVE instantiation or to ``lvc_block_ncl_sr_plain``.
 
 K5 (``lvc_block_ncl_fh``, JAX's ``lvc_block_ncl_fh``) is Kernel B with the
 predictor head (Kernel A's GEMM) run inside the kernel: it takes the trunk
 taps (B, F, 192) and the merged head weights instead of ``kern_taug``,
 which then never reaches device memory. At hops that are multiples of 8 it
 runs on the tensor cores (``csrc/lvc_block_ncl_fh.cu``, tiles from
-``fh_tile_plan``), at other hops on the CUDA cores
-(``lvc_block_ncl_fh_cc``). Its plain version is Kernel A's plain head
-followed by Kernel B's, with their cast points. The ``ncl_fh`` route runs
-it on the blocks ``fusable`` admits.
+``fh_tile_plan``) and has no kernel at other hops. Its plain version is
+Kernel A's plain head followed by Kernel B's, with their cast points. The
+``ncl_fh`` route runs it on the blocks ``fusable`` admits.
 
 Training (``models/fastdiff.py`` routes):
 
@@ -64,17 +62,13 @@ from fastdiff_tpu_torch.ops.lvc import (location_variable_convolution,
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
 # launches of the CUDA kernels since the last reset (plain runs not counted):
-# lvc_block_ncl / _final the tensor-core Kernel B, lvc_block_ncl_cc the
-# CUDA-core one (hops that are no multiple of 8, with or without epilogue);
-# lvc_block_ncl_sr the tensor-core Kernel B-SR, lvc_block_ncl_sr_cc the
-# CUDA-core one; lvc_block_ncl_fh / _final the tensor-core K5,
-# lvc_block_ncl_fh_cc the CUDA-core one
+# lvc_block_ncl / _final Kernel B without / with the epilogue,
+# lvc_block_ncl_sr Kernel B-SR, lvc_block_ncl_fh / _final K5
 LAUNCHES = {"lvc_block_ncl": 0, "lvc_block_ncl_final": 0,
-            "lvc_block_ncl_cc": 0, "lvc_block_ncl_sr": 0,
-            "lvc_block_ncl_sr_cc": 0, "lvc_block_ncl_fh": 0,
-            "lvc_block_ncl_fh_final": 0, "lvc_block_ncl_fh_cc": 0}
+            "lvc_block_ncl_sr": 0, "lvc_block_ncl_fh": 0,
+            "lvc_block_ncl_fh_final": 0}
 
-# what csrc/lvc_block_ncl.cu and csrc/lvc_block_ncl_fh.cu are built for
+# what csrc/lvc_block_ncl_tc.cu and csrc/lvc_block_ncl_fh.cu are built for
 KERNEL_CHANNELS = 32
 KERNEL_LAYERS = 4
 KERNEL_HEAD_K = 192          # K5's head contraction: conv taps x hidden
@@ -120,9 +114,9 @@ def tc_smem_bytes(ext: int) -> int:
 
 
 def tensor_core_hop(hop: int) -> bool:
-    """Whether the tensor-core Kernel B takes this hop: a multiple of 8, so
-    that no n8 tile of samples straddles two frames. Other hops run the
-    CUDA-core kernel."""
+    """Whether the tensor-core kernels take this hop: a multiple of 8, so
+    that no n8 tile of samples straddles two frames. The LVC ops raise on a
+    CUDA tensor at any other hop."""
     return hop >= 8 and hop % 8 == 0
 
 
@@ -319,8 +313,17 @@ def lvc_block_ncl_sr_plain(x: torch.Tensor, skip: torch.Tensor,
     return (carry, *(torch.stack(kept, dim=1) for kept in saved))
 
 
+def check_hop(hop: int, fn: str) -> None:
+    """Raise unless the tensor-core kernels take ``hop``; called before any
+    operand is read."""
+    if not tensor_core_hop(hop):
+        raise ValueError(f"{fn}: no kernel for hop {hop}; the tensor-core "
+                         "kernel takes multiples of 8")
+
+
 def _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, final_wb,
                          fn: str = "lvc_block_ncl"):
+    check_hop(hop, fn)
     b, c, length = x.shape
     if kern_taug.dim() != 5:
         raise ValueError(f"kern_taug must be 5-D, got {tuple(kern_taug.shape)}")
@@ -359,63 +362,43 @@ def lvc_block_ncl(x: torch.Tensor, skip: torch.Tensor,
     wstack_t (layers, C, 3C+1); L == F * hop -> carry (B, C, L), plus
     (B, 1, L) float32 when ``final_wb`` (8, C) is given.
 
-    CPU tensors run ``lvc_block_ncl_plain``. CUDA tensors (all bf16, C = 32,
-    4 layers) launch the tensor-core kernel (``csrc/lvc_block_ncl_tc.cu``)
-    when ``tensor_core_hop(hop)``, else the CUDA-core one
-    (``lvc_block_ncl_cc``), or raise."""
+    CPU tensors run ``lvc_block_ncl_plain``. CUDA tensors (all bf16, C =
+    32, 4 layers, a hop that ``tensor_core_hop`` takes) launch the
+    tensor-core kernel (``csrc/lvc_block_ncl_tc.cu``) or raise."""
     if x.device.type == "cpu":
         return lvc_block_ncl_plain(x, skip, kern_taug, wstack_t, hop,
                                    final_wb)
-    if x.device.type != "cuda" or not tensor_core_hop(hop):
-        return lvc_block_ncl_cc(x, skip, kern_taug, wstack_t, hop, final_wb)
-    # (an empty call launches nothing; its plan is never read)
-    plan = block_tile_plan(max(x.shape[0], 1), max(x.shape[2], 1),
-                           _sm_count(x.device.index or 0))
-    key = "lvc_block_ncl" if final_wb is None else "lvc_block_ncl_final"
-    return _launch_block("lvc_block_ncl_launch", (plan.tile,), key, x, skip,
-                         kern_taug, wstack_t, hop, final_wb)
+    return _launch_block(x, skip, kern_taug, wstack_t, hop, final_wb)
 
 
-def lvc_block_ncl_cc(x: torch.Tensor, skip: torch.Tensor,
-                     kern_taug: torch.Tensor, wstack_t: torch.Tensor,
-                     hop: int, final_wb: torch.Tensor | None = None):
-    """Kernel B on the CUDA cores (``csrc/lvc_block_ncl.cu``), any hop >= 1:
-    ``lvc_block_ncl``'s operands and results. ``lvc_block_ncl`` runs it for
-    hops that are no multiple of 8; ``chip_smoke.py`` races it against the
-    tensor-core kernel. CPU tensors run ``lvc_block_ncl_plain``."""
-    if x.device.type == "cpu":
-        return lvc_block_ncl_plain(x, skip, kern_taug, wstack_t, hop,
-                                   final_wb)
-    return _launch_block("lvc_block_ncl_cc_launch", (), "lvc_block_ncl_cc",
-                         x, skip, kern_taug, wstack_t, hop, final_wb)
-
-
-def _launch_block(entry: str, extra: tuple, key: str, x, skip, kern_taug,
-                  wstack_t, hop, final_wb):
-    """Check the operands, allocate out (and fin) and launch the Kernel B
-    C entry ``entry`` (``extra`` are its arguments before the stream);
-    counts the launch under ``LAUNCHES[key]``."""
+def _launch_block(x, skip, kern_taug, wstack_t, hop, final_wb):
+    """Check the operands, allocate out (and fin), plan the tile and launch
+    ``lvc_block_ncl_launch``; counts the launch under
+    ``LAUNCHES["lvc_block_ncl"]`` or, with the epilogue,
+    ``LAUNCHES["lvc_block_ncl_final"]``."""
     if x.device.type != "cuda":
         raise ValueError(f"lvc_block_ncl: unsupported device {x.device}")
     _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, final_wb)
     b, c, length = x.shape
     _, frames, layers, _, rows_p = kern_taug.shape
     out = torch.empty_like(x)
-    fin = (torch.empty((b, 1, length), dtype=torch.float32, device=x.device)
+    fin = (x.new_empty((b, 1, length), dtype=torch.float32)
            if final_wb is not None else None)
     if b == 0 or length == 0:
         return out if fin is None else (out, fin)
+    plan = block_tile_plan(b, length, _sm_count(x.device.index or 0))
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, entry)(
+        code = lib.lvc_block_ncl_launch(
             x.data_ptr(), skip.data_ptr(), kern_taug.data_ptr(),
             wstack_t.data_ptr(),
             None if final_wb is None else final_wb.data_ptr(),
             out.data_ptr(), None if fin is None else fin.data_ptr(),
-            b, c, length, frames, hop, rows_p, layers, *extra, stream)
-    _build.check(code, entry)
-    LAUNCHES[key] += 1
+            b, c, length, frames, hop, rows_p, layers, plan.tile, stream)
+    _build.check(code, "lvc_block_ncl_launch")
+    LAUNCHES["lvc_block_ncl" if final_wb is None
+             else "lvc_block_ncl_final"] += 1
     return out if fin is None else (out, fin)
 
 
@@ -436,6 +419,7 @@ def lvc_block_ncl_fh_plain(x: torch.Tensor, skip: torch.Tensor,
 def _check_fh_operands(x, skip, tap_c, w_head, b_head, wstack_t, hop,
                        final_wb):
     fn = "lvc_block_ncl_fh"
+    check_hop(hop, fn)
     b, c, length = x.shape
     if tap_c.dim() != 3 or w_head.dim() != 2 or b_head.dim() != 1:
         raise ValueError(f"{fn}: tap_c (B, F, K), w_head (K, N) and b_head "
@@ -491,46 +475,22 @@ def lvc_block_ncl_fh(x: torch.Tensor, skip: torch.Tensor,
     hop -> carry (B, C, L), plus (B, 1, L) float32 with ``final_wb`` (8, C).
 
     CPU tensors run ``lvc_block_ncl_fh_plain``. CUDA tensors (bf16 but the
-    f32 bias, C = 32, 4 layers, K = 192, w_head 128-byte aligned) launch the
-    tensor-core kernel (``csrc/lvc_block_ncl_fh.cu``, its tile from
-    ``fh_tile_plan``) when ``tensor_core_hop(hop)``, else the CUDA-core one
-    (``lvc_block_ncl_fh_cc``), or raise."""
+    f32 bias, C = 32, 4 layers, K = 192, w_head 128-byte aligned, a hop that
+    ``tensor_core_hop`` takes) launch the tensor-core kernel
+    (``csrc/lvc_block_ncl_fh.cu``, its tile from ``fh_tile_plan``) or
+    raise."""
     if x.device.type == "cpu":
         return lvc_block_ncl_fh_plain(x, skip, tap_c, w_head, b_head,
                                       wstack_t, hop, final_wb)
-    if x.device.type != "cuda" or not tensor_core_hop(hop):
-        return lvc_block_ncl_fh_cc(x, skip, tap_c, w_head, b_head, wstack_t,
-                                   hop, final_wb)
-    # (an empty call launches nothing; its plan is never read)
-    plan = fh_tile_plan(max(x.shape[0], 1), max(tap_c.shape[1], 1), hop,
-                        _sm_count(x.device.index or 0))
-    key = "lvc_block_ncl_fh" if final_wb is None else "lvc_block_ncl_fh_final"
-    return _launch_fh("lvc_block_ncl_fh_launch", plan.c_args, key, x, skip,
-                      tap_c, w_head, b_head, wstack_t, hop, final_wb)
+    return _launch_fh(x, skip, tap_c, w_head, b_head, wstack_t, hop,
+                      final_wb)
 
 
-def lvc_block_ncl_fh_cc(x: torch.Tensor, skip: torch.Tensor,
-                        tap_c: torch.Tensor, w_head: torch.Tensor,
-                        b_head: torch.Tensor, wstack_t: torch.Tensor,
-                        hop: int, final_wb: torch.Tensor | None = None):
-    """K5 on the CUDA cores (``csrc/lvc_block_ncl_fh_cc.cu``), any hop >= 1:
-    ``lvc_block_ncl_fh``'s operands and results. ``lvc_block_ncl_fh`` runs
-    it for hops that are no multiple of 8; ``chip_smoke.py`` races it
-    against the tensor-core kernel. CPU tensors run
-    ``lvc_block_ncl_fh_plain``."""
-    if x.device.type == "cpu":
-        return lvc_block_ncl_fh_plain(x, skip, tap_c, w_head, b_head,
-                                      wstack_t, hop, final_wb)
-    return _launch_fh("lvc_block_ncl_fh_cc_launch", (),
-                      "lvc_block_ncl_fh_cc", x, skip, tap_c, w_head, b_head,
-                      wstack_t, hop, final_wb)
-
-
-def _launch_fh(entry: str, extra: tuple, key: str, x, skip, tap_c, w_head,
-               b_head, wstack_t, hop, final_wb):
-    """Check the operands, allocate out (and fin) and launch the K5 C entry
-    ``entry`` (``extra`` are its arguments before the stream); counts the
-    launch under ``LAUNCHES[key]``."""
+def _launch_fh(x, skip, tap_c, w_head, b_head, wstack_t, hop, final_wb):
+    """Check the operands, allocate out (and fin), plan the tile and launch
+    ``lvc_block_ncl_fh_launch``; counts the launch under
+    ``LAUNCHES["lvc_block_ncl_fh"]`` or, with the epilogue,
+    ``LAUNCHES["lvc_block_ncl_fh_final"]``."""
     if x.device.type != "cuda":
         raise ValueError(f"lvc_block_ncl_fh: unsupported device {x.device}")
     rows_p = _check_fh_operands(x, skip, tap_c, w_head, b_head, wstack_t,
@@ -538,22 +498,24 @@ def _launch_fh(entry: str, extra: tuple, key: str, x, skip, tap_c, w_head,
     b, c, length = x.shape
     frames, khead = tap_c.shape[1:]
     out = torch.empty_like(x)
-    fin = (torch.empty((b, 1, length), dtype=torch.float32, device=x.device)
+    fin = (x.new_empty((b, 1, length), dtype=torch.float32)
            if final_wb is not None else None)
     if b == 0 or length == 0:
         return out if fin is None else (out, fin)
+    plan = fh_tile_plan(b, frames, hop, _sm_count(x.device.index or 0))
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, entry)(
+        code = lib.lvc_block_ncl_fh_launch(
             x.data_ptr(), skip.data_ptr(), tap_c.data_ptr(),
             w_head.data_ptr(), b_head.data_ptr(), wstack_t.data_ptr(),
             None if final_wb is None else final_wb.data_ptr(),
             out.data_ptr(), None if fin is None else fin.data_ptr(),
             b, c, length, frames, hop, khead, rows_p, wstack_t.shape[0],
-            *extra, stream)
-    _build.check(code, entry)
-    LAUNCHES[key] += 1
+            *plan.c_args, stream)
+    _build.check(code, "lvc_block_ncl_fh_launch")
+    LAUNCHES["lvc_block_ncl_fh" if final_wb is None
+             else "lvc_block_ncl_fh_final"] += 1
     return out if fin is None else (out, fin)
 
 
@@ -564,42 +526,19 @@ def lvc_block_ncl_sr(x: torch.Tensor, skip: torch.Tensor,
     (B, layers, C, L), z_all (B, layers, 2C, L)), the residuals that
     ``lvc_block_sr_backward`` reads.
 
-    CPU tensors run ``lvc_block_ncl_sr_plain``. CUDA tensors (all bf16,
-    C = 32, 4 layers) launch the tensor-core kernel's SAVE instantiation
-    (``csrc/lvc_block_ncl_tc.cu``, the tile from ``block_tile_plan``) when
-    ``tensor_core_hop(hop)``, else the CUDA-core one
-    (``lvc_block_ncl_sr_cc``), or raise."""
+    CPU tensors run ``lvc_block_ncl_sr_plain``. CUDA tensors (all bf16, C =
+    32, 4 layers, a hop that ``tensor_core_hop`` takes) launch the
+    tensor-core kernel's SAVE instantiation (``csrc/lvc_block_ncl_tc.cu``,
+    the tile from ``block_tile_plan``) or raise."""
     if x.device.type == "cpu":
         return lvc_block_ncl_sr_plain(x, skip, kern_taug, wstack_t, hop)
-    if x.device.type != "cuda" or not tensor_core_hop(hop):
-        return lvc_block_ncl_sr_cc(x, skip, kern_taug, wstack_t, hop)
-    # (an empty call launches nothing; its plan is never read)
-    plan = block_tile_plan(max(x.shape[0], 1), max(x.shape[2], 1),
-                           _sm_count(x.device.index or 0))
-    return _launch_sr("lvc_block_ncl_sr_launch", (plan.tile,),
-                      "lvc_block_ncl_sr", x, skip, kern_taug, wstack_t, hop)
+    return _launch_sr(x, skip, kern_taug, wstack_t, hop)
 
 
-def lvc_block_ncl_sr_cc(x: torch.Tensor, skip: torch.Tensor,
-                        kern_taug: torch.Tensor, wstack_t: torch.Tensor,
-                        hop: int) -> tuple:
-    """Kernel B-SR on the CUDA cores (``csrc/lvc_block_ncl.cu``, SAVE), any
-    hop >= 1: ``lvc_block_ncl_sr``'s operands and results.
-    ``lvc_block_ncl_sr`` runs it for hops that are no multiple of 8;
-    ``chip_smoke.py`` races it against the tensor-core kernel. CPU tensors
-    run ``lvc_block_ncl_sr_plain``."""
-    if x.device.type == "cpu":
-        return lvc_block_ncl_sr_plain(x, skip, kern_taug, wstack_t, hop)
-    return _launch_sr("lvc_block_ncl_sr_cc_launch", (),
-                      "lvc_block_ncl_sr_cc", x, skip, kern_taug, wstack_t,
-                      hop)
-
-
-def _launch_sr(entry: str, extra: tuple, key: str, x, skip, kern_taug,
-               wstack_t, hop) -> tuple:
-    """Check the operands, allocate out and the residuals and launch the
-    Kernel B-SR C entry ``entry`` (``extra`` are its arguments before the
-    stream); counts the launch under ``LAUNCHES[key]``."""
+def _launch_sr(x, skip, kern_taug, wstack_t, hop) -> tuple:
+    """Check the operands, allocate out and the residuals, plan the tile and
+    launch ``lvc_block_ncl_sr_launch``; counts the launch under
+    ``LAUNCHES["lvc_block_ncl_sr"]``."""
     if x.device.type != "cuda":
         raise ValueError(f"lvc_block_ncl_sr: unsupported device {x.device}")
     _check_cuda_operands(x, skip, kern_taug, wstack_t, hop, None,
@@ -612,16 +551,17 @@ def _launch_sr(entry: str, extra: tuple, key: str, x, skip, kern_taug,
     z_all = x.new_empty((b, layers, 2 * c, length))
     if b == 0 or length == 0:
         return out, s_all, y_all, z_all
+    plan = block_tile_plan(b, length, _sm_count(x.device.index or 0))
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, entry)(
+        code = lib.lvc_block_ncl_sr_launch(
             x.data_ptr(), skip.data_ptr(), kern_taug.data_ptr(),
             wstack_t.data_ptr(), out.data_ptr(), s_all.data_ptr(),
             y_all.data_ptr(), z_all.data_ptr(), b, c, length, frames, hop,
-            rows_p, layers, *extra, stream)
-    _build.check(code, entry)
-    LAUNCHES[key] += 1
+            rows_p, layers, plan.tile, stream)
+    _build.check(code, "lvc_block_ncl_sr_launch")
+    LAUNCHES["lvc_block_ncl_sr"] += 1
     return out, s_all, y_all, z_all
 
 

@@ -16,16 +16,15 @@ Two kernels:
 - **K6**, ``lvc_block_nwc``: the whole 4-layer block. At hops that are
   multiples of 8 it is ``csrc/lvc_block_nwc_tc.cu``, on the tensor cores
   with the stages of ``csrc/lvc_block_tc.cuh`` and a tile from
-  ``nwc_tile_plan``; at other hops ``lvc_block_nwc_cc``,
-  ``csrc/lvc_block_ncl.cu`` built with its NWC layout flag. The route calls
-  it where JAX's ``fusable`` admits the block (hop >= 64, at least 2
-  frames).
+  ``nwc_tile_plan``; there is no kernel at other hops. The route calls it
+  where JAX's ``fusable`` admits the block (hop >= 64, at least 2 frames).
 - **K7**, ``aug_head_matmul``: the predictor head ``tap @ w_aug + b_aug``
   written row-major, which read as (B, F, layers, 3C+1, 2C) is ``kern_aug``
   with no copy. It is ``csrc/taug_head.cu``'s GEMM: K3 and K7 differ only in
   the column order of the packed weights.
 
-On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+On a CUDA tensor each wrapper launches its kernel or raises (K6 raises at
+a hop ``tensor_core_hop`` refuses, which no configuration has); on a CPU
 tensor it runs the plain version beside it.
 
 The trainable NWC route (``use_pallas_block: true`` in training, JAX's
@@ -45,18 +44,16 @@ from fastdiff_tpu_torch.ops.lvc import lvc_gated_residual_nwc
 from fastdiff_tpu_torch.ops.lvc_block_ncl import (BlockPlan, TC_APAD,
                                                   TC_HALO, TC_ROW, TC_WROW,
                                                   TC_YPAD, _sm_count,
-                                                  block_tile_plan,
-                                                  tensor_core_hop)
+                                                  block_tile_plan, check_hop)
 from fastdiff_tpu_torch.ops.lvc_head import (head_matmul_backward,
                                              launch_head_gemm)
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
 # launches of the CUDA kernels since the last reset (plain runs not
-# counted): lvc_block_nwc the tensor-core K6, lvc_block_nwc_cc the
-# CUDA-core one (hops that are no multiple of 8)
-LAUNCHES = {"lvc_block_nwc": 0, "lvc_block_nwc_cc": 0, "aug_head": 0}
+# counted): lvc_block_nwc K6, aug_head K7
+LAUNCHES = {"lvc_block_nwc": 0, "aug_head": 0}
 
-# what csrc/lvc_block_ncl.cu and csrc/lvc_block_nwc_tc.cu are built for
+# what csrc/lvc_block_nwc_tc.cu is built for
 KERNEL_CHANNELS = 32
 KERNEL_LAYERS = 4
 _MIN_FUSED_HOP = 64
@@ -214,6 +211,7 @@ def lvc_block_nwc_plain(x: torch.Tensor, skip: torch.Tensor,
 
 
 def _check_cuda_operands(x, skip, kern_aug, wstack, hop):
+    check_hop(hop, "lvc_block_nwc")
     b, length, c = x.shape
     if kern_aug.dim() != 5:
         raise ValueError(f"kern_aug must be 5-D, got {tuple(kern_aug.shape)}")
@@ -250,41 +248,19 @@ def lvc_block_nwc(x: torch.Tensor, skip: torch.Tensor,
     """K6: x, skip (B, L, C); kern_aug (B, F, layers, 3C+1, 2C); wstack
     (layers, 3C+1, C); L == F * hop -> (B, L, C).
 
-    CPU tensors run ``lvc_block_nwc_plain``. CUDA tensors (all bf16,
-    C = 32, 4 layers, kern_aug 128-byte aligned) launch the tensor-core
-    kernel (``csrc/lvc_block_nwc_tc.cu``) when ``tensor_core_hop(hop)``,
-    else the CUDA-core one (``lvc_block_nwc_cc``), or raise."""
+    CPU tensors run ``lvc_block_nwc_plain``. CUDA tensors (all bf16, C =
+    32, 4 layers, kern_aug 128-byte aligned, a hop that ``tensor_core_hop``
+    takes) launch the tensor-core kernel (``csrc/lvc_block_nwc_tc.cu``) or
+    raise."""
     if x.device.type == "cpu":
         return lvc_block_nwc_plain(x, skip, kern_aug, wstack, hop)
-    if x.device.type != "cuda" or not tensor_core_hop(hop):
-        return lvc_block_nwc_cc(x, skip, kern_aug, wstack, hop)
-    # (an empty call launches nothing; its plan is never read)
-    plan = nwc_tile_plan(max(x.shape[0], 1), max(x.shape[1], 1),
-                         _sm_count(x.device.index or 0))
-    return _launch_nwc("lvc_block_nwc_launch",
-                       (plan.tile, plan.smem_bytes), "lvc_block_nwc", x,
-                       skip, kern_aug, wstack, hop)
+    return _launch_nwc(x, skip, kern_aug, wstack, hop)
 
 
-def lvc_block_nwc_cc(x: torch.Tensor, skip: torch.Tensor,
-                     kern_aug: torch.Tensor, wstack: torch.Tensor,
-                     hop: int) -> torch.Tensor:
-    """K6 on the CUDA cores (``csrc/lvc_block_ncl.cu``'s NWC variant), any
-    hop >= 1: ``lvc_block_nwc``'s operands and result. ``lvc_block_nwc``
-    runs it for hops that are no multiple of 8; ``chip_smoke.py`` races it
-    against the tensor-core kernel. CPU tensors run
-    ``lvc_block_nwc_plain``."""
-    if x.device.type == "cpu":
-        return lvc_block_nwc_plain(x, skip, kern_aug, wstack, hop)
-    return _launch_nwc("lvc_block_nwc_cc_launch", (), "lvc_block_nwc_cc", x,
-                       skip, kern_aug, wstack, hop)
-
-
-def _launch_nwc(entry: str, extra: tuple, key: str, x, skip, kern_aug,
-                wstack, hop) -> torch.Tensor:
-    """Check the operands, allocate out and launch the K6 C entry ``entry``
-    (``extra`` are its arguments before the stream); counts the launch
-    under ``LAUNCHES[key]``."""
+def _launch_nwc(x, skip, kern_aug, wstack, hop) -> torch.Tensor:
+    """Check the operands, allocate out, plan the tile and launch
+    ``lvc_block_nwc_launch``; counts the launch under
+    ``LAUNCHES["lvc_block_nwc"]``."""
     if x.device.type != "cuda":
         raise ValueError(f"lvc_block_nwc: unsupported device {x.device}")
     _check_cuda_operands(x, skip, kern_aug, wstack, hop)
@@ -293,15 +269,16 @@ def _launch_nwc(entry: str, extra: tuple, key: str, x, skip, kern_aug,
     out = torch.empty_like(x)
     if b == 0 or length == 0:
         return out
+    plan = nwc_tile_plan(b, length, _sm_count(x.device.index or 0))
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, entry)(
+        code = lib.lvc_block_nwc_launch(
             x.data_ptr(), skip.data_ptr(), kern_aug.data_ptr(),
             wstack.data_ptr(), out.data_ptr(), b, c, length, frames, hop,
-            rows, layers, *extra, stream)
-    _build.check(code, entry)
-    LAUNCHES[key] += 1
+            rows, layers, plan.tile, plan.smem_bytes, stream)
+    _build.check(code, "lvc_block_nwc_launch")
+    LAUNCHES["lvc_block_nwc"] += 1
     return out
 
 

@@ -6,13 +6,14 @@ skip sum (B, C_skip, L) f32, t_n = fc_t(t_emb) (B, C) f32 and the mel
 (B, T', M) in the compute dtype:
 
     a = x + t_n                                  (in x's dtype)
-    z = conv_d(a) + conv1x1(W_mel, cond(mel))    (B, 2C, L), ``wavenet_cond``
+    z = conv_d(a) + conv1x1(W_mel, cond(mel))    (B, 2C, L)
     out = tanh(z[:C]) * sigmoid(z[C:])
     x' = (x + conv1x1(W_res, out)) * sqrt(1/2)   (f32)
     skip_sum' = skip_sum + conv1x1(W_skip, out)  (f32)
 
 ``wavenet_block_plain`` is that chain as ``WaveNet.forward`` runs it (each
-conv in the compute dtype with f32 sums, ``ops/nn.py:conv1d_ncl``).
+conv in the compute dtype with f32 sums, ``ops/nn.py:conv1d_ncl``; cond and
+its projection ``ops/wavenet_cond.py:wavenet_cond_plain``).
 
 On a CUDA tensor ``wavenet_block`` launches the hand-written kernel
 (``csrc/wavenet_block.cu``): one launch reads x and the skip sum once and
@@ -23,8 +24,8 @@ kernel rounds fewer times than the plain chain, never more (the source
 says where). On a CPU tensor it runs ``wavenet_block_plain``. The kernel
 takes bf16, 64 residual and 64 skip channels, 80 mel bins, s = 8 or 16, L
 a multiple of 8 and a dilation of at most ``TILE`` or a multiple of 8
-(``supports``, ``supports_dilation``, ``wavenet_cond.fits_length``); it has
-no backward, so ``WaveNet`` takes it only with gradients off.
+(``supports``, ``supports_dilation``, ``fits_length``); it has no
+backward, so ``WaveNet`` takes it only with gradients off.
 """
 
 from __future__ import annotations
@@ -118,6 +119,13 @@ def supports(res_channels: int, skip_channels: int, n_mels: int,
             and stride in STRIDES)
 
 
+def fits_length(length: int, frames: int, stride: int) -> bool:
+    """Whether the kernel takes L samples of conditioning from T' frames:
+    L a positive multiple of ``LENGTH_MULTIPLE``, at most T' s^2."""
+    return (length > 0 and length % LENGTH_MULTIPLE == 0
+            and length <= frames * stride * stride)
+
+
 def supports_dilation(dilation: int) -> bool:
     """A dilation of at most TILE (one window with a halo rounded up to 8),
     or a multiple of 8 (three segments, 16-byte aligned)."""
@@ -150,20 +158,19 @@ def launch_grid(batch: int, length: int, sms: int) -> int:
 def wavenet_block_plain(x: torch.Tensor, skip_sum: Optional[torch.Tensor],
                         part_t: torch.Tensor, mel: torch.Tensor,
                         w: BlockWeights, *, dilation: int, stride: int,
-                        add_cond=None, want_x: bool = True):
+                        want_x: bool = True):
     """Plain PyTorch version, the chain of ``WaveNet.forward``: x (B, C, L)
     in the compute dtype (block 0) or f32, skip_sum (B, C_skip, L) f32 or
     None (a sum of nothing yet), part_t (B, C) f32, mel (B, T', M) in the
-    compute dtype. ``add_cond`` adds the conditioning into the dilated
-    conv's output (``wavenet_cond_plain`` unless given). Returns (x', the
-    new skip sum); x' is None unless ``want_x``."""
+    compute dtype. Returns (x', the new skip sum); x' is None unless
+    ``want_x``."""
     dtype = mel.dtype
-    add_cond = add_cond or wavenet_cond.wavenet_cond_plain
     c = x.shape[1]
     h = x + part_t[:, :, None].to(x.dtype)
     h = fnn.conv1d_ncl(w.w_dil, w.b_dil, h, dilation=dilation,
                        compute_dtype=dtype)
-    h = add_cond(h, mel, w.ups, w.mel_w, w.mel_b, stride=stride)
+    h = wavenet_cond.wavenet_cond_plain(h, mel, w.ups, w.mel_w, w.mel_b,
+                                        stride=stride)
     out = torch.tanh(h[:, :c]) * torch.sigmoid(h[:, c:])
     x_new = None
     if want_x:
@@ -181,7 +188,7 @@ def check_operands(x: torch.Tensor, skip_sum: Optional[torch.Tensor],
     64, L) f32, or bf16 (block 0), skip_sum (B, 64, L) f32 or None, part_t
     (B, 64) f32, mel (B, T', 80) bf16, the weights f32 in their shapes, all
     contiguous on x's device, x and skip_sum 16-byte aligned; ``supports``,
-    ``supports_dilation`` and ``wavenet_cond.fits_length`` true."""
+    ``supports_dilation`` and ``fits_length`` true."""
     if x.dim() != 3 or mel.dim() != 3 or mel.shape[0] != x.shape[0]:
         raise ValueError(f"wavenet_block: x {tuple(x.shape)}, mel "
                          f"{tuple(mel.shape)}")
@@ -198,7 +205,7 @@ def check_operands(x: torch.Tensor, skip_sum: Optional[torch.Tensor],
                          f"bins, stride {stride}")
     if not supports_dilation(dilation):
         raise ValueError(f"wavenet_block: no kernel for dilation {dilation}")
-    if not wavenet_cond.fits_length(length, frames, stride):
+    if not fits_length(length, frames, stride):
         raise ValueError(f"wavenet_block: L = {length} must be a positive "
                          f"multiple of {LENGTH_MULTIPLE}, at most "
                          f"{frames} x {stride}^2")

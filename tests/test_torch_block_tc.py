@@ -7,17 +7,18 @@ Python constants to the source's, hold the tile walk that the kernel does
 (block ``bx`` outputs samples ``[bx * tile, bx * tile + tile)`` from an
 extent of ``tile + 2 * HALO`` samples, in n8 tiles each read against the
 frame of its first sample) to covering every output once with the halo and
-frames it needs, and hold the hop test and the C entries' arities.
+frames it needs, and hold the hop test, the launch with the plan's tile
+and the C entry's arity.
 """
 
 import re
 
 import numpy as np
 import pytest
-import torch
 
 from fastdiff_tpu_torch.ops import _build
 from fastdiff_tpu_torch.ops import lvc_block_ncl as ops
+from tests.fake_card import FakeCuda, fake_card
 
 # samples of halo the four layers (sum(d_i + 1) = 44) and the final conv
 # (3) consume on each side of an output
@@ -38,10 +39,9 @@ def _const(src: str, name: str) -> int:
 
 def test_python_geometry_matches_the_source():
     tc = _source("lvc_block_tc.cuh")
-    common = _source("lvc_block_common.cuh")
-    assert _const(common, "HALO") == ops.TC_HALO
-    assert _const(common, "C") == ops.KERNEL_CHANNELS
-    assert _const(common, "LAYERS") == ops.KERNEL_LAYERS
+    assert _const(tc, "HALO") == ops.TC_HALO
+    assert _const(tc, "C") == ops.KERNEL_CHANNELS
+    assert _const(tc, "LAYERS") == ops.KERNEL_LAYERS
     assert _const(tc, "THREADS") == ops.TC_THREADS
     assert _const(tc, "BLOCKS_PER_SM") == ops.TC_BLOCKS_PER_SM
     assert _const(tc, "TILE_MAX") == ops.TC_TILE_MAX
@@ -131,38 +131,44 @@ def test_plan_refuses_an_empty_block():
                                               (256, True), (16, True),
                                               (4, False), (1, False),
                                               (12, False), (100, False)])
-def test_hop_picks_the_kernel(hop, tensor_cores):
+def test_hop_picks_the_kernel(monkeypatch, hop, tensor_cores):
+    """A CUDA tensor reaches the tensor-core entry with the plan's tile when
+    ``tensor_core_hop(hop)`` (K2's launch counted apart, with the epilogue),
+    else raises naming the hop before any launch."""
     assert ops.tensor_core_hop(hop) is tensor_cores
+    lib = fake_card(monkeypatch, ops)
+    c, layers, rows_p = ops.KERNEL_CHANNELS, ops.KERNEL_LAYERS, 104
+    b, frames = 20, 100
+    x = FakeCuda((b, c, frames * hop))
+    kern = FakeCuda((b, frames, layers, 2 * c, rows_p))
+    wstack_t = FakeCuda((layers, c, 3 * c + 1))
+    for final_wb, key in ((None, "lvc_block_ncl"),
+                          (FakeCuda((8, c)), "lvc_block_ncl_final")):
+        before = dict(ops.LAUNCHES)
+        if not tensor_cores:
+            with pytest.raises(ValueError, match=f"hop {hop}"):
+                ops.lvc_block_ncl(x, x, kern, wstack_t, hop, final_wb)
+            assert lib.calls == [] and ops.LAUNCHES == before
+            continue
+        ops.lvc_block_ncl(x, x, kern, wstack_t, hop, final_wb)
+        (name, args), = lib.calls
+        lib.calls.clear()
+        tile = ops.block_tile_plan(b, frames * hop, 132).tile
+        assert name == "lvc_block_ncl_launch"
+        assert args[7:] == (b, c, frames * hop, frames, hop, rows_p, layers,
+                            tile, 0)
+        assert ops.LAUNCHES == dict(before, **{key: before[key] + 1})
 
 
 def test_block_entries_take_the_tile():
-    """The tensor-core entry takes the CUDA-core entry's arguments and the
-    plan's tile before the stream; both are defined in the sources."""
+    """The tensor-core entry takes the operands, the shapes and the plan's
+    tile before the stream, as its definition in the source does."""
     tc = _build.SIGNATURES["lvc_block_ncl_launch"]
-    cc = _build.SIGNATURES["lvc_block_ncl_cc_launch"]
-    assert tc[:-2] == cc[:-1] and tc[-2] is _build._I
-    assert tc[-1] is cc[-1] is _build._P
-    assert 'extern "C" int lvc_block_ncl_launch(' in _source(
-        "lvc_block_ncl_tc.cu")
-    assert 'extern "C" int lvc_block_ncl_cc_launch(' in _source(
-        "lvc_block_ncl.cu")
-
-
-def test_cuda_core_wrapper_runs_plain_on_cpu():
-    rng = np.random.default_rng(0)
-    b, c, frames, hop, rows_p = 1, 8, 5, 4, 32
-    x, skip = (torch.from_numpy(rng.normal(size=(b, c, frames * hop))
-                                .astype(np.float32)) for _ in range(2))
-    kern = torch.from_numpy(
-        (rng.normal(size=(b, frames, 4, 2 * c, rows_p)) * 0.1)
-        .astype(np.float32))
-    wstack_t = torch.from_numpy(
-        (rng.normal(size=(4, c, 3 * c + 1)) * 0.1).astype(np.float32))
-    before = dict(ops.LAUNCHES)
-    got = ops.lvc_block_ncl_cc(x, skip, kern, wstack_t, hop)
-    ref = ops.lvc_block_ncl_plain(x, skip, kern, wstack_t, hop)
-    assert torch.equal(got, ref)
-    assert ops.LAUNCHES == before
+    assert tc == [_build._P] * 7 + [_build._I] * 8 + [_build._P]
+    m = re.search(r'extern "C" int lvc_block_ncl_launch\(([^)]*)\)',
+                  _source("lvc_block_ncl_tc.cu"))
+    params = [p.split()[-1] for p in m.group(1).split(",")]
+    assert len(params) == len(tc) and params[-2:] == ["tile", "stream"]
 
 
 def test_experiment_variants_apply():

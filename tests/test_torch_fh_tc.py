@@ -12,11 +12,10 @@ every frame it needs; hold the w_head stream (chunk ``c`` of 64 columns,
 layer by layer, group by group, the sigmoid half then the tanh half) to
 reading every column of w_head once per call into the slab row the LVC
 reads; and hold the plan's reckoned w_head bytes, the hop test, the
-CUDA-core fallback and the C entries.
+launch with the plan's numbers and the C entry.
 """
 
 import re
-import types
 
 import numpy as np
 import pytest
@@ -24,6 +23,7 @@ import torch
 
 from fastdiff_tpu_torch.ops import _build
 from fastdiff_tpu_torch.ops import lvc_block_ncl as ops
+from tests.fake_card import FakeCuda, fake_card
 
 C, LAYERS, K = 32, 4, 192
 N = LAYERS * 2 * C * ops.FH_ROWS_P          # w_head columns: 26,624
@@ -184,70 +184,46 @@ def test_plan_refuses(b, frames, hop):
         ops.fh_tile_plan(b, frames, hop)
 
 
-def _fake_cuda(shape):
-    return types.SimpleNamespace(
-        device=types.SimpleNamespace(type="cuda", index=0), shape=shape)
-
-
-@pytest.mark.parametrize("hop,final,entry,key", [
-    (8, False, "lvc_block_ncl_fh_launch", "lvc_block_ncl_fh"),
-    (64, False, "lvc_block_ncl_fh_launch", "lvc_block_ncl_fh"),
-    (256, True, "lvc_block_ncl_fh_launch", "lvc_block_ncl_fh_final"),
-    (12, False, "lvc_block_ncl_fh_cc_launch", "lvc_block_ncl_fh_cc"),
-    (4, True, "lvc_block_ncl_fh_cc_launch", "lvc_block_ncl_fh_cc")])
-def test_hop_picks_the_kernel(monkeypatch, hop, final, entry, key):
-    """A CUDA tensor goes to the tensor-core entry with the plan's numbers
-    when ``tensor_core_hop(hop)``, else to the CUDA-core entry: a choice by
-    shape before any launch."""
-    seen = []
-    monkeypatch.setattr(ops, "_sm_count", lambda index: 132)
-    monkeypatch.setattr(ops, "_launch_fh",
-                        lambda name, extra, k, *a: seen.append(
-                            (name, extra, k)))
-    frames = 16
-    x = _fake_cuda((1, C, frames * hop))
-    tap_c = _fake_cuda((1, frames, K))
-    ops.lvc_block_ncl_fh(x, x, tap_c, None, None, None, hop,
-                         object() if final else None)
-    (name, extra, k), = seen
-    assert (name, k) == (entry, key)
-    if name == "lvc_block_ncl_fh_launch":
-        assert extra == ops.fh_tile_plan(1, frames, hop).c_args
-    else:
-        assert extra == ()
-
-
-def test_cuda_core_wrapper_runs_plain_on_cpu():
-    rng = np.random.default_rng(0)
-    b, c, frames, hop, rows_p, k = 1, 8, 4, 4, 32, 24
-    x, skip = (torch.from_numpy(rng.normal(size=(b, c, frames * hop))
-                                .astype(np.float32)) for _ in range(2))
-    tap_c = torch.from_numpy(rng.normal(size=(b, frames, k))
-                             .astype(np.float32))
-    w_head = torch.from_numpy((rng.normal(size=(k, 4 * 2 * c * rows_p))
-                               * 0.01).astype(np.float32))
-    b_head = torch.from_numpy(rng.normal(size=(4 * 2 * c * rows_p,))
-                              .astype(np.float32) * 0.01)
-    wstack_t = torch.from_numpy(
-        (rng.normal(size=(4, c, 3 * c + 1)) * 0.1).astype(np.float32))
+@pytest.mark.parametrize("hop,final,tensor_cores", [
+    (8, False, True), (64, False, True), (256, True, True),
+    (12, False, False), (4, True, False)])
+def test_hop_picks_the_kernel(monkeypatch, hop, final, tensor_cores):
+    """A CUDA tensor reaches the tensor-core entry with the plan's numbers
+    when ``tensor_core_hop(hop)`` (counted apart with the epilogue), else
+    raises naming the hop before any launch."""
+    lib = fake_card(monkeypatch, ops)
+    b, frames = 1, 16
+    x = FakeCuda((b, C, frames * hop))
+    tap_c = FakeCuda((b, frames, K))
+    w_head = FakeCuda((K, N))
+    b_head = FakeCuda((N,), torch.float32)
+    wstack_t = FakeCuda((LAYERS, C, 3 * C + 1))
+    final_wb = FakeCuda((8, C)) if final else None
     before = dict(ops.LAUNCHES)
-    got = ops.lvc_block_ncl_fh_cc(x, skip, tap_c, w_head, b_head, wstack_t,
-                                  hop)
-    ref = ops.lvc_block_ncl_fh_plain(x, skip, tap_c, w_head, b_head,
-                                     wstack_t, hop)
-    assert torch.equal(got, ref)
-    assert ops.LAUNCHES == before
+    if not tensor_cores:
+        with pytest.raises(ValueError, match=f"hop {hop}"):
+            ops.lvc_block_ncl_fh(x, x, tap_c, w_head, b_head, wstack_t, hop,
+                                 final_wb)
+        assert lib.calls == [] and ops.LAUNCHES == before
+        return
+    ops.lvc_block_ncl_fh(x, x, tap_c, w_head, b_head, wstack_t, hop,
+                         final_wb)
+    (name, args), = lib.calls
+    c_args = ops.fh_tile_plan(b, frames, hop, 132).c_args
+    assert name == "lvc_block_ncl_fh_launch"
+    assert args[9:] == (b, C, frames * hop, frames, hop, K, ops.FH_ROWS_P,
+                        LAYERS, *c_args, 0)
+    key = "lvc_block_ncl_fh_final" if final else "lvc_block_ncl_fh"
+    assert ops.LAUNCHES == dict(before, **{key: before[key] + 1})
 
 
 def test_entries_take_the_plan():
-    """The tensor-core entry takes the CUDA-core entry's arguments and the
-    plan's five numbers before the stream; both are defined."""
+    """The tensor-core entry takes the operands, the shapes and the plan's
+    numbers before the stream, as its definition in the source does."""
     tc = _build.SIGNATURES["lvc_block_ncl_fh_launch"]
-    cc = _build.SIGNATURES["lvc_block_ncl_fh_cc_launch"]
     n = len(ops.fh_tile_plan(1, 864, 8).c_args)
-    assert tc[:-n - 1] == cc[:-1] and tc[-n - 1:-1] == [_build._I] * n
-    assert tc[-1] is cc[-1] is _build._P
-    assert 'extern "C" int lvc_block_ncl_fh_launch(' in _source()
-    assert 'extern "C" int lvc_block_ncl_fh_cc_launch(' in (
-        _build.CSRC / "lvc_block_ncl_fh_cc.cu").read_text()
+    assert tc == [_build._P] * 9 + [_build._I] * (8 + n) + [_build._P]
+    m = re.search(r'extern "C" int lvc_block_ncl_fh_launch\(([^)]*)\)',
+                  _source())
+    assert len(m.group(1).split(",")) == len(tc)
     assert "wmma" not in _source()

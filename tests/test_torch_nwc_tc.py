@@ -1,4 +1,4 @@
-"""The tensor-core K6's launch geometry, dispatch and C entries, checked
+"""The tensor-core K6's launch geometry, dispatch and C entry, checked
 without a card.
 
 ``csrc/lvc_block_nwc_tc.cu`` (K6 at hops that are multiples of 8) takes K1's
@@ -9,19 +9,18 @@ the walk the kernel does (block ``bx`` outputs ``[bx * tile, bx * tile +
 tile)``; per layer it visits the frames of the extent's samples inside
 [0, L) in order and, in each, the n8 tiles of those samples) to covering
 every output once with every frame it needs, and hold the hop test, the
-CUDA-core fallback and the C entries.
+launch with the plan's numbers and the C entry.
 """
 
 import re
-import types
 
 import numpy as np
 import pytest
-import torch
 
 from fastdiff_tpu_torch.ops import _build
 from fastdiff_tpu_torch.ops import lvc_block_ncl as ncl
 from fastdiff_tpu_torch.ops import lvc_block_pallas as ops
+from tests.fake_card import FakeCuda, fake_card
 
 CASES = [(1, 864, 64), (1, 864, 256), (2, 100, 64), (1, 100, 64),
          (2, 100, 256), (1, 2, 64), (3, 7, 16), (1, 40, 8)]
@@ -99,61 +98,41 @@ def test_plan_at_the_10s_shapes():
     assert (p256.tile, p256.waves, p256.smem_bytes) == (280, 3, 102_544)
 
 
-def _fake_cuda(b, length, c=32):
-    return types.SimpleNamespace(
-        device=types.SimpleNamespace(type="cuda", index=0),
-        shape=(b, length, c))
-
-
-@pytest.mark.parametrize("hop,entry", [(64, "lvc_block_nwc_launch"),
-                                       (256, "lvc_block_nwc_launch"),
-                                       (16, "lvc_block_nwc_launch"),
-                                       (12, "lvc_block_nwc_cc_launch"),
-                                       (4, "lvc_block_nwc_cc_launch")])
-def test_hop_picks_the_kernel(monkeypatch, hop, entry):
-    """A CUDA tensor goes to the tensor-core entry with the plan's tile and
-    shared memory when ``tensor_core_hop(hop)``, else to the CUDA-core
-    entry; the choice is made by shape, before any launch."""
-    seen = []
-    monkeypatch.setattr(ops, "_sm_count", lambda index: 132)
-    monkeypatch.setattr(ops, "_launch_nwc",
-                        lambda name, extra, key, *a: seen.append(
-                            (name, extra, key)))
-    x = _fake_cuda(1, 10 * hop)
-    ops.lvc_block_nwc(x, x, None, None, hop)
-    (name, extra, key), = seen
-    assert name == entry
-    if name == "lvc_block_nwc_launch":
-        plan = ops.nwc_tile_plan(1, 10 * hop)
-        assert extra == (plan.tile, plan.smem_bytes) and key == "lvc_block_nwc"
-    else:
-        assert extra == () and key == "lvc_block_nwc_cc"
-
-
-def test_cuda_core_wrapper_runs_plain_on_cpu():
-    rng = np.random.default_rng(0)
-    b, c, frames, hop = 1, 8, 5, 4
-    x, skip = (torch.from_numpy(rng.normal(size=(b, frames * hop, c))
-                                .astype(np.float32)) for _ in range(2))
-    kern_aug = torch.from_numpy(
-        (rng.normal(size=(b, frames, 4, 3 * c + 1, 2 * c)) * 0.1)
-        .astype(np.float32))
-    wstack = torch.from_numpy(
-        (rng.normal(size=(4, 3 * c + 1, c)) * 0.1).astype(np.float32))
+@pytest.mark.parametrize("hop,tensor_cores", [(64, True), (256, True),
+                                              (16, True), (12, False),
+                                              (4, False)])
+def test_hop_picks_the_kernel(monkeypatch, hop, tensor_cores):
+    """A CUDA tensor reaches the tensor-core entry with the plan's tile and
+    shared memory when ``tensor_core_hop(hop)``, else raises naming the hop
+    before any launch."""
+    lib = fake_card(monkeypatch, ops)
+    c, layers, b, frames = ops.KERNEL_CHANNELS, ops.KERNEL_LAYERS, 1, 10
+    rows = ops.aug_rows(c)
+    x = FakeCuda((b, frames * hop, c))
+    kern_aug = FakeCuda((b, frames, layers, rows, 2 * c))
+    wstack = FakeCuda((layers, rows, c))
     before = dict(ops.LAUNCHES)
-    got = ops.lvc_block_nwc_cc(x, skip, kern_aug, wstack, hop)
-    ref = ops.lvc_block_nwc_plain(x, skip, kern_aug, wstack, hop)
-    assert torch.equal(got, ref)
-    assert ops.LAUNCHES == before
+    if not tensor_cores:
+        with pytest.raises(ValueError, match=f"hop {hop}"):
+            ops.lvc_block_nwc(x, x, kern_aug, wstack, hop)
+        assert lib.calls == [] and ops.LAUNCHES == before
+        return
+    ops.lvc_block_nwc(x, x, kern_aug, wstack, hop)
+    (name, args), = lib.calls
+    plan = ops.nwc_tile_plan(b, frames * hop, 132)
+    assert name == "lvc_block_nwc_launch"
+    assert args[5:] == (b, c, frames * hop, frames, hop, rows, layers,
+                        plan.tile, plan.smem_bytes, 0)
+    assert ops.LAUNCHES == dict(before, lvc_block_nwc=before[
+        "lvc_block_nwc"] + 1)
 
 
 def test_entries_take_the_plan():
-    """The tensor-core entry takes the CUDA-core entry's arguments and the
-    plan's tile and shared memory before the stream; both are defined."""
+    """The tensor-core entry takes the operands, the shapes and the plan's
+    tile and shared memory before the stream, as its definition in the
+    source does."""
     tc = _build.SIGNATURES["lvc_block_nwc_launch"]
-    cc = _build.SIGNATURES["lvc_block_nwc_cc_launch"]
-    assert tc[:-3] == cc[:-1] and tc[-3:-1] == [_build._I] * 2
-    assert tc[-1] is cc[-1] is _build._P
-    assert 'extern "C" int lvc_block_nwc_launch(' in _source()
-    assert 'extern "C" int lvc_block_nwc_cc_launch(' in (
-        _build.CSRC / "lvc_block_ncl.cu").read_text()
+    assert tc == [_build._P] * 5 + [_build._I] * 9 + [_build._P]
+    m = re.search(r'extern "C" int lvc_block_nwc_launch\(([^)]*)\)',
+                  _source())
+    assert len(m.group(1).split(",")) == len(tc)

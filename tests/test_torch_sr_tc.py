@@ -9,18 +9,17 @@ lvc_block_tc.cuh`` (``skip_add``'s pairs of samples, ``conv_tc``'s lanes
 and ``lvc_gate_tc``'s runs of n8 tiles) to show that every (c, l) of each
 layer's plane is written exactly once at the training recipe's shapes and
 at ragged ones, show that the hop-8 y store puts channel c at row c though
-ybuf holds y permuted, and hold the dispatch by hop and the C entries.
+ybuf holds y permuted, and hold the dispatch by hop and the C entry.
 """
 
 import re
-import types
 
 import numpy as np
 import pytest
-import torch
 
 from fastdiff_tpu_torch.ops import _build
 from fastdiff_tpu_torch.ops import lvc_block_ncl as ops
+from tests.fake_card import FakeCuda, fake_card
 
 C = ops.KERNEL_CHANNELS
 HALO = ops.TC_HALO
@@ -41,10 +40,10 @@ def _const(src: str, name: str) -> int:
 
 
 def test_python_constants_match_the_source():
-    tc, common = _source("lvc_block_tc.cuh"), _source("lvc_block_common.cuh")
-    assert _const(common, "HALO") == HALO
-    assert _const(common, "C") == C
-    assert _const(common, "LAYERS") == ops.KERNEL_LAYERS
+    tc = _source("lvc_block_tc.cuh")
+    assert _const(tc, "HALO") == HALO
+    assert _const(tc, "C") == C
+    assert _const(tc, "LAYERS") == ops.KERNEL_LAYERS
     assert _const(tc, "THREADS") == THREADS
     assert _const(tc, "TILE_MAX") == ops.TC_TILE_MAX
     kernel = _source("lvc_block_ncl_tc.cu")
@@ -155,36 +154,34 @@ def test_hop8_y_store_is_in_channel_order():
     assert (ybuf == value[inverse]).all()
 
 
-def _fake_cuda(b, length, c=C):
-    return types.SimpleNamespace(
-        device=types.SimpleNamespace(type="cuda", index=0),
-        shape=(b, c, length))
-
-
-@pytest.mark.parametrize("hop,entry", [(8, "lvc_block_ncl_sr_launch"),
-                                       (64, "lvc_block_ncl_sr_launch"),
-                                       (256, "lvc_block_ncl_sr_launch"),
-                                       (16, "lvc_block_ncl_sr_launch"),
-                                       (12, "lvc_block_ncl_sr_cc_launch"),
-                                       (4, "lvc_block_ncl_sr_cc_launch"),
-                                       (1, "lvc_block_ncl_sr_cc_launch")])
-def test_hop_picks_the_kernel(monkeypatch, hop, entry):
-    """A CUDA tensor goes to the tensor-core entry with the plan's tile when
-    ``tensor_core_hop(hop)``, else to ``lvc_block_ncl_sr_cc``'s entry."""
-    seen = []
-    monkeypatch.setattr(ops, "_sm_count", lambda index: 132)
-    monkeypatch.setattr(ops, "_launch_sr",
-                        lambda name, extra, key, *a: seen.append(
-                            (name, extra, key)))
-    x = _fake_cuda(20, 100 * hop)
-    ops.lvc_block_ncl_sr(x, x, None, None, hop)
-    (name, extra, key), = seen
-    assert name == entry
-    if name == "lvc_block_ncl_sr_launch":
-        assert extra == (ops.block_tile_plan(20, 100 * hop).tile,)
-        assert key == "lvc_block_ncl_sr"
-    else:
-        assert extra == () and key == "lvc_block_ncl_sr_cc"
+@pytest.mark.parametrize("hop,tensor_cores", [(8, True), (64, True),
+                                              (256, True), (16, True),
+                                              (12, False), (4, False),
+                                              (1, False)])
+def test_hop_picks_the_kernel(monkeypatch, hop, tensor_cores):
+    """A CUDA tensor reaches the tensor-core entry with the plan's tile when
+    ``tensor_core_hop(hop)``, else raises naming the hop before any
+    launch."""
+    lib = fake_card(monkeypatch, ops)
+    layers, rows_p, b, frames = ops.KERNEL_LAYERS, 104, 20, 100
+    x = FakeCuda((b, C, frames * hop))
+    kern = FakeCuda((b, frames, layers, 2 * C, rows_p))
+    wstack_t = FakeCuda((layers, C, 3 * C + 1))
+    before = dict(ops.LAUNCHES)
+    if not tensor_cores:
+        with pytest.raises(ValueError, match=f"hop {hop}"):
+            ops.lvc_block_ncl_sr(x, x, kern, wstack_t, hop)
+        assert lib.calls == [] and ops.LAUNCHES == before
+        return
+    out, s_all, y_all, z_all = ops.lvc_block_ncl_sr(x, x, kern, wstack_t, hop)
+    (name, args), = lib.calls
+    tile = ops.block_tile_plan(b, frames * hop, 132).tile
+    assert name == "lvc_block_ncl_sr_launch"
+    assert args[7] == z_all.data_ptr()
+    assert args[8:] == (b, C, frames * hop, frames, hop, rows_p, layers,
+                        tile, 0)
+    assert ops.LAUNCHES == dict(before, lvc_block_ncl_sr=before[
+        "lvc_block_ncl_sr"] + 1)
 
 
 def _arity(src: str, name: str) -> int:
@@ -193,33 +190,9 @@ def _arity(src: str, name: str) -> int:
 
 
 def test_entries_match_their_signatures():
-    """Both C entries' parameter counts match ``SIGNATURES``; the
-    tensor-core entry takes the CUDA-core entry's arguments and the tile
-    before the stream."""
+    """The tensor-core entry's parameter count matches ``SIGNATURES``: the
+    operands, the shapes and the plan's tile before the stream."""
     tc = _build.SIGNATURES["lvc_block_ncl_sr_launch"]
-    cc = _build.SIGNATURES["lvc_block_ncl_sr_cc_launch"]
     assert _arity(_source("lvc_block_ncl_tc.cu"),
                   "lvc_block_ncl_sr_launch") == len(tc) == 17
-    assert _arity(_source("lvc_block_ncl.cu"),
-                  "lvc_block_ncl_sr_cc_launch") == len(cc) == 16
-    assert tc[:-2] == cc[:-1] and tc[-2] is _build._I
-    assert tc[-1] is cc[-1] is _build._P
-
-
-def test_cuda_core_wrapper_runs_plain_on_cpu():
-    rng = np.random.default_rng(0)
-    b, c, frames, hop, rows_p = 2, 8, 5, 4, 32
-    x, skip = (torch.from_numpy(rng.normal(size=(b, c, frames * hop))
-                                .astype(np.float32)) for _ in range(2))
-    kern = torch.from_numpy(
-        (rng.normal(size=(b, frames, 4, 2 * c, rows_p)) * 0.1)
-        .astype(np.float32))
-    wstack_t = torch.from_numpy(
-        (rng.normal(size=(4, c, 3 * c + 1)) * 0.1).astype(np.float32))
-    before = dict(ops.LAUNCHES)
-    got = ops.lvc_block_ncl_sr_cc(x, skip, kern, wstack_t, hop)
-    ref = ops.lvc_block_ncl_sr_plain(x, skip, kern, wstack_t, hop)
-    assert len(got) == 4
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
-    assert ops.LAUNCHES == before
+    assert tc == [_build._P] * 8 + [_build._I] * 8 + [_build._P]

@@ -6,20 +6,23 @@ yet), a middle block and the last one, at every dilation 1-512 and at
 lengths where t - d and t + d leave both ends (L < d too); a Python model
 of the kernel (``csrc/wavenet_block.cu``: its window rows, one f32 sum for
 the dilated conv and the mel projection, the gate in f32) against the plain
-version; ``WaveNet``'s route by widths, dtype and gradient mode; the
-wrapper's geometry, shared memory and C entry against the source; the
-refusals of the CUDA wrapper, which come before any launch.
+version; ``WaveNet``'s route by widths, dtype and gradient mode (the
+plain block, with the plain conditioning, at every width the kernel
+declines); the wrapper's geometry, shared memory and C entry against the
+source; the refusals of the CUDA wrapper, which come before any launch.
 
 On a card (``-m card``; no JAX is imported here, so the card's machine can
 run the file with ``python3 -m pytest --confcutdir=tests -c /dev/null
 tests/test_torch_wavenet_block.py -m card``): the kernel against the plain
 version at the DiffWave cell's b 16 x 896 frames and at b 1 x 864, every
 dilation, and against float64 at b 1 x 864; a graph replay against an eager
-launch; the launches of one replayed DiffWave BASE sampler call.
+launch; the launches of one replayed DiffWave BASE sampler call and of a
+training step; ``WaveNet`` refusing a length the kernel does not take.
 """
 
 import math
 import re
+import sys
 
 import pytest
 import torch
@@ -146,8 +149,8 @@ def _kernel_model(x, skip_sum, part_t, mel, w, dilation, stride):
     L)), each tap read from its first row; [W_dil | W_mel] against the
     stacked operand in one f32 sum with b_dil + b_mel; the gate in f32,
     rounded once; r and s rounded after their biases; x' and the skip sum
-    in f32. The conditioning is the plain version's (the kernel's is
-    cuDNN's bit for bit, ``test_torch_wavenet_cond.py``)."""
+    in f32. The conditioning is the plain version's (the kernel's stages
+    are modelled against it in ``test_torch_wavenet_cond.py``)."""
     batch, _, length = x.shape
     xbf = x.dtype == BF
     pt = _bf(part_t) if xbf else part_t.float()
@@ -298,7 +301,7 @@ def test_no_grad_route_runs_the_block_op(multiband, monkeypatch):
     block (the last without x'), the same output as the route with
     gradients on, which runs the plain version."""
     model = _small_wavenet(multiband=multiband)
-    assert model.block_kernel and model.cond_kernel
+    assert model.block_kernel
     s = model.cfg.upsample_strides[0]
     frames = 3
     gen = torch.Generator().manual_seed(6)
@@ -330,13 +333,64 @@ def test_route_by_widths_and_dtype():
         assert not wb.supports(*args), args
     assert WaveNet(WaveNetConfig(num_res_layers=1), seed=0).block_kernel
     assert not _small_wavenet(dtype="float32").block_kernel
-    # other widths keep the conditioning kernel's route
-    narrow = _small_wavenet(res=32, skip=32)
-    assert not narrow.block_kernel and narrow.cond_kernel
+    assert not _small_wavenet(res=32, skip=32).block_kernel
+    assert wb.fits_length(896 * 256, 896, 16)
+    assert wb.fits_length(8, 1, 16)
+    assert not wb.fits_length(896 * 256 + 8, 896, 16)
+    assert not wb.fits_length(100, 1, 16)
+    assert not wb.fits_length(0, 1, 16)
     for d in DILATIONS + [1024, 2048, 3, 48]:
         assert wb.supports_dilation(d), d
     for d in (0, 65, 100, 130):
         assert not wb.supports_dilation(d), d
+
+
+# widths the block kernel declines: (residual, skip, mel bins, dtype)
+DECLINED = {"residual 32": (32, C, M, "bfloat16"),
+            "residual 128": (128, C, M, "bfloat16"),
+            "skip 32": (C, 32, M, "bfloat16"),
+            "64 mel bins": (C, C, 64, "bfloat16"),
+            "float32": (C, C, M, "float32")}
+
+
+@pytest.mark.parametrize("widths", list(DECLINED))
+def test_declined_widths_run_the_plain_block(widths, monkeypatch):
+    """With gradients off, at widths the block kernel declines, each block
+    runs ``wavenet_block_plain``, whose conditioning is the plain version
+    called by it directly; ``wavenet_block`` never runs. The output is the
+    route's with gradients on."""
+    res, skip, n_mels, dtype = DECLINED[widths]
+    cfg = WaveNetConfig(res_channels=res, skip_channels=skip,
+                        num_res_layers=3, noise_scale_embed_dim_in=16,
+                        noise_scale_embed_dim_mid=32,
+                        noise_scale_embed_dim_out=32, multiband=False,
+                        cond_channels=n_mels, compute_dtype=dtype)
+    model = WaveNet(cfg, seed=0)
+    assert not model.block_kernel
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():     # a non-zero output conv (seed weights zero it)
+        model.out_conv.weight.normal_(generator=gen)
+    audio = torch.randn((2, 3 * 256, 1), generator=gen)
+    mel = torch.randn((2, 3, n_mels), generator=gen) - 4.0
+    t = torch.tensor([[3.0], [17.5]])
+    blocks, conds = [], []
+    plain_op, cond_op = wb.wavenet_block_plain, wc.wavenet_cond_plain
+    monkeypatch.setattr(wb, "wavenet_block", lambda *a, **k: pytest.fail(
+        "the block op ran"))
+    monkeypatch.setattr(wb, "wavenet_block_plain", lambda *a, **k: blocks.append(
+        1) or plain_op(*a, **k))
+
+    def cond(*a, **k):
+        conds.append(sys._getframe(1).f_code.co_name)
+        return cond_op(*a, **k)
+
+    monkeypatch.setattr(wc, "wavenet_cond_plain", cond)
+    with torch.no_grad():
+        without = model(audio, mel, t)
+    assert len(blocks) == cfg.num_res_layers
+    assert conds == ["wavenet_block_plain"] * cfg.num_res_layers
+    assert torch.equal(without, model(audio, mel, t).detach())
+    assert float(without.abs().max()) > 0
 
 
 def _source() -> str:
@@ -410,15 +464,6 @@ def test_shared_memory_grid_and_entry(stride):
     assert wb.smem_bytes(stride) + wb.SMEM_RESERVED <= wb.SMEM_MAX_BLOCK
     assert 2 * 128 * wb.SROW <= 2 * wb.XROWS * wb.XROW
     assert 2 * wb.TILE * wb.OROW <= 2 * wb.TILE * wb.CROW
-    # the shared stages' rows reach every tile's frames
-    for j0 in range(0, 64 * wb.TILE, wb.TILE):
-        p0 = j0 // stride - 1
-        f0 = (p0 + stride // 2) // stride - 1
-        frames = {q for p in range(p0, p0 + np_)
-                  for q in ((p + stride // 2) // stride,
-                            (p + stride // 2) // stride - 1)}
-        assert min(frames) >= f0 and max(frames) < f0 + nf
-        assert wb.TILE // stride + 1 < np_
     assert wb.launch_grid(16, 896 * 256, 132) == 132
     assert wb.launch_grid(1, 64, 132) == 1
     assert wb.launch_grid(1, 7 * wb.TILE, 132) == 3
@@ -612,32 +657,62 @@ def test_graph_replay_equals_eager_on_card(card):
     assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
 
 
-DIFFWAVE_HP = {"T": 1000, "beta_0": 1e-6, "beta_T": 0.01,
-               "noise_schedule": "", "N": 6}
+DIFFWAVE_HP = {"hop_size": 256, "audio_num_mel_bins": 80, "T": 1000,
+               "beta_0": 1e-6, "beta_T": 0.01, "noise_schedule": "", "N": 6,
+               "lr": 2e-4, "seed": 0, "max_samples": 2560,
+               "max_sentences": 2, "binary_data_dir": "",
+               "denoiser": "wavenet", "multiband": False,
+               "compute_dtype": "bfloat16"}
 
 
 @pytest.mark.card
 def test_launches_per_replayed_sampler_call_on_card(card):
     """DiffWave BASE (30 blocks) at N = 6: a replayed sampler call launches
-    the block kernel 30 x 6 = 180 times and the conditioning kernel never."""
+    the block kernel 30 x 6 = 180 times; a training step never."""
     from fastdiff_tpu_torch.diffusion.sampler import (constants_for_hparams,
                                                       make_sampler)
+    from fastdiff_tpu_torch.training.task import FastDiffTask
 
     model = WaveNet(WaveNetConfig(multiband=False), seed=0,
                     device=card).eval()
     const = constants_for_hparams(DIFFWAVE_HP)
+    assert const.n_steps == 6
     sampler = make_sampler(model, const)
     gen = torch.Generator(device=card).manual_seed(1)
     mel = torch.randn((1, 16, M), generator=gen, device=card) - 4.0
     length = 16 * 256
     for _ in range(2):                          # warm-up, capture
         sampler(gen, mel, length)
-    before = (wb.LAUNCHES["wavenet_block"], wc.LAUNCHES["wavenet_cond"])
+    before = wb.LAUNCHES["wavenet_block"]
     wav = sampler(gen, mel, length)
     torch.cuda.synchronize()
-    assert wb.LAUNCHES["wavenet_block"] - before[0] == 180
-    assert wc.LAUNCHES["wavenet_cond"] == before[1]
-    per_replay = sampler.replay_launches(mel, length)
-    assert per_replay["wavenet_block"] == 180
-    assert per_replay.get("wavenet_cond", 0) == 0
+    assert wb.LAUNCHES["wavenet_block"] - before == 180
+    assert sampler.replay_launches(mel, length)["wavenet_block"] == 180
     assert bool(wav.isfinite().all())
+
+    task = FastDiffTask(dict(DIFFWAVE_HP), device=card)
+    state = task.build_state(seed=0)
+    batch = {"wavs": (0.3 * torch.randn((2, 2560, 1), generator=gen,
+                                        device=card)).cpu().numpy(),
+             "mels": (torch.randn((2, 10, M), generator=gen, device=card)
+                      - 4.0).cpu().numpy()}
+    before = wb.LAUNCHES["wavenet_block"]
+    metrics = task.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert wb.LAUNCHES["wavenet_block"] == before
+    assert math.isfinite(float(metrics["loss"]))
+
+
+@pytest.mark.card
+def test_wavenet_refuses_a_length_the_kernel_does_not_take_on_card(card):
+    """With gradients off on a card, a length that is no multiple of 8
+    raises in the wrapper rather than running the plain version."""
+    model = WaveNet(WaveNetConfig(num_res_layers=1, multiband=False), seed=0,
+                    device=card).eval()
+    gen = torch.Generator(device=card).manual_seed(2)
+    mel = torch.randn((1, 2, M), generator=gen, device=card) - 4.0
+    audio = torch.randn((1, 2 * 256 - 4, 1), generator=gen, device=card)
+    t = torch.ones((1, 1), device=card)
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="multiple of 8"):
+        model(audio, mel, t)
