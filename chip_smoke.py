@@ -43,8 +43,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
    request runs eagerly, the second captures its CUDA graph, the third
    replays it), each answered with a WAV of frames * 256 finite samples,
    each raising Kernel A's launch count by exactly 3 blocks x 4 steps,
-   K1's by 8 and K2's by 4 (a replay adds the launches its graph holds,
-   which phase 20 holds against a profile of a replay);
+   K1's by 8, K2's by 4 and K8's (the NCL layout) by 4 at 256 and 864
+   frames, 0 at 100 (not a multiple of 2,048 samples: the module chain)
+   (a replay adds the launches its graph holds, which phase 20 holds
+   against a profile of a replay);
 8. Kernel B-SR (K4, the training block, which also writes s, y and z) on
    the tensor cores against its plain version at the training recipe's
    shapes (b = 20, 100 frames, hops 8, 64 and 256), with phase 4's bounds
@@ -74,10 +76,13 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     (a multi-tile edge case), with phase 4's bounds; the two timed in
     turns (the kernel by CUDA-graph replay), with the tensor cores' share
     of the bound;
-14. K8 (the fused down path, two launches) against its plain version at
-    221,184 samples (b = 1) and at two 2,048-sample halo units (b = 2), each
+14. K8 (the fused down path, two launches), each layout against its plain
+    version: NWC at 221,184 samples (b = 1) and at two 2,048-sample halo
+    units (b = 2); NCL (the ncl route's cast points, against its module
+    chain) at those and at the offline cell's b 16 x 896 frames; each
     output within 4 bf16 ulps of its largest value, timed by CUDA-graph
-    replay in turns with the plain version, with its share of the bound;
+    replay in turns with the plain version (the NCL chain also replayed),
+    with its share of the bound;
 15. the NWC route (``use_pallas_block: true``, ``use_pallas_down: true``):
     a full-width bf16 denoiser forward, kernels against plain (relative L2
     <= 5e-2); the N=4 sampler at 864 frames, kernel and plain paths as
@@ -101,8 +106,9 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     answering 100, 256 and 864 frames, each request raising K5 by 8 and K5
     final by 4 at 256 and 864 frames, K1 and K3 by 0; at 100 frames the
     hop-8 block is not fusable (100 % 16 != 0), so K5 +4, K5 final +4, K1
-    +4 and K3 +4; then the server of ``use_pallas_block: false`` (the plain
-    route), whose request launches no kernel at all;
+    +4 and K3 +4; K8 as in phase 7; then the server of
+    ``use_pallas_block: false`` (the plain route), whose request launches
+    no kernel at all;
 18. K10 (Kernel A's kernel on the walk of each grid order and M tile of
     ``scripts/exp_r4b.py``'s experiment B) at 100, 256 and 864 rows, every
     variant against its plain version within one bf16 ulp of the largest
@@ -143,8 +149,9 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     of 1.2, 3.0, 3.3 and 10 s (104, 259, 285 and 862 frames; the 3.0 and
     3.3 s files share the 384-frame bucket) and their ``.npy`` mels through
     ``fastdiff_tpu_torch.run.main([... '--infer'])``: every ``_pred.wav``
-    of frames * 256 finite samples, K3 +12, K1 +8 and K2 +4 per
-    utterance, one capture for the shared bucket, each
+    of frames * 256 finite samples, K3 +12, K1 +8, K2 +4 and K8 +4 per
+    utterance (every bucket a K8 length), one capture for the shared
+    bucket, each
     utterance's RTF and the mean; ``use_pallas_block=false`` against
     ``auto`` on the same seed (written wavs, rel L2 <= 5e-2, no kernel
     launched); ``--infer`` on the work dir of a 2-step ``fit`` with an EMA
@@ -159,7 +166,8 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     written from the ``en`` processor's output on four LJSpeech-style
     sentences (23-152 tokens): ``FastSpeech2Task. infer_to_wav`` of each
     (predicted durations): frames, wav length, K3 +12, K1 +8 and K2 +4 per
-    call, warm-ups and captures; teacher durations of 6 frames a phone: the
+    call (K8 +4 where the frame count is a multiple of 8, at least 16),
+    warm-ups and captures; teacher durations of 6 frames a phone: the
     card's mel against the CPU's (TF32 off, rel L2 <= 1e-4), the predicted
     mel2ph card against CPU (equal); FastSpeech 2 ms (t_mel = max_frames),
     vocoder ms and the RTF of ``infer_to_wav`` on a replayed graph by CUDA
@@ -173,18 +181,20 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     ``FastDiffTask.inference_model``) on phase 11's synthetic dataset:
     (a) 20 Adam(1e-4) steps of the phi noise predictor at the recipe
     batch (20 x 25,600 samples): ms per step by CUDA events, loss and
-    every phi gradient finite, K3 +3, K1 +2 and K2 +1 per step; on one
-    batch with injected t and z the kernel
+    every phi gradient finite, K3 +3, K1 +2 and K2 +1 per step (K8 0: no
+    multiple of 2,048 samples); on one batch with injected t and z the
+    kernel
     route against the plain route (loss rel 1e-2, phi gradients rel L2
     5e-2) and the plain route on the card (TF32 off) against the CPU (loss
     rel 1e-4); (b) the reverse search for N = 8, 6, 4 and 3 at 864 frames,
     b 1, from one injected x on both routes: each schedule, its length,
-    steps and wall, K3 +3 / K1 +2 / K2 +1 per step (plain: no launch),
+    steps and wall, K3 +3 / K1 +2 / K2 +1 / K8 +1 per step (plain: no
+    launch),
     the first reverse step's x (rel L2 5e-2) and the first predicted beta
     (rel 5e-2) kernel against plain; (c) every searched and every
     published schedule through ``make_param_sampler`` at 864 frames: ms per
-    sample by graph replay (one capture each), K3 3N / K1 2N / K2 N per
-    replay, MCD, MR-STFT and PESQ against the synthetic wav (seed weights,
+    sample by graph replay (one capture each), K3 3N / K1 2N / K2 N / K8 N
+    per replay, MCD, MR-STFT and PESQ against the synthetic wav (seed weights,
     not quality); (d) ``python -m fastdiff_tpu_torch.scripts.demo_vocoder``
     then ``evaluate`` on a 2 s wav, and beside them ``bddm_search
     --phi_steps 5`` on the synthetic dataset, as subprocesses: exit 0,
@@ -203,7 +213,8 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     figures or the trainer's warning), then 20 steps on one batch at lr
     2e-4 lower the loss; (d) a fresh task restores the newest checkpoint
     (state equal) and ``infer_to_wav`` vocodes two sentences on ``auto``
-    -> ncl with K3 +12 / K1 +8 / K2 +4 per utterance;
+    -> ncl with K3 +12 / K1 +8 / K2 +4 per utterance, K8 +4 at a fusable
+    frame count and every other kernel 0;
 25. the speaker encoder (seed weights): 16 ``synth_voice`` mels embedded
     on the card and on the CPU (TF32 off, max abs <= 1e-5), ms per
     ``embed``; ``train_spk_encoder`` for 100 steps at 8 speakers x 4
@@ -265,7 +276,7 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
     graph's nodes and instantiation,
     ``memory_reserved`` around it and the runner's buffer and draw bytes;
     the replay bit-equal to the first call, launching exactly 3N K3, 2N
-    K1 and N K2, finite; replay ms by CUDA events and x realtime; the
+    K1, N K2 and N K8, finite; replay ms by CUDA events and x realtime; the
     kernel route against the plain route at 100 frames on injected noise
     at both N (relative L2 <= 0.1); ``run.main --infer --hparams N=200`` on
     two utterances of one 128-frame bucket;
@@ -290,9 +301,10 @@ Drives ``fastdiff_tpu_torch`` on the card, one line per phase:
 
 Phase 10 runs through ``scripts/bench_trainstep.py``. Each phase from 21
 on prints its wall. Any failed check exits non-zero. The line before the last is a JSON object
-with each of the thirteen kernels' launches (from the run of its path: phase
-7 for K1-K3, 11 for K4, 15 for K6-K8, 17 for K5, 18 for K10, 19 for K9, 37
-for ``wavenet_block``: one DiffWave BASE sampler call),
+with each of the fourteen kernels' launches (from the run of its path: phase
+7 for K1-K3 and K8's NCL layout, ``downpath_ncl``, 11 for K4, 15 for K6-K8,
+17 for K5, 18 for K10, 19 for K9, 37 for ``wavenet_block``: one DiffWave
+BASE sampler call),
 its largest error against its plain version, its time beside the plain
 version's, the least time the card could take for the same work
 (``bound_ms``: bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, whichever is
@@ -972,63 +984,84 @@ def phase13_nwc_block(torch, nwc_ops, randn, c, layers, smi_line):
     return entry(worst, ms_k, ms_p, works)
 
 
-def phase14_downpath(torch, down_ops, model, dev, smi_line):
-    """K8 against its plain version at 10 s (b = 1) and at two halo units
-    (b = 2), with the model's packed weights; each output within 4 bf16
-    ulps of its largest value. Timed by CUDA-graph replay (device time of
-    both launches) in turns with the plain version."""
+def phase14_downpath(torch, down_ops, model, ncl_model, dev, smi_line):
+    """K8 against its plain versions, with each model's packed weights:
+    the NWC flag (``downpath_fused`` vs ``downpath_plain``) at 10 s (b = 1)
+    and at two halo units (b = 2); the NCL flag (``downpath_ncl`` vs
+    ``downpath_ncl_plain``, the ncl route's module chain) at 10 s, at the
+    offline cell's b 16 x 896 frames and at two halo units. Each output
+    within 4 bf16 ulps of its largest value. Each flag timed by CUDA-graph
+    replay (device time of both launches) in turns with its plain version.
+    Returns the NWC and the NCL kernel's entries (ms at 10 s, b = 1)."""
     gen = torch.Generator(device=dev).manual_seed(14)
     factors = tuple(model.cfg.upsample_ratios[::-1])
-    packs = (model.down_first, model.down_res, model.down_conv)
     c = model.cfg.inner_channels
-    worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
-    for b, length, on_path in ((1, FRAMES_10S * HOP_SIZE, True),
-                               (2, 2 * 2048, False)):
-        audio = torch.randn((b, length, 1), generator=gen, device=dev)
+    flags = {
+        "NWC": (down_ops.downpath_fused, down_ops.downpath_plain,
+                (model.down_first, model.down_res, model.down_conv)),
+        "NCL": (down_ops.downpath_ncl, down_ops.downpath_ncl_plain,
+                (ncl_model.down_first, ncl_model.down_res,
+                 ncl_model.down_conv, ncl_model.down_bias)),
+    }
+    out = {}
+    for flag, (kernel, plain, packs) in flags.items():
+        worst, ms_k, ms_p, works = 0.0, 0.0, 0.0, []
+        shapes = ((1, FRAMES_10S * HOP_SIZE, True), (2, 2 * 2048, False))
+        if flag == "NCL":
+            shapes += ((16, 896 * HOP_SIZE, False),)
+        for b, length, on_path in shapes:
+            audio = torch.randn((b, length, 1), generator=gen, device=dev)
 
-        def run_k():
-            return down_ops.downpath_fused(audio, *packs, factors)
+            def run_k():
+                return kernel(audio, *packs, factors)
 
-        def run_p():
-            return down_ops.downpath_plain(audio, *packs, factors)
+            def run_p():
+                return plain(audio, *packs, factors)
 
-        got, ref = run_k(), run_p()
-        torch.cuda.synchronize()
-        errs = []
-        for i, (a, r) in enumerate(zip(got, ref)):
-            e = max_abs(a, r)
-            bound_err = 2.0 ** -5 * float(r.float().abs().max())
-            errs.append(e)
-            if a.shape != r.shape or not e <= bound_err or not bool(
-                    a.isfinite().all()):
-                fail(f"K8 output {i} disagrees with its plain version "
-                     f"(b {b}, {length} samples): {e:.3e} > {bound_err:.3e}")
-        p1 = cuda_ms(run_p, 5)
-        k = (graph_ms(run_k, 20) + graph_ms(run_k, 20)) / 2
-        p = (p1 + cuda_ms(run_p, 5)) / 2
-        k_eager = cuda_ms(run_k, 20)
-        lengths = [length // r for r in (4, 32, 256)]
-        # first conv (7 taps, 1 -> C), then per DBlock output sample the
-        # 1x1 residual and three k=3 convs; audio in, four outputs out
-        flop = b * (2.0 * 7 * c * length + sum(
-            n * (2.0 * c * (c + 1) + 3 * 2.0 * c * (3 * c + 1))
-            for n in lengths))
-        nbytes = b * (4.0 * length + 2.0 * c * (length + sum(lengths)))
-        b_ms, by = bound([(flop, nbytes)])
-        plan = down_ops.downpath_plan(b, length)
-        phase(14, f"K8 downpath b {b} x {length} samples: max_abs_err "
-                  + ", ".join(f"{e:.3e}" for e in errs) + " (skip0, skip1, "
-                  f"skip2, x; bound 4 bf16 ulps of each); raced: kernel "
-                  f"{k:.4f} ms (CUDA graphs, both stages; eager with its "
-                  f"wrapper {k_eager:.4f} ms), plain {p:.4f} ms; bound "
-                  f"{b_ms:.4f} ms ({by}), kernel at {b_ms / k:.1%} of it; "
-                  f"{plan.stage1_blocks} + {plan.stage2_blocks} blocks "
-                  f"[{smi_line}]")
-        worst = max([worst] + errs)
-        if on_path:
-            ms_k, ms_p = k, p
-            works = [(flop, nbytes)]
-    return entry(worst, ms_k, ms_p, works)
+            got, ref = run_k(), run_p()
+            torch.cuda.synchronize()
+            errs = []
+            for i, (a, r) in enumerate(zip(got, ref)):
+                e = max_abs(a, r)
+                bound_err = 2.0 ** -5 * float(r.float().abs().max())
+                errs.append(e)
+                if a.shape != r.shape or not e <= bound_err or not bool(
+                        a.isfinite().all()):
+                    fail(f"K8 {flag} output {i} disagrees with its plain "
+                         f"version (b {b}, {length} samples): {e:.3e} > "
+                         f"{bound_err:.3e}")
+            p1 = cuda_ms(run_p, 5)
+            k = (graph_ms(run_k, 20) + graph_ms(run_k, 20)) / 2
+            p = (p1 + cuda_ms(run_p, 5)) / 2
+            k_eager = cuda_ms(run_k, 20)
+            # the NCL chain as the route's captured graph runs it
+            p_graph = (f", replayed {graph_ms(run_p, 5):.4f} ms"
+                       if flag == "NCL" else "")
+            lengths = [length // r for r in (4, 32, 256)]
+            # first conv (7 taps, 1 -> C), then per DBlock output sample
+            # the 1x1 residual and three k=3 convs; audio in, four outputs
+            # out
+            flop = b * (2.0 * 7 * c * length + sum(
+                n * (2.0 * c * (c + 1) + 3 * 2.0 * c * (3 * c + 1))
+                for n in lengths))
+            nbytes = b * (4.0 * length + 2.0 * c * (length + sum(lengths)))
+            b_ms, by = bound([(flop, nbytes)])
+            plan = down_ops.downpath_plan(b, length)
+            phase(14, f"K8 {flag} downpath b {b} x {length} samples: "
+                      "max_abs_err " + ", ".join(f"{e:.3e}" for e in errs)
+                      + " (skip0, skip1, skip2, x; bound 4 bf16 ulps of "
+                      f"each); raced: kernel {k:.4f} ms (CUDA graphs, both "
+                      f"stages; eager with its wrapper {k_eager:.4f} ms), "
+                      f"plain {p:.4f} ms{p_graph}; bound {b_ms:.4f} ms "
+                      f"({by}), kernel at {b_ms / k:.1%} of it; "
+                      f"{plan.stage1_blocks} + {plan.stage2_blocks} blocks "
+                      f"[{smi_line}]")
+            worst = max([worst] + errs)
+            if on_path:
+                ms_k, ms_p = k, p
+                works = [(flop, nbytes)]
+        out[flag] = entry(worst, ms_k, ms_p, works)
+    return out["NWC"], out["NCL"]
 
 
 def phase15_nwc_route(torch, model, sample, make_sampler, const, gen, dev,
@@ -1286,18 +1319,30 @@ def phase19_stages(micro, dev, smi_line):
 
 
 # the hand-written kernels a denoiser forward can reach, by the name the
-# profiler gives them, and the launch counters that count them (downpath's
-# one count launches both of its stage kernels)
+# profiler gives them, and the launch counters that count them (one count of
+# either K8 layout, downpath (NWC) or downpath_ncl, launches both of its
+# stage kernels)
 KERNEL_COUNTERS = {
     "head_gemm_kernel": ("taug_head", "aug_head", "taug_head_variant"),
     "lvc_block_tc_kernel": ("lvc_block_ncl", "lvc_block_ncl_final",
                             "lvc_block_ncl_sr"),
     "lvc_block_fh_tc_kernel": ("lvc_block_ncl_fh", "lvc_block_ncl_fh_final"),
     "lvc_block_nwc_tc_kernel": ("lvc_block_nwc",),
-    "down_stage1": ("downpath",),
-    "down_stage2": ("downpath",),
+    "down_stage1": ("downpath", "downpath_ncl"),
+    "down_stage2": ("downpath", "downpath_ncl"),
     "wavenet_block_kernel": ("wavenet_block",),
 }
+
+
+def k8_per_call(frames: int, steps: int = 1) -> int:
+    """K8's NCL count (``downpath_ncl``) on the ncl / ncl_fh routes for one
+    call of ``steps`` denoiser forwards at ``frames`` frames: one a forward
+    where the length is ``downpath_fusable`` (a multiple of 2048 samples, at
+    least two)."""
+    from fastdiff_tpu_torch.ops.downpath_pallas import (KERNEL_FACTORS,
+                                                        downpath_fusable)
+    return steps if downpath_fusable(frames * HOP_SIZE, KERNEL_FACTORS) \
+        else 0
 
 
 def replayed_kernels(torch, call, per_replay: dict, what: str) -> dict:
@@ -1554,8 +1599,8 @@ def synth_wav(seconds: float, seed: int) -> np.ndarray:
 def phase21_entry(torch, counters, dev, smi_line) -> dict:
     """The port's entry path at full width (``fastdiff_tpu/configs/
     ljspeech.yaml``, N = 4): ``run.main([... '--infer'])`` on a wav dir and
-    on a mel dir (K3 +12, K1 +8, K2 +4 per utterance; the two utterances
-    of the 384-frame bucket add one capture), ``use_pallas_block=false``
+    on a mel dir (K3 +12, K1 +8, K2 +4, K8 +4 per utterance; the two
+    utterances of the 384-frame bucket add one capture), ``use_pallas_block=false``
     against ``auto`` (rel L2 <= 5e-2),
     ``--infer`` on the work dir of a 2-step ``fit`` with an EMA, the CLI as
     a subprocess, ``vocoder: GLMel`` on the card against the CPU, and
@@ -1589,7 +1634,9 @@ def phase21_entry(torch, counters, dev, smi_line) -> dict:
             mel = dsp.wav2mel_np(wav, cfg)[1].T
             np.save(os.path.join(mel_dir, f"{name}.npy"), mel)
             frames[name] = mel.shape[0]
-        per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4}
+        # every mel is padded to a 128-frame bucket, a K8 (NCL) length
+        per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
+               "downpath_ncl": k8_per_call(128, 4), "downpath": 0}
 
         def infer(exp, source, path, extra="", rise=per):
             for counter in counters:
@@ -1790,7 +1837,8 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
     ``ncl``), with a phone set written from the ``en`` processor's output on
     the sentences, as the binarizer would: (a) ``FastSpeech2Task.
     infer_to_wav`` of each sentence (predicted durations): frames, wav
-    length, K3 +12 / K1 +8 / K2 +4 per call, the graph sampler's warm-ups
+    length, K3 +12 / K1 +8 / K2 +4 per call and K8 +4 where the frame count
+    is ``downpath_fusable``, the graph sampler's warm-ups
     and captures; (b) teacher durations of 6 frames a phone: the card's mel
     against the CPU's (TF32 off, rel L2 <= 1e-4), the predicted mel2ph card
     against CPU (equal), the written wavs of ``use_pallas_block: false``
@@ -1814,7 +1862,13 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
                           "fs2_ljspeech.yaml")
     yaml_before = "yaml" in sys.modules
     root = tempfile.mkdtemp(prefix="fastdiff_tts_")
-    per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4}
+    per = {"taug_head": 12, "lvc_block_ncl": 8, "lvc_block_ncl_final": 4,
+           "downpath_ncl": 0, "downpath": 0}
+
+    def per_utt(frames):
+        """A call's launches: K8 (NCL) only at a fusable length (the mel
+        is vocoded at its own frame count), the NWC layout never."""
+        return {**per, "downpath_ncl": k8_per_call(frames, 4)}
 
     def zero():
         for counter in all_counters:
@@ -1879,8 +1933,9 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
             if len(wav) != frames * HOP_SIZE or not np.isfinite(wav).all():
                 fail(f"utterance {i}: {len(wav)} samples for {frames} "
                      "frames, or not finite")
-            if launches != per:
-                fail(f"utterance {i}: launches {launches}, expected {per}")
+            if launches != per_utt(frames):
+                fail(f"utterance {i}: launches {launches}, expected "
+                     f"{per_utt(frames)}")
             rows.append(dict(words=len(TTS_SENTENCES[i].split()),
                              tokens=len(tok), frames=frames,
                              frames_gt_1=int((dur > 1).sum()), ties=ties,
@@ -1893,7 +1948,8 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
             f"{r['ties']} durations within 1e-4 of a rounding tie), first "
             f"call {r['first_s'] * 1e3:.1f} ms (RTF {r['first_rtf']:.4f}), "
             f"warm-ups {r['warmups']}, captures {r['captures']}"
-            for r in rows) + f"; launches per utterance {per}. Seed "
+            for r in rows) + f"; launches per utterance {per} (K8 4 at "
+            f"a multiple of 8 frames, at least 16). Seed "
             f"weights: {sum(r['frames_gt_1'] for r in rows)} of "
             f"{sum(r['tokens'] for r in rows)} phones get more than one "
             "frame (exp(dur_pred) - 1 rounds to about 0), so the mels are "
@@ -1946,7 +2002,8 @@ def phase22_tts(torch, counters, all_counters, dev, smi_line) -> dict:
             zero()
             row["infer_ms"] = cuda_ms(
                 lambda: task.infer_to_wav(state, tok, ""), 2)
-            if read() != {k: 3 * v for k, v in per.items()}:
+            if read() != {k: 3 * v for k, v in
+                          per_utt(row["frames"]).items()}:
                 fail(f"steady-state infer_to_wav launched {read()}")
             row["captures_after"] = sampler.captures
             with torch.no_grad():
@@ -2346,7 +2403,8 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line, root) -> dict:
     loss; (d) a fresh task restores the newest checkpoint (equal to the
     fit's state) and ``infer_to_wav`` vocodes two sentences through the
     FastDiff vocoder on ``auto`` -> ``ncl``: K3 +12 / K1 +8 / K2 +4 per
-    utterance, finite wavs of frames * 256 samples."""
+    utterance and K8 +4 where the frame count is ``downpath_fusable``,
+    every other kernel 0, finite wavs of frames * 256 samples."""
     import contextlib
     import importlib.util
 
@@ -2708,8 +2766,10 @@ def phase24_fs2_train(torch, all_counters, dev, smi_line, root) -> dict:
                 # off this route (NWC, down path, fused head, ...) shows
                 launches = {k: v for counter in all_counters
                             for k, v in counter.items()}
-                expected = {k: per.get(k, 0) for k in launches}
                 n_frames = len(wav) // HOP_SIZE
+                # K8 (NCL) where the vocoded length is a fusable one
+                expected = {k: {**per, "downpath_ncl": k8_per_call(
+                    n_frames, 4)}.get(k, 0) for k in launches}
                 utts.append(dict(tokens=len(tokens), frames=n_frames,
                                  launches=launches, launched={
                                      k: v for k, v in launches.items() if v}))
@@ -2758,16 +2818,19 @@ def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
     through ``FastDiffTask.inference_model``) on the synthetic binarized
     dataset: (a) 20 Adam steps of the phi predictor at the recipe batch (20
     x 25,600 samples): ms per step by CUDA events, loss and every phi
-    gradient finite, K3 +3 / K1 +2 / K2 +1 per step; on one batch with
+    gradient finite, K3 +3 / K1 +2 / K2 +1 per step (K8 0: 25,600 samples
+    is no multiple of 2048); on one batch with
     injected t and z the kernel route against the plain route (loss rel
     1e-2, gradients rel L2 5e-2) and the plain route on the card (TF32 off)
     against the CPU (loss 1e-4); (b) the reverse search for N = 8, 6, 4, 3
     at 864 frames, b 1, from one injected x on both routes: schedules,
-    steps, wall, launches per step, the first reverse step's x (rel L2 5e-2)
+    steps, wall, launches per step (K8 1), the first reverse step's x (rel
+    L2 5e-2)
     and first predicted beta (rel 5e-2) kernel against plain; (c) every
     non-empty searched and every published schedule through
     ``make_param_sampler`` at 864 frames: ms per sample by graph replay (one
-    capture each), launches 3N / 2N / N, MCD, MR-STFT and PESQ against the
+    capture each), launches 3N / 2N / N / N (K8), MCD, MR-STFT and PESQ
+    against the
     synthetic wav (seed weights, not quality); (d) ``demo_vocoder`` then
     ``evaluate`` as subprocesses on a 2 s wav, beside them ``bddm_search
     --phi_steps 5`` on the synthetic dataset (its JSON under the work dir,
@@ -2793,7 +2856,11 @@ def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
     config = os.path.join(repo, "fastdiff_tpu", "configs", "ljspeech.yaml")
     bddm_doc = os.path.join(repo, "docs", "BDDM.md")
     root = tempfile.mkdtemp(prefix="fastdiff_bddm_")
-    per = {"taug_head": 3, "lvc_block_ncl": 2, "lvc_block_ncl_final": 1}
+    # a denoiser forward at the phi batch's length, and at 864 frames (the
+    # search and the samplers), where K8 (NCL) runs too
+    per = {"taug_head": 3, "lvc_block_ncl": 2, "lvc_block_ncl_final": 1,
+           "downpath_ncl": k8_per_call(TRAIN_FRAMES), "downpath": 0}
+    per_864 = {**per, "downpath_ncl": k8_per_call(FRAMES_10S)}
 
     def zero():
         for counter in all_counters:
@@ -2805,7 +2872,7 @@ def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
                 if k in per}
 
     def times(n):
-        return {k: v * n for k, v in per.items()}
+        return {k: v * n for k, v in per_864.items()}
 
     def launched():
         return {k: v for counter in all_counters for k, v in counter.items()
@@ -2966,7 +3033,7 @@ def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
                       f"{'equal' if k['length'] == p['length'] else 'DIFFER'}"
                       f"; first step's x rel L2 {x1_err:.3e}, first predicted"
                       f" beta rel {beta_err:.3e} (bounds 5e-2); launches "
-                      f"per step {per} [{smi_line}]")
+                      f"per step {per_864} [{smi_line}]")
             if not (x1_err <= 5e-2 and beta_err <= 5e-2):
                 fail(f"search N={n}: kernel and plain routes disagree")
 
@@ -3001,7 +3068,8 @@ def phase23_bddm(torch, counters, all_counters, dev, smi_line) -> dict:
                     pesq=metrics.pesq_mos(gt, wav, acfg.sample_rate)))
                 del sampler
         phase(23, "(c) graph sampler per schedule, 864 frames, b 1 (one "
-                  "capture each; launches per replay K3 3N, K1 2N, K2 N): "
+                  "capture each; launches per replay K3 3N, K1 2N, K2 N, "
+                  "K8 N): "
                   + "; ".join(
                       f"N={r['n']} {r['kind']} ({r['steps']} steps) "
                       f"{r['ms']:.3f} ms, MCD {r['mcd']:.2f} dB, MR-STFT "
@@ -4006,12 +4074,12 @@ def phase33_full_reverse(torch, FastDiff, all_counters, cfg, dev,
     graph's nodes and instantiation, the pool's ``memory_reserved`` around
     it and the runner's buffer and draw bytes; the replay bit-equal to the
     first call with a generator of the same seed, launching exactly 3N K3,
-    2N K1 and N K2 (``replay_launches`` and the counters of one call),
+    2N K1, N K2 and N K8 (``replay_launches`` and the counters of one call),
     finite; the replays' ms by CUDA events and x realtime. Then at 100
     frames the kernel route (``ncl``) against the plain route on the same
     seed-0 weights and injected noise, eagerly, at both N (relative L2 <=
     0.1); and ``run.main --infer --hparams N=200`` on two utterances of one
-    128-frame bucket (K3 +600, K1 +400, K2 +200 each; the second
+    128-frame bucket (K3 +600, K1 +400, K2 +200, K8 +200 each; the second
     captures)."""
     from fastdiff_tpu_torch import run
     from fastdiff_tpu_torch.config import AudioConfig
@@ -4023,7 +4091,8 @@ def phase33_full_reverse(torch, FastDiff, all_counters, cfg, dev,
     report = {}
     for n in FULL_REVERSE:
         want = {"taug_head": 3 * n, "lvc_block_ncl": 2 * n,
-                "lvc_block_ncl_final": n}
+                "lvc_block_ncl_final": n,
+                "downpath_ncl": k8_per_call(FRAMES_10S, n)}
         sampler, mel, length = bench_n1000.build(n, FRAMES_10S, dev, cfg)
         row = bench_n1000.measure(sampler, mel, length, 2)
         phase(33, f"N={n}, {FRAMES_10S} frames ({row['audio_s']:.2f} s), b "
@@ -4117,7 +4186,8 @@ def phase33_full_reverse(torch, FastDiff, all_counters, cfg, dev,
                      f"samples for {r['frames']} frames, or non-finite")
         want = {"taug_head": 600 * len(frames),
                 "lvc_block_ncl": 400 * len(frames),
-                "lvc_block_ncl_final": 200 * len(frames)}
+                "lvc_block_ncl_final": 200 * len(frames),
+                "downpath_ncl": k8_per_call(128, 200) * len(frames)}
         phase(33, "run.main --infer --hparams N=200: " + ", ".join(
             f"{r['item_name']} {r['frames']} -> {r['padded_frames']} frames "
             f"rtf {r['rtf']:.4f}" for r in results)
@@ -4520,9 +4590,11 @@ def main():
                      f"{lvc_block_ncl.TC_BLOCKS_PER_SM} per SM, "
                      f"{bp.smem_bytes} bytes of dynamic shared memory")
         for stage in ("down_stage1", "down_stage2"):
-            info = ptxas_entry(log.read_text(), stage)
-            phase(2, f"K8 {stage} on the tensor cores: {info}")
-            check_no_spill(info, f"K8's {stage}")
+            for ncl in (0, 1):
+                info = ptxas_entry(log.read_text(), f"{stage}ILb{ncl}E")
+                phase(2, f"K8 {stage}<{bool(ncl)}> ({'NCL' if ncl else 'NWC'}"
+                         f") on the tensor cores: {info}")
+                check_no_spill(info, f"K8's {stage}<{bool(ncl)}>")
         dpl = downpath_pallas.downpath_plan(1, FRAMES_10S * HOP_SIZE)
         phase(2, f"K8 at {FRAMES_10S * HOP_SIZE} samples, b 1: stage 1 "
                  f"{dpl.stage1_blocks} blocks ({dpl.smem1} bytes of dynamic "
@@ -4679,20 +4751,25 @@ def main():
         del model, run, eps_k, eps_p, wavs
 
     # --- phase 7: HTTP server, main path -----------------------------------
-    counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES)
+    counters = (lvc_head.LAUNCHES, lvc_block_ncl.LAUNCHES,
+                downpath_pallas.LAUNCHES)
     per_step = len(cfg.upsample_ratios) * const.n_steps
     # K1 on the hop-8 and hop-64 blocks and K2 on the hop-256 block of every
-    # step
+    # step; K8 (NCL) once a step where the length is a multiple of 2048
+    # (256 and 864 frames, not 100)
     rises = {"A": (("taug_head",), per_step),
              "K1": (("lvc_block_ncl",), (len(cfg.upsample_ratios) - 1)
                     * const.n_steps),
              "K2": (("lvc_block_ncl_final",), const.n_steps)}
-    launches = serve_and_count(
+    served = serve_and_count(
         7, VocoderService({"N": 4, "seed": 1234}, device=dev), start_server,
-        counters, {frames: rises for frames in (100, 256, FRAMES_10S)},
+        counters, {frames: {**rises, "K8": (("downpath_ncl",), k8_per_call(
+            frames, const.n_steps)), "K8 NWC": (("downpath",), 0)}
+            for frames in (100, 256, FRAMES_10S)},
         cfg.cond_channels)
-    launches = {k: launches[k] for k in
-                ("taug_head", "lvc_block_ncl", "lvc_block_ncl_final")}
+    launches = {k: served[k] for k in
+                ("taug_head", "lvc_block_ncl", "lvc_block_ncl_final",
+                 "downpath_ncl")}
     phase(7, f"server answered 3 requests; launches in the main path: "
              f"{launches}")
     if any(v == 0 for v in launches.values()):
@@ -4723,8 +4800,9 @@ def main():
             cfg.kpnet_hidden_channels)
         report["lvc_block_nwc"] = phase13_nwc_block(
             torch, lvc_block_pallas, randn, c, layers, smi_line)
-        report["downpath"] = phase14_downpath(torch, downpath_pallas,
-                                              nwc_model, dev, smi_line)
+        report["downpath"], report["downpath_ncl"] = phase14_downpath(
+            torch, downpath_pallas, nwc_model,
+            FastDiff(cfg, seed=0, device=dev).eval(), dev, smi_line)
         nwc_sampler = phase15_nwc_route(torch, nwc_model, sample,
                                         make_sampler, const, gen, dev,
                                         smi_line)
@@ -4741,6 +4819,7 @@ def main():
         {frames: {"K6": (("lvc_block_nwc",), 2 * steps),
                   "K7": (("aug_head",), 2 * steps),
                   "K8": (("downpath",), k8),
+                  "K8 NCL": (("downpath_ncl",), 0),
                   "K1": (("lvc_block_ncl", "lvc_block_ncl_final"), 0),
                   "K3": (("taug_head",), 0)}
          for frames, k8 in ((100, 0), (256, steps), (FRAMES_10S, steps))},
@@ -4761,7 +4840,8 @@ def main():
     k1_keys = ("lvc_block_ncl", "lvc_block_ncl_final")
     # per request: K5 on the hop-8 and hop-64 blocks of every step and K5
     # final on the hop-256 block; at 100 frames the hop-8 block is not
-    # fusable (100 % 16 != 0) and runs K3 + K1, as the ncl route does
+    # fusable (100 % 16 != 0) and runs K3 + K1, as the ncl route does; K8
+    # (NCL) as on the ncl route
     fh_launches = serve_and_count(
         17, VocoderService({"N": 4, "seed": 1234,
                             "use_pallas_block": "ncl_fh"}, device=dev),
@@ -4769,7 +4849,9 @@ def main():
         {frames: {"K5": (("lvc_block_ncl_fh",), fused * steps),
                   "K5 final": (("lvc_block_ncl_fh_final",), steps),
                   "K1": (k1_keys, (2 - fused) * steps),
-                  "K3": (("taug_head",), (2 - fused) * steps)}
+                  "K3": (("taug_head",), (2 - fused) * steps),
+                  "K8": (("downpath_ncl",), k8_per_call(frames, steps)),
+                  "K8 NWC": (("downpath",), 0)}
          for frames, fused in ((100, 1), (256, 2), (FRAMES_10S, 2))},
         cfg.cond_channels)
     fh_launches = {k: fh_launches[k] for k in
@@ -4931,6 +5013,9 @@ def main():
                      "fastdiff_tpu/ops/lvc_block_pallas.py:396"),
         "downpath": ("fastdiff_tpu_torch/csrc/downpath.cu",
                      "fastdiff_tpu/ops/downpath_pallas.py:230"),
+        # the same kernel's NCL layout replaces no TPU kernel: JAX's
+        # _fastdiff_apply_ncl leaves this down path to XLA
+        "downpath_ncl": ("fastdiff_tpu_torch/csrc/downpath.cu", None),
         "lvc_block_ncl_fh": ("fastdiff_tpu_torch/csrc/lvc_block_ncl_fh.cu",
                              "fastdiff_tpu/ops/lvc_block_ncl.py:584"),
         "lvc_block_ncl_fh_final": (
@@ -4947,6 +5032,7 @@ def main():
           "forward at 864 frames: taug_head 3 calls, lvc_block_ncl hops 8 + "
           "64, lvc_block_ncl_final hop 256, aug_head 2 calls, "
           "lvc_block_nwc hops 64 + 256, downpath 1 call (two launches), "
+          "downpath_ncl 1 call (two launches, the NCL layout), "
           "lvc_block_ncl_fh "
           "hops 8 + 64, lvc_block_ncl_fh_final hop 256; lvc_block_ncl_sr per "
           "train-step forward at the recipe (hops 8 + 64 + 256, b 20 x 100 "
@@ -4956,7 +5042,8 @@ def main():
           "lvc_stage (tf 1) per call at 221,184 "
           "samples; library_ms of K9/K10 raced with the kernel. "
           "Launches from the run of each kernel's path: phase 7 (taug_head, "
-          "lvc_block_ncl*), 11 (lvc_block_ncl_sr), 15 (lvc_block_nwc, "
+          "lvc_block_ncl*, downpath_ncl), 11 (lvc_block_ncl_sr), 15 "
+          "(lvc_block_nwc, "
           "aug_head, downpath), 17 (lvc_block_ncl_fh*), 18 "
           "(taug_head_variant), 19 (conv_stage, lvc_stage); "
           "fs2_infer_launches_per_utterance from phase 24's infer_to_wav of "

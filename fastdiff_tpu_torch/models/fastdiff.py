@@ -15,7 +15,11 @@ reads it from ``use_pallas_block``), with the same parameters and the same
 - ``"ncl"``: the JAX ``use_pallas_block="ncl"`` route
   (``_fastdiff_apply_ncl``), (B, C, L) activations; every LVC block runs
   Kernel A (K3) and Kernel B (K1), the last with the final conv as K2's
-  epilogue.
+  epilogue. The first conv and the DBlocks run as K8 with the NCL layout
+  and this route's cast points (``downpath_ncl``) where the input allows
+  it: bf16, C = 32, factors (4, 8, 8) and a ``downpath_fusable`` length;
+  elsewhere, as in JAX's XLA, they run the module chain. The same holds on
+  ``"ncl_fh"``.
 - ``"ncl_fh"``: the JAX ``use_pallas_block="ncl_fh"`` route, the NCL route
   with the head fused into the block: blocks that JAX's NCL ``fusable``
   admits run K5 (``lvc_block_ncl_fh``; the last with the final-conv
@@ -43,7 +47,8 @@ buffer, and a CUDA graph captured before it replays the new weights
 ``use_kernels`` picks the implementation of every kernel of the route (the
 LVC heads and blocks, and the down path): True calls the kernel wrappers
 (CUDA kernels on the card, their plain versions on CPU tensors); False
-calls the plain versions everywhere.
+calls the plain versions everywhere (on the NCL routes, the down path's
+module chain).
 
 ``FastDiff(cfg, train_route=...)`` is the trainable model, the counterpart
 of ``_fastdiff_apply_ncl(train_sr=True)`` and of the routes
@@ -530,6 +535,14 @@ class FastDiff(nn.Module):
         if self.infer_route in ("ncl", "ncl_fh"):
             set_operand(self, "final_wb", block_ops.final_conv_wb(
                 self.final_conv.weight, self.final_conv.bias, self.dtype))
+            if self._down_ncl_widths():
+                packs = (*down_ops.pack_downpath_weights(
+                    self.first_audio_conv, self.downsample),
+                    down_ops.pack_downpath_bias(self.first_audio_conv,
+                                                self.downsample))
+                for name, t in zip(("down_first", "down_res", "down_conv",
+                                    "down_bias"), packs):
+                    set_operand(self, name, t)
         elif self.down_kernel:
             for name, t in zip(("down_first", "down_res", "down_conv"),
                                down_ops.pack_downpath_weights(
@@ -549,19 +562,41 @@ class FastDiff(nn.Module):
         emb = fnn.swish(fnn.dense(self.fc_t1.weight, self.fc_t1.bias, emb))
         return fnn.swish(fnn.dense(self.fc_t2.weight, self.fc_t2.bias, emb))
 
+    def _down_ncl_widths(self) -> bool:
+        """Whether K8's NCL layout is built for this model's down path:
+        the inference model in bf16 with C = 32 and factors (4, 8, 8) (the
+        first conv's 7 taps and a DBlock's 3 convs are the model's own)."""
+        return (self.train_route is None and self.dtype == torch.bfloat16
+                and self.cfg.inner_channels == down_ops.KERNEL_CHANNELS
+                and tuple(self.cfg.upsample_ratios[::-1])
+                == down_ops.KERNEL_FACTORS)
+
     def _down_path(self, audio, mel, t):
         """Step embedding, audio conv and DBlocks -> (emb, x, skips in LVC
-        block order, mel (B, n_mels, F) in the compute dtype)."""
+        block order, mel (B, n_mels, F) in the compute dtype). The NCL
+        inference routes run K8's NCL layout (``downpath_ncl``) where the
+        widths allow it, ``use_kernels`` is set, the audio is float32 and
+        its length ``downpath_fusable``; everything else (the trainable
+        model too) runs the module chain."""
         cfg, dtype = self.cfg, self.dtype
         emb = self._embed(t)
+        mel_ncl = mel.to(dtype).transpose(1, 2)
         b, length, _ = audio.shape
+        factors = tuple(cfg.upsample_ratios[::-1])
+        if (self.use_kernels and self.infer_route in ("ncl", "ncl_fh")
+                and self._down_ncl_widths() and audio.dtype == torch.float32
+                and down_ops.downpath_fusable(length, factors)):
+            *skips, x = down_ops.downpath_ncl(
+                audio.contiguous(), self.down_first, self.down_res,
+                self.down_conv, self.down_bias, factors)
+            return emb, x, skips[::-1], mel_ncl
         x = _conv_apply(self.first_audio_conv,
                         audio.to(dtype).reshape(b, 1, length), dtype)
         skips = []
-        for dblock, factor in zip(self.downsample, cfg.upsample_ratios[::-1]):
+        for dblock, factor in zip(self.downsample, factors):
             skips.append(x)
             x = dblock(x, factor, dtype)
-        return emb, x, skips[::-1], mel.to(dtype).transpose(1, 2)
+        return emb, x, skips[::-1], mel_ncl
 
     def forward(self, audio: torch.Tensor, mel: torch.Tensor,
                 t: torch.Tensor) -> torch.Tensor:

@@ -55,6 +55,10 @@ SIGNATURES = {
     # audio, first_aug, res_aug, conv_aug, skip0, skip1, skip2, x,
     # B, L, C, stream
     "downpath_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # audio, first_aug, res_aug, conv_aug, bias (f32), skip0, skip1, skip2,
+    # x (NCL), B, L, C, stream (L % 2048 == 0)
+    "downpath_ncl_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _P],
     # x, skip, tap_c, w_head, b_head, wstack_t, final_wb (or NULL), out,
     # fin (or NULL), B, C, L, F, hop, khead, rows_p, layers, then
     # lvc_block_ncl.fh_tile_plan's tile, frames, grid and shared memory;

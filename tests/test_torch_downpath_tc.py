@@ -19,6 +19,7 @@ import torch
 
 from fastdiff_tpu_torch.ops import _build
 from fastdiff_tpu_torch.ops import downpath_pallas as ops
+from tests.fake_card import FakeCuda, fake_card
 from fastdiff_tpu_torch.ops.nn import leaky_relu
 
 C = ops.KERNEL_CHANNELS
@@ -113,6 +114,37 @@ def test_entry_arity_matches_its_signature():
     assert len(params) == len(_build.SIGNATURES["downpath_launch"]) == 12
 
 
+def test_ncl_entry_arity_matches_its_signature():
+    m = re.search(r'extern "C" int downpath_ncl_launch\(([^)]*)\)',
+                  _source())
+    params = [p for p in m.group(1).split(",") if p.strip()]
+    assert len(params) == len(_build.SIGNATURES["downpath_ncl_launch"]) == 13
+    assert "L % 2048 != 0" in _source()
+    assert ops.NCL_ALIGN == 2048 == ops.required_halo(FACTORS)
+
+
+def test_ncl_channel_rows_match_the_source_and_fit():
+    """DBlock s's channel-major output [C][CS_s]: a row holds the buffer's
+    rows and starts 16-byte aligned; CS_s = 8 mod 64, so the 32 words a
+    warp writes (8 channels x 4 sample pairs) fall in 32 banks; it fits in
+    the bytes of the buffer it overlays (DBlocks 1 and 2: their own Bb; 3:
+    DBlock 2's A); the stored runs start on a vector."""
+    src = _source()
+    exts = (ops.STAGE1_EXT, ops.STAGE2_EXT, ops.STAGE3_EXT)
+    region = (ops.STAGE1_EXT + 2 * ops.PAD, ops.STAGE2_EXT + 2 * ops.PAD,
+              ops.STAGE2_EXT + 2 * ops.PAD)
+    for i, (cs, ext, rows) in enumerate(zip(ops.NCL_ROWS, exts, region)):
+        assert _const(src, f"CS{i + 1}") == cs
+        assert cs >= ext and cs % 64 == 8
+        assert C * cs <= rows * ops.ROW
+        # one store: lane (gq, tq) writes channel gq's samples 2 tq, 2 tq + 1
+        banks = {(gq * cs + 2 * tq) // 2 % 32
+                 for gq in range(8) for tq in range(4)}
+        assert len(banks) == 32
+    for halo in (ops.STAGE1_HALO, ops.STAGE2_HALO, ops.STAGE3_HALO):
+        assert halo % 8 == 0
+
+
 def _rows(t, lo, hi):
     """Rows [lo, hi) of t (B, n, ch), zero outside [0, n)."""
     b, n, ch = t.shape
@@ -191,6 +223,24 @@ def downpath_tiled(audio, first_aug, res_aug, conv_aug):
     return s0, s1, s2, xf
 
 
+def ncl_augs(first_aug, res_aug, conv_aug, bias):
+    """The packs with their bias rows replaced by the NCL layout's float32
+    biases (the weights stay bf16 values), for the tile model."""
+    n_layers = conv_aug.shape[1]
+
+    def aug(w, row):
+        return torch.cat([w[:-1].float(), row[None]])
+
+    first = aug(first_aug, bias[0])
+    res = torch.stack([aug(res_aug[bi], bias[1 + bi * (n_layers + 1)
+                                             + n_layers])
+                       for bi in range(len(FACTORS))])
+    conv = torch.stack([torch.stack([
+        aug(conv_aug[bi, li], bias[1 + bi * (n_layers + 1) + li])
+        for li in range(n_layers)]) for bi in range(len(FACTORS))])
+    return first, res, conv
+
+
 def _packs(rng):
     first = rng.normal(size=(ops.KERNEL_TAPS + 1, C)) * 0.3
     res = rng.normal(size=(3, C + 1, C)) * 0.15
@@ -220,3 +270,61 @@ def test_tiled_model_reproduces_plain(b, length):
         assert g.shape == r.shape, i
         assert torch.equal(g, r), (i, float((g.float() - r.float())
                                            .abs().max()))
+
+
+@pytest.mark.parametrize("b,length", [(2, 4096), (1, 4096), (2, 8192),
+                                      (1, 2816)])
+def test_tiled_model_reproduces_ncl_plain(b, length):
+    """The NCL flag: the same split with the biases in float32 (read from
+    their own array, not the packs' bf16 rows) reproduces
+    ``downpath_ncl_plain``, the NCL route's module chain, bit for bit, in
+    NCL."""
+    rng = np.random.default_rng(2 * length + b)
+    audio = torch.from_numpy(
+        rng.standard_normal((b, length, 1)).astype(np.float32))
+    packs = _packs(rng)
+    bias = torch.from_numpy(
+        (rng.normal(size=(1 + 3 * (ops.KERNEL_LAYERS + 1), C)) * 0.1)
+        .astype(np.float32))
+    with torch.backends.mkldnn.flags(enabled=False):
+        ref = ops.downpath_ncl_plain(audio, *packs, bias, FACTORS)
+        got = downpath_tiled(audio, *ncl_augs(*packs, bias))
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g = g.transpose(1, 2)
+        assert g.shape == r.shape, i
+        assert torch.equal(g, r), (i, float((g.float() - r.float())
+                                           .abs().max()))
+    # the bf16 bias rows would differ: the flag's float32 biases matter
+    nwc = ops.downpath_plain(audio, *packs, FACTORS)
+    assert not torch.equal(nwc[0].transpose(1, 2), ref[0])
+
+
+@pytest.mark.parametrize("ncl", [False, True])
+def test_each_layout_reaches_its_entry_and_counts_its_key(ncl, monkeypatch):
+    """On a stand-in card, each wrapper calls its own C entry with the
+    operands, four outputs of its layout, the shapes and the stream, and
+    counts one launch under its own key alone."""
+    lib = fake_card(monkeypatch)
+    monkeypatch.setattr(ops, "LAUNCHES", dict(ops.LAUNCHES))
+    b, length, c = 2, 4096, C
+    audio = FakeCuda((b, length, 1), torch.float32)
+    weights = (FakeCuda((8, c)), FakeCuda((3, c + 1, c)),
+               FakeCuda((3, 3, 3 * c + 1, c)))
+    if ncl:
+        weights += (FakeCuda((13, c), torch.float32),)
+    name = "downpath_ncl" if ncl else "downpath"
+    wrapper = ops.downpath_ncl if ncl else ops.downpath_fused
+    before = dict(ops.LAUNCHES)
+    outs = wrapper(audio, *weights, FACTORS)
+    (entry, args), = lib.calls
+    assert entry == f"{name}_launch"
+    assert len(args) == len(_build.SIGNATURES[entry])
+    assert args[:1 + len(weights)] == tuple(
+        t.data_ptr() for t in (audio, *weights))
+    assert args[1 + len(weights):-4] == tuple(o.data_ptr() for o in outs)
+    assert args[-4:] == (b, length, c, 0)
+    for o, rate in zip(outs, (1, 4, 32, 256)):
+        assert o.dtype == torch.bfloat16
+        assert tuple(o.shape) == ((b, c, length // rate) if ncl
+                                  else (b, length // rate, c))
+    assert ops.LAUNCHES == dict(before, **{name: before[name] + 1})
